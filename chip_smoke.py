@@ -1,0 +1,384 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each asserting (any failure exits non-zero):
+
+1. card: ``nvidia-smi`` name and power limit; build the CUDA kernels from
+   ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a) into ``build/``.
+2. kernels against their plain PyTorch versions on the card: 2D and 3D,
+   float32 and float64, ragged shapes, a tie-heavy field and a tile with
+   a non-zero origin, all bitwise; then each kernel at the main-path
+   shapes (its inputs taken from the real first fix iteration), compared
+   bitwise and timed with CUDA events beside its plain version.
+3. the main path at full size: ``compress_preserving_mss`` ->
+   ``decompress_preserving_mss`` -> ``verify_preservation`` on the nyx
+   512^3 float32 field and the climate 1800x3600 field, with the launch
+   counts set to 0 just before each run and read just after.
+4. whole-path parity at 128^3: the ``cuda`` and ``reference`` backends on
+   the card give the same payload bytes, fix-iteration count and g, and
+   the host codec agrees with the device path.
+
+Stdout carries JSON records; the line before the last is the per-kernel
+summary, and the last line is ``{"ok": true, "device": {...}}``. Without a
+CUDA GPU, or without the repository around it, the script exits non-zero
+and prints no result. Options shrink the sizes for a quick check.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+#: H100 SXM data-sheet peaks: HBM3 bandwidth and dense FP32 rate
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+#: the Pallas calls the three kernels replace
+REPLACES = {
+    "extrema": "src/repro/kernels/extrema.py:317",
+    "fixpass": "src/repro/kernels/fixpass.py:127",
+    "lorenzo": "src/repro/kernels/lorenzo.py:95",
+}
+
+
+def emit(record: dict) -> None:
+    print(json.dumps(record), flush=True)
+
+
+def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event-timed
+    calls after ``warmup`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def max_abs_diff(xs, ys) -> float:
+    """Largest |x - y| over pairs of tensors, as a float."""
+    return max(float((x.double() - y.double()).abs().max()) if x.numel()
+               else 0.0 for x, y in zip(xs, ys))
+
+
+def assert_equal(what: str, xs, ys) -> None:
+    import torch
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: output {i} differs from the "
+                                 f"plain version")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against plain versions
+# ---------------------------------------------------------------------------
+
+def kernel_inputs(f, xi: float, g):
+    """Extrema/fix-pass inputs of the first fix iteration: the original
+    field's topology and the masks of ``g``, all on the card."""
+    from repro_torch.core import fixes
+    from repro_torch.kernels import extrema as kx
+    topo = fixes.field_topology(f, xi)
+    geo = kx.geometry(tuple(g.shape))
+    masks = kx.extrema_masks_plain(g, topo.M, topo.m, topo.is_max,
+                                   topo.is_min, geo)
+    return topo, masks
+
+
+def check_case(label: str, f, xi: float, g, tile=None) -> None:
+    """All three kernels against their plain versions on one input;
+    ``tile`` = (z0, z1, y0, y1, x0, x1) runs them on a tile of it placed
+    at a non-zero origin."""
+    import torch
+    from repro_torch.kernels import extrema as kx, fixpass as kf
+    from repro_torch.kernels import lorenzo as kl
+    topo, masks = kernel_inputs(f, xi, g)
+    ext = (g, topo.M, topo.m, topo.is_max, topo.is_min)
+    fix = (g, topo.lower, masks[2], masks[3], masks[4], masks[0], topo.dn_c)
+    tkw = {}
+    if tile is not None:
+        z0, z1, y0, y1, x0, x1 = tile
+        if g.ndim == 3:
+            sl = (slice(z0, z1), slice(y0, y1), slice(x0, x1))
+            tkw = dict(slab_lo=z0, row_lo=y0, col_lo=x0,
+                       n_slabs_total=g.shape[0], n_rows_total=g.shape[1],
+                       n_cols_total=g.shape[2])
+        else:
+            sl = (slice(z0, z1), slice(x0, x1))
+            tkw = dict(slab_lo=z0, col_lo=x0, n_slabs_total=g.shape[0],
+                       n_cols_total=g.shape[1])
+        ext = tuple(t[sl].contiguous() for t in ext)
+        fix = tuple(t[sl].contiguous() for t in fix)
+    geo = kx.geometry(tuple(ext[0].shape), tkw.get("slab_lo", 0),
+                      tkw.get("row_lo", 0), tkw.get("col_lo", 0),
+                      tkw.get("n_slabs_total"), tkw.get("n_rows_total"),
+                      tkw.get("n_cols_total"))
+    got = kx.extrema_masks(*ext, **tkw)
+    assert_equal(f"extrema {label}", got, kx.extrema_masks_plain(*ext, geo))
+    got = kf.fix_pass(*fix, **tkw)
+    assert_equal(f"fixpass {label}", got, kf.fix_pass_plain(*fix, geo))
+    step = torch.tensor(2 * xi, dtype=f.dtype, device=f.device)
+    fl = f if tile is None else f[sl].contiguous()
+    lo = tkw.get("slab_lo", 0)
+    got = kl.lorenzo_quant(fl, step, slab_lo=lo)
+    want = kl.lorenzo_quant_plain(fl, step, kl.geometry(tuple(fl.shape), lo))
+    assert_equal(f"lorenzo {label}", [got], [want])
+    torch.cuda.synchronize()
+    emit({"phase": "kernels_vs_plain", "case": label,
+          "shape": list(ext[0].shape), "dtype": str(f.dtype).split(".")[-1],
+          "bitwise": True})
+
+
+def phase_kernels_small(seed: int) -> None:
+    import torch
+    from repro_torch.data import synthetic_field
+    rng = np.random.default_rng(seed)
+    for shape, name in (((37, 45, 61), "nyx"), ((123, 257), "climate")):
+        base = synthetic_field(name, shape)
+        for dtype in (np.float32, np.float64):
+            for kind in ("synthetic", "ties"):
+                f = base.astype(dtype)
+                if kind == "ties":
+                    f = np.round(f * 4) / 4
+                xi = 1e-2 * float(np.ptp(f)) + 1e-3
+                g = f + rng.uniform(-xi, xi, size=shape).astype(dtype)
+                ft = torch.from_numpy(np.ascontiguousarray(f)).cuda()
+                gt = torch.from_numpy(np.ascontiguousarray(g)).cuda()
+                label = f"{len(shape)}d-{kind}"
+                check_case(label, ft, xi, gt)
+                tile = ((5, 30, 7, 40, 3, 50) if len(shape) == 3
+                        else (17, 90, 0, 0, 33, 200))
+                check_case(label + "-tile", ft, xi, gt, tile)
+
+
+def bound_record(name: str, shape, itemsize: int) -> tuple:
+    """(bound_ms, bound_by) for one launch on a field of ``shape``: the
+    larger of bytes over HBM rate and operations over the f32 rate."""
+    n, nz = int(np.prod(shape)), shape[0]
+    k = 14 if len(shape) == 3 else 6     # stencil neighbors
+    if name == "extrema":
+        nbytes = n * (itemsize + 4 + 4 + 1 + 1 + 5 * 4)
+        ops = n * (2 * k * 3 + 12)       # two SoS scans + the predicates
+    elif name == "fixpass":
+        nbytes = n * (2 * itemsize + 5 * 4 + itemsize) + 2 * 4 * nz
+        ops = n * (k * 4 + 4)            # pulled sources + the halving
+    else:
+        nbytes = n * (itemsize + 4) + itemsize
+        ops = n * (8 * 2 + 8)            # 8 divide+round, 8 signed adds
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernels_main(f_np, xi: float, reps: int) -> dict:
+    """Each kernel at a main-path shape, on the first fix iteration's
+    inputs: bitwise against its plain version, then timed."""
+    import torch
+    from repro_torch.compress import szlike
+    from repro_torch.kernels import extrema as kx, fixpass as kf
+    from repro_torch.kernels import lorenzo as kl
+    f = torch.from_numpy(f_np).cuda()
+    step = torch.tensor(szlike.effective_step(f_np, xi), dtype=f.dtype,
+                        device="cuda")
+    r = kl.lorenzo_quant(f, step)
+    r_plain = kl.lorenzo_quant_plain(f, step, kl.geometry(tuple(f.shape)))
+    f_hat = szlike.sz_inverse(r, step)
+    topo, masks = kernel_inputs(f, xi, f_hat)
+    geo = kx.geometry(tuple(f.shape))
+    ext = (f_hat, topo.M, topo.m, topo.is_max, topo.is_min)
+    fix = (f_hat, topo.lower, masks[2], masks[3], masks[4], masks[0],
+           topo.dn_c)
+    results = {}
+    calls = {
+        "extrema": (lambda: kx.extrema_masks(*ext),
+                    lambda: kx.extrema_masks_plain(*ext, geo)),
+        "fixpass": (lambda: kf.fix_pass(*fix),
+                    lambda: kf.fix_pass_plain(*fix, geo)),
+        "lorenzo": (lambda: kl.lorenzo_quant(f, step),
+                    lambda: kl.lorenzo_quant_plain(f, step, geo)),
+    }
+    firsts = {"extrema": (kx.extrema_masks(*ext), masks),
+              "fixpass": (kf.fix_pass(*fix), kf.fix_pass_plain(*fix, geo)),
+              "lorenzo": ((r,), (r_plain,))}
+    for name, (kern, plain) in calls.items():
+        got, want = firsts[name]
+        assert_equal(f"{name} main-path {tuple(f.shape)}", got, want)
+        err = max_abs_diff(got, want)
+        ms = cuda_time_ms(kern, reps)
+        plain_ms = cuda_time_ms(plain, max(reps // 2, 3), warmup=1)
+        bound_ms, bound_by = bound_record(name, tuple(f.shape),
+                                          f.element_size())
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+        emit({"phase": "kernel_timing", "kernel": name,
+              "shape": list(f.shape), "dtype": str(np.dtype(f_np.dtype)),
+              "bitwise": True, "kernel_ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by})
+    del ext, fix, topo, masks, r, r_plain, f_hat, f
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path
+# ---------------------------------------------------------------------------
+
+def phase_main_path(label: str, f, xi: float) -> dict:
+    import torch
+    from repro_torch.compress import (compress_preserving_mss,
+                                      decompress_preserving_mss,
+                                      overall_compression_ratio)
+    from repro_torch.core import verify_preservation
+    from repro_torch.kernels import extrema as kx, fixpass as kf
+    from repro_torch.kernels import lorenzo as kl
+    mods = {"extrema": kx, "fixpass": kf, "lorenzo": kl}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods.values():
+        m.launches = 0
+    stages = {}
+    t0 = time.perf_counter()
+    art = compress_preserving_mss(f, xi, timings=stages)
+    t1 = time.perf_counter()
+    g = decompress_preserving_mss(art)
+    t2 = time.perf_counter()
+    report = verify_preservation(f, g, xi)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = {n: m.launches for n, m in mods.items()}
+    if not (report["mss_preserved"] and report["bound_ok"]):
+        raise AssertionError(f"{label}: MSS not preserved: {report}")
+    want = {"extrema": art.fix_iters, "fixpass": art.fix_iters, "lorenzo": 1}
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} != {want}")
+    stages.update(compress=t1 - t0, decompress=t2 - t1, verify=t3 - t2)
+    emit({"phase": "main_path", "field": label, "shape": list(f.shape),
+          "dtype": str(f.dtype), "xi": xi, "fix_iters": art.fix_iters,
+          "edits": int(round(art.edit_ratio * f.size)),
+          "edit_ratio": art.edit_ratio,
+          "compression_ratio": overall_compression_ratio(f, art),
+          "payload_bytes": len(art.base_payload),
+          "edit_bytes": len(art.edit_payload),
+          "mss_preserved": report["mss_preserved"],
+          "bound_ok": report["bound_ok"],
+          "max_abs_err": report["max_abs_err"], "launches": launches,
+          "seconds": stages,
+          "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4: whole-path parity
+# ---------------------------------------------------------------------------
+
+def phase_parity(n: int) -> None:
+    from repro_torch.compress import (compress_preserving_mss,
+                                      decompress_artifact,
+                                      decompress_preserving_mss, sz_compress)
+    from repro_torch.data import synthetic_field
+    f = synthetic_field("nyx", (n, n, n))
+    xi = 1e-3 * float(np.ptp(f))
+    a = compress_preserving_mss(f, xi, backend="cuda")
+    b = compress_preserving_mss(f, xi, backend="reference")
+    for k in ("base_payload", "edit_payload", "fix_iters", "edit_ratio"):
+        if getattr(a, k) != getattr(b, k):
+            raise AssertionError(f"parity: {k} differs between backends")
+    ga = decompress_preserving_mss(a, backend="cuda")
+    gb = decompress_preserving_mss(b, backend="reference")
+    if not np.array_equal(ga, gb):
+        raise AssertionError("parity: g differs between backends")
+    if not np.array_equal(ga, decompress_artifact(a)):
+        raise AssertionError("parity: device decode differs from host decode")
+    if sz_compress(f, xi) != a.base_payload:
+        raise AssertionError("parity: host codec payload differs")
+    emit({"phase": "parity", "shape": [n, n, n], "fix_iters": a.fix_iters,
+          "payload_identical": True, "g_identical": True,
+          "host_codec_identical": True})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--nyx", type=int, default=512,
+                    help="edge of the cubic nyx field of phase 3")
+    ap.add_argument("--climate", type=str, default="1800x3600",
+                    help="shape of the 2D climate field of phase 3")
+    ap.add_argument("--parity", type=int, default=128,
+                    help="edge of the cubic field of phase 4")
+    ap.add_argument("--reps", type=int, default=10,
+                    help="timed launches per kernel (median reported)")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.data import synthetic_field
+    from repro_torch.kernels import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    build_s = _build.build_all()
+    emit({"phase": "build", "seconds": build_s,
+          "ptxas": _build.ptxas_summary()})
+
+    phase_kernels_small(seed=0)
+
+    climate_shape = tuple(int(s) for s in args.climate.split("x"))
+    fields = [("nyx", synthetic_field("nyx", (args.nyx,) * 3)),
+              ("climate", synthetic_field("climate", climate_shape))]
+    timing = {}
+    for label, f in fields:
+        xi = 1e-3 * float(np.ptp(f))
+        timing[label] = phase_kernels_main(f, xi, args.reps)
+
+    launches = {"extrema": 0, "fixpass": 0, "lorenzo": 0}
+    for label, f in fields:
+        xi = 1e-3 * float(np.ptp(f))
+        for k, v in phase_main_path(label, f, xi).items():
+            launches[k] += v
+
+    phase_parity(args.parity)
+
+    kernels = []
+    for name in ("extrema", "fixpass", "lorenzo"):
+        t = timing["nyx"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(timing[k][name]["max_abs_err"]
+                               for k in timing),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

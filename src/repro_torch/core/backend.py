@@ -1,0 +1,255 @@
+"""Stencil backends of the fused fix loop and the device base transform,
+the PyTorch port of ``repro.core.backend``.
+
+Every backend exposes
+
+  * ``extrema_masks(g, topo)`` — 'update directions' + 'find false
+    critical points' fused, as ``StencilMasks``;
+  * ``fix_pass(g, topo, masks)`` — the pull-based edit application,
+    ``(g_next, n_violations)``;
+  * ``fused_step(g, topo)`` — the two composed into one iteration;
+  * ``transform(f, step)`` / ``reconstruct(r, step, dtype)`` — quantize +
+    integer Lorenzo and its inverse (``step`` a 0-d tensor of the field
+    dtype);
+  * ``scatter_edits(f_hat, idx, val)`` — g = f_hat + delta.
+
+Registered implementations:
+
+  * ``reference`` — plain torch ops, the port of the reference's dense
+    stencils. It serves CPU tensors, and CUDA tensors only when a caller
+    names it;
+  * ``cuda`` — the hand-written kernels of ``repro_torch.kernels``
+    behind ``extrema_masks``/``fix_pass``/``fused_step``/``transform``
+    (on a CPU tensor each kernel wrapper runs its plain version).
+
+Both take ``reconstruct`` and ``scatter_edits`` from torch ops. Backends
+are bitwise-interchangeable: same g trajectory, same violation counts,
+same iteration count. ``resolve_backend("auto", ...)`` picks ``cuda``
+for a field on a CUDA device and ``reference`` for one on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Union
+
+import torch
+
+from ..kernels.fixpass import halve_toward_lower as _halve_toward_lower
+from . import grid
+
+__all__ = ["FalseMasks", "false_critical_masks", "trouble_masks",
+           "StencilMasks", "ReferenceBackend", "CudaBackend",
+           "register_backend", "available_backends", "get_backend",
+           "resolve_backend", "_halve_toward_lower", "_pull"]
+
+
+class FalseMasks(NamedTuple):
+    """The four false critical point classes plus g's direction codes."""
+    fpmax: torch.Tensor
+    fpmin: torch.Tensor
+    fnmax: torch.Tensor
+    fnmin: torch.Tensor
+    up_c_g: torch.Tensor
+    dn_c_g: torch.Tensor
+
+
+def false_critical_masks(g: torch.Tensor, topo) -> FalseMasks:
+    """Definitions 1-3 of the paper: false positive/negative maxima and
+    minima of g against the original field's extrema."""
+    up_c_g, dn_c_g = grid.steepest_dirs(g)
+    sc = grid.self_code(g.ndim)
+    is_max_g = up_c_g == sc
+    is_min_g = dn_c_g == sc
+    return FalseMasks(
+        fpmax=is_max_g & ~topo.is_max,
+        fpmin=is_min_g & ~topo.is_min,
+        fnmax=~is_max_g & topo.is_max,
+        fnmin=~is_min_g & topo.is_min,
+        up_c_g=up_c_g,
+        dn_c_g=dn_c_g,
+    )
+
+
+def trouble_masks(g_codes: FalseMasks, topo):
+    """Local R-loop predicates: a non-max t whose g-ascending edge leaves
+    t's original ascending region (demote that winner); symmetric on the
+    descending side (promote the ORIGINAL descending neighbor)."""
+    sc = grid.self_code(topo.M.ndim)
+    nonmax_g = g_codes.up_c_g != sc
+    nonmin_g = g_codes.dn_c_g != sc
+    M_next = grid.gather_dir(topo.M, g_codes.up_c_g)
+    m_next = grid.gather_dir(topo.m, g_codes.dn_c_g)
+    return nonmax_g & (M_next != topo.M), nonmin_g & (m_next != topo.m)
+
+
+def _pull(src_mask: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
+    """pulled[j] = OR_k ( src_mask[j - off_k] & code[j - off_k] == k ):
+    vertex j is an edit target iff a stencil neighbor i has src_mask[i]
+    and i's direction code points at j."""
+    out = torch.zeros(src_mask.shape, dtype=torch.bool,
+                      device=src_mask.device)
+    for k, off in enumerate(grid.offsets_for(src_mask.ndim)):
+        noff = tuple(-o for o in off)
+        m = grid.shift(src_mask, noff, False)
+        c = grid.shift(code, noff, -1)
+        out = out | (m & (c == k))
+    return out
+
+
+class StencilMasks(NamedTuple):
+    """Outputs of one extrema/false-point classification pass;
+    ``dn_c_f`` is the ORIGINAL field's descending codes."""
+    up_c_g: torch.Tensor
+    dn_c_g: torch.Tensor
+    self_edit: torch.Tensor
+    demote_src: torch.Tensor
+    promote_src: torch.Tensor
+    dn_c_f: torch.Tensor
+
+    @property
+    def n_violations(self) -> torch.Tensor:
+        """Total fix sources as an int32 scalar tensor — 0 iff the fused
+        loop has converged."""
+        return (self.self_edit.sum() + self.demote_src.sum()
+                + self.promote_src.sum()).to(torch.int32)
+
+
+class _TorchTail:
+    """The parts both backends take from torch ops."""
+
+    def reconstruct(self, r: torch.Tensor, step: torch.Tensor,
+                    dtype) -> torch.Tensor:
+        """int32 residual codes -> f_hat in ``step``'s dtype."""
+        from ..compress.szlike import sz_inverse
+        return sz_inverse(r, step.to(dtype))
+
+    def scatter_edits(self, f_hat: torch.Tensor, idx: torch.Tensor,
+                      val: torch.Tensor) -> torch.Tensor:
+        """g = f_hat + delta by one scatter-add (out-of-range indices
+        drop)."""
+        from .driver import apply_edits_device
+        return apply_edits_device(f_hat, idx, val)
+
+    def supports(self, shape, dtype) -> bool:
+        """Non-empty 2D/3D float32/float64 fields."""
+        return (len(shape) in (2, 3) and min(shape) >= 1
+                and dtype in (torch.float32, torch.float64))
+
+
+@dataclasses.dataclass(frozen=True)
+class ReferenceBackend(_TorchTail):
+    """Dense plain-torch stencils (the port of the reference backend)."""
+    name: str = "reference"
+
+    def extrema_masks(self, g: torch.Tensor, topo) -> StencilMasks:
+        """Classification pass: direction codes + the fused fix-source
+        masks of one iteration."""
+        fm = false_critical_masks(g, topo)
+        t_max, t_min = trouble_masks(fm, topo)
+        return StencilMasks(
+            up_c_g=fm.up_c_g,
+            dn_c_g=fm.dn_c_g,
+            self_edit=fm.fpmax | fm.fnmin,
+            demote_src=fm.fnmax | t_max,
+            promote_src=fm.fpmin | t_min,
+            dn_c_f=topo.dn_c,
+        )
+
+    def fix_pass(self, g: torch.Tensor, topo, masks: StencilMasks):
+        """Conflict-free pull-based edit application:
+        (g_next, n_violations)."""
+        target = ((masks.self_edit != 0)
+                  | _pull(masks.demote_src != 0, masks.up_c_g)
+                  | _pull(masks.promote_src != 0, masks.dn_c_f))
+        return _halve_toward_lower(g, topo.lower, target), masks.n_violations
+
+    def fused_step(self, g: torch.Tensor, topo):
+        """One fused fix iteration: (g_next, n_violations)."""
+        return self.fix_pass(g, topo, self.extrema_masks(g, topo))
+
+    def transform(self, f: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
+        """Quantize + integer Lorenzo -> int32 residual codes (the Lorenzo
+        kernel's plain version)."""
+        from ..kernels.lorenzo import geometry, lorenzo_quant_plain
+        return lorenzo_quant_plain(f, step.to(f.dtype), geometry(f.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class CudaBackend(_TorchTail):
+    """The hand-written CUDA kernels (``kernels.extrema``,
+    ``kernels.fixpass``, ``kernels.lorenzo``)."""
+    name: str = "cuda"
+
+    def extrema_masks(self, g: torch.Tensor, topo) -> StencilMasks:
+        """Classification pass through the extrema kernel."""
+        from ..kernels.extrema import extrema_masks
+        up_c, dn_c, selfe, dem, pro = extrema_masks(
+            g, topo.M, topo.m, topo.is_max, topo.is_min)
+        return StencilMasks(up_c, dn_c, selfe, dem, pro, topo.dn_c)
+
+    def fix_pass(self, g: torch.Tensor, topo, masks: StencilMasks):
+        """Pull-based edit application through the fix kernel:
+        (g_next, n_violations)."""
+        from ..kernels.fixpass import fix_pass
+        g2, viol, _ = fix_pass(g, topo.lower, masks.self_edit,
+                               masks.demote_src, masks.promote_src,
+                               masks.up_c_g, masks.dn_c_f)
+        return g2, viol.sum().to(torch.int32)
+
+    def fused_step(self, g: torch.Tensor, topo):
+        """One fused fix iteration: (g_next, n_violations)."""
+        return self.fix_pass(g, topo, self.extrema_masks(g, topo))
+
+    def transform(self, f: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
+        """Quantize + integer Lorenzo through the Lorenzo kernel."""
+        from ..kernels.lorenzo import lorenzo_quant
+        return lorenzo_quant(f, step.to(f.dtype))
+
+
+BackendLike = Union[str, ReferenceBackend, CudaBackend]
+
+_REGISTRY: Dict[str, object] = {}
+
+
+def register_backend(backend, name=None) -> None:
+    """Register a backend instance under ``name`` (default: its name)."""
+    _REGISTRY[name or backend.name] = backend
+
+
+def available_backends():
+    """Sorted names of the registered backends."""
+    return tuple(sorted(_REGISTRY))
+
+
+def get_backend(spec: BackendLike):
+    """Resolve a backend name or pass an instance through."""
+    if isinstance(spec, str):
+        if spec == "auto":
+            raise ValueError(
+                "'auto' needs the field's device — use resolve_backend()")
+        try:
+            return _REGISTRY[spec]
+        except KeyError:
+            raise ValueError(f"unknown stencil backend {spec!r}; available: "
+                             f"{available_backends()}") from None
+    if not hasattr(spec, "fused_step"):
+        raise TypeError(f"not a stencil backend: {spec!r}")
+    return spec
+
+
+def resolve_backend(spec: BackendLike, shape, dtype: torch.dtype,
+                    device: torch.device):
+    """Like ``get_backend``, but 'auto' picks ``cuda`` for a field on a
+    CUDA device and ``reference`` for one on the CPU. A backend that does
+    not support the shape or dtype raises."""
+    if isinstance(spec, str) and spec == "auto":
+        spec = "cuda" if torch.device(device).type == "cuda" else "reference"
+    be = get_backend(spec)
+    if not be.supports(tuple(shape), dtype):
+        raise ValueError(f"backend {be.name!r} does not support fields of "
+                         f"shape {tuple(shape)} dtype {dtype}")
+    return be
+
+
+register_backend(ReferenceBackend())
+register_backend(CudaBackend())

@@ -1,0 +1,179 @@
+"""The port's MSS-preserving round trip against ``repro``'s, bitwise:
+payload and edit bytes, artifact metadata, cross-decoding in both
+directions, f64 under x64, the byte codecs, refusals and hard errors,
+and the arguments this slice does not serve."""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.compress import codec as jcodec
+from repro.compress import pipeline as jpipe, szlike as jsz
+from repro.data import synthetic_field
+from repro_torch.compress import codec as tcodec
+from repro_torch.compress import pipeline as tpipe, szlike as tsz
+from repro_torch.convert import artifact_from_dict, artifact_to_dict
+
+#: artifact fields that must agree (timings and backend differ by design)
+KEYS = ("base_payload", "edit_payload", "fix_iters", "edit_ratio", "shape",
+        "dtype", "xi", "path", "entropy", "base_magic", "version")
+
+FIELDS = [("nyx", (12, 16, 20), np.float32, "auto"),
+          ("climate", (24, 32), np.float32, "auto"),
+          ("fingering", (10, 12, 14), np.float64, "auto"),
+          ("climate", (20, 28), np.float64, "auto"),
+          ("nyx", (10, 12, 9), np.float32, "bf16")]
+
+
+def _field(name, shape, dtype):
+    return synthetic_field(name, shape).astype(dtype)
+
+
+@pytest.mark.parametrize("name,shape,dtype,evd", FIELDS)
+def test_round_trip_is_bitwise_the_reference(name, shape, dtype, evd):
+    f = _field(name, shape, dtype)
+    xi = 1e-3 * float(np.ptp(f))
+    with jax.enable_x64(dtype == np.float64):
+        ref = jpipe.compress_preserving_mss(f, xi, backend="reference",
+                                            edit_value_dtype=evd)
+    arts = [tpipe.compress_preserving_mss(f, xi, device="cpu", backend=be,
+                                          edit_value_dtype=evd)
+            for be in ("reference", "cuda")]
+    assert ref.path == "device"
+    for art in arts:
+        for k in KEYS:
+            assert getattr(art, k) == getattr(ref, k), k
+    # each side decodes the other's artifact to the other's g
+    with jax.enable_x64(dtype == np.float64):
+        g_ref = jpipe.decompress_preserving_mss(ref, backend="reference")
+        g_cross = jpipe.decompress_preserving_mss(
+            jpipe.CompressedArtifact(**artifact_to_dict(arts[0])),
+            backend="reference")
+    g_port = tpipe.decompress_preserving_mss(
+        artifact_from_dict(dataclasses.asdict(ref)), device="cpu")
+    assert g_port.dtype == g_ref.dtype == dtype
+    assert np.array_equal(g_port, g_ref) and np.array_equal(g_cross, g_ref)
+    assert np.array_equal(tpipe.decompress_artifact(arts[0]), g_ref)
+
+
+def test_noise_field_needing_many_iterations():
+    rng = np.random.default_rng(7)
+    f = rng.normal(size=(8, 9, 10)).astype(np.float32)
+    xi = 0.6
+    ref = jpipe.compress_preserving_mss(f, xi, backend="reference")
+    art = tpipe.compress_preserving_mss(f, xi, device="cpu")
+    assert ref.fix_iters >= 5
+    for k in KEYS:
+        assert getattr(art, k) == getattr(ref, k), k
+
+
+def test_transform_and_inverse_match_reference():
+    f = _field("nyx", (7, 9, 11), np.float32)
+    xi = 1e-3 * float(np.ptp(f))
+    step = jsz.effective_step(f, xi)
+    assert tsz.effective_step(f, xi) == step
+    assert tsz.device_range_limit(np.float32) == jsz.device_range_limit(
+        np.float32)
+    r_ref = np.asarray(jsz.sz_transform(f, np.float32(step)))
+    step_t = torch.tensor(step, dtype=torch.float32)
+    r = tsz.sz_transform(torch.from_numpy(f), step_t)
+    assert np.array_equal(r.numpy(), r_ref)
+    assert np.array_equal(tsz.sz_inverse(r, step_t).numpy(),
+                          np.asarray(jsz.sz_inverse(r_ref, np.float32(step))))
+    assert tsz.int32_cumsum(r, 0).dtype == torch.int32
+    assert tsz.sz_compress(f, xi) == jsz.sz_compress(f, xi)
+    assert np.array_equal(tsz.sz_decompress(jsz.sz_compress(f, xi)),
+                          jsz.sz_decompress(jsz.sz_compress(f, xi)))
+    for bad_xi in (1e-12, -1.0):
+        with pytest.raises(ValueError):
+            jsz.check_int32_range(f, bad_xi)
+        with pytest.raises(ValueError):
+            tsz.check_int32_range(f, bad_xi)
+
+
+@pytest.mark.parametrize("evd", ["f4", "f8", "bf16"])
+def test_edit_codec_bytes_identical(evd):
+    rng = np.random.default_rng(1)
+    idx = np.unique(rng.integers(0, 10 ** 6, size=500))
+    val = rng.normal(size=idx.size).astype(np.float32)
+    # bf16 rounding corner cases: ties to even, NaN payloads, infinities
+    val[:6] = np.array([1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, np.inf,
+                        -np.inf, np.nan, -0.0], np.float32)
+    blob = tcodec.encode_edits(idx, val, evd)
+    assert blob == jcodec.encode_edits(idx, val, evd)
+    ti, tv = tcodec.decode_edits(blob)
+    ji, jv = jcodec.decode_edits(blob)
+    assert np.array_equal(ti, ji) and np.array_equal(tv, jv, equal_nan=True)
+    deltas = np.diff(idx, prepend=0)
+    assert tcodec._varint_encode(deltas) == jcodec._varint_encode(deltas)
+    assert np.array_equal(tcodec._f32_to_bf16(val), jcodec._f32_to_bf16(val))
+
+
+def test_truncated_and_overlong_blobs_raise():
+    f = _field("climate", (16, 20), np.float32)
+    art = tpipe.compress_preserving_mss(f, 1e-2, device="cpu")
+    blob = art.edit_payload
+    for bad in (blob[:10], blob[:-1], blob + b"\0"):
+        with pytest.raises(ValueError):
+            tcodec.decode_edits(bad)
+    with pytest.raises(ValueError, match="truncated"):
+        tcodec._varint_decode(b"\x80\x80", 1)
+    with pytest.raises(ValueError, match="over-long"):
+        tcodec._varint_decode(b"\x01\x02", 1)
+    with pytest.raises(ValueError, match="truncated"):
+        tsz.sz_decode_residuals(art.base_payload[:12])
+    for cut in (40, 60, len(art.base_payload) - 1):
+        with pytest.raises(ValueError, match="truncated"):
+            tsz.sz_decode_residuals(art.base_payload[:cut])
+    with pytest.raises(ValueError, match="duplicate"):
+        tcodec.encode_edits(np.array([3, 3]), np.zeros(2, np.float32))
+
+
+def test_retired_and_unported_payloads():
+    f = _field("climate", (16, 20), np.float32)
+    art = tpipe.compress_preserving_mss(f, 1e-2, device="cpu")
+    szj1 = dataclasses.replace(art, base_payload=b"SZJ1" + art.base_payload[4:])
+    with pytest.raises(ValueError, match="refusing retired 'SZJ1'"):
+        tpipe.decompress_preserving_mss(szj1, device="cpu")
+    with pytest.raises(ValueError):       # the reference refuses it too
+        jpipe.decompress_preserving_mss(
+            jpipe.CompressedArtifact(**artifact_to_dict(szj1)))
+    zfp = jpipe.compress_preserving_mss(f, 1e-2, codec="zfplike",
+                                        backend="reference")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tpipe.decompress_preserving_mss(
+            artifact_from_dict(dataclasses.asdict(zfp)), device="cpu")
+    with pytest.raises(ValueError, match="unknown base payload magic"):
+        tpipe.decompress_preserving_mss(
+            dataclasses.replace(art, base_payload=b"XXXX" + b"\0" * 40),
+            device="cpu")
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(codec="zfplike"), dict(base="zfplike"), dict(mode="paper"),
+    dict(mesh=object()), dict(device_path=False),
+    dict(entropy="device-pack"),
+])
+def test_unserved_arguments_raise_not_implemented(kwargs):
+    f = _field("climate", (8, 10), np.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tpipe.compress_preserving_mss(f, 1e-2, device="cpu", **kwargs)
+
+
+def test_unserved_entry_points_raise_not_implemented():
+    f = _field("climate", (8, 10), np.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tpipe.compress_preserving_mss_batch([f, f], 1e-2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tpipe.decompress_artifact_batch([])
+    art = tpipe.compress_preserving_mss(f, 1e-2, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tpipe.decompress_preserving_mss(art, mesh=object(), device="cpu")
+    # a bound too tight for the int32 device path would need the host path
+    with pytest.raises(NotImplementedError, match="host path"):
+        tpipe.compress_preserving_mss(f * 1e6, 1e-3, device="cpu")
+    with pytest.raises(ValueError, match="device_path=True"):
+        tpipe.compress_preserving_mss(f * 1e6, 1e-3, device="cpu",
+                                      device_path=True)
