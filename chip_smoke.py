@@ -9,16 +9,21 @@ Phases, each asserting (any failure exits non-zero):
    ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a) into ``build/``.
 2. kernels against their plain PyTorch versions on the card: 2D and 3D,
    float32 and float64, ragged shapes, a tie-heavy field and a tile with
-   a non-zero origin, all bitwise; then each kernel at the main-path
-   shapes (its inputs taken from the real first fix iteration), compared
-   bitwise and timed with CUDA events beside its plain version.
+   a non-zero origin, all bitwise; the pack/unpack kernels on adversarial
+   code arrays and 10^6 full-range random codes; then each kernel at the
+   main-path shapes (its inputs taken from the real first fix iteration,
+   the real residual codes and their packed stream), compared bitwise
+   and timed with CUDA events beside its plain version.
 3. the main path at full size: ``compress_preserving_mss`` ->
    ``decompress_preserving_mss`` -> ``verify_preservation`` on the nyx
-   512^3 float32 field and the climate 1800x3600 field, with the launch
-   counts set to 0 just before each run and read just after.
+   512^3 float32 field and the climate 1800x3600 field, once with
+   ``entropy="deflate"`` and once with ``entropy="device-pack"``, with
+   the launch counts set to 0 just before each run and read just after.
 4. whole-path parity at 128^3: the ``cuda`` and ``reference`` backends on
-   the card give the same payload bytes, fix-iteration count and g, and
-   the host codec agrees with the device path.
+   the card give the same payload bytes, fix-iteration count and g, for
+   both entropy codecs; the host codecs agree with the device path; the
+   device unpack decodes what the host decoder and the DEFLATE artifact
+   decode; both codecs carry the same edit bytes.
 
 Stdout carries JSON records; the line before the last is the per-kernel
 summary, and the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -43,12 +48,42 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
-#: the Pallas calls the three kernels replace
+#: the Pallas calls the kernels replace
 REPLACES = {
     "extrema": "src/repro/kernels/extrema.py:317",
     "fixpass": "src/repro/kernels/fixpass.py:127",
     "lorenzo": "src/repro/kernels/lorenzo.py:95",
+    "pack": "src/repro/kernels/pack.py:264",
+    "unpack": "src/repro/kernels/pack.py:302",
 }
+
+#: kernel name -> (module under repro_torch.kernels, its launch counter)
+COUNTERS = {
+    "extrema": ("extrema", "launches"),
+    "fixpass": ("fixpass", "launches"),
+    "lorenzo": ("lorenzo", "launches"),
+    "pack": ("pack", "pack_launches"),
+    "unpack": ("pack", "unpack_launches"),
+}
+
+#: the CUDA source of each kernel
+SOURCE = {"extrema": "extrema", "fixpass": "fixpass", "lorenzo": "lorenzo",
+          "pack": "pack", "unpack": "pack"}
+
+
+def _kernel_module(name: str):
+    import importlib
+    return importlib.import_module(f"repro_torch.kernels.{COUNTERS[name][0]}")
+
+
+def reset_launches() -> None:
+    for name, (_, attr) in COUNTERS.items():
+        setattr(_kernel_module(name), attr, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(_kernel_module(name), attr)
+            for name, (_, attr) in COUNTERS.items()}
 
 
 def emit(record: dict) -> None:
@@ -169,6 +204,113 @@ def phase_kernels_small(seed: int) -> None:
                 check_case(label + "-tile", ft, xi, gt, tile)
 
 
+def adversarial_codes(seed: int) -> dict:
+    """Code arrays that stress the bitplane layout (the reference's
+    ``tests/test_entropy.py`` cases) and 10^6 full-range random codes."""
+    rng = np.random.default_rng(seed)
+    C = 1024
+    lo, hi = np.int32(-2 ** 31), np.int32(2 ** 31 - 1)
+    return {
+        "empty": np.zeros(0, np.int32),
+        "zeros": np.zeros(3 * C + 11, np.int32),
+        "ones": np.ones(C - 1, np.int32),
+        "minus_one": np.full(C + 1, -1, np.int32),
+        "int32_min": np.full(17, lo, np.int32),
+        "int32_extremes": np.array([lo, hi, 0, -1, 1, lo + 1, hi - 1],
+                                   np.int32),
+        "small": rng.integers(-5, 6, size=C // 2).astype(np.int32),
+        "mixed_chunks": np.concatenate([
+            rng.integers(-3, 4, size=C), rng.integers(-2**20, 2**20, size=C),
+            np.zeros(C, np.int32), rng.integers(-2**30, 2**30, size=37),
+        ]).astype(np.int32),
+        "chunk_exact": rng.integers(-1000, 1000, size=2 * C).astype(np.int32),
+        "powers": np.array([-(2**k) for k in range(31)] +
+                           [2**k for k in range(31)], np.int32),
+        "full_range": rng.integers(-2**31, 2**31, size=10**6,
+                                   dtype=np.int64).astype(np.int32),
+    }
+
+
+def check_pack(label: str, r) -> tuple:
+    """pack and unpack on the card against their plain versions, bitwise,
+    and the round trip back to ``r``; returns the kernel's stream and
+    the largest difference from the plain versions (0 when bitwise)."""
+    import torch
+    from repro_torch.kernels import pack as kp
+    words, bits, n_words = kp.pack_codes(r)
+    w_p, b_p, n_p = kp.pack_codes_plain(r)
+    if n_words != n_p:
+        raise AssertionError(f"pack {label}: n_words {n_words} != {n_p}")
+    assert_equal(f"pack {label}", [words, bits], [w_p, b_p])
+    back = kp.unpack_codes(words, bits, tuple(r.shape))
+    back_p = kp.unpack_codes_plain(words, bits, tuple(r.shape))
+    assert_equal(f"unpack {label}", [back], [back_p])
+    if not torch.equal(back, r):
+        raise AssertionError(f"pack {label}: the round trip lost codes")
+    torch.cuda.synchronize()
+    err = {"pack": max_abs_diff([words, bits], [w_p, b_p]),
+           "unpack": max_abs_diff([back], [back_p])}
+    return words, bits, n_words, err
+
+
+def phase_pack_small(seed: int) -> None:
+    import torch
+    for label, codes in adversarial_codes(seed).items():
+        r = torch.from_numpy(codes).cuda()
+        _, _, n_words, _ = check_pack(label, r)
+        emit({"phase": "kernels_vs_plain", "case": f"pack-{label}",
+              "shape": list(codes.shape), "dtype": "int32",
+              "n_words": n_words, "bitwise": True})
+
+
+def pack_bound(n: int, n_words: int) -> tuple:
+    """(pack bound_ms, unpack bound_ms): bytes over the HBM rate. pack
+    reads 4 B a code and writes the words and the int32 widths; unpack
+    reads the words and one byte of width a chunk and writes 4 B a
+    code."""
+    n_chunks = -(-n // 1024)
+    pack_b = 4 * n + 4 * n_words + 4 * n_chunks
+    unpack_b = 4 * n_words + n_chunks + 4 * n
+    return (pack_b / HBM_BYTES_PER_S * 1e3, unpack_b / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_pack_main(f_np, xi: float, reps: int) -> dict:
+    """pack and unpack at a main-path shape: the field's real residual
+    codes and their packed stream, bitwise against the plain versions,
+    then timed."""
+    import torch
+    from repro_torch.compress import szlike
+    from repro_torch.kernels import lorenzo as kl, pack as kp
+    f = torch.from_numpy(f_np).cuda()
+    step = torch.tensor(szlike.effective_step(f_np, xi), dtype=f.dtype,
+                        device="cuda")
+    r = kl.lorenzo_quant(f, step)
+    del f
+    words, bits, n_words, err = check_pack(f"main-path {tuple(r.shape)}",
+                                           r)
+    shape = tuple(r.shape)
+    bounds = dict(zip(("pack", "unpack"), pack_bound(r.numel(), n_words)))
+    calls = {
+        "pack": (lambda: kp.pack_codes(r), lambda: kp.pack_codes_plain(r)),
+        "unpack": (lambda: kp.unpack_codes(words, bits, shape),
+                   lambda: kp.unpack_codes_plain(words, bits, shape)),
+    }
+    results = {}
+    for name, (kern, plain) in calls.items():
+        ms = cuda_time_ms(kern, reps)
+        plain_ms = cuda_time_ms(plain, max(reps // 2, 3), warmup=1)
+        results[name] = dict(max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
+                             bound_ms=bounds[name], bound_by="bytes")
+        emit({"phase": "kernel_timing", "kernel": name,
+              "shape": list(shape), "dtype": "int32", "bitwise": True,
+              "n_words": n_words, "n_chunks": int(bits.numel()),
+              "kernel_ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bounds[name], "bound_by": "bytes"})
+    del r, words, bits
+    torch.cuda.empty_cache()
+    return results
+
+
 def bound_record(name: str, shape, itemsize: int) -> tuple:
     """(bound_ms, bound_by) for one launch on a field of ``shape``: the
     larger of bytes over HBM rate and operations over the f32 rate."""
@@ -241,36 +383,38 @@ def phase_kernels_main(f_np, xi: float, reps: int) -> dict:
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def phase_main_path(label: str, f, xi: float) -> dict:
+def phase_main_path(label: str, f, xi: float, entropy: str) -> dict:
     import torch
     from repro_torch.compress import (compress_preserving_mss,
                                       decompress_preserving_mss,
                                       overall_compression_ratio)
     from repro_torch.core import verify_preservation
-    from repro_torch.kernels import extrema as kx, fixpass as kf
-    from repro_torch.kernels import lorenzo as kl
-    mods = {"extrema": kx, "fixpass": kf, "lorenzo": kl}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for m in mods.values():
-        m.launches = 0
+    reset_launches()
     stages = {}
     t0 = time.perf_counter()
-    art = compress_preserving_mss(f, xi, timings=stages)
+    art = compress_preserving_mss(f, xi, entropy=entropy, timings=stages)
     t1 = time.perf_counter()
     g = decompress_preserving_mss(art)
     t2 = time.perf_counter()
     report = verify_preservation(f, g, xi)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    launches = {n: m.launches for n, m in mods.items()}
+    launches = read_launches()
     if not (report["mss_preserved"] and report["bound_ok"]):
         raise AssertionError(f"{label}: MSS not preserved: {report}")
-    want = {"extrema": art.fix_iters, "fixpass": art.fix_iters, "lorenzo": 1}
+    packed = int(entropy == "device-pack")
+    want = {"extrema": art.fix_iters, "fixpass": art.fix_iters, "lorenzo": 1,
+            "pack": packed, "unpack": packed}
     if launches != want:
         raise AssertionError(f"{label}: launches {launches} != {want}")
+    if art.entropy != entropy or art.path != "device":
+        raise AssertionError(f"{label}: artifact records entropy "
+                             f"{art.entropy!r} on path {art.path!r}")
     stages.update(compress=t1 - t0, decompress=t2 - t1, verify=t3 - t2)
-    emit({"phase": "main_path", "field": label, "shape": list(f.shape),
+    emit({"phase": "main_path", "field": label, "entropy": entropy,
+          "base_magic": art.base_magic, "shape": list(f.shape),
           "dtype": str(f.dtype), "xi": xi, "fix_iters": art.fix_iters,
           "edits": int(round(art.edit_ratio * f.size)),
           "edit_ratio": art.edit_ratio,
@@ -294,24 +438,47 @@ def phase_parity(n: int) -> None:
                                       decompress_artifact,
                                       decompress_preserving_mss, sz_compress)
     from repro_torch.data import synthetic_field
+    from repro_torch.kernels import pack as kp
     f = synthetic_field("nyx", (n, n, n))
     xi = 1e-3 * float(np.ptp(f))
-    a = compress_preserving_mss(f, xi, backend="cuda")
-    b = compress_preserving_mss(f, xi, backend="reference")
-    for k in ("base_payload", "edit_payload", "fix_iters", "edit_ratio"):
-        if getattr(a, k) != getattr(b, k):
-            raise AssertionError(f"parity: {k} differs between backends")
-    ga = decompress_preserving_mss(a, backend="cuda")
-    gb = decompress_preserving_mss(b, backend="reference")
-    if not np.array_equal(ga, gb):
-        raise AssertionError("parity: g differs between backends")
-    if not np.array_equal(ga, decompress_artifact(a)):
-        raise AssertionError("parity: device decode differs from host decode")
-    if sz_compress(f, xi) != a.base_payload:
-        raise AssertionError("parity: host codec payload differs")
-    emit({"phase": "parity", "shape": [n, n, n], "fix_iters": a.fix_iters,
+    g_by = {}
+    arts = {}
+    for entropy in ("deflate", "device-pack"):
+        a = compress_preserving_mss(f, xi, backend="cuda", entropy=entropy)
+        b = compress_preserving_mss(f, xi, backend="reference",
+                                    entropy=entropy)
+        for k in ("base_payload", "edit_payload", "fix_iters", "edit_ratio"):
+            if getattr(a, k) != getattr(b, k):
+                raise AssertionError(
+                    f"parity {entropy}: {k} differs between backends")
+        before = kp.unpack_launches
+        ga = decompress_preserving_mss(a, backend="cuda")
+        unpacked = kp.unpack_launches - before
+        if unpacked != int(entropy == "device-pack"):
+            raise AssertionError(f"parity {entropy}: {unpacked} unpack "
+                                 "launches in the device decode")
+        gb = decompress_preserving_mss(b, backend="reference")
+        if not np.array_equal(ga, gb):
+            raise AssertionError(f"parity {entropy}: g differs between "
+                                 "backends")
+        if not np.array_equal(ga, decompress_artifact(a)):
+            raise AssertionError(f"parity {entropy}: device decode differs "
+                                 "from host decode")
+        if sz_compress(f, xi, entropy=entropy) != a.base_payload:
+            raise AssertionError(f"parity {entropy}: host codec payload "
+                                 "differs")
+        g_by[entropy], arts[entropy] = ga, a
+    if not np.array_equal(g_by["deflate"], g_by["device-pack"]):
+        raise AssertionError("parity: the two codecs decode to different g")
+    if arts["deflate"].edit_payload != arts["device-pack"].edit_payload:
+        raise AssertionError("parity: the two codecs carry different edits")
+    emit({"phase": "parity", "shape": [n, n, n],
+          "fix_iters": arts["deflate"].fix_iters,
+          "entropies": ["deflate", "device-pack"],
           "payload_identical": True, "g_identical": True,
-          "host_codec_identical": True})
+          "host_codec_identical": True, "codecs_same_g": True,
+          "codecs_same_edits": True,
+          "payload_bytes": {k: len(a.base_payload) for k, a in arts.items()}})
 
 
 def main(argv=None) -> int:
@@ -344,6 +511,7 @@ def main(argv=None) -> int:
           "ptxas": _build.ptxas_summary()})
 
     phase_kernels_small(seed=0)
+    phase_pack_small(seed=7)
 
     climate_shape = tuple(int(s) for s in args.climate.split("x"))
     fields = [("nyx", synthetic_field("nyx", (args.nyx,) * 3)),
@@ -352,21 +520,23 @@ def main(argv=None) -> int:
     for label, f in fields:
         xi = 1e-3 * float(np.ptp(f))
         timing[label] = phase_kernels_main(f, xi, args.reps)
+        timing[label].update(phase_pack_main(f, xi, args.reps))
 
-    launches = {"extrema": 0, "fixpass": 0, "lorenzo": 0}
-    for label, f in fields:
-        xi = 1e-3 * float(np.ptp(f))
-        for k, v in phase_main_path(label, f, xi).items():
-            launches[k] += v
+    launches = dict.fromkeys(COUNTERS, 0)
+    for entropy in ("deflate", "device-pack"):
+        for label, f in fields:
+            xi = 1e-3 * float(np.ptp(f))
+            for k, v in phase_main_path(label, f, xi, entropy).items():
+                launches[k] += v
 
     phase_parity(args.parity)
 
     kernels = []
-    for name in ("extrema", "fixpass", "lorenzo"):
+    for name in COUNTERS:
         t = timing["nyx"][name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/{SOURCE[name]}.cu",
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(timing[k][name]["max_abs_err"]
                                for k in timing),

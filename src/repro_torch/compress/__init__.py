@@ -1,7 +1,9 @@
 """repro_torch.compress — the szlike base codec, the MSE1 edit codec,
 the artifact format and the end-to-end MSS-preserving pipeline."""
-from .szlike import (check_int32_range, effective_step, sz_compress,
-                     sz_decompress, sz_inverse, sz_transform)
+from .szlike import (TruncatedStreamError, check_int32_range,
+                     effective_step, sz_blob_entropy, sz_compress,
+                     sz_decompress, sz_encode_packed, sz_inverse,
+                     sz_parse_packed, sz_transform)
 from .codec import encode_edits, decode_edits
 from .preserve import (CompressedArtifact, payload_codec, payload_magic,
                        check_artifact, resolve_edit_dtype, exact_edit_dtype)
@@ -10,8 +12,10 @@ from .pipeline import (compress_preserving_mss, compress_preserving_mss_batch,
                        decompress_preserving_mss, overall_compression_ratio)
 
 __all__ = [
-    "check_int32_range", "effective_step", "sz_compress", "sz_decompress",
-    "sz_inverse", "sz_transform", "encode_edits", "decode_edits",
+    "TruncatedStreamError", "check_int32_range", "effective_step",
+    "sz_blob_entropy", "sz_compress", "sz_decompress", "sz_encode_packed",
+    "sz_inverse", "sz_parse_packed", "sz_transform", "encode_edits",
+    "decode_edits",
     "CompressedArtifact", "payload_codec", "payload_magic", "check_artifact",
     "resolve_edit_dtype", "exact_edit_dtype",
     "compress_preserving_mss", "compress_preserving_mss_batch",

@@ -3,16 +3,22 @@
 
 compression:   f --quantize+Lorenzo--> r --reconstruct--> f_hat
                (f, f_hat) --fused fix loop--> g --> edits
-               r --DEFLATE--> SZJ2 payload ; edits --> MSE1 blob
+               r --DEFLATE--> SZJ2 payload   (entropy="deflate")
+               r --pack kernels--> SZP1 payload   (entropy="device-pack")
+               edits --> MSE1 blob
 decompression: payload --> r --reconstruct--> f_hat ; f_hat + edits --> g
 
 ``compress_preserving_mss`` makes one host->device copy of ``f``; the
 transform, reconstruction, topology, fix loop and edit extraction stay
-on the device; one device->host copy of the int32 residual codes (and
-of the edits) feeds the host entropy coders. ``decompress_preserving_mss``
-decodes the entropy streams on the host, copies the codes up once,
-reconstructs and scatters the edits on the device, and copies g down
-once. Artifacts and g are bitwise the reference's.
+on the device. Under "deflate" one device->host copy of the int32
+residual codes feeds host DEFLATE; under "device-pack" the codes are
+packed on the device and only the packed words and the chunk widths
+cross (the blob assembly is byte copying). The edits cross once and are
+encoded on the host either way. ``decompress_preserving_mss`` decodes
+an SZJ2 stream on the host and copies the codes up once; a device-path
+SZP1 artifact instead ships its words and widths up and unpacks them on
+the device. Reconstruction and the edit scatter run on the device, and
+g comes down once. Artifacts and g are bitwise the reference's.
 
 Arguments this slice does not serve raise ``NotImplementedError`` naming
 the ROADMAP.md item that brings them; nothing is silently rerouted.
@@ -29,6 +35,7 @@ from ..core import fixes
 from ..core.backend import BackendLike, resolve_backend
 from ..core.driver import apply_edits, extract_edits
 from ..device import DeviceLike, _d2h, _h2d, resolve_device, torch_dtype
+from ..kernels.pack import CHUNK
 from . import codec, preserve, szlike
 from .preserve import CompressedArtifact
 
@@ -106,10 +113,12 @@ class _Clock:
 
 def _device_compress(f: np.ndarray, xi: float, be, max_iters: int,
                      edit_value_dtype: str, step: float, dev: torch.device,
-                     timings: Optional[dict]) -> CompressedArtifact:
+                     entropy: str, timings: Optional[dict]
+                     ) -> CompressedArtifact:
     """One h2d of f; transform, reconstruction, base-error check,
-    topology, fused fix loop and edit extraction on the device; one d2h
-    of the residual codes for DEFLATE, and the edit blob."""
+    topology, fused fix loop and edit extraction on the device; then the
+    residual payload (one d2h of the codes for DEFLATE, or the packed
+    stream for device-pack) and the edit blob."""
     clock = _Clock(timings, dev)
     t0 = time.perf_counter()
     fj = _h2d(f, dev)
@@ -136,20 +145,30 @@ def _device_compress(f: np.ndarray, xi: float, be, max_iters: int,
     t2 = time.perf_counter()
     clock.lap("extraction")
 
-    payload = szlike.sz_encode_residuals(_d2h(r), f.shape, f.dtype, step)
+    if entropy == "device-pack":
+        # the stream length is one scalar sync inside pack_codes; the
+        # int32 words carry the uint32 stream's bits
+        words, bits, _ = be.pack_codes(r)
+        payload = szlike.sz_encode_packed(_d2h(words).view(np.uint32),
+                                          _d2h(bits), f.shape, f.dtype,
+                                          step)
+    else:
+        payload = szlike.sz_encode_residuals(_d2h(r), f.shape, f.dtype,
+                                             step)
+    clock.lap("entropy_residual")
     idx = _d2h(idx_d).astype(np.int64)
     val = _d2h(val_d)
     blob = preserve.encode_edits_checked_dev(fj, f_hat, idx, val, xi,
                                              edit_value_dtype)
     t3 = time.perf_counter()
-    clock.lap("entropy")
+    clock.lap("entropy_edits")
     return CompressedArtifact(
         base="szlike", base_payload=payload, edit_payload=blob,
         shape=f.shape, dtype=str(f.dtype), xi=xi,
         t_base=(t1 - t0) + (t3 - t2), t_fix=t2 - t1,
         edit_ratio=idx.size / f.size,
         fix_iters=iters, backend=be.name,
-        path="device", t_transform=t1 - t0, entropy="deflate",
+        path="device", t_transform=t1 - t0, entropy=entropy,
         base_magic=preserve.payload_magic(payload).decode("ascii"),
     )
 
@@ -169,13 +188,16 @@ def compress_preserving_mss(f: np.ndarray, xi: float, base: str = "szlike",
     ``xi`` so that decompression has exactly f's Morse-Smale
     segmentation. ``device=None`` runs on CUDA and raises without a GPU;
     ``backend`` picks the stencil backend ('auto': ``cuda`` on the GPU,
-    ``reference`` on the CPU). ``timings``: a dict that receives the
-    seconds of each stage (transform, topology, fix_loop, extraction,
-    entropy), measured with a device sync between stages.
+    ``reference`` on the CPU). ``entropy``: the residual codec,
+    "deflate" (host DEFLATE, SZJ2) or "device-pack" (the chunked-bitplane
+    pack kernels, SZP1). ``timings``: a dict that receives the seconds
+    of each stage (transform, topology, fix_loop, extraction,
+    entropy_residual, entropy_edits), measured with a device sync
+    between stages.
 
     The reference's other options raise ``NotImplementedError`` here:
-    ``codec="zfplike"``, ``mode="paper"``, ``mesh=``,
-    ``device_path=False`` and ``entropy="device-pack"``."""
+    ``codec="zfplike"``, ``mode="paper"``, ``mesh=`` and
+    ``device_path=False``."""
     if codec is not None:
         base = codec
     _check_served(base, mode, mesh, device_path, entropy)
@@ -189,7 +211,7 @@ def compress_preserving_mss(f: np.ndarray, xi: float, base: str = "szlike",
                           "Batched and worklist fix loops, host path")
     be = resolve_backend(backend, f.shape, torch_dtype(f.dtype), dev)
     return _device_compress(f, xi, be, max_iters, edit_value_dtype, step,
-                            dev, timings)
+                            dev, entropy, timings)
 
 
 def compress_preserving_mss_batch(*args, **kwargs):
@@ -199,8 +221,8 @@ def compress_preserving_mss_batch(*args, **kwargs):
 
 
 def decompress_artifact(art: CompressedArtifact) -> np.ndarray:
-    """Host-side decompression: magic-checked SZJ2 decode plus numpy edit
-    application (any artifact this slice reads)."""
+    """Host-side decompression: magic-checked SZJ2 or SZP1 decode (the
+    packer's numpy mirror) plus numpy edit application."""
     preserve.check_artifact(art)
     f_hat = szlike.sz_decompress(art.base_payload)
     if f_hat.dtype != np.dtype(art.dtype):
@@ -211,12 +233,38 @@ def decompress_artifact(art: CompressedArtifact) -> np.ndarray:
     return apply_edits(f_hat, idx, val)
 
 
+def _device_unpack_decompress(art: CompressedArtifact,
+                              backend: BackendLike, dev: torch.device
+                              ) -> Optional[np.ndarray]:
+    """The read path with no host entropy decode of the codes, for
+    device-path SZP1 artifacts: split the blob into (words, bits) on the
+    host, one h2d of each, unpack -> reconstruct -> edit scatter on the
+    device, one d2h of g. Device-path artifacts were range-checked at
+    compress time. None for a chunk size other than ``CHUNK``, which the
+    host decoder reads."""
+    words, bits, shape, dtype, step, chunk = \
+        szlike.sz_parse_packed(art.base_payload)
+    if chunk != CHUNK:
+        return None
+    idx, val = codec.decode_edits(art.edit_payload)
+    w_j = _h2d(words.view(np.int32), dev)
+    b_j = _h2d(bits, dev)
+    step_t = _h2d(np.asarray(step, dtype), dev)
+    be = resolve_backend(backend, shape, step_t.dtype, dev)
+    f_hat = be.reconstruct(be.unpack_codes(w_j, b_j, shape), step_t,
+                           step_t.dtype)
+    g = be.scatter_edits(f_hat, _h2d(idx, dev), _h2d(val, dev))
+    return _d2h(g)
+
+
 def decompress_preserving_mss(art: CompressedArtifact, device_path="auto",
                               backend: BackendLike = "auto", mesh=None,
                               device: DeviceLike = None) -> np.ndarray:
     """The read side: host-decode the entropy streams once, one h2d of
     the int32 residual codes, reconstruction and edit scatter-add on the
-    device, one d2h of g. Bitwise equal to ``decompress_artifact``.
+    device, one d2h of g. A device-path SZP1 artifact skips the host
+    decode of the codes: its packed words go up and the unpack kernel
+    runs on the device. Bitwise equal to ``decompress_artifact``.
 
     Artifacts whose codes overflow the int32 reconstruction (host-path
     artifacts of the reference) take ``decompress_artifact`` under
@@ -234,6 +282,11 @@ def decompress_preserving_mss(art: CompressedArtifact, device_path="auto",
         reason = f"device decode needs float32 or float64; got {art.dtype}"
     else:
         reason = None
+    if reason is None and art.path == "device" \
+            and szlike.sz_blob_entropy(art.base_payload) == "device-pack":
+        g = _device_unpack_decompress(art, backend, dev)
+        if g is not None:
+            return g
     if reason is None:
         r, shape, dtype, step = szlike.sz_decode_residuals(art.base_payload)
         if art.path != "device" and not szlike.codes_fit_int32(r):

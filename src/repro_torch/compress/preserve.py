@@ -5,9 +5,9 @@ negotiation and the edit-value dtype policy, after
 ``CompressedArtifact`` (version 4) has the reference's fields, so an
 artifact moves between the packages as a plain dict
 (``repro_torch.convert``) and each side decodes the other's. This slice
-reads the ``szlike`` base only: ``SZJ2`` payloads decode, ``SZJ1`` is
-refused with the reference's reason, and the formats of unported codecs
-(``SZP1``, ``ZFJ2``) raise ``NotImplementedError``.
+reads the ``szlike`` base only: ``SZJ2`` and ``SZP1`` payloads decode,
+``SZJ1`` is refused with the reference's reason, and the format of the
+unported codec (``ZFJ2``) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -56,8 +56,8 @@ class CompressedArtifact:
         return len(self.base_payload) + len(self.edit_payload)
 
 
-#: magic -> codec name of the formats this slice reads
-_READABLE = {b"SZJ2": "szlike"}
+#: magic -> codec name of the formats the port reads
+_READABLE = {b"SZJ2": "szlike", b"SZP1": "szlike"}
 
 #: retired magics and why they must not be decoded (the reference's text)
 _REFUSED = {
@@ -72,9 +72,8 @@ _REFUSED = {
         "bound was derived in; re-compress with the current codec"),
 }
 
-#: magics of formats the reference reads that this slice does not yet
+#: magics of formats the reference reads that the port does not yet
 _NOT_PORTED = {
-    b"SZP1": "szlike device-pack (ROADMAP.md Queue 1: 'On-device entropy')",
     b"ZFJ2": "zfplike (ROADMAP.md Queue 1: 'zfplike and the paper-mode "
              "loop')",
 }

@@ -4,7 +4,9 @@
   1. linear-scaling quantization   q = round(f / step),  step = 2*xi_eff
   2. Lorenzo prediction in the integer domain: the residual is the d-D
      mixed first difference of q; the inverse is d nested int32 cumsums;
-  3. residual entropy coding: int8 stream + int64 escapes, DEFLATE'd.
+  3. residual entropy coding: int8 stream + int64 escapes, DEFLATE'd
+     (``SZJ2``), or the chunked-bitplane stream of
+     ``entropy="device-pack"`` (``SZP1``, ``repro_torch.kernels.pack``).
 
 One arithmetic contract per dtype, shared with the reference: the
 quotient, its rounding (half to even) and the dequantizing multiply run
@@ -12,10 +14,10 @@ in the FIELD'S dtype, with the step a scalar of that dtype; integer work
 is exact (int64 on the host, int32 on the device, which requires
 max|f|/xi < 2^28, and < 2^21 for f32 fields — ``check_int32_range``).
 
-The host byte codec below is a numpy copy of the reference's, so equal
-residual codes give equal bytes. This slice reads and writes ``SZJ2``
-(DEFLATE) blobs; ``SZP1`` (device-pack) is not ported yet, and ``SZJ1``
-is refused by ``compress.preserve``.
+The host byte codecs below are numpy copies of the reference's, so equal
+residual codes give equal bytes. The port reads and writes ``SZJ2``
+(DEFLATE) and ``SZP1`` (device-pack) blobs; ``SZJ1`` is refused by
+``compress.preserve``.
 """
 from __future__ import annotations
 
@@ -27,20 +29,25 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels import pack
 # SZJ2: the dequantization arithmetic runs in the field's dtype. SZJ1
 # blobs used f64-multiply-then-cast and are refused.
 _MAGIC = b"SZJ2"
 _MAGIC_PACK = b"SZP1"
 
-#: residual entropy codecs of the format; this slice writes "deflate"
+#: residual entropy codecs of the format
 ENTROPIES = ("deflate", "device-pack")
 
 INT32_RANGE_LIMIT = 2.0 ** 28
 F32_RANGE_LIMIT = 2.0 ** 21
 
-_NOT_PORTED_PACK = (
-    "entropy='device-pack' (SZP1 blobs) is not ported yet (ROADMAP.md "
-    "Queue 1: 'On-device entropy')")
+
+class TruncatedStreamError(ValueError, struct.error, zlib.error):
+    """A truncated SZJ2 residual stream. It is a ``ValueError`` like the
+    port's other format errors, and what the reference raises for the
+    same cut: ``struct.error`` when a chunk length is missing,
+    ``zlib.error`` when a chunk is cut short. Callers written against
+    either package catch it."""
 
 
 def device_range_limit(dtype) -> float:
@@ -155,13 +162,14 @@ def _unpack_residuals(buf: bytes, n: int) -> np.ndarray:
     off = 0
     for _ in range(3):
         if len(view) < off + 8:
-            raise ValueError("truncated SZ-like residual stream: a chunk "
-                             "length is missing")
+            raise TruncatedStreamError("truncated SZ-like residual "
+                                       "stream: a chunk length is missing")
         (ln,) = struct.unpack_from("<Q", view, off)
         off += 8
         if len(view) < off + ln:
-            raise ValueError(f"truncated SZ-like residual stream: chunk of "
-                             f"{ln} bytes, {len(view) - off} left")
+            raise TruncatedStreamError(
+                f"truncated SZ-like residual stream: chunk of {ln} bytes, "
+                f"{len(view) - off} left")
         parts.append(zlib.decompress(view[off:off + ln]))
         off += ln
     main = np.frombuffer(parts[0], np.int8).astype(np.int64)
@@ -174,14 +182,11 @@ def _unpack_residuals(buf: bytes, n: int) -> np.ndarray:
 
 
 def check_entropy(entropy: str) -> None:
-    """Validate a residual entropy codec name; device-pack is not ported
-    yet and raises NotImplementedError."""
+    """Validate a residual entropy codec name (``ENTROPIES``)."""
     if entropy not in ENTROPIES:
         raise ValueError(
             f"unknown entropy codec {entropy!r}; expected one of "
             f"{ENTROPIES}")
-    if entropy == "device-pack":
-        raise NotImplementedError(_NOT_PORTED_PACK)
 
 
 def _szlike_header(magic: bytes, shape: Tuple[int, ...], dtype,
@@ -197,11 +202,38 @@ def _szlike_header(magic: bytes, shape: Tuple[int, ...], dtype,
 def sz_encode_residuals(r: np.ndarray, shape: Tuple[int, ...],
                         dtype, step: float, *,
                         entropy: str = "deflate") -> bytes:
-    """Serialize Lorenzo residual codes into the SZJ2 blob (host and
-    device paths alike: equal codes give equal bytes)."""
+    """Serialize Lorenzo residual codes into an SZ-like blob: SZJ2 for
+    "deflate", SZP1 through the packer's numpy mirror for "device-pack"
+    (equal codes give equal bytes on every path)."""
     check_entropy(entropy)
+    if entropy == "device-pack":
+        words, bits = pack.pack_codes_host(np.asarray(r))
+        return sz_encode_packed(words, bits, shape, dtype, step)
     return _szlike_header(_MAGIC, shape, dtype, step) \
         + _pack_residuals(np.asarray(r))
+
+
+def sz_encode_packed(words: np.ndarray, bits: np.ndarray,
+                     shape: Tuple[int, ...], dtype, step: float, *,
+                     chunk: Optional[int] = None) -> bytes:
+    """Serialize an already-packed chunked-bitplane stream into the SZP1
+    blob: the SZJ2-shaped header, then ``<IIQ`` (chunk size, chunk count,
+    word count), one uint8 width per chunk, and the little-endian uint32
+    words. Pure byte assembly."""
+    if chunk is None:
+        chunk = pack.CHUNK
+    words = np.ascontiguousarray(np.asarray(words, np.uint32))
+    bits = np.asarray(bits)
+    n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+    n_chunks = -(-n // chunk) if n else 0
+    if bits.size != n_chunks:
+        raise ValueError(
+            f"bit-width table has {bits.size} chunks, expected "
+            f"{n_chunks} for shape {shape} at chunk={chunk}")
+    sub = struct.pack("<IIQ", chunk, n_chunks, words.size)
+    return _szlike_header(_MAGIC_PACK, shape, dtype, step) + sub \
+        + bits.astype(np.uint8).tobytes() \
+        + words.astype("<u4").tobytes()
 
 
 def _parse_header(blob: bytes):
@@ -221,9 +253,54 @@ def _parse_header(blob: bytes):
         int(size), off + 8 * ndim
 
 
+def sz_blob_entropy(blob: bytes) -> str:
+    """Which residual entropy codec an SZ-like blob carries ("deflate"
+    or "device-pack"), from its magic alone."""
+    magic = bytes(blob[:4])
+    if magic == _MAGIC:
+        return "deflate"
+    if magic == _MAGIC_PACK:
+        return "device-pack"
+    raise ValueError("not an SZ-like blob")
+
+
+def sz_parse_packed(blob: bytes
+                    ) -> Tuple[np.ndarray, np.ndarray, Tuple[int, ...],
+                               np.dtype, float, int]:
+    """Split an SZP1 blob into ``(words, bits, shape, dtype, step,
+    chunk)`` without unpacking codes: ``words`` uint32, ``bits`` int32.
+    The header's lengths are checked against ``len(blob)``: a truncated
+    or over-long blob raises ``ValueError``."""
+    magic, shape, dtype, step, size, off = _parse_header(blob)
+    if magic != _MAGIC_PACK:
+        raise ValueError("not a packed (SZP1) SZ-like blob")
+    sub = struct.calcsize("<IIQ")
+    if len(blob) < off + sub:
+        raise ValueError(
+            f"SZP1 blob is {len(blob)} bytes, too short for its "
+            "pack sub-header (truncated blob)")
+    chunk, n_chunks, n_words = struct.unpack_from("<IIQ", blob, off)
+    off += sub
+    expect_chunks = (-(-size // chunk) if size else 0) if chunk else -1
+    if n_chunks != expect_chunks:
+        raise ValueError(
+            f"SZP1 header: {n_chunks} chunks inconsistent with "
+            f"{size} codes at chunk={chunk}")
+    end = off + n_chunks + 4 * n_words
+    if end != len(blob):
+        raise ValueError(
+            f"SZP1 blob is {len(blob)} bytes, header demands {end} "
+            "(truncated or over-long blob)")
+    bits = np.frombuffer(blob, np.uint8, n_chunks, off).astype(np.int32)
+    words = np.frombuffer(blob, "<u4", n_words, off + n_chunks)
+    words = words.astype(np.uint32, copy=False)
+    return words, bits, shape, dtype, step, int(chunk)
+
+
 def sz_compress(f: np.ndarray, xi: float, *,
                 entropy: str = "deflate") -> bytes:
-    """Host compression with absolute error bound xi (SZJ2 blob)."""
+    """Host compression with absolute error bound xi: an SZJ2 blob, or
+    SZP1 for ``entropy="device-pack"``."""
     f = np.asarray(f)
     if f.dtype not in (np.float32, np.float64):
         raise TypeError(f"float field expected, got {f.dtype}")
@@ -243,11 +320,15 @@ def sz_compress(f: np.ndarray, xi: float, *,
 def sz_decode_residuals(blob: bytes
                         ) -> Tuple[np.ndarray, Tuple[int, ...], np.dtype,
                                    float]:
-    """Entropy-decode an SZJ2 blob into ``(r, shape, dtype, step)`` with
-    r the int64 residual codes, without reconstructing."""
+    """Entropy-decode an SZ-like blob into ``(r, shape, dtype, step)``
+    with r the int64 residual codes, without reconstructing. SZP1 blobs
+    decode through the packer's numpy mirror."""
     magic, shape, dtype, step, size, off = _parse_header(blob)
     if magic == _MAGIC_PACK:
-        raise NotImplementedError(_NOT_PORTED_PACK)
+        words, bits, shape, dtype, step, chunk = sz_parse_packed(blob)
+        r = pack.unpack_codes_host(words, bits, size, chunk) \
+            .astype(np.int64).reshape(shape)
+        return r, shape, dtype, step
     if magic != _MAGIC:
         raise ValueError("not an SZ-like blob")
     r = _unpack_residuals(blob[off:], size).reshape(shape)

@@ -11,7 +11,10 @@ Every backend exposes
   * ``transform(f, step)`` / ``reconstruct(r, step, dtype)`` — quantize +
     integer Lorenzo and its inverse (``step`` a 0-d tensor of the field
     dtype);
-  * ``scatter_edits(f_hat, idx, val)`` — g = f_hat + delta.
+  * ``scatter_edits(f_hat, idx, val)`` — g = f_hat + delta;
+  * ``pack_codes(r)`` / ``unpack_codes(words, bits, shape)`` — the
+    chunked-bitplane stream of ``entropy="device-pack"`` and its
+    inverse (``repro_torch.kernels.pack``).
 
 Registered implementations:
 
@@ -19,8 +22,9 @@ Registered implementations:
     stencils. It serves CPU tensors, and CUDA tensors only when a caller
     names it;
   * ``cuda`` — the hand-written kernels of ``repro_torch.kernels``
-    behind ``extrema_masks``/``fix_pass``/``fused_step``/``transform``
-    (on a CPU tensor each kernel wrapper runs its plain version).
+    behind ``extrema_masks``/``fix_pass``/``fused_step``/``transform``/
+    ``pack_codes``/``unpack_codes`` (on a CPU tensor each kernel wrapper
+    runs its plain version).
 
 Both take ``reconstruct`` and ``scatter_edits`` from torch ops. Backends
 are bitwise-interchangeable: same g trajectory, same violation counts,
@@ -173,11 +177,23 @@ class ReferenceBackend(_TorchTail):
         from ..kernels.lorenzo import geometry, lorenzo_quant_plain
         return lorenzo_quant_plain(f, step.to(f.dtype), geometry(f.shape))
 
+    def pack_codes(self, r: torch.Tensor):
+        """int32 residual codes -> ``(words, bits, n_words)`` (the pack
+        kernel's plain version)."""
+        from ..kernels.pack import pack_codes_plain
+        return pack_codes_plain(r)
+
+    def unpack_codes(self, words: torch.Tensor, bits: torch.Tensor,
+                     shape) -> torch.Tensor:
+        """Inverse of ``pack_codes`` (the unpack kernel's plain version)."""
+        from ..kernels.pack import unpack_codes_plain
+        return unpack_codes_plain(words, bits, tuple(shape))
+
 
 @dataclasses.dataclass(frozen=True)
 class CudaBackend(_TorchTail):
     """The hand-written CUDA kernels (``kernels.extrema``,
-    ``kernels.fixpass``, ``kernels.lorenzo``)."""
+    ``kernels.fixpass``, ``kernels.lorenzo``, ``kernels.pack``)."""
     name: str = "cuda"
 
     def extrema_masks(self, g: torch.Tensor, topo) -> StencilMasks:
@@ -204,6 +220,18 @@ class CudaBackend(_TorchTail):
         """Quantize + integer Lorenzo through the Lorenzo kernel."""
         from ..kernels.lorenzo import lorenzo_quant
         return lorenzo_quant(f, step.to(f.dtype))
+
+    def pack_codes(self, r: torch.Tensor):
+        """int32 residual codes -> ``(words, bits, n_words)`` through the
+        pack kernels."""
+        from ..kernels.pack import pack_codes
+        return pack_codes(r)
+
+    def unpack_codes(self, words: torch.Tensor, bits: torch.Tensor,
+                     shape) -> torch.Tensor:
+        """Inverse of ``pack_codes`` through the unpack kernel."""
+        from ..kernels.pack import unpack_codes
+        return unpack_codes(words, bits, tuple(shape))
 
 
 BackendLike = Union[str, ReferenceBackend, CudaBackend]

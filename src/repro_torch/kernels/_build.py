@@ -26,7 +26,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("extrema", "fixpass", "lorenzo")
+SOURCES = ("extrema", "fixpass", "lorenzo", "pack")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

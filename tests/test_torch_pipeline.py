@@ -3,6 +3,8 @@ payload and edit bytes, artifact metadata, cross-decoding in both
 directions, f64 under x64, the byte codecs, refusals and hard errors,
 and the arguments this slice does not serve."""
 import dataclasses
+import struct
+import zlib
 
 import jax
 import numpy as np
@@ -154,7 +156,6 @@ def test_retired_and_unported_payloads():
 @pytest.mark.parametrize("kwargs", [
     dict(codec="zfplike"), dict(base="zfplike"), dict(mode="paper"),
     dict(mesh=object()), dict(device_path=False),
-    dict(entropy="device-pack"),
 ])
 def test_unserved_arguments_raise_not_implemented(kwargs):
     f = _field("climate", (8, 10), np.float32)
@@ -177,3 +178,31 @@ def test_unserved_entry_points_raise_not_implemented():
     with pytest.raises(ValueError, match="device_path=True"):
         tpipe.compress_preserving_mss(f * 1e6, 1e-3, device="cpu",
                                       device_path=True)
+
+
+def test_truncated_szj2_stream_raises_what_the_reference_raises():
+    f = _field("climate", (16, 20), np.float32)
+    blob = tsz.sz_compress(f, 1e-2)
+    assert blob == jsz.sz_compress(f, 1e-2)
+    hdr = 4 + 1 + 1 + 8 + 8 + 8 * 2
+    # a cut inside the first chunk length, and one inside the first chunk
+    for cut, err in ((hdr + 4, struct.error), (hdr + 12, zlib.error)):
+        with pytest.raises(err):
+            jsz.sz_decode_residuals(blob[:cut])
+        with pytest.raises(err) as info:
+            tsz.sz_decode_residuals(blob[:cut])
+        assert isinstance(info.value, ValueError)
+        assert isinstance(info.value, tsz.TruncatedStreamError)
+
+
+@pytest.mark.parametrize("entropy", ["deflate", "device-pack"])
+def test_compress_timings_split_the_entropy_stage(entropy):
+    f = _field("nyx", (8, 9, 10), np.float32)
+    timings = {}
+    art = tpipe.compress_preserving_mss(f, 1e-2, device="cpu",
+                                        entropy=entropy, timings=timings)
+    assert art.entropy == entropy
+    assert list(timings) == ["transform", "topology", "fix_loop",
+                             "extraction", "entropy_residual",
+                             "entropy_edits"]
+    assert all(v >= 0.0 for v in timings.values())
