@@ -5,15 +5,23 @@
 
 Phases, each asserting (any failure exits non-zero):
 
-1. card: ``nvidia-smi`` name and power limit; build the CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a) into ``build/``.
+1. card: ``nvidia-smi`` name and power limit; the matmul precision flags
+   (TF32 off, bf16 GEMMs reduce in f32); build the CUDA kernels from
+   ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a) into ``build/``,
+   one nvcc per source, all at once.
 2. kernels against their plain PyTorch versions on the card: 2D and 3D,
    float32 and float64, ragged shapes, a tie-heavy field and a tile with
    a non-zero origin, all bitwise; the pack/unpack kernels on adversarial
    code arrays and 10^6 full-range random codes; then each kernel at the
    main-path shapes (its inputs taken from the real first fix iteration,
    the real residual codes and their packed stream), compared bitwise
-   and timed with CUDA events beside its plain version.
+   and timed with CUDA events beside its plain version. The flash
+   kernel against its plain version in f32 and bf16, causal and not,
+   ragged S, S != T and head widths 16..128, within a stated tolerance
+   (bf16: one ulp, rtol 2^-7), then at the prefill shapes (8 x 2048 and
+   1 x 32768 of smollm-135m's 9/3 heads of 64), timed beside its plain
+   version and ``scaled_dot_product_attention`` (timed only; the port
+   never calls it), whose bf16 rounding of p must fail that tolerance.
 3. the main path at full size: ``compress_preserving_mss`` ->
    ``decompress_preserving_mss`` -> ``verify_preservation`` on the nyx
    512^3 float32 field and the climate 1800x3600 field, once with
@@ -24,6 +32,14 @@ Phases, each asserting (any failure exits non-zero):
    both entropy codecs; the host codecs agree with the device path; the
    device unpack decodes what the host decoder and the DEFLATE artifact
    decode; both codecs carry the same edit bytes.
+5. LM serving at full width: smollm-135m (30 layers, bf16, seeded random
+   weights), 8 requests of 2048-token prompts through
+   ``serve.make_prefill`` and 32 greedy ``make_serve_step`` calls, with
+   the launch counts set to 0 just before and read just after: the flash
+   kernel runs once per layer of the prefill, no other kernel runs.
+6. LM parity, card against CPU: smollm-135m at 2 layers in f32, the same
+   weights on both; prefill and 8 decode steps agree within 1e-4 and
+   give the same greedy tokens.
 
 Stdout carries JSON records; the line before the last is the per-kernel
 summary, and the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -44,9 +60,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM data-sheet peaks: HBM3 bandwidth and dense FP32 rate
+#: H100 SXM data-sheet peaks: HBM3 bandwidth, dense FP32 and bf16 rates
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 #: the Pallas calls the kernels replace
 REPLACES = {
@@ -55,6 +72,7 @@ REPLACES = {
     "lorenzo": "src/repro/kernels/lorenzo.py:95",
     "pack": "src/repro/kernels/pack.py:264",
     "unpack": "src/repro/kernels/pack.py:302",
+    "flash": "src/repro/kernels/flash.py:102",
 }
 
 #: kernel name -> (module under repro_torch.kernels, its launch counter)
@@ -64,11 +82,12 @@ COUNTERS = {
     "lorenzo": ("lorenzo", "launches"),
     "pack": ("pack", "pack_launches"),
     "unpack": ("pack", "unpack_launches"),
+    "flash": ("flash", "launches"),
 }
 
 #: the CUDA source of each kernel
 SOURCE = {"extrema": "extrema", "fixpass": "fixpass", "lorenzo": "lorenzo",
-          "pack": "pack", "unpack": "pack"}
+          "pack": "pack", "unpack": "pack", "flash": "flash"}
 
 
 def _kernel_module(name: str):
@@ -406,7 +425,7 @@ def phase_main_path(label: str, f, xi: float, entropy: str) -> dict:
         raise AssertionError(f"{label}: MSS not preserved: {report}")
     packed = int(entropy == "device-pack")
     want = {"extrema": art.fix_iters, "fixpass": art.fix_iters, "lorenzo": 1,
-            "pack": packed, "unpack": packed}
+            "pack": packed, "unpack": packed, "flash": 0}
     if launches != want:
         raise AssertionError(f"{label}: launches {launches} != {want}")
     if art.entropy != entropy or art.path != "device":
@@ -481,6 +500,259 @@ def phase_parity(n: int) -> None:
           "payload_bytes": {k: len(a.base_payload) for k, a in arts.items()}})
 
 
+# ---------------------------------------------------------------------------
+# phase 2, flash: the attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+#: (B, S, H, Hk, Dh) of the small flash cases: GQA and MHA, one KV head,
+#: ragged S, and each head width the kernel is built for
+FLASH_CASES = ((2, 64, 4, 2, 16), (1, 128, 8, 8, 32), (2, 96, 6, 3, 16),
+               (1, 64, 2, 1, 64), (2, 1000, 9, 3, 64), (1, 256, 32, 8, 128))
+
+#: kernel-vs-plain (rtol, atol) by output dtype: both compute in f32 and
+#: differ in the order of their sums; in bf16 both round that f32 result
+#: once, so they differ by at most one bf16 ulp, 2^-7 of the value (the
+#: atol only covers outputs near 0)
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-5)}
+
+#: the prefill shapes of phase 2b: smollm-135m's 8 x 2048 prefill, and one
+#: sequence at the repo's prefill_32k length
+FLASH_MAIN = ((8, 2048, 9, 3, 64), (1, 32768, 9, 3, 64))
+
+
+def _dtype_name(dt) -> str:
+    return str(dt).split(".")[-1]
+
+
+def flash_inputs(B, S, T, H, Hk, Dh, dtype, gen):
+    """normal(0, 1) q (B, S, H, Dh) and k, v (B, T, Hk, Dh) on the card."""
+    import torch
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return draw(B, S, H, Dh), draw(B, T, Hk, Dh), draw(B, T, Hk, Dh)
+
+
+def within_flash_tol(got, want) -> bool:
+    import torch
+    rtol, atol = FLASH_TOL[_dtype_name(want.dtype)]
+    return torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def check_flash(label: str, q, k, v, causal: bool) -> tuple:
+    """The kernel against the plain version on one input; returns the
+    largest difference and the plain version's output."""
+    import torch
+    from repro_torch.kernels import flash as kfl
+    got = kfl.flash_attention(q, k, v, causal=causal)
+    want = kfl.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if got.dtype != q.dtype or got.shape != q.shape:
+        raise AssertionError(f"flash {label}: output {got.dtype} "
+                             f"{tuple(got.shape)}")
+    if not within_flash_tol(got, want):
+        raise AssertionError(f"flash {label}: differs from the plain "
+                             f"version by {max_abs_diff([got], [want])}")
+    return max_abs_diff([got], [want]), want
+
+
+def phase_flash_small(seed: int) -> None:
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = [(B, S, S, H, Hk, Dh, c) for (B, S, H, Hk, Dh) in FLASH_CASES
+             for c in (True, False)]
+    cases += [(2, 80, 200, 6, 2, 32, False), (2, 80, 200, 6, 2, 32, True)]
+    for B, S, T, H, Hk, Dh, causal in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(B, S, T, H, Hk, Dh, dtype, gen)
+            label = f"{(B, S, T, H, Hk, Dh)} causal={causal}"
+            err, _ = check_flash(label, q, k, v, causal)
+            emit({"phase": "kernels_vs_plain", "case": f"flash {label}",
+                  "shape": [B, S, T, H, Hk, Dh], "causal": causal,
+                  "dtype": _dtype_name(dtype), "max_abs_err": err,
+                  "rtol_atol": FLASH_TOL[_dtype_name(dtype)]})
+
+
+def flash_bound(B, S, T, H, Hk, Dh, itemsize: int) -> tuple:
+    """(bound_ms, bound_by, flops, bytes) of one causal attention forward:
+    the larger of the unmasked (q, k) pairs' 4 Dh FLOPs each over the
+    bf16 tensor rate and q, k, v read once and o written once over HBM."""
+    pairs = sum(min(i + 1, T) for i in range(S))
+    flops = 4 * B * H * Dh * pairs
+    nbytes = itemsize * (2 * B * S * H * Dh + 2 * B * T * Hk * Dh)
+    t_ops = flops / BF16_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by = ("operations", t_ops) if t_ops >= t_bytes else ("bytes", t_bytes)
+    return by[1], by[0], flops, nbytes
+
+
+def phase_flash_main(reps: int, seed: int) -> dict:
+    """The kernel at the prefill shapes, bf16 causal: checked against the
+    plain version, then timed beside it and beside one
+    ``scaled_dot_product_attention`` call (the yardstick)."""
+    import torch
+    from repro_torch.kernels import flash as kfl
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for B, S, H, Hk, Dh in FLASH_MAIN:
+        q, k, v = flash_inputs(B, S, S, H, Hk, Dh, torch.bfloat16, gen)
+        err, want = check_flash(f"main {(B, S, H, Hk, Dh)}", q, k, v, True)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib = lib.transpose(1, 2)
+        lib_err = max_abs_diff([lib], [want])
+        # SDPA rounds p to bf16 before p . v: the check must tell it from
+        # the kernel, or it could not catch a kernel that did the same
+        if within_flash_tol(lib, want):
+            raise AssertionError(f"flash main {(B, S)}: SDPA passes the "
+                                 "kernel's tolerance; the check is too weak")
+        del lib, want
+        ms = cuda_time_ms(lambda: kfl.flash_attention(q, k, v), reps)
+        plain_ms = cuda_time_ms(lambda: kfl.flash_attention_plain(q, k, v),
+                                max(reps // 2, 3), warmup=1)
+        library_ms = cuda_time_ms(
+            lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), reps)
+        bound_ms, bound_by, flops, nbytes = flash_bound(B, S, S, H, Hk, Dh,
+                                                        2)
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms)
+        out[(B, S)] = rec
+        emit({"phase": "kernel_timing", "kernel": "flash",
+              "shape": [B, S, H, Hk, Dh], "dtype": "bfloat16",
+              "causal": True, "kernel_ms": ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+              "tflops": flops / ms / 1e9, "max_abs_err": err,
+              "library_max_abs_err": lib_err, "library_within_tol": False})
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: LM serving
+# ---------------------------------------------------------------------------
+
+def serve_run(cfg, params, prompt, n_steps: int):
+    """``make_prefill`` over ``prompt`` then ``n_steps`` greedy
+    ``make_serve_step`` calls. Returns the logits (prefill's last, then
+    each step's), the generated tokens (B, 1 + n_steps), the prefill
+    seconds and each step's milliseconds (device synced)."""
+    import torch
+    from repro_torch.serve import make_prefill, make_serve_step
+    B, S = prompt.shape
+    sync = torch.cuda.synchronize if prompt.is_cuda else (lambda: None)
+    prefill = make_prefill(cfg, max_len=S + n_steps)
+    step = make_serve_step(cfg)
+    sync()
+    t0 = time.perf_counter()
+    cache, last = prefill(params, {"tokens": prompt})
+    sync()
+    prefill_s = time.perf_counter() - t0
+    tok = torch.argmax(last[:, -1], dim=-1).to(torch.int32)[:, None]
+    logits, toks, step_ms = [last], [tok], []
+    for i in range(n_steps):
+        t1 = time.perf_counter()
+        tok, lg, cache = step(params, cache, tok, S + i)
+        sync()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        logits.append(lg)
+        toks.append(tok)
+    return logits, torch.cat(toks, dim=1), prefill_s, step_ms
+
+
+def phase_lm_serve(batch: int, prompt_len: int, n_steps: int,
+                   seed: int) -> int:
+    """smollm-135m at full width and depth, bf16, through the serving
+    entry points; returns the flash launches of the run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("smollm-135m")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                         "cuda")
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt_len))
+                              .astype(np.int32)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    logits, toks, prefill_s, step_ms = serve_run(cfg, params, prompt,
+                                                 n_steps)
+    launches = read_launches()
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash"] = cfg.n_layers
+    if launches != want:
+        raise AssertionError(f"lm_serve: launches {launches} != {want}")
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    if not finite:
+        raise AssertionError("lm_serve: non-finite logits")
+    if tuple(logits[0].shape) != (batch, 1, cfg.vocab) or \
+            tuple(toks.shape) != (batch, 1 + n_steps):
+        raise AssertionError(f"lm_serve: logits {tuple(logits[0].shape)}, "
+                             f"tokens {tuple(toks.shape)}")
+    decode_s = sum(step_ms) / 1e3
+    emit({"phase": "lm_serve", "model": cfg.name, "dtype": cfg.dtype,
+          "n_layers": cfg.n_layers, "batch": batch,
+          "prompt_len": prompt_len, "decode_steps": n_steps,
+          "max_len": prompt_len + n_steps,
+          "n_params": sum(t.numel() for v in params.values() for t in
+                          (v.values() if isinstance(v, dict) else (v,))),
+          "launches": launches, "prefill_s": prefill_s,
+          "decode_ms_per_step": statistics.median(step_ms),
+          "decode_ms_mean": sum(step_ms) / n_steps,
+          "decode_ms_first": step_ms[0],
+          "generated_tokens": batch * (1 + n_steps),
+          "tokens_per_s": batch * (1 + n_steps) / (prefill_s + decode_s),
+          "decode_tokens_per_s": batch * n_steps / decode_s,
+          "prefill_tokens_per_s": batch * prompt_len / prefill_s,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "logits_finite": finite,
+          "first_tokens_request0": toks[0, :8].tolist()})
+    del params, logits
+    torch.cuda.empty_cache()
+    return launches["flash"]
+
+
+def phase_lm_parity(seed: int, batch: int = 2, prompt_len: int = 128,
+                    n_steps: int = 8) -> None:
+    """smollm-135m at 2 layers in f32, one set of weights: the card (the
+    flash kernel) against the CPU (the plain versions)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.kernels import flash as kfl
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config("smollm-135m"), n_layers=2,
+                              dtype="float32")
+    cpu = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    gpu = params_from_numpy(params_to_numpy(cpu), cfg, "cuda")
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt_len))
+                              .astype(np.int32))
+    before = kfl.launches
+    lg_c, tk_c, _, _ = serve_run(cfg, cpu, prompt, n_steps)
+    lg_g, tk_g, _, _ = serve_run(cfg, gpu, prompt.cuda(), n_steps)
+    if kfl.launches - before != cfg.n_layers:
+        raise AssertionError(f"lm_parity: {kfl.launches - before} flash "
+                             f"launches on the card, {cfg.n_layers} expected")
+    errs = [max_abs_diff([g.cpu()], [c]) for g, c in zip(lg_g, lg_c)]
+    for i, (g, c) in enumerate(zip(lg_g, lg_c)):
+        if not torch.allclose(g.cpu(), c, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"lm_parity: logits of call {i} differ by "
+                                 f"{errs[i]} (tolerance 1e-4)")
+    if not torch.equal(tk_g.cpu(), tk_c):
+        raise AssertionError("lm_parity: greedy tokens differ")
+    emit({"phase": "lm_parity", "model": cfg.name, "n_layers": cfg.n_layers,
+          "dtype": cfg.dtype, "batch": batch, "prompt_len": prompt_len,
+          "decode_steps": n_steps, "prefill_max_abs_err": errs[0],
+          "decode_max_abs_err": max(errs[1:]), "tol": 1e-4,
+          "tokens_equal": True, "tokens_request0": tk_c[0].tolist()})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nyx", type=int, default=512,
@@ -491,6 +763,12 @@ def main(argv=None) -> int:
                     help="edge of the cubic field of phase 4")
     ap.add_argument("--reps", type=int, default=10,
                     help="timed launches per kernel (median reported)")
+    ap.add_argument("--lm-batch", type=int, default=8,
+                    help="requests of the phase-5 LM serving run")
+    ap.add_argument("--lm-prompt", type=int, default=2048,
+                    help="prompt tokens per request (smollm's context)")
+    ap.add_argument("--lm-steps", type=int, default=32,
+                    help="greedy decode steps after the prefill")
     args = ap.parse_args(argv)
 
     import torch
@@ -499,6 +777,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.data import synthetic_field
+    from repro_torch.device import full_precision_matmuls
     from repro_torch.kernels import _build
 
     smi = subprocess.run(
@@ -506,12 +785,15 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    emit({"phase": "matmul_flags", **full_precision_matmuls()})
     build_s = _build.build_all()
     emit({"phase": "build", "seconds": build_s,
           "ptxas": _build.ptxas_summary()})
 
     phase_kernels_small(seed=0)
     phase_pack_small(seed=7)
+    phase_flash_small(seed=11)
+    flash_timing = phase_flash_main(args.reps, seed=13)
 
     climate_shape = tuple(int(s) for s in args.climate.split("x"))
     fields = [("nyx", synthetic_field("nyx", (args.nyx,) * 3)),
@@ -531,18 +813,28 @@ def main(argv=None) -> int:
 
     phase_parity(args.parity)
 
+    launches["flash"] = phase_lm_serve(args.lm_batch, args.lm_prompt,
+                                       args.lm_steps, seed=0)
+    phase_lm_parity(seed=1)
+
+    # each kernel's row: its times at its main-path shape (nyx for the
+    # MSS kernels, the 8 x 2048 prefill for flash), its largest error
+    # over every main-path shape it was timed at
+    rows = dict(timing["nyx"], flash=flash_timing[FLASH_MAIN[0][:2]])
+    errs = {name: [timing[k][name]["max_abs_err"] for k in timing]
+            for name in timing["nyx"]}
+    errs["flash"] = [r["max_abs_err"] for r in flash_timing.values()]
     kernels = []
     for name in COUNTERS:
-        t = timing["nyx"][name]
+        t = rows[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{SOURCE[name]}.cu",
             "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max(timing[k][name]["max_abs_err"]
-                               for k in timing),
+            "max_abs_err": max(errs[name]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
+            "library_ms": t.get("library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

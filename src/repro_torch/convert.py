@@ -1,8 +1,8 @@
 """State carried across between ``repro`` and ``repro_torch``.
 
-MSz has no weights: its state is the original field's topology and the
-compressed artifact. Both cross as plain Python data, so neither package
-imports the other:
+The codec has no weights: its state is the original field's topology
+and the compressed artifact. Both cross as plain Python data, so neither
+package imports the other:
 
 * ``topo_from_numpy`` turns a ``FieldTopo`` given as a dict of numpy
   arrays (``{k: np.asarray(v) for k, v in topo._asdict().items()}`` on
@@ -10,6 +10,11 @@ imports the other:
 * ``artifact_to_dict`` / ``artifact_from_dict`` move a
   ``CompressedArtifact`` as the dict ``dataclasses.asdict`` gives, so
   each side decodes the other's artifacts.
+
+The LM's state is its parameter dict; ``params_from_numpy`` and
+``params_to_numpy`` carry it across as float32 numpy arrays (the
+reference's bf16 weights widen to f32 and narrow back losslessly), with
+no dependency on ``ml_dtypes``.
 """
 from __future__ import annotations
 
@@ -17,10 +22,12 @@ import dataclasses
 from typing import Mapping
 
 import numpy as np
+import torch
 
 from .compress.preserve import CompressedArtifact
 from .core.fixes import FieldTopo
-from .device import DeviceLike, _h2d, resolve_device
+from .device import DeviceLike, _d2h, _h2d, resolve_device
+from .models.config import ArchConfig
 
 
 def topo_from_numpy(arrays: Mapping[str, np.ndarray],
@@ -55,4 +62,32 @@ def artifact_from_dict(d: Mapping) -> CompressedArtifact:
     return CompressedArtifact(**kw)
 
 
-__all__ = ["topo_from_numpy", "artifact_to_dict", "artifact_from_dict"]
+def params_from_numpy(tree: Mapping, cfg: ArchConfig,
+                      device: DeviceLike = None) -> dict:
+    """The port's parameter dict from the reference's, given as a nested
+    dict of float32 numpy arrays (e.g. ``jax.tree.map(lambda a:
+    np.asarray(a.astype(jnp.float32)), params)``), as tensors in
+    ``cfg.dtype`` on ``device``."""
+    dev = resolve_device(device)
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def conv(node):
+        if isinstance(node, Mapping):
+            return {k: conv(v) for k, v in node.items()}
+        a = np.asarray(node)
+        if a.dtype != np.float32:
+            raise TypeError(f"params_from_numpy: float32 arrays, got "
+                            f"{a.dtype}")
+        return _h2d(a, dev).to(dt)
+    return conv(tree)
+
+
+def params_to_numpy(params: Mapping) -> dict:
+    """The inverse of ``params_from_numpy``: a nested dict of float32
+    numpy arrays."""
+    return {k: params_to_numpy(v) if isinstance(v, Mapping)
+            else _d2h(v.float()) for k, v in params.items()}
+
+
+__all__ = ["topo_from_numpy", "artifact_to_dict", "artifact_from_dict",
+           "params_from_numpy", "params_to_numpy"]

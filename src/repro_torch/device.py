@@ -28,6 +28,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def full_precision_matmuls() -> dict:
+    """Set the process-wide matmul flags the LM path's numerics assume and
+    return them: no TF32 for f32 GEMMs or convolutions, and bf16 GEMMs
+    reduce in f32, as the reference's XLA dots do (PyTorch's default lets
+    cuBLAS reduce bf16 GEMMs in bf16). The serving factories call it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return {"cuda.matmul.allow_tf32": False, "cudnn.allow_tf32": False,
+            "cuda.matmul.allow_bf16_reduced_precision_reduction": False}
+
+
 _TORCH_DTYPES = {
     "float32": torch.float32,
     "float64": torch.float64,

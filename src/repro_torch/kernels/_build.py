@@ -9,9 +9,11 @@ so an edited source rebuilds and an unchanged one loads as it is.
 
 The C entry points return ``cudaGetLastError()`` after the launch; the
 wrappers raise on anything but 0. Pointers and the stream cross as
-``ctypes.c_void_p``, ints as ``ctypes.c_int``. No flag relaxes IEEE
-arithmetic (no ``--use_fast_math``): the kernels must match their plain
-versions bit for bit.
+``ctypes.c_void_p``, ints as ``ctypes.c_int``, floats as
+``ctypes.c_float``. No flag relaxes IEEE arithmetic (no
+``--use_fast_math``): the stencil and pack kernels must match their plain
+versions bit for bit, and the flash kernel within a stated tolerance (it
+sums in another order).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("extrema", "fixpass", "lorenzo", "pack")
+SOURCES = ("extrema", "fixpass", "lorenzo", "pack", "flash")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -119,12 +121,14 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def entry(lib: ctypes.CDLL, symbol: str, n_ptr: int, n_int: int):
+def entry(lib: ctypes.CDLL, symbol: str, n_ptr: int, n_int: int,
+          n_float: int):
     """A C entry point of ``lib`` taking ``n_ptr`` pointers, ``n_int``
-    ints and the stream, returning an int error code."""
+    ints, ``n_float`` floats and the stream, in that order, returning an
+    int error code."""
     fn = getattr(lib, symbol)
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float] * n_float + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

@@ -104,7 +104,7 @@ def extrema_masks_plain(g, M_f, m_f, is_max_f, is_min_f, geo: Geometry,
 def _entry(dtype):
     lib = _build.load("extrema")
     sym = "msz_extrema_f32" if dtype == torch.float32 else "msz_extrema_f64"
-    return _build.entry(lib, sym, 10, 10)
+    return _build.entry(lib, sym, 10, 10, 0)
 
 
 def extrema_masks(g: torch.Tensor, M_f: torch.Tensor, m_f: torch.Tensor,

@@ -86,7 +86,7 @@ def fix_pass_plain(g, lower, self_edit, demote_src, promote_src, up_code_g,
 def _entry(dtype):
     lib = _build.load("fixpass")
     sym = "msz_fixpass_f32" if dtype == torch.float32 else "msz_fixpass_f64"
-    return _build.entry(lib, sym, 10, 10)
+    return _build.entry(lib, sym, 10, 10, 0)
 
 
 def fix_pass(g: torch.Tensor, lower: torch.Tensor, self_edit: torch.Tensor,

@@ -48,7 +48,7 @@ def lorenzo_quant_plain(f: torch.Tensor, step: torch.Tensor,
 def _entry(dtype):
     lib = _build.load("lorenzo")
     sym = "msz_lorenzo_f32" if dtype == torch.float32 else "msz_lorenzo_f64"
-    return _build.entry(lib, sym, 3, 6)
+    return _build.entry(lib, sym, 3, 6, 0)
 
 
 def lorenzo_quant(f: torch.Tensor, step: torch.Tensor, *,

@@ -288,12 +288,12 @@ def pack_codes(r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
         return torch.empty(0, dtype=torch.int32, device=dev), bits, 0
     lib = _build.load("pack")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(_build.entry(lib, "msz_pack_widths", 2, 1)(
+    _build.check(_build.entry(lib, "msz_pack_widths", 2, 1, 0)(
         r.data_ptr(), bits.data_ptr(), n, stream), "pack_codes (widths)")
     offsets, total = _offsets(bits, wpp)
     n_words = int(total)
     words = torch.empty(n_words, dtype=torch.int32, device=dev)
-    _build.check(_build.entry(lib, "msz_pack_planes", 4, 1)(
+    _build.check(_build.entry(lib, "msz_pack_planes", 4, 1, 0)(
         r.data_ptr(), bits.data_ptr(), offsets.data_ptr(), words.data_ptr(),
         n, stream), "pack_codes (planes)")
     pack_launches += 1
@@ -328,7 +328,7 @@ def unpack_codes(words: torch.Tensor, bits: torch.Tensor,
     offsets, _ = _offsets(bits, words_per_plane())
     lib = _build.load("pack")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(_build.entry(lib, "msz_unpack", 4, 1)(
+    _build.check(_build.entry(lib, "msz_unpack", 4, 1, 0)(
         words.data_ptr(), bits.data_ptr(), offsets.data_ptr(),
         out.data_ptr(), n, stream), "unpack_codes")
     unpack_launches += 1

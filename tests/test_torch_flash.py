@@ -1,0 +1,222 @@
+"""The port's flash attention against ``repro``'s.
+
+* ``kernels.flash.flash_attention_plain`` (what the CUDA kernel computes)
+  against the Pallas kernel ``flash_attention_pallas`` in interpret mode,
+  f32 and bf16 inputs, causal and not;
+* ``models.layers.flash_attention`` against the reference's jnp oracle
+  ``repro.models.layers.flash_attention``, with the window, logit-softcap
+  and query-offset cases that stay on the chunked path, and its routing
+  to the kernel;
+* ``models.layers.decode_attention`` against the reference's.
+
+Tolerances: f32 2e-5 (the reference's own kernel test); the plain
+version against the Pallas kernel, and the CUDA kernel against the plain
+version, in bf16 rtol 2^-7 with atol 1e-5 (both compute in f32 and round
+once, so they differ by at most one bf16 ulp); the port against
+the oracle in bf16 3e-2 (the reference's own bf16 tolerance: the oracle
+rounds p to bf16 before p . v, the kernel keeps it in f32).
+
+On the CPU the wrapper runs its plain version; the CUDA kernel is held
+against it by the test that needs a GPU (skipped without one) and by
+``chip_smoke.py``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash import flash_attention_pallas
+from repro.models import layers as jlayers
+from repro_torch.kernels import flash as tflash
+from repro_torch.models import layers as tlayers
+
+#: the reference's ``tests/test_flash_kernel.py`` CASES, plus smollm-135m's
+#: heads: (B, S, H, Hk, Dh, q_block, k_block)
+CASES = [
+    (2, 64, 4, 2, 16, 32, 32),
+    (1, 128, 8, 8, 32, 64, 32),
+    (2, 96, 6, 3, 8, 32, 48),
+    (1, 64, 2, 1, 64, 64, 64),
+    (2, 128, 9, 3, 64, 128, 128),
+]
+
+#: (rtol, atol): in bf16 one ulp, 2^-7 of the value (atol covers outputs
+#: near 0)
+TOL_KERNEL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-5)}
+TOL_ORACLE = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _qkv(seed, B, S, T, H, Hk, Dh):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, H, Dh)).astype(np.float32),
+            rng.normal(size=(B, T, Hk, Dh)).astype(np.float32),
+            rng.normal(size=(B, T, Hk, Dh)).astype(np.float32))
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a jnp array and a torch tensor of ``dtype`` (bf16
+    rounds once, on the JAX side, and crosses as exact f32)."""
+    j = jnp.asarray(a, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    t = torch.from_numpy(np.array(j.astype(jnp.float32)))
+    return j, t.to(getattr(torch, dtype))
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", CASES)
+def test_plain_matches_pallas_kernel(case, causal, dtype):
+    B, S, H, Hk, Dh, qb, kb = case
+    arrs = _qkv(sum(case), B, S, S, H, Hk, Dh)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in arrs)
+    want = flash_attention_pallas(qj, kj, vj, causal=causal, q_block=qb,
+                                  k_block=kb, interpret=True)
+    got = tflash.flash_attention_plain(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and tuple(got.shape) == (B, S, H, Dh)
+    rtol, atol = TOL_KERNEL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
+
+
+def test_bf16_kernel_tolerance_rejects_p_rounded_to_bf16():
+    """The one-ulp bf16 tolerance can fail: the reference's oracle, which
+    rounds p to bf16 before p . v as SDPA does, falls outside it."""
+    B, S, H, Hk, Dh = 2, 128, 9, 3, 64
+    arrs = _qkv(1, B, S, S, H, Hk, Dh)
+    q, k, v = (_pair(a, "bfloat16")[0] for a in arrs)
+    kernel = flash_attention_pallas(q, k, v, causal=True, q_block=128,
+                                    k_block=128, interpret=True)
+    oracle = jlayers.flash_attention(q, k, v, causal=True, q_chunk=64,
+                                     k_chunk=64)
+    rtol, atol = TOL_KERNEL["bfloat16"]
+    assert not np.allclose(_np(oracle), _np(kernel), rtol=rtol, atol=atol)
+
+
+def test_plain_blocks_and_ragged_tails_agree():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(3, 2, 100, 100, 6, 2, 32))
+    a = tflash.flash_attention_plain(q, k, v, q_block=256, k_block=256)
+    b = tflash.flash_attention_plain(q, k, v, q_block=24, k_block=40)
+    torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+    # S != T, non-causal: every query sees every key
+    q, k, v = (torch.from_numpy(a) for a in _qkv(4, 1, 40, 72, 4, 2, 16))
+    got = tflash.flash_attention_plain(q, k, v, causal=False, q_block=16,
+                                       k_block=32)
+    ref = torch.softmax(torch.einsum(
+        "bshd,bthd->bhst", q * tflash.softmax_scale(16),
+        k.repeat_interleave(2, dim=2)), -1)
+    ref = torch.einsum("bhst,bthd->bshd", ref, v.repeat_interleave(2, dim=2))
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
+
+
+def test_softmax_scale_is_rounded_to_f32_once():
+    for dh in (16, 64, 128, 96):
+        assert tflash.softmax_scale(dh) == float(np.float32(dh ** -0.5))
+
+
+def test_wrapper_on_cpu_runs_plain_and_launches_nothing():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(5, 1, 64, 64, 4, 2, 16))
+    before = tflash.launches
+    got = tflash.flash_attention(q, k, v, causal=True)
+    assert tflash.launches == before
+    assert torch.equal(got, tflash.flash_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("shapes", [
+    ((1, 8, 4, 16), (1, 8, 3, 16), (1, 8, 3, 16)),     # 4 heads over 3
+    ((1, 8, 4, 16), (2, 8, 2, 16), (2, 8, 2, 16)),     # batch differs
+    ((1, 8, 4, 16), (1, 8, 2, 32), (1, 8, 2, 32)),     # head width differs
+    ((1, 8, 4, 16), (1, 8, 2, 16), (1, 9, 2, 16)),     # k and v differ
+])
+def test_wrapper_rejects_bad_shapes(shapes):
+    q, k, v = (torch.zeros(s) for s in shapes)
+    with pytest.raises(ValueError):
+        tflash.flash_attention(q, k, v)
+
+
+# --- models.layers.flash_attention against the jnp oracle -------------------
+
+ORACLE_CASES = [
+    # (B, S, T, H, Hk, Dh), kwargs, q_chunk, k_chunk
+    ((2, 64, 64, 4, 2, 16), dict(causal=True), 512, 1024),
+    ((2, 96, 96, 6, 3, 16), dict(causal=True), 32, 48),
+    ((1, 64, 64, 4, 4, 32), dict(causal=False), 32, 32),
+    ((2, 128, 128, 9, 3, 64), dict(causal=True, window=1 << 30), 64, 64),
+    ((2, 64, 64, 4, 2, 16), dict(causal=True, window=16), 32, 32),
+    ((1, 64, 64, 4, 2, 16), dict(causal=False, window=8), 16, 32),
+    ((2, 64, 64, 4, 2, 16), dict(causal=True, logit_softcap=50.0), 32, 32),
+    ((2, 32, 64, 4, 2, 16), dict(causal=True, q_offset=32), 16, 32),
+    ((1, 48, 64, 4, 1, 32), dict(causal=True, q_offset=16, window=24,
+                                 logit_softcap=30.0), 16, 16),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ORACLE_CASES,
+                         ids=[str(c[1]) + str(c[0]) for c in ORACLE_CASES])
+def test_layers_flash_attention_matches_oracle(case, dtype):
+    (B, S, T, H, Hk, Dh), kw, qc, kc = case
+    arrs = _qkv(B * S + T + Dh, B, S, T, H, Hk, Dh)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in arrs)
+    want = jlayers.flash_attention(qj, kj, vj, q_chunk=qc, k_chunk=kc, **kw)
+    got = tlayers.flash_attention(qt, kt, vt, q_chunk=qc, k_chunk=kc, **kw)
+    assert got.dtype == qt.dtype and tuple(got.shape) == (B, S, H, Dh)
+    tol = TOL_ORACLE[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kw,routed", [
+    (dict(), True),
+    (dict(causal=False), True),
+    (dict(window=1 << 30), True),
+    (dict(window=64), True),                 # a window of T masks nothing
+    (dict(window=63), False),
+    (dict(logit_softcap=50.0), False),
+    (dict(q_offset=8), False),
+])
+def test_layers_flash_attention_routes_plain_attention_to_the_kernel(
+        monkeypatch, kw, routed):
+    calls = []
+    real = tflash.flash_attention
+
+    def spy(q, k, v, *, causal=True):
+        calls.append(causal)
+        return real(q, k, v, causal=causal)
+    monkeypatch.setattr(tflash, "flash_attention", spy)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(6, 1, 64, 64, 4, 2, 16))
+    tlayers.flash_attention(q, k, v, **kw)
+    assert calls == ([kw.get("causal", True)] if routed else [])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kw", [dict(), dict(window=5),
+                                dict(logit_softcap=50.0)])
+def test_decode_attention_matches_reference(dtype, kw):
+    B, T, H, Hk, Dh, t = 2, 24, 6, 2, 16, 17
+    rng = np.random.default_rng(9)
+    arrs = (rng.normal(size=(B, 1, H, Dh)).astype(np.float32),
+            rng.normal(size=(B, T, Hk, Dh)).astype(np.float32),
+            rng.normal(size=(B, T, Hk, Dh)).astype(np.float32))
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in arrs)
+    want = jlayers.decode_attention(qj, kj, vj, jnp.int32(t), **kw)
+    got = tlayers.decode_attention(qt, kt, vt, t, **kw)
+    tol = TOL_ORACLE[dtype] if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def test_cuda_kernel_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol, atol = TOL_KERNEL[str(dtype).split(".")[-1]]
+        for causal in (True, False):
+            q, k, v = (torch.from_numpy(a).to("cuda", dtype)
+                       for a in _qkv(8, 2, 200, 200, 9, 3, 64))
+            before = tflash.launches
+            got = tflash.flash_attention(q, k, v, causal=causal)
+            assert tflash.launches == before + 1
+            want = tflash.flash_attention_plain(q, k, v, causal=causal)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=rtol, atol=atol)

@@ -45,7 +45,8 @@ def test_port_imports_neither_jax_nor_repro():
 def test_importing_kernels_builds_nothing(tmp_path):
     code = ("import os, repro_torch.kernels.extrema, "
             "repro_torch.kernels.fixpass, repro_torch.kernels.lorenzo, "
-            "repro_torch.kernels.pack, repro_torch.core; print(os.listdir(os.environ["
+            "repro_torch.kernels.pack, repro_torch.kernels.flash, "
+            "repro_torch.models, repro_torch.core; print(os.listdir(os.environ["
             "'REPRO_TORCH_BUILD_DIR']) if os.path.isdir(os.environ["
             "'REPRO_TORCH_BUILD_DIR']) else [])")
     env = _env()
