@@ -8,10 +8,14 @@ Phases, each asserting (any failure exits non-zero):
 1. card: ``nvidia-smi`` name and power limit; the matmul precision flags
    (TF32 off, bf16 GEMMs reduce in f32); build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a) into ``build/``,
-   one nvcc per source, all at once.
+   one nvcc per source, all at once; count the tensor-core (HMMA)
+   instructions of the flash library's bf16 variants with ``cuobjdump``
+   (none fails the run) beside ptxas's registers and spills.
 2. kernels against their plain PyTorch versions on the card: 2D and 3D,
    float32 and float64, ragged shapes, a tie-heavy field and a tile with
-   a non-zero origin, all bitwise; the pack/unpack kernels on adversarial
+   a non-zero origin, all bitwise; the fix pass on dense adversarial
+   inputs (every pull direction busy, degenerate planes, shapes off its
+   tile, tiles at a non-zero origin); the pack/unpack kernels on adversarial
    code arrays and 10^6 full-range random codes; then each kernel at the
    main-path shapes (its inputs taken from the real first fix iteration,
    the real residual codes and their packed stream), compared bitwise
@@ -19,9 +23,11 @@ Phases, each asserting (any failure exits non-zero):
    kernel against its plain version in f32 and bf16, causal and not,
    ragged S, S != T and head widths 16..128, within a stated tolerance
    (bf16: one ulp, rtol 2^-7), then at the prefill shapes (8 x 2048 and
-   1 x 32768 of smollm-135m's 9/3 heads of 64), timed beside its plain
-   version and ``scaled_dot_product_attention`` (timed only; the port
-   never calls it), whose bf16 rounding of p must fail that tolerance.
+   1 x 32768 of smollm-135m's 9/3 heads of 64) and at granite-8b's heads
+   of 128 (2 x 4096), timed beside its plain version and
+   ``scaled_dot_product_attention`` (timed only; the port never calls
+   it), whose bf16 rounding of p must fail that tolerance at the prefill
+   shapes.
 3. the main path at full size: ``compress_preserving_mss`` ->
    ``decompress_preserving_mss`` -> ``verify_preservation`` on the nyx
    512^3 float32 field and the climate 1800x3600 field, once with
@@ -157,6 +163,30 @@ def kernel_inputs(f, xi: float, g):
     return topo, masks
 
 
+def tile_of(shape, tile) -> tuple:
+    """(slices, kernel tile arguments) of ``tile`` = (z0, z1, y0, y1, x0,
+    x1) of a field of ``shape`` (2D fields ignore y0, y1)."""
+    z0, z1, y0, y1, x0, x1 = tile
+    if len(shape) == 3:
+        return ((slice(z0, z1), slice(y0, y1), slice(x0, x1)),
+                dict(slab_lo=z0, row_lo=y0, col_lo=x0,
+                     n_slabs_total=shape[0], n_rows_total=shape[1],
+                     n_cols_total=shape[2]))
+    return ((slice(z0, z1), slice(x0, x1)),
+            dict(slab_lo=z0, col_lo=x0, n_slabs_total=shape[0],
+                 n_cols_total=shape[1]))
+
+
+def tile_geometry(shape, tkw: dict):
+    """The kernels' geometry of a tensor of ``shape`` placed by ``tkw``."""
+    from repro_torch.kernels import stencil
+    return stencil.geometry(tuple(shape), tkw.get("slab_lo", 0),
+                            tkw.get("row_lo", 0), tkw.get("col_lo", 0),
+                            tkw.get("n_slabs_total"),
+                            tkw.get("n_rows_total"),
+                            tkw.get("n_cols_total"))
+
+
 def check_case(label: str, f, xi: float, g, tile=None) -> None:
     """All three kernels against their plain versions on one input;
     ``tile`` = (z0, z1, y0, y1, x0, x1) runs them on a tile of it placed
@@ -169,22 +199,10 @@ def check_case(label: str, f, xi: float, g, tile=None) -> None:
     fix = (g, topo.lower, masks[2], masks[3], masks[4], masks[0], topo.dn_c)
     tkw = {}
     if tile is not None:
-        z0, z1, y0, y1, x0, x1 = tile
-        if g.ndim == 3:
-            sl = (slice(z0, z1), slice(y0, y1), slice(x0, x1))
-            tkw = dict(slab_lo=z0, row_lo=y0, col_lo=x0,
-                       n_slabs_total=g.shape[0], n_rows_total=g.shape[1],
-                       n_cols_total=g.shape[2])
-        else:
-            sl = (slice(z0, z1), slice(x0, x1))
-            tkw = dict(slab_lo=z0, col_lo=x0, n_slabs_total=g.shape[0],
-                       n_cols_total=g.shape[1])
+        sl, tkw = tile_of(tuple(g.shape), tile)
         ext = tuple(t[sl].contiguous() for t in ext)
         fix = tuple(t[sl].contiguous() for t in fix)
-    geo = kx.geometry(tuple(ext[0].shape), tkw.get("slab_lo", 0),
-                      tkw.get("row_lo", 0), tkw.get("col_lo", 0),
-                      tkw.get("n_slabs_total"), tkw.get("n_rows_total"),
-                      tkw.get("n_cols_total"))
+    geo = tile_geometry(ext[0].shape, tkw)
     got = kx.extrema_masks(*ext, **tkw)
     assert_equal(f"extrema {label}", got, kx.extrema_masks_plain(*ext, geo))
     got = kf.fix_pass(*fix, **tkw)
@@ -221,6 +239,61 @@ def phase_kernels_small(seed: int) -> None:
                 tile = ((5, 30, 7, 40, 3, 50) if len(shape) == 3
                         else (17, 90, 0, 0, 33, 200))
                 check_case(label + "-tile", ft, xi, gt, tile)
+
+
+#: shapes of the dense fix-pass cases: degenerate planes, shapes that are
+#: not multiples of the kernel's tile, and rows whose width is a multiple
+#: of 4 (its 16-byte path), in 3D, in 3D with one-row planes, and in 2D
+FIX_DENSE_SHAPES = ((3, 1, 5), (2, 2, 2), (37, 45, 61), (16, 33, 128),
+                    (9, 1, 64), (1, 7), (5, 4), (123, 257), (45, 1028))
+
+#: (field shape, tile) of the dense cases placed at a non-zero origin on
+#: every axis; the second of each pair has rows of a multiple of 4
+FIX_DENSE_TILES = (((37, 45, 61), (5, 30, 7, 40, 3, 50)),
+                   ((20, 40, 136), (3, 17, 5, 38, 4, 132)),
+                   ((123, 257), (17, 90, 0, 0, 33, 200)),
+                   ((60, 1032), (7, 50, 0, 0, 8, 1024)))
+
+
+def dense_fix_inputs(shape, dtype, rng) -> list:
+    """Fix-pass inputs on the card with every pull direction busy:
+    self_edit, demote_src and promote_src 0/1 at 50 %, codes uniform in
+    [-1, K), and lower above g at about a sixth of the vertices."""
+    import torch
+    n_dirs = 14 if len(shape) == 3 else 6
+    g = rng.normal(size=shape).astype(dtype)
+    lower = (g + rng.uniform(-1.0, 0.2, size=shape)).astype(dtype)
+    masks = [(rng.random(shape) < 0.5).astype(np.int32) for _ in range(3)]
+    codes = [rng.integers(-1, n_dirs, size=shape).astype(np.int32)
+             for _ in range(2)]
+    return [torch.from_numpy(x).cuda() for x in (g, lower, *masks, *codes)]
+
+
+def phase_fixpass_dense(seed: int) -> None:
+    """The fix-pass kernel against its plain version, bitwise, on dense
+    adversarial inputs, whole and as tiles at a non-zero origin."""
+    import torch
+    from repro_torch.kernels import fixpass as kf
+    rng = np.random.default_rng(seed)
+    cases = [(shape, None) for shape in FIX_DENSE_SHAPES]
+    cases += list(FIX_DENSE_TILES)
+    for dtype in (np.float32, np.float64):
+        for shape, tile in cases:
+            ins = dense_fix_inputs(shape, dtype, rng)
+            tkw = {}
+            if tile is not None:
+                sl, tkw = tile_of(shape, tile)
+                ins = [t[sl].contiguous() for t in ins]
+            geo = tile_geometry(ins[0].shape, tkw)
+            label = f"fixpass dense {shape}" + (f" tile {tile}" if tile
+                                                 else "")
+            got = kf.fix_pass(*ins, **tkw)
+            assert_equal(label, got, kf.fix_pass_plain(*ins, geo))
+            torch.cuda.synchronize()
+            emit({"phase": "kernels_vs_plain", "case": label,
+                  "shape": list(ins[0].shape),
+                  "dtype": str(np.dtype(dtype)), "targets": int(got[2].sum()),
+                  "bitwise": True})
 
 
 def adversarial_codes(seed: int) -> dict:
@@ -519,6 +592,10 @@ FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-5)}
 #: sequence at the repo's prefill_32k length
 FLASH_MAIN = ((8, 2048, 9, 3, 64), (1, 32768, 9, 3, 64))
 
+#: a head width of 128, timed beside the prefill shapes: granite-8b's 32/8
+#: heads (deepseek-coder-33b's width too) over 2 x 4096 tokens
+FLASH_WIDE = ((2, 4096, 32, 8, 128),)
+
 
 def _dtype_name(dt) -> str:
     return str(dt).split(".")[-1]
@@ -573,6 +650,21 @@ def phase_flash_small(seed: int) -> None:
                   "rtol_atol": FLASH_TOL[_dtype_name(dtype)]})
 
 
+def phase_sass() -> None:
+    """The built flash library's SASS: each bf16 variant must issue
+    tensor-core instructions (HMMA); the fix-pass and flash kernels'
+    registers and spills beside it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash as kfl
+    hmma = _build.sass_counts("flash", "HMMA")
+    bf16 = {fn: n for fn, n in hmma.items() if "flash_bf16_mma" in fn}
+    emit({"phase": "sass", "source": "flash", "hmma": hmma,
+          "ptxas": _build.ptxas_summary(("flash", "fixpass"))})
+    if len(bf16) != len(kfl.HEAD_DIMS) or not all(bf16.values()):
+        raise AssertionError(f"flash: the bf16 variants issue no HMMA: "
+                             f"{bf16}")
+
+
 def flash_bound(B, S, T, H, Hk, Dh, itemsize: int) -> tuple:
     """(bound_ms, bound_by, flops, bytes) of one causal attention forward:
     the larger of the unmasked (q, k) pairs' 4 Dh FLOPs each over the
@@ -587,14 +679,14 @@ def flash_bound(B, S, T, H, Hk, Dh, itemsize: int) -> tuple:
 
 
 def phase_flash_main(reps: int, seed: int) -> dict:
-    """The kernel at the prefill shapes, bf16 causal: checked against the
-    plain version, then timed beside it and beside one
-    ``scaled_dot_product_attention`` call (the yardstick)."""
+    """The kernel at the prefill shapes and at ``FLASH_WIDE``, bf16
+    causal: checked against the plain version, then timed beside it and
+    beside one ``scaled_dot_product_attention`` call (the yardstick)."""
     import torch
     from repro_torch.kernels import flash as kfl
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = {}
-    for B, S, H, Hk, Dh in FLASH_MAIN:
+    for B, S, H, Hk, Dh in FLASH_MAIN + FLASH_WIDE:
         q, k, v = flash_inputs(B, S, S, H, Hk, Dh, torch.bfloat16, gen)
         err, want = check_flash(f"main {(B, S, H, Hk, Dh)}", q, k, v, True)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -602,9 +694,11 @@ def phase_flash_main(reps: int, seed: int) -> dict:
         lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
         lib = lib.transpose(1, 2)
         lib_err = max_abs_diff([lib], [want])
-        # SDPA rounds p to bf16 before p . v: the check must tell it from
-        # the kernel, or it could not catch a kernel that did the same
-        if within_flash_tol(lib, want):
+        lib_ok = within_flash_tol(lib, want)
+        # SDPA rounds p to bf16 before p . v: at the prefill shapes the
+        # check must tell it from the kernel, or it could not catch a
+        # kernel that did the same
+        if lib_ok and (B, S, H, Hk, Dh) in FLASH_MAIN:
             raise AssertionError(f"flash main {(B, S)}: SDPA passes the "
                                  "kernel's tolerance; the check is too weak")
         del lib, want
@@ -618,14 +712,14 @@ def phase_flash_main(reps: int, seed: int) -> dict:
         rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=library_ms)
-        out[(B, S)] = rec
+        out[(B, S, H, Hk, Dh)] = rec
         emit({"phase": "kernel_timing", "kernel": "flash",
               "shape": [B, S, H, Hk, Dh], "dtype": "bfloat16",
               "causal": True, "kernel_ms": ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "flops": flops, "bytes": nbytes,
               "tflops": flops / ms / 1e9, "max_abs_err": err,
-              "library_max_abs_err": lib_err, "library_within_tol": False})
+              "library_max_abs_err": lib_err, "library_within_tol": lib_ok})
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return out
@@ -789,8 +883,10 @@ def main(argv=None) -> int:
     build_s = _build.build_all()
     emit({"phase": "build", "seconds": build_s,
           "ptxas": _build.ptxas_summary()})
+    phase_sass()
 
     phase_kernels_small(seed=0)
+    phase_fixpass_dense(seed=3)
     phase_pack_small(seed=7)
     phase_flash_small(seed=11)
     flash_timing = phase_flash_main(args.reps, seed=13)
@@ -820,10 +916,10 @@ def main(argv=None) -> int:
     # each kernel's row: its times at its main-path shape (nyx for the
     # MSS kernels, the 8 x 2048 prefill for flash), its largest error
     # over every main-path shape it was timed at
-    rows = dict(timing["nyx"], flash=flash_timing[FLASH_MAIN[0][:2]])
+    rows = dict(timing["nyx"], flash=flash_timing[FLASH_MAIN[0]])
     errs = {name: [timing[k][name]["max_abs_err"] for k in timing]
             for name in timing["nyx"]}
-    errs["flash"] = [r["max_abs_err"] for r in flash_timing.values()]
+    errs["flash"] = [flash_timing[s]["max_abs_err"] for s in FLASH_MAIN]
     kernels = []
     for name in COUNTERS:
         t = rows[name]

@@ -38,13 +38,22 @@ from typing import Dict, NamedTuple, Union
 
 import torch
 
-from ..kernels.fixpass import halve_toward_lower as _halve_toward_lower
 from . import grid
 
 __all__ = ["FalseMasks", "false_critical_masks", "trouble_masks",
            "StencilMasks", "ReferenceBackend", "CudaBackend",
            "register_backend", "available_backends", "get_backend",
            "resolve_backend", "_halve_toward_lower", "_pull"]
+
+
+def _halve_toward_lower(g: torch.Tensor, lower: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """``kernels.fixpass.halve_toward_lower``, imported when called: a
+    module-level import would close the cycle kernels -> core.grid ->
+    core -> backend -> kernels, and a kernel module imported first would
+    fail."""
+    from ..kernels.fixpass import halve_toward_lower
+    return halve_toward_lower(g, lower, mask)
 
 
 class FalseMasks(NamedTuple):

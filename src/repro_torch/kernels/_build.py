@@ -98,14 +98,45 @@ def build_all(names: Sequence[str] = SOURCES) -> float:
 
 def ptxas_summary(names: Sequence[str] = SOURCES) -> Dict[str, list]:
     """Per source, the ptxas lines of its last build that report
-    registers, shared memory and spills (``-Xptxas -v``)."""
+    registers, shared memory and spills (``-Xptxas -v``), each after the
+    (mangled) name of its kernel."""
     out = {}
     for n in names:
         log = _lib_path(n).with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
-        out[n] = [ln.split("ptxas info    : ")[-1] for ln in lines
-                  if "Used" in ln or "spill" in ln]
+        fn, rows = "", []
+        for ln in lines:
+            text = ln.split("ptxas info    : ")[-1].strip()
+            if text.startswith("Function properties for "):
+                fn = text[len("Function properties for "):]
+            elif "Used" in text or "spill" in text:
+                rows.append(f"{fn}: {text}")
+        out[n] = rows
     return out
+
+
+def sass_counts(name: str, opcode: str) -> Dict[str, int]:
+    """Per kernel function of ``csrc/<name>.cu``'s built library, how
+    many of its SASS instructions are ``opcode`` (any variant, e.g.
+    ``HMMA`` counts ``HMMA.16816.F32.BF16``), from ``cuobjdump -sass``."""
+    build_all((name,))
+    tool = Path(nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    ops: Dict[str, list] = {}
+    fn = None
+    for line in text.splitlines():
+        head = line.strip()
+        if head.startswith("Function :"):
+            fn = head.split(":", 1)[1].strip()
+            ops[fn] = []
+        elif fn is not None and "*/" in head:
+            words = head.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):      # a predicate
+                words = words[1:]
+            if words:
+                ops[fn].append(words[0].split(".")[0])
+    return {f: op_list.count(opcode) for f, op_list in ops.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -11,15 +11,21 @@ the product, scores and p stay in f32 for the p . v product, ``l`` is
 floored at 1e-37, and the result is cast to q's type once at the end.
 
 What bounds it on an H100: operations (the causal 8 x 2048 prefill of
-smollm-135m is 3.87e10 FLOPs against 50 MB moved). The kernel computes in
-f32 on the CUDA cores, one block per (batch * head, 64 query rows), with a
-loop over 64-key K/V tiles in shared memory that stops at the diagonal;
-see the note at the head of ``csrc/flash.cu``.
+smollm-135m is 3.87e10 FLOPs against 50 MB moved; 0.039 ms on the tensor
+cores). bf16, the LM path's type, runs on the tensor cores (``mma.sync``
+bf16 tiles, K/V by ``cp.async`` into a two-stage ring, the online softmax
+in registers) and keeps f32 accuracy by splitting the f32 operands, the
+scaled q and p, into bf16 hi and lo parts whose products are exact; f32
+runs on the CUDA cores. Both take one block per (batch * head, 64 query
+rows) and loop over 64-key K/V tiles that stop at the diagonal; see the
+note at the head of ``csrc/flash.cu`` for the design and its numbers.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -35,6 +41,7 @@ HEAD_DIMS = (16, 32, 64, 128)
 Q_ROWS = 64
 
 
+@functools.lru_cache(maxsize=None)
 def softmax_scale(head_dim: int) -> float:
     """``head_dim ** -0.5`` rounded to float32 once, as the Pallas kernel
     receives it; the kernel gets this value as its ``float`` argument."""
@@ -101,6 +108,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def _entry(dtype):
     lib = _build.load("flash")
     sym = "msz_flash_f32" if dtype == torch.float32 else "msz_flash_bf16"
@@ -143,6 +151,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernel copies rows 16 bytes at a time
+        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
+                   for x in (q, k, v))
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(_entry(q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

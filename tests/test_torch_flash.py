@@ -7,7 +7,10 @@
   ``repro.models.layers.flash_attention``, with the window, logit-softcap
   and query-offset cases that stay on the chunked path, and its routing
   to the kernel;
-* ``models.layers.decode_attention`` against the reference's.
+* ``models.layers.decode_attention`` against the reference's;
+* the bf16 CUDA kernel's split-bf16 arithmetic (q' and p as bf16 hi +
+  lo, products summed in f32), emulated in plain torch, against the
+  Pallas kernel, and the same with p_hi alone failing the tolerance.
 
 Tolerances: f32 2e-5 (the reference's own kernel test); the plain
 version against the Pallas kernel, and the CUDA kernel against the plain
@@ -93,6 +96,79 @@ def test_bf16_kernel_tolerance_rejects_p_rounded_to_bf16():
                                      k_chunk=64)
     rtol, atol = TOL_KERNEL["bfloat16"]
     assert not np.allclose(_np(oracle), _np(kernel), rtol=rtol, atol=atol)
+
+
+def _split_bf16(x: torch.Tensor):
+    """f32 x as bf16 hi = bf16(x) and lo = bf16(x - hi), held in f32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _split_bf16_attention(q, k, v, causal, p_lo=True):
+    """The arithmetic of the bf16 tensor-core kernel, in plain torch: q'
+    = f32(q) * scale split in bf16 hi and lo, s = q_hi . k + q_lo . k
+    (bf16 products, exact in f32, summed in f32), the online softmax in
+    f32 over 64-key tiles, p split in bf16 hi and lo for p . v (only hi
+    when ``p_lo`` is False, as a kernel that rounds p to bf16 would), one
+    rounding to bf16 at the end."""
+    B, S, H, Dh = q.shape
+    T, G = k.shape[1], H // k.shape[2]
+    q_hi, q_lo = _split_bf16(q.float() * tflash.softmax_scale(Dh))
+    kf, vf = (x.float().repeat_interleave(G, dim=2) for x in (k, v))
+    s = (torch.einsum("bshd,bthd->bhst", q_hi, kf)
+         + torch.einsum("bshd,bthd->bhst", q_lo, kf))
+    if causal:
+        s = s.masked_fill(torch.arange(S)[:, None] < torch.arange(T), -np.inf)
+    m = torch.full((B, H, S), -np.inf)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, Dh))
+    for j0 in range(0, T, 64):
+        sj = s[..., j0:j0 + 64]
+        m_new = torch.maximum(m, sj.amax(-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(torch.isfinite(sj), torch.exp(sj - m_safe[..., None]),
+                        0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * corr + p.sum(-1)
+        p_hi, p_rest = _split_bf16(p)
+        pv = torch.einsum("bhst,bthd->bhsd", p_hi, vf[:, j0:j0 + 64])
+        if p_lo:
+            pv = pv + torch.einsum("bhst,bthd->bhsd", p_rest,
+                                   vf[:, j0:j0 + 64])
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-37)[..., None]
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", CASES)
+def test_split_bf16_arithmetic_meets_kernel_tolerance(case, causal):
+    """The bf16 kernel's split-bf16 products, emulated on the CPU, stay
+    within one bf16 ulp of the Pallas kernel."""
+    B, S, H, Hk, Dh, qb, kb = case
+    arrs = _qkv(sum(case) + 1, B, S, S, H, Hk, Dh)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in arrs)
+    want = flash_attention_pallas(qj, kj, vj, causal=causal, q_block=qb,
+                                  k_block=kb, interpret=True)
+    got = _split_bf16_attention(qt, kt, vt, causal)
+    rtol, atol = TOL_KERNEL["bfloat16"]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
+
+
+def test_bf16_kernel_tolerance_rejects_p_hi_alone():
+    """The same arithmetic with p rounded to bf16 (p_hi alone) fails the
+    one-ulp tolerance: the p_lo product is what keeps the kernel in it."""
+    B, S, H, Hk, Dh = 2, 128, 9, 3, 64
+    arrs = _qkv(1, B, S, S, H, Hk, Dh)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in arrs)
+    kernel = flash_attention_pallas(qj, kj, vj, causal=True, q_block=128,
+                                    k_block=128, interpret=True)
+    rtol, atol = TOL_KERNEL["bfloat16"]
+    both = _split_bf16_attention(qt, kt, vt, True)
+    assert np.allclose(_np(both), _np(kernel), rtol=rtol, atol=atol)
+    hi_only = _split_bf16_attention(qt, kt, vt, True, p_lo=False)
+    assert not np.allclose(_np(hi_only), _np(kernel), rtol=rtol, atol=atol)
 
 
 def test_plain_blocks_and_ragged_tails_agree():

@@ -57,6 +57,17 @@ def test_importing_kernels_builds_nothing(tmp_path):
     assert proc.stdout.strip() == "[]"
 
 
+@pytest.mark.parametrize("module", ["extrema", "fixpass", "lorenzo", "pack",
+                                    "flash", "stencil", "_build"])
+def test_each_kernel_module_imports_first(module):
+    """A kernel module imported before anything else of the port imports
+    cleanly (no cycle through ``repro_torch.core``)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import repro_torch.kernels.{module}"],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
