@@ -15,8 +15,12 @@ Phases, each asserting (any failure exits non-zero):
    float32 and float64, ragged shapes, a tie-heavy field and a tile with
    a non-zero origin, all bitwise; the fix pass on dense adversarial
    inputs (every pull direction busy, degenerate planes, shapes off its
-   tile, tiles at a non-zero origin); the pack/unpack kernels on adversarial
-   code arrays and 10^6 full-range random codes; then each kernel at the
+   tile, tiles at a non-zero origin); the extrema and Lorenzo kernels
+   over the same shapes and tiles on constant, quarter-rounded and
+   random fields, on inputs one element off a 16-byte boundary (their
+   one-vertex path), and Lorenzo at the device path's range limit; the
+   pack/unpack kernels on adversarial code arrays and 10^6 full-range
+   random codes; then each kernel at the
    main-path shapes (its inputs taken from the real first fix iteration,
    the real residual codes and their packed stream), compared bitwise
    and timed with CUDA events beside its plain version. The flash
@@ -187,32 +191,41 @@ def tile_geometry(shape, tkw: dict):
                             tkw.get("n_cols_total"))
 
 
+def check_stencil(label: str, f, ext, tkw: dict, step: float) -> None:
+    """extrema and lorenzo against their plain versions, bitwise, on one
+    input placed by ``tkw``: ``ext`` the extrema inputs, ``f`` the field
+    the Lorenzo kernel quantizes with ``step``."""
+    import torch
+    from repro_torch.kernels import extrema as kx, lorenzo as kl
+    geo = tile_geometry(ext[0].shape, tkw)
+    assert_equal(f"extrema {label}", kx.extrema_masks(*ext, **tkw),
+                 kx.extrema_masks_plain(*ext, geo))
+    lo = tkw.get("slab_lo", 0)
+    step_t = torch.tensor(step, dtype=f.dtype, device=f.device)
+    want = kl.lorenzo_quant_plain(f, step_t, kl.geometry(tuple(f.shape), lo))
+    assert_equal(f"lorenzo {label}",
+                 [kl.lorenzo_quant(f, step_t, slab_lo=lo)], [want])
+
+
 def check_case(label: str, f, xi: float, g, tile=None) -> None:
     """All three kernels against their plain versions on one input;
     ``tile`` = (z0, z1, y0, y1, x0, x1) runs them on a tile of it placed
     at a non-zero origin."""
     import torch
-    from repro_torch.kernels import extrema as kx, fixpass as kf
-    from repro_torch.kernels import lorenzo as kl
+    from repro_torch.kernels import fixpass as kf
     topo, masks = kernel_inputs(f, xi, g)
     ext = (g, topo.M, topo.m, topo.is_max, topo.is_min)
     fix = (g, topo.lower, masks[2], masks[3], masks[4], masks[0], topo.dn_c)
     tkw = {}
     if tile is not None:
         sl, tkw = tile_of(tuple(g.shape), tile)
+        f = f[sl].contiguous()
         ext = tuple(t[sl].contiguous() for t in ext)
         fix = tuple(t[sl].contiguous() for t in fix)
-    geo = tile_geometry(ext[0].shape, tkw)
-    got = kx.extrema_masks(*ext, **tkw)
-    assert_equal(f"extrema {label}", got, kx.extrema_masks_plain(*ext, geo))
+    check_stencil(label, f, ext, tkw, 2 * xi)
+    geo = tile_geometry(fix[0].shape, tkw)
     got = kf.fix_pass(*fix, **tkw)
     assert_equal(f"fixpass {label}", got, kf.fix_pass_plain(*fix, geo))
-    step = torch.tensor(2 * xi, dtype=f.dtype, device=f.device)
-    fl = f if tile is None else f[sl].contiguous()
-    lo = tkw.get("slab_lo", 0)
-    got = kl.lorenzo_quant(fl, step, slab_lo=lo)
-    want = kl.lorenzo_quant_plain(fl, step, kl.geometry(tuple(fl.shape), lo))
-    assert_equal(f"lorenzo {label}", [got], [want])
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "case": label,
           "shape": list(ext[0].shape), "dtype": str(f.dtype).split(".")[-1],
@@ -293,6 +306,104 @@ def phase_fixpass_dense(seed: int) -> None:
             emit({"phase": "kernels_vs_plain", "case": label,
                   "shape": list(ins[0].shape),
                   "dtype": str(np.dtype(dtype)), "targets": int(got[2].sum()),
+                  "bitwise": True})
+
+
+#: field kinds of the dense extrema and Lorenzo cases: every value equal,
+#: values on a quarter grid (plateaus and ties everywhere), and random
+STENCIL_KINDS = ("constant", "quarter", "random")
+
+
+def dense_stencil_inputs(shape, dtype, kind: str, rng) -> tuple:
+    """(f, extrema inputs) on the card for one dense case: g of ``kind``,
+    labels M_f/m_f drawn from {0, 1, 2} (so a winner's label matches its
+    vertex's about a third of the time) and the extremum masks at 50 %;
+    f is g's kind too, for the Lorenzo kernel."""
+    import torch
+    if kind == "constant":
+        f = np.full(shape, 1.25)
+        g = np.full(shape, -0.25)
+    else:
+        f, g = rng.normal(size=shape) * 8, rng.normal(size=shape)
+        if kind == "quarter":
+            f, g = np.round(f * 4) / 4, np.round(g * 4) / 4
+    labels = [rng.integers(0, 3, size=shape).astype(np.int32)
+              for _ in range(2)]
+    masks = [rng.random(shape) < 0.5 for _ in range(2)]
+    ext = [torch.from_numpy(x).cuda()
+           for x in (g.astype(dtype), *labels, *masks)]
+    return torch.from_numpy(f.astype(dtype)).cuda(), ext
+
+
+def offset_copy(t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary, so the kernels refuse their 16-byte path."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def phase_stencil_dense(seed: int) -> None:
+    """The extrema and Lorenzo kernels against their plain versions,
+    bitwise, over the dense fix-pass shapes and tiles in f32 and f64, on
+    tie-heavy and random fields; inputs one element off a 16-byte
+    boundary (the one-vertex path); Lorenzo at the device path's range
+    limit."""
+    import torch
+    from repro_torch.compress import szlike
+    from repro_torch.kernels import lorenzo as kl
+    rng = np.random.default_rng(seed)
+    cases = [(shape, None) for shape in FIX_DENSE_SHAPES]
+    cases += list(FIX_DENSE_TILES)
+    for dtype in (np.float32, np.float64):
+        for shape, tile in cases:
+            for kind in STENCIL_KINDS:
+                f, ext = dense_stencil_inputs(shape, dtype, kind, rng)
+                tkw = {}
+                if tile is not None:
+                    sl, tkw = tile_of(shape, tile)
+                    f = f[sl].contiguous()
+                    ext = [t[sl].contiguous() for t in ext]
+                label = f"dense {kind} {shape}" + (f" tile {tile}" if tile
+                                                   else "")
+                # quarter-grid values over 0.5 round half to even at odd
+                # quarters
+                check_stencil(label, f, ext, tkw, 0.5)
+            torch.cuda.synchronize()
+            emit({"phase": "kernels_vs_plain",
+                  "case": f"extrema+lorenzo dense {shape}"
+                          + (f" tile {tile}" if tile else ""),
+                  "shape": list(ext[0].shape), "dtype": str(np.dtype(dtype)),
+                  "kinds": list(STENCIL_KINDS), "bitwise": True})
+        for shape in ((16, 33, 128), (45, 1028)):
+            f, ext = dense_stencil_inputs(shape, dtype, "quarter", rng)
+            f, ext = offset_copy(f), [offset_copy(t) for t in ext]
+            check_stencil(f"offset {shape}", f, ext, {}, 0.5)
+            torch.cuda.synchronize()
+            emit({"phase": "kernels_vs_plain",
+                  "case": f"extrema+lorenzo off 16-byte alignment {shape}",
+                  "shape": list(shape), "dtype": str(np.dtype(dtype)),
+                  "bitwise": True})
+        for shape in ((37, 45, 61), (123, 257)):
+            # max|f| / xi just under the range limit, reached at one vertex
+            xi = 0.75
+            amax = 0.999 * szlike.device_range_limit(dtype) * xi
+            f_np = rng.uniform(-amax, amax, size=shape).astype(dtype)
+            f_np.reshape(-1)[rng.integers(f_np.size)] = -amax
+            szlike.check_int32_range(f_np, xi)
+            f = torch.from_numpy(f_np).cuda()
+            step = torch.tensor(szlike.effective_step(f_np, xi),
+                                dtype=f.dtype, device="cuda")
+            got = kl.lorenzo_quant(f, step)
+            want = kl.lorenzo_quant_plain(f, step,
+                                          kl.geometry(tuple(shape)))
+            assert_equal(f"lorenzo range limit {shape}", [got], [want])
+            emit({"phase": "kernels_vs_plain",
+                  "case": f"lorenzo range limit {shape}",
+                  "shape": list(shape), "dtype": str(np.dtype(dtype)),
+                  "max_abs_residual": int(got.abs().max()),
                   "bitwise": True})
 
 
@@ -652,14 +763,15 @@ def phase_flash_small(seed: int) -> None:
 
 def phase_sass() -> None:
     """The built flash library's SASS: each bf16 variant must issue
-    tensor-core instructions (HMMA); the fix-pass and flash kernels'
+    tensor-core instructions (HMMA); the flash and stencil kernels'
     registers and spills beside it."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash as kfl
     hmma = _build.sass_counts("flash", "HMMA")
     bf16 = {fn: n for fn, n in hmma.items() if "flash_bf16_mma" in fn}
     emit({"phase": "sass", "source": "flash", "hmma": hmma,
-          "ptxas": _build.ptxas_summary(("flash", "fixpass"))})
+          "ptxas": _build.ptxas_summary(("flash", "fixpass", "extrema",
+                                         "lorenzo"))})
     if len(bf16) != len(kfl.HEAD_DIMS) or not all(bf16.values()):
         raise AssertionError(f"flash: the bf16 variants issue no HMMA: "
                              f"{bf16}")
@@ -887,6 +999,7 @@ def main(argv=None) -> int:
 
     phase_kernels_small(seed=0)
     phase_fixpass_dense(seed=3)
+    phase_stencil_dense(seed=5)
     phase_pack_small(seed=7)
     phase_flash_small(seed=11)
     flash_timing = phase_flash_main(args.reps, seed=13)

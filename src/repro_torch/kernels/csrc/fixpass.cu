@@ -31,11 +31,11 @@
 // one-vertex halo: dcode = demote_src ? up_code_g : NONE in the low
 // nibble, pcode = promote_src ? dn_code_f : NONE in the high one (codes
 // 0..13, NONE = 15). A cell outside the tile or the global domain holds
-// NONE, so it never pulls, as stencil.cuh's inside() says. A ring of four
-// planes lets one __syncthreads a plane separate the load of z + 1 from
-// the tests of z, and each plane of codes is read from device memory once
-// a run (plus the two halo planes of the run and the tile's halo, which
-// its neighbours read too and L2 mostly serves). Each test of plane z
+// NONE, so it never pulls. A ring of four planes lets one __syncthreads
+// a plane separate the load of z + 1 from the tests of z, and each plane
+// of codes is read from device memory once a run (plus the two halo
+// planes of the run and the tile's halo, which its neighbours read too
+// and L2 mostly serves). Each test of plane z
 // reads 14 (3D) or 6 (2D) bytes of shared memory, with no branch and no
 // early exit. Indices within a plane are 32-bit, from blockIdx and
 // threadIdx with one division a block; a plane's base is 64-bit, once a
@@ -62,25 +62,9 @@ __device__ __forceinline__ double halve(double g, double lo) {
   return nw < lo ? lo : nw;
 }
 
-constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kNone = 15;          // a nibble that pulls nothing
 constexpr uint8_t kNoneByte = 0xFF;     // a cell that pulls nothing
-// blocks a launch aims at: about 4 waves of 8 blocks on 132 SMs
-constexpr long long kTargetBlocks = 4LL * 8 * 132;
-
-// (dz, dy, dx) of stencil direction k: stencil.cuh's OFF3 / OFF2, as
-// constants the pull test folds into its shared-memory offsets
-template <int K>
-__host__ __device__ constexpr int stencil_off(int k, int c) {
-  constexpr int o3[14][3] = {
-      {0, 0, 1},  {0, 0, -1},  {0, 1, 0},  {0, -1, 0},  {1, 0, 0},
-      {-1, 0, 0}, {0, 1, 1},   {0, -1, -1}, {1, 0, 1},  {-1, 0, -1},
-      {1, 1, 0},  {-1, -1, 0}, {1, 1, 1},  {-1, -1, -1}};
-  constexpr int o2[6][3] = {{0, 0, 1}, {0, 0, -1}, {1, 0, 0},
-                            {-1, 0, 0}, {1, 0, 1}, {-1, 0, -1}};
-  return K == 14 ? o3[k][c] : o2[k][c];
-}
 
 // One byte of pulls: dcode in the low nibble, pcode in the high one.
 template <int K>
@@ -111,53 +95,6 @@ __device__ __forceinline__ bool pulled(const uint8_t* zm, const uint8_t* z0,
   }
 }
 
-// V consecutive values from p (16-byte aligned when V == 4)
-template <int V>
-__device__ __forceinline__ void load_v(const int* p, int (&r)[V]) {
-  if constexpr (V == 4) {
-    const int4 a = __ldg(reinterpret_cast<const int4*>(p));
-    r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
-  } else {
-    r[0] = __ldg(p);
-  }
-}
-template <int V>
-__device__ __forceinline__ void load_v(const float* p, float (&r)[V]) {
-  if constexpr (V == 4) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
-  } else {
-    r[0] = *p;
-  }
-}
-template <int V>
-__device__ __forceinline__ void load_v(const double* p, double (&r)[V]) {
-  if constexpr (V == 4) {
-    const double2 a = reinterpret_cast<const double2*>(p)[0];
-    const double2 b = reinterpret_cast<const double2*>(p)[1];
-    r[0] = a.x; r[1] = a.y; r[2] = b.x; r[3] = b.y;
-  } else {
-    r[0] = *p;
-  }
-}
-template <int V>
-__device__ __forceinline__ void store_v(float* p, const float (&r)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
-  } else {
-    *p = r[0];
-  }
-}
-template <int V>
-__device__ __forceinline__ void store_v(double* p, const double (&r)[V]) {
-  if constexpr (V == 4) {
-    reinterpret_cast<double2*>(p)[0] = make_double2(r[0], r[1]);
-    reinterpret_cast<double2*>(p)[1] = make_double2(r[2], r[3]);
-  } else {
-    *p = r[0];
-  }
-}
-
 // the four arrays a pull reads, at a source vertex
 struct Srcs {
   const int* dem;
@@ -165,12 +102,6 @@ struct Srcs {
   const int* upg;
   const int* dnf;
 };
-
-// Whether (ly, lx) lies inside the tile's plane and the global domain.
-__device__ __forceinline__ bool in_plane(const Geo& s, int ly, int lx) {
-  return ly >= 0 && ly < s.ny && lx >= 0 && lx < s.nx && s.y0 + ly >= 0 &&
-         s.y0 + ly < s.NY && s.x0 + lx >= 0 && s.x0 + lx < s.NX;
-}
 
 template <typename T, int K, int V, int TY>
 __global__ void __launch_bounds__(kThreads) fixpass_tile(
@@ -210,7 +141,7 @@ __global__ void __launch_bounds__(kThreads) fixpass_tile(
   // promote_src values at this thread's own vertices.
   auto load = [&](int zl, uint8_t* sl, int& dp) {
     const bool zloc = zl >= 0 && zl < s.nz;
-    const bool zok = zloc && s.z0 + zl >= 0 && s.z0 + zl < s.N;
+    const bool zok = in_z(s, zl);
     const long long base = (long long)zl * plane;
     if (own && zloc) {
       const int i = y * s.nx + x;
@@ -314,22 +245,11 @@ int launch_tile(const T* g, const T* low, const int* se, Srcs src, T* g_out,
   // at most one tile a vertex, so within grid.x as the plane is 32-bit
   const long long tiles =
       (long long)((s.nx + TX - 1) / TX) * ((s.ny + TY - 1) / TY);
-  // planes a block marches over: enough blocks to fill the card, at
-  // least 4 a run so its two halo planes stay a small share, and at most
-  // 65535 runs (the grid's y limit)
-  long long zrun = ((long long)s.nz * tiles + kTargetBlocks - 1) /
-                   kTargetBlocks;
-  zrun = zrun < 4 ? 4 : zrun;
-  zrun = zrun < (s.nz + 65534LL) / 65535 ? (s.nz + 65534LL) / 65535 : zrun;
-  zrun = zrun > s.nz ? s.nz : zrun;
+  const int zrun = z_run(s.nz, tiles);
   const dim3 grid((unsigned)tiles, (unsigned)((s.nz + zrun - 1) / zrun));
   fixpass_tile<T, K, V, TY><<<grid, kThreads, 0, st>>>(
-      g, low, se, src, g_out, viol, tgt, s, (int)zrun);
+      g, low, se, src, g_out, viol, tgt, s, zrun);
   return (int)cudaGetLastError();
-}
-
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 template <typename T>

@@ -34,15 +34,11 @@ import torch
 
 from ..core.grid import shift
 from . import _build
-from .stencil import (Geometry, check_cuda_args, geometry, neighbor_ok,
-                      slab_chunks, slab_offsets, sub_geometry)
+from .stencil import (Geometry, check_cuda_args, check_plane, geometry,
+                      neighbor_ok, slab_chunks, slab_offsets, sub_geometry)
 
 #: kernel launches so far (one per wrapper call on a CUDA tensor)
 launches = 0
-
-#: the largest slab plane the kernel takes: its in-plane indices are
-#: 32-bit (its C entry point refuses a larger plane too)
-_MAX_PLANE = 2 ** 31 - 1
 
 
 def halve_toward_lower(g: torch.Tensor, lower: torch.Tensor,
@@ -121,9 +117,7 @@ def fix_pass(g: torch.Tensor, lower: torch.Tensor, self_edit: torch.Tensor,
         raise ValueError(f"fix_pass: unsupported device {g.device}")
     if g.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"fix_pass: float32/float64 field, got {g.dtype}")
-    if geo.ny * geo.nx > _MAX_PLANE:
-        raise ValueError(f"fix_pass: a slab plane of {geo.ny * geo.nx} "
-                         f"vertices exceeds the kernel's {_MAX_PLANE}")
+    check_plane("fix_pass", geo)
     i32 = torch.int32
     dev = check_cuda_args("fix_pass", list(args),
                           [g.dtype, g.dtype] + [i32] * 5, g.shape)

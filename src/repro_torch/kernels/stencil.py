@@ -1,4 +1,5 @@
-"""Geometry shared by the three kernels' wrappers and plain versions.
+"""Geometry shared by the three stencil kernels' wrappers and plain
+versions.
 
 A field is walked as (nz, ny, nx): a 3D field (Z, Y, X) as it is, a 2D
 field (Y, X) as (Y, 1, X) with its stencil offsets (dy, dx) mapped to
@@ -117,6 +118,18 @@ def slab_chunks(geo: Geometry, chunk: Optional[int], halo: int):
     for z0 in range(0, geo.nz, chunk):
         z1 = min(z0 + chunk, geo.nz)
         yield z0, z1, max(z0 - halo, 0), min(z1 + halo, geo.nz)
+
+
+#: the largest slab plane the tile kernels take: their in-plane indices
+#: are 32-bit (their C entry points refuse a larger plane too)
+MAX_PLANE = 2 ** 31 - 1
+
+
+def check_plane(what: str, geo: Geometry) -> None:
+    """Raise when a slab plane of ``geo`` exceeds ``MAX_PLANE``."""
+    if geo.ny * geo.nx > MAX_PLANE:
+        raise ValueError(f"{what}: a slab plane of {geo.ny * geo.nx} "
+                         f"vertices exceeds the kernel's {MAX_PLANE}")
 
 
 def check_cuda_args(what: str, tensors, dtypes, shape) -> torch.device:

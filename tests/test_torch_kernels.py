@@ -18,6 +18,7 @@ from repro.core import mss_labels, self_code, steepest_dirs
 from repro.kernels.extrema import extrema_masks_pallas
 from repro.kernels.fixpass import fix_pass_pallas
 from repro.kernels.lorenzo import lorenzo_quant_pallas
+from repro_torch.compress import szlike
 from repro_torch.convert import topo_from_numpy
 from repro_torch.core import backend as tbackend
 from repro_torch.core import fixes as tfixes
@@ -221,7 +222,13 @@ def test_fixpass_dense_tile_origin_matches_pallas(shape, tile):
 
 # --- Lorenzo ---------------------------------------------------------------
 
-@pytest.mark.parametrize("shape,dtype", CASES + [((3, 1, 5), np.float32)])
+#: the degenerate shapes of the dense fix-pass cases, beside CASES
+LORENZO_DEGENERATE = [((3, 1, 5), np.float32), ((2, 2, 2), np.float64),
+                      ((1, 7), np.float32), ((5, 4), np.float64),
+                      ((9, 1, 64), np.float32)]
+
+
+@pytest.mark.parametrize("shape,dtype", CASES + LORENZO_DEGENERATE)
 def test_lorenzo_plain_matches_pallas(shape, dtype):
     f, _, _ = setup(shape, dtype, seed=3)
     f = (f * 50).astype(dtype)
@@ -251,6 +258,27 @@ def test_lorenzo_tile_origin(shape):
     assert np.array_equal(got[1:], tile[1:])
     # at the true domain edge (slab_lo=0 on the first slab) it is exact too
     assert np.array_equal(kl.lorenzo_quant(t(f), t(step)).numpy(), full)
+
+
+@pytest.mark.parametrize("shape", [(6, 5, 7), (9, 8)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_lorenzo_at_range_limit_matches_pallas(shape, dtype):
+    """max|f| / xi just under ``check_int32_range``'s limit (2^21 in f32,
+    2^28 in f64), at the step the compressor uses: the quotients reach
+    2^20 / 2^27 and the residuals several times that, bitwise."""
+    rng = np.random.default_rng(len(shape))
+    xi = 0.75
+    amax = 0.999 * szlike.device_range_limit(dtype) * xi
+    f = rng.uniform(-amax, amax, size=shape).astype(dtype)
+    f.reshape(-1)[0] = -amax
+    szlike.check_int32_range(f, xi)
+    step = np.asarray(szlike.effective_step(f, xi), dtype)
+    with jax.enable_x64(dtype == np.float64):
+        want = np.asarray(lorenzo_quant_pallas(jnp.asarray(f), step,
+                                               interpret=True))
+    got = kl.lorenzo_quant(t(f), t(step)).numpy()
+    assert np.array_equal(got, want)
+    assert np.abs(got).max() > 0.4 * amax / float(step)
 
 
 def test_lorenzo_rejects_python_float_step():
