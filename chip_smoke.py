@@ -19,11 +19,18 @@ Phases, each asserting (any failure exits non-zero):
    over the same shapes and tiles on constant, quarter-rounded and
    random fields, on inputs one element off a 16-byte boundary (their
    one-vertex path), and Lorenzo at the device path's range limit; the
-   pack/unpack kernels on adversarial code arrays and 10^6 full-range
-   random codes; then each kernel at the
-   main-path shapes (its inputs taken from the real first fix iteration,
-   the real residual codes and their packed stream), compared bitwise
-   and timed with CUDA events beside its plain version. The flash
+   pack/unpack kernels on adversarial code arrays, 10^6 full-range
+   random codes, 2^17 chunks of widths 0, 1, 31 and 32 (many waves of
+   blocks through the look-back), one chunk, one code, n one off a
+   multiple of 1024, codes and words one element off a 16-byte
+   boundary, and the four bad streams, each of which must raise
+   ValueError with the card decoding a good stream after it; then each
+   kernel at the main-path shapes (its inputs taken from the real first
+   fix iteration, the real residual codes and their packed stream),
+   compared bitwise and timed with CUDA events beside its plain version
+   (pack and unpack also as the kernel entry alone, launched back to
+   back, and every timed call checked bitwise against the first). The
+   flash
    kernel against its plain version in f32 and bf16, causal and not,
    ragged S, S != T and head widths 16..128, within a stated tolerance
    (bf16: one ulp, rtol 2^-7), then at the prefill shapes (8 x 2048 and
@@ -135,6 +142,43 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def cuda_time_checked_ms(fn, same, reps: int) -> float:
+    """Median milliseconds of ``reps`` CUDA-event-timed ``fn()`` calls
+    after one warm-up call, each call's result checked with
+    ``same(result)`` after its timed span (a race shows as a
+    difference)."""
+    import torch
+    fn()
+    times = []
+    for i in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        if not same(out):
+            raise AssertionError(f"timed call {i} differs from the first")
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def back_to_back_ms(fn, launches: int) -> float:
+    """Milliseconds per call of ``launches`` back-to-back ``fn()`` calls
+    between two CUDA events (one warm-up call first): the device time of
+    a launch whenever the host enqueues faster than the card runs."""
+    import torch
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(launches):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / launches
 
 
 def max_abs_diff(xs, ys) -> float:
@@ -456,31 +500,119 @@ def check_pack(label: str, r) -> tuple:
     return words, bits, n_words, err
 
 
+def mixed_width_codes(n: int, seed: int):
+    """``n`` int32 codes on the card whose chunks take widths drawn from
+    {0, 1, 31, 32}, and those widths: each chunk's zigzag values are
+    uniform below 2^b, with bit b - 1 set in its first code so that its
+    width is exactly b."""
+    import torch
+    from repro_torch.kernels import pack as kp
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_chunks = -(-n // kp.CHUNK)
+    choice = torch.tensor([0, 1, 31, 32], device="cuda")
+    b = choice[torch.randint(0, 4, (n_chunks,), generator=gen,
+                             device="cuda")]
+    u = torch.randint(0, 2 ** 32, (n_chunks, kp.CHUNK), generator=gen,
+                      dtype=torch.int64, device="cuda")
+    one = torch.ones_like(b)
+    u &= ((one << b) - 1)[:, None]
+    u[:, 0] |= torch.where(b > 0, one << (b - 1).clamp(min=0), 0)
+    return kp.unzigzag(u.reshape(-1)[:n]), b.to(torch.int32)
+
+
+def check_bad_streams(seed: int) -> list:
+    """The four bad streams of ``tests/test_torch_pack.py`` (a width table
+    one chunk short, a width of 33, one word short, 32 words over) must
+    raise ValueError on the card, and the card must decode a good
+    stream bitwise after each."""
+    import torch
+    from repro_torch.kernels import pack as kp
+    codes = torch.from_numpy(adversarial_codes(seed)["mixed_chunks"]).cuda()
+    words, bits, _ = kp.pack_codes(codes)
+    wide = bits.clone()
+    wide[1] = 33
+    bad = {"n_chunks": (words, bits[:-1]),
+           "width": (words, wide),
+           "short": (words[:-1].clone(), bits),
+           "long": (torch.cat([words, torch.zeros(32, dtype=torch.int32,
+                                                  device="cuda")]), bits)}
+    raised = []
+    for label, (w, b) in bad.items():
+        try:
+            kp.unpack_codes(w, b, tuple(codes.shape))
+        except ValueError:
+            raised.append(label)
+        else:
+            raise AssertionError(f"unpack: the {label!r} bad stream decoded")
+        torch.cuda.synchronize()
+        if not torch.equal(kp.unpack_codes(words, bits, tuple(codes.shape)),
+                           codes):
+            raise AssertionError(f"unpack after the {label!r} bad stream: "
+                                 "the card no longer decodes")
+    return raised
+
+
 def phase_pack_small(seed: int) -> None:
     import torch
+    from repro_torch.kernels import pack as kp
     for label, codes in adversarial_codes(seed).items():
         r = torch.from_numpy(codes).cuda()
         _, _, n_words, _ = check_pack(label, r)
         emit({"phase": "kernels_vs_plain", "case": f"pack-{label}",
               "shape": list(codes.shape), "dtype": "int32",
               "n_words": n_words, "bitwise": True})
+    # many waves of blocks (2^17 chunks, the last one ragged), one chunk,
+    # one code, and n one off a multiple of CHUNK on either side
+    C = kp.CHUNK
+    for label, n in (("multi-wave", 2 ** 17 * C - 5), ("one-chunk", C),
+                     ("one-code", 1), ("chunks-minus-one", 4096 * C - 1),
+                     ("chunks-plus-one", 4096 * C + 1)):
+        r, widths = mixed_width_codes(n, seed + n)
+        _, bits, n_words, _ = check_pack(label, r)
+        if not torch.equal(bits, widths):
+            raise AssertionError(f"pack {label}: widths differ from the "
+                                 "drawn ones")
+        emit({"phase": "kernels_vs_plain", "case": f"pack-{label}",
+              "shape": [n], "dtype": "int32", "n_chunks": int(bits.numel()),
+              "widths": sorted(set(bits.tolist())), "n_words": n_words,
+              "bitwise": True})
+        del r, bits, widths
+        torch.cuda.empty_cache()
+    # codes and words one element off a 16-byte boundary (the kernels'
+    # 4-byte paths)
+    for label, n in (("mixed_chunks", 0), ("chunks-plus-one", 4096 * C + 1)):
+        r = (torch.from_numpy(adversarial_codes(seed)[label]).cuda() if not n
+             else mixed_width_codes(n, seed + n)[0])
+        words, bits, n_words, _ = check_pack(f"offset {label}",
+                                             offset_copy(r))
+        back = kp.unpack_codes(offset_copy(words), bits, tuple(r.shape))
+        if not torch.equal(back, r):
+            raise AssertionError(f"unpack offset {label}: differs")
+        emit({"phase": "kernels_vs_plain",
+              "case": f"pack+unpack off 16-byte alignment {label}",
+              "shape": list(r.shape), "dtype": "int32", "n_words": n_words,
+              "bitwise": True})
+    emit({"phase": "kernels_vs_plain", "case": "unpack bad streams",
+          "raised_value_error": check_bad_streams(seed)})
 
 
 def pack_bound(n: int, n_words: int) -> tuple:
     """(pack bound_ms, unpack bound_ms): bytes over the HBM rate. pack
     reads 4 B a code and writes the words and the int32 widths; unpack
-    reads the words and one byte of width a chunk and writes 4 B a
-    code."""
+    reads the words and the int32 widths and writes 4 B a code."""
     n_chunks = -(-n // 1024)
     pack_b = 4 * n + 4 * n_words + 4 * n_chunks
-    unpack_b = 4 * n_words + n_chunks + 4 * n
+    unpack_b = 4 * n_words + 4 * n_chunks + 4 * n
     return (pack_b / HBM_BYTES_PER_S * 1e3, unpack_b / HBM_BYTES_PER_S * 1e3)
 
 
 def phase_pack_main(f_np, xi: float, reps: int) -> dict:
     """pack and unpack at a main-path shape: the field's real residual
     codes and their packed stream, bitwise against the plain versions,
-    then timed."""
+    then timed: whole wrapper calls (``kernel_ms``), each checked
+    bitwise against the first, and the kernel entry alone on
+    preallocated buffers, 5 x ``reps`` launches back to back
+    (``device_ms``)."""
     import torch
     from repro_torch.compress import szlike
     from repro_torch.kernels import lorenzo as kl, pack as kp
@@ -491,25 +623,48 @@ def phase_pack_main(f_np, xi: float, reps: int) -> dict:
     del f
     words, bits, n_words, err = check_pack(f"main-path {tuple(r.shape)}",
                                            r)
+    words = words.clone()
     shape = tuple(r.shape)
     bounds = dict(zip(("pack", "unpack"), pack_bound(r.numel(), n_words)))
+    n_chunks = bits.numel()
+    w_buf = torch.empty(n_chunks * kp.CHUNK, dtype=torch.int32,
+                        device="cuda")
+    b_buf = torch.empty_like(bits)
+    scratch = torch.empty(kp.scratch_size(n_chunks), dtype=torch.int64,
+                          device="cuda")
+    out = torch.empty_like(r)
     calls = {
-        "pack": (lambda: kp.pack_codes(r), lambda: kp.pack_codes_plain(r)),
+        "pack": (lambda: kp.pack_codes(r),
+                 lambda o: o[2] == n_words and torch.equal(o[0], words)
+                 and torch.equal(o[1], bits),
+                 lambda: kp.launch_pack(r, w_buf, b_buf, scratch),
+                 lambda: torch.equal(w_buf[:n_words], words)
+                 and torch.equal(b_buf, bits),
+                 lambda: kp.pack_codes_plain(r)),
         "unpack": (lambda: kp.unpack_codes(words, bits, shape),
+                   lambda o: torch.equal(o, r),
+                   lambda: kp.launch_unpack(words, bits, out, scratch),
+                   lambda: torch.equal(out, r),
                    lambda: kp.unpack_codes_plain(words, bits, shape)),
     }
     results = {}
-    for name, (kern, plain) in calls.items():
-        ms = cuda_time_ms(kern, reps)
+    for name, (kern, same, entry, entry_ok, plain) in calls.items():
+        ms = cuda_time_checked_ms(kern, same, reps)
+        device_ms = back_to_back_ms(entry, 5 * reps)
+        if not entry_ok():
+            raise AssertionError(f"{name} {shape}: the kernel entry's "
+                                 "output differs from the wrapper's")
         plain_ms = cuda_time_ms(plain, max(reps // 2, 3), warmup=1)
-        results[name] = dict(max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
+        results[name] = dict(max_abs_err=err[name], ms=ms,
+                             device_ms=device_ms, plain_ms=plain_ms,
                              bound_ms=bounds[name], bound_by="bytes")
         emit({"phase": "kernel_timing", "kernel": name,
               "shape": list(shape), "dtype": "int32", "bitwise": True,
-              "n_words": n_words, "n_chunks": int(bits.numel()),
-              "kernel_ms": ms, "plain_ms": plain_ms,
+              "timed_calls_bitwise": reps,
+              "n_words": n_words, "n_chunks": n_chunks,
+              "kernel_ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
               "bound_ms": bounds[name], "bound_by": "bytes"})
-    del r, words, bits
+    del r, words, bits, w_buf, b_buf, scratch, out
     torch.cuda.empty_cache()
     return results
 
@@ -771,7 +926,7 @@ def phase_sass() -> None:
     bf16 = {fn: n for fn, n in hmma.items() if "flash_bf16_mma" in fn}
     emit({"phase": "sass", "source": "flash", "hmma": hmma,
           "ptxas": _build.ptxas_summary(("flash", "fixpass", "extrema",
-                                         "lorenzo"))})
+                                         "lorenzo", "pack"))})
     if len(bf16) != len(kfl.HEAD_DIMS) or not all(bf16.values()):
         raise AssertionError(f"flash: the bf16 variants issue no HMMA: "
                              f"{bf16}")

@@ -74,12 +74,15 @@ def _device_path_reason(f: np.ndarray, xi: float
     return None, step
 
 
-def _check_served(base: str, mode: str, mesh, device_path,
+def _check_served(base: str, xi: float, mode: str, mesh, device_path,
                   entropy: str) -> None:
     if base == "zfplike":
         raise _not_ported("codec='zfplike'", "zfplike and the paper-mode loop")
     if base != "szlike":
         raise ValueError(f"unknown base codec {base!r}")
+    if not (np.isfinite(xi) and xi > 0):
+        # the codec's own error, whichever path would have run
+        raise szlike.error_bound_error(xi)
     if mode == "paper":
         raise _not_ported("mode='paper'", "zfplike and the paper-mode loop")
     if mode != "fused":
@@ -147,11 +150,13 @@ def _device_compress(f: np.ndarray, xi: float, be, max_iters: int,
 
     if entropy == "device-pack":
         # the stream length is one scalar sync inside pack_codes; the
-        # int32 words carry the uint32 stream's bits
+        # int32 words carry the uint32 stream's bits (a view of a buffer
+        # of the largest stream, freed here)
         words, bits, _ = be.pack_codes(r)
         payload = szlike.sz_encode_packed(_d2h(words).view(np.uint32),
                                           _d2h(bits), f.shape, f.dtype,
                                           step)
+        del words, bits
     else:
         payload = szlike.sz_encode_residuals(_d2h(r), f.shape, f.dtype,
                                              step)
@@ -200,7 +205,7 @@ def compress_preserving_mss(f: np.ndarray, xi: float, base: str = "szlike",
     ``device_path=False``."""
     if codec is not None:
         base = codec
-    _check_served(base, mode, mesh, device_path, entropy)
+    _check_served(base, xi, mode, mesh, device_path, entropy)
     f = np.asarray(f)
     dev = resolve_device(device)
     reason, step = _device_path_reason(f, xi)

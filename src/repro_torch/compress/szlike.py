@@ -297,6 +297,14 @@ def sz_parse_packed(blob: bytes
     return words, bits, shape, dtype, step, int(chunk)
 
 
+def error_bound_error(xi) -> ValueError:
+    """The codec's error for a bound that is not positive (the
+    reference's message)."""
+    return ValueError(
+        f"error bound must be positive for the SZ-like codec, got "
+        f"xi={xi!r} (linear-scaling quantization has no lossless mode)")
+
+
 def sz_compress(f: np.ndarray, xi: float, *,
                 entropy: str = "deflate") -> bytes:
     """Host compression with absolute error bound xi: an SZJ2 blob, or
@@ -305,9 +313,7 @@ def sz_compress(f: np.ndarray, xi: float, *,
     if f.dtype not in (np.float32, np.float64):
         raise TypeError(f"float field expected, got {f.dtype}")
     if xi <= 0:
-        raise ValueError(
-            f"error bound must be positive for the SZ-like codec, got "
-            f"xi={xi!r} (linear-scaling quantization has no lossless mode)")
+        raise error_bound_error(xi)
     step = effective_step(f, xi)
     if f.dtype == np.float32:
         q = np.round(f / np.float32(step)).astype(np.int64)

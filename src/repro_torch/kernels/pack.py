@@ -12,25 +12,29 @@ lowest bitplanes, ``b = 32 - clz(max)``; plane ``k`` of a chunk is
 Replaces two Pallas calls of ``repro/kernels/pack.py``:
 
 * ``pack_codes`` replaces ``_pack_codes_pallas_jit`` (kernel body
-  ``_pack_kernel``) and the offset scan and compaction around it. Two
-  launches: one warp per chunk OR-reduces the zigzagged codes
-  (``__reduce_or_sync``; the highest set bit of the max is that of the
-  OR) into the widths; ``torch.cumsum`` in int64 gives the word offsets
-  and one scalar sync the stream length; then one block per chunk
-  builds plane ``k`` of warp ``m``'s 32 codes with one
-  ``__ballot_sync``, stages the chunk's planes in shared memory and
-  writes them at the chunk's offset. No capacity-sized buffer and no
-  compaction scatter.
+  ``_pack_kernel``) and the offset scan and compaction around it. One
+  launch reads each code once: a 256-thread block takes a tile of 8
+  chunks from an atomic ticket, stages its codes in shared memory
+  (``cp.async``), OR-reduces each chunk's zigzagged codes to its width
+  (``__reduce_or_sync``), builds the planes with ``__ballot_sync`` and
+  finds the tile's word offset with a single-pass chained scan with
+  decoupled look-back (a 64-bit flag|value status word per tile), then
+  writes its words there. The words go into a buffer of the largest possible
+  stream; one 16-byte read of the scratch after the launch (the call's
+  one sync) gives the stream length, and the call returns that many.
 * ``unpack_codes`` replaces ``_unpack_codes_pallas_jit`` (kernel body
-  ``_unpack_kernel``) and the expand gather before it. One launch: a
-  block per chunk loads the chunk's words into shared memory; thread
-  ``m*32 + t`` gathers bit ``t`` of word ``m`` of each plane, un-zigzags
-  and stores its code.
+  ``_unpack_kernel``) and the expand gather before it. One launch and
+  no host work before it beyond shape checks: each block validates its
+  width, finds its offset with the same look-back, loads its planes into
+  shared memory and rebuilds 4 codes a thread. The kernel counts widths
+  outside [0, 32] and sums the stream length the widths demand; one
+  16-byte read after the launch raises what ``check_stream`` raises for
+  a bad stream, so a bad stream never returns a decode.
 
 What bounds them on an H100: memory — 4 B read per code and the stream
 written (pack), the stream read and 4 B written per code (unpack); the
-ballots and shifts are a few integer instructions per code. Both read
-and write contiguous runs of words, coalesced across the warp.
+ballots and shifts are a few integer instructions per code and plane.
+Both read and write contiguous runs of words, coalesced across the warp.
 
 The stream is uint32, but torch's ``uint32`` lacks shifts and
 reductions, so the tensors here are int32 with the stream's bits and the
@@ -242,6 +246,18 @@ def unpack_codes_plain(words: torch.Tensor, bits: torch.Tensor,
 # wrappers
 # ---------------------------------------------------------------------------
 
+#: int64 scratch words before the look-back statuses (one a tile of
+#: chunks): the stream length in words, the count of widths outside
+#: [0, 32] (unpack) and the ticket (``csrc/pack.cu``)
+_META = 3
+
+
+def scratch_size(n_chunks: int) -> int:
+    """int64 words of scratch a launch over ``n_chunks`` chunks takes
+    (room for one status a chunk, more than the tiles need)."""
+    return _META + n_chunks
+
+
 def _check_int32_tensor(what: str, x: torch.Tensor,
                         dev: torch.device) -> None:
     if x.device != dev:
@@ -253,26 +269,53 @@ def _check_int32_tensor(what: str, x: torch.Tensor,
 
 
 def _check_size(what: str, n: int) -> None:
-    if n >= _INT32_LIMIT:
-        raise ValueError(f"{what}: {n} codes; the kernel indexes codes "
-                         "with 32-bit ints (< 2^31)")
+    if -(-n // CHUNK) * CHUNK >= _INT32_LIMIT:
+        raise ValueError(f"{what}: {n} codes; the kernels index codes and "
+                         f"words with 32-bit ints (n_chunks * {CHUNK} < "
+                         "2^31)")
 
 
-def _offsets(bits: torch.Tensor, wpp: int
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(exclusive int64 word offsets of the chunks, stream length as a
-    0-d tensor)."""
-    words = bits.to(torch.int64) * wpp
-    ends = torch.cumsum(words, 0)
-    return ends - words, ends[-1]
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def launch_pack(r: torch.Tensor, words: torch.Tensor, bits: torch.Tensor,
+                scratch: torch.Tensor) -> None:
+    """The pack kernel alone, on the current stream, into preallocated
+    buffers: ``words`` int32 with room for ``n_chunks * CHUNK``, ``bits``
+    int32 ``n_chunks``, ``scratch`` int64 ``scratch_size(n_chunks)``
+    (zeroed by the launch). Counts nothing and reads nothing back."""
+    lib = _build.load("pack")
+    _build.check(_build.entry(lib, "msz_pack", 4, 1, 0)(
+        r.data_ptr(), words.data_ptr(), bits.data_ptr(), scratch.data_ptr(),
+        r.numel(), _stream(r.device)), "pack_codes")
+
+
+def launch_unpack(words: torch.Tensor, bits: torch.Tensor, out: torch.Tensor,
+                  scratch: torch.Tensor) -> None:
+    """The unpack kernel alone, on the current stream: ``out`` int32 of
+    the code count (16-byte aligned), ``scratch`` as in ``launch_pack``.
+    Counts nothing and reads nothing back."""
+    lib = _build.load("pack")
+    _build.check(_build.entry(lib, "msz_unpack", 4, 2, 0)(
+        words.data_ptr(), bits.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        out.numel(), words.numel(), _stream(out.device)), "unpack_codes")
+
+
+def _read_meta(scratch: torch.Tensor) -> Tuple[int, int]:
+    """(stream length the widths demand, widths outside [0, 32]): one
+    16-byte device-to-host read, after the launch."""
+    total, bad = scratch[:2].cpu().tolist()
+    return total, bad
 
 
 def pack_codes(r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Pack int32 residual codes (any shape) into the chunked-bitplane
     stream: ``(words, bits, n_words)``, ``words`` an int32 tensor with
     the bits of the ``n_words`` uint32 words, ``bits`` the int32 width
-    of each chunk. On CUDA: the width kernel, an int64 cumsum, one
-    scalar sync for ``n_words``, and the plane kernel."""
+    of each chunk. On CUDA: one launch, then one 16-byte read for
+    ``n_words``; ``words`` is a view of a buffer with room for the
+    largest stream."""
     global pack_launches
     if r.device.type == "cpu":
         return pack_codes_plain(r)
@@ -281,33 +324,42 @@ def pack_codes(r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
     _check_int32_tensor("pack_codes", r, r.device)
     n = r.numel()
     _check_size("pack_codes", n)
-    n_chunks, _, wpp = _chunk_layout(n, CHUNK)
+    n_chunks, n_pad, _ = _chunk_layout(n, CHUNK)
     dev = r.device
     bits = torch.empty(n_chunks, dtype=torch.int32, device=dev)
     if n_chunks == 0:
         return torch.empty(0, dtype=torch.int32, device=dev), bits, 0
-    lib = _build.load("pack")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(_build.entry(lib, "msz_pack_widths", 2, 1, 0)(
-        r.data_ptr(), bits.data_ptr(), n, stream), "pack_codes (widths)")
-    offsets, total = _offsets(bits, wpp)
-    n_words = int(total)
-    words = torch.empty(n_words, dtype=torch.int32, device=dev)
-    _build.check(_build.entry(lib, "msz_pack_planes", 4, 1, 0)(
-        r.data_ptr(), bits.data_ptr(), offsets.data_ptr(), words.data_ptr(),
-        n, stream), "pack_codes (planes)")
+    words = torch.empty(n_pad, dtype=torch.int32, device=dev)
+    scratch = torch.empty(scratch_size(n_chunks), dtype=torch.int64,
+                          device=dev)
+    launch_pack(r, words, bits, scratch)
     pack_launches += 1
-    return words, bits, n_words
+    n_words, bad = _read_meta(scratch)
+    if bad or n_words % words_per_plane() or not 0 <= n_words <= n_pad:
+        raise RuntimeError(f"pack_codes: the kernel's scratch reads "
+                           f"{n_words} words and {bad} bad widths")
+    return words[:n_words], bits, n_words
+
+
+def _check_status(n_words: int, total: int, bad: int) -> None:
+    """Raise what ``check_stream`` raises, from the unpack kernel's
+    status: ``bad`` widths outside [0, 32], ``total`` words demanded."""
+    if bad:
+        raise ValueError("chunk bit widths must lie in [0, 32]")
+    if n_words != total:
+        raise ValueError(
+            f"packed stream has {n_words} words, expected {total} "
+            "(truncated or over-long device-pack blob)")
 
 
 def unpack_codes(words: torch.Tensor, bits: torch.Tensor,
                  shape: Tuple[int, ...]) -> torch.Tensor:
     """Inverse of ``pack_codes``: the int32 codes of ``shape`` from the
     stream ``words`` (int32, exactly ``n_words`` long) and the widths
-    ``bits`` (int32), both on one device. The stream is validated
-    before anything decodes (``check_stream``; one small sync on CUDA);
-    a bad stream raises ``ValueError``."""
-    global unpack_launches
+    ``bits`` (int32), both on one device. A bad stream raises
+    ``ValueError``, as ``check_stream`` does; on CUDA the widths are
+    validated by the kernel and read back in one 16-byte read after the
+    launch, and the decode is discarded."""
     shape = tuple(int(s) for s in shape)
     n = int(np.prod(shape, dtype=np.int64)) if shape else 1
     dev = words.device
@@ -318,18 +370,34 @@ def unpack_codes(words: torch.Tensor, bits: torch.Tensor,
                          f"{dev}")
     if dev.type == "cpu":
         return unpack_codes_plain(words, bits, shape)
+    return _unpack_launched(words, bits, shape, n)
+
+
+def _unpack_launched(words: torch.Tensor, bits: torch.Tensor,
+                     shape: Tuple[int, ...], n: int) -> torch.Tensor:
+    """``unpack_codes`` through ``launch_unpack``: host checks that need
+    no sync, the launch, then one 16-byte status read that raises for a
+    bad stream."""
+    global unpack_launches
+    dev = words.device
     _check_int32_tensor("unpack_codes (words)", words, dev)
     _check_int32_tensor("unpack_codes (bits)", bits, dev)
     _check_size("unpack_codes", n)
-    check_stream(words.numel(), bits.cpu().numpy(), n)
+    n_chunks, n_pad, _ = _chunk_layout(n, CHUNK)
+    if bits.numel() != n_chunks:
+        raise ValueError(
+            f"bit-width table has {bits.numel()} chunks, expected "
+            f"{n_chunks} for {n} codes at chunk={CHUNK}")
+    if words.numel() > n_pad:
+        raise ValueError(
+            f"packed stream has {words.numel()} words, expected at most "
+            f"{n_pad} (over-long device-pack blob)")
     out = torch.empty(shape, dtype=torch.int32, device=dev)
-    if n == 0:
+    if n_chunks == 0:
         return out
-    offsets, _ = _offsets(bits, words_per_plane())
-    lib = _build.load("pack")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(_build.entry(lib, "msz_unpack", 4, 1, 0)(
-        words.data_ptr(), bits.data_ptr(), offsets.data_ptr(),
-        out.data_ptr(), n, stream), "unpack_codes")
+    scratch = torch.empty(scratch_size(n_chunks), dtype=torch.int64,
+                          device=dev)
+    launch_unpack(words, bits, out, scratch)
     unpack_launches += 1
+    _check_status(words.numel(), *_read_meta(scratch))
     return out

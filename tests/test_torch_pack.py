@@ -168,6 +168,171 @@ def test_wrappers_count_no_launch_on_cpu():
         tpack.unpack_codes(w, b.to("meta"), codes.shape)
 
 
+# --- the kernels' chained scan (csrc/pack.cu), modelled in Python ------------
+#
+# Both CUDA kernels find their word offsets with a single-pass chained scan
+# with decoupled look-back over tiles of ``per_block`` chunks. The model
+# below runs the same protocol over the same scratch layout (meta[0]
+# stream length, meta[1] widths outside [0, 32], meta[2] ticket, then a
+# flag|value status word a tile), one generator a block, yielding at every
+# global read or write, under seeded random schedules with a bounded
+# number of resident blocks.
+
+FLAG_A, FLAG_P = 1 << 62, 2 << 62
+VALUE = FLAG_A - 1
+META = tpack.scratch_size(0)
+TILE = 8                                   # csrc/pack.cu's kTile
+
+
+def _block(mem, widths, per_block, offsets):
+    """One block: ticket; count and clamp bad widths; publish the tile's
+    count; look back 32 tiles at a time (lane i at tile t-1-i, spinning
+    on an empty status); publish the inclusive prefix, the last tile the
+    stream length; each chunk's offset is the tile's plus the counts of
+    the tile's chunks before it."""
+    n_tiles = -(-len(widths) // per_block)
+    t = mem[2]
+    mem[2] += 1
+    yield
+    tile = [int(w) for w in widths[t * per_block:(t + 1) * per_block]]
+    bad = sum(not 0 <= w <= 32 for w in tile)
+    counts = [32 * min(max(w, 0), 32) for w in tile]
+    count = sum(counts)
+    mem[META + t] = (FLAG_P if t == 0 else FLAG_A) | count
+    yield
+    if bad:
+        mem[1] += bad
+        yield
+    excl, end = 0, t
+    while end > 0:
+        window = []
+        for lane in range(32):
+            j = end - 1 - lane
+            s = FLAG_P
+            if j >= 0:
+                while (s := mem[META + j]) < FLAG_A:
+                    yield
+                yield
+            window.append(s)
+        prefix = [s >= FLAG_P for s in window]
+        stop = prefix.index(True) if any(prefix) else 31
+        excl += sum(s & VALUE for s in window[:stop + 1])
+        if any(prefix):
+            break
+        end -= 32
+    if t > 0:
+        mem[META + t] = FLAG_P | (excl + count)
+        yield
+    if t == n_tiles - 1:
+        mem[0] = excl + count
+    for i, c in enumerate(counts):
+        offsets[t * per_block + i] = excl + sum(counts[:i])
+
+
+def _run_scan(widths, resident, rng, per_block=1):
+    """(scratch, chunk offsets) after every block has run, at most
+    ``resident`` at a time, each step given to a random resident block."""
+    n_tiles = -(-len(widths) // per_block)
+    mem = [0] * tpack.scratch_size(len(widths))
+    offsets = [None] * len(widths)
+    waiting, running, steps = n_tiles, [], 0
+    while waiting or running:
+        while waiting and len(running) < resident:
+            running.append(_block(mem, widths, per_block, offsets))
+            waiting -= 1
+        i = int(rng.integers(len(running)))
+        try:
+            next(running[i])
+        except StopIteration:
+            running.pop(i)
+        steps += 1
+        assert steps < 10 ** 7, "the scan made no progress"
+    return mem, offsets
+
+
+@pytest.mark.parametrize("per_block", [1, TILE])
+@pytest.mark.parametrize("n_chunks", [1, 2, 32, 33, 97, 300, 1500])
+def test_chained_scan_gives_the_exclusive_scan(n_chunks, per_block):
+    rng = np.random.default_rng(n_chunks)
+    n_tiles = -(-n_chunks // per_block)
+    for _ in range(4):
+        widths = rng.choice([0, 1, 7, 31, 32], size=n_chunks)
+        resident = int(rng.integers(1, 80))
+        mem, offsets = _run_scan(widths, resident, rng, per_block)
+        ends = np.cumsum(32 * widths)
+        assert offsets == (ends - 32 * widths).tolist()
+        assert mem[:META] == [int(ends[-1]), 0, n_tiles]
+        tile_ends = ends[per_block - 1::per_block].tolist()
+        if len(tile_ends) < n_tiles:
+            tile_ends.append(int(ends[-1]))
+        assert mem[META:META + n_tiles] == [FLAG_P | e for e in tile_ends]
+
+
+@pytest.mark.parametrize("per_block", [1, TILE])
+def test_chained_scan_counts_and_clamps_bad_widths(per_block):
+    rng = np.random.default_rng(5)
+    widths = rng.integers(0, 33, size=70)
+    widths[[3, 40, 69]] = [33, -2, 1000]
+    mem, offsets = _run_scan(widths, 16, rng, per_block)
+    clamped = np.clip(widths, 0, 32) * 32
+    assert offsets == (np.cumsum(clamped) - clamped).tolist()
+    assert mem[0] == int(clamped.sum()) and mem[1] == 3
+    with pytest.raises(ValueError, match=r"\[0, 32\]"):
+        tpack._check_status(int(clamped.sum()), mem[0], mem[1])
+
+
+def _bad_stream(bad):
+    """The stream of ``mixed_chunks`` broken as ``bad`` says."""
+    codes = _adversarial_cases()["mixed_chunks"]
+    w, b = jpack.pack_codes_host(codes)
+    w, b = w.copy(), b.copy()
+    if bad == "n_chunks":
+        b = b[:-1]
+    elif bad == "width":
+        b[1] = 33
+    elif bad == "short":
+        w = w[:-1]
+    elif bad == "long":
+        w = np.concatenate([w, np.zeros(32, np.uint32)])
+    return codes, w, b
+
+
+@pytest.mark.parametrize("bad", ["n_chunks", "width", "short", "long", None])
+def test_launched_unpack_raises_for_every_bad_stream(bad, monkeypatch):
+    """The wrapper's device path with the kernel emulated on the CPU (the
+    scan model for the status, the plain decode or garbage for the
+    codes): a bad stream raises ValueError and returns nothing, a good
+    one returns the codes."""
+    codes, w, b = _bad_stream(bad)
+    launched = []
+
+    def emulated(words, bits, out, scratch):
+        mem, _ = _run_scan(bits.numpy(), 8, np.random.default_rng(0), TILE)
+        # the kernel's uint64 status words in the int64 scratch
+        scratch.copy_(torch.from_numpy(np.array(mem, np.uint64)
+                                       .view(np.int64)))
+        if bad is None:
+            out.copy_(tpack.unpack_codes_plain(words, bits, out.shape))
+        else:
+            out.fill_(-1)
+        launched.append(1)
+
+    monkeypatch.setattr(tpack, "launch_unpack", emulated)
+    monkeypatch.setattr(tpack, "unpack_launches", tpack.unpack_launches)
+    call = functools.partial(tpack._unpack_launched, _words(w),
+                             torch.from_numpy(b), codes.shape, codes.size)
+    if bad is None:
+        assert np.array_equal(call().numpy(), codes) and launched == [1]
+        return
+    with pytest.raises(ValueError) as info:
+        call()
+    with pytest.raises(ValueError) as want:
+        tpack.check_stream(w.size, b, codes.size)
+    # the host checks (chunk count) raise before any launch
+    assert launched == ([] if bad == "n_chunks" else [1])
+    assert str(info.value) == str(want.value)
+
+
 # --- blob level -------------------------------------------------------------
 
 def _field(name, shape, dtype):
@@ -353,6 +518,12 @@ def test_cuda_pack_kernels_match_plain():
         back = tpack.unpack_codes(w, b, codes.shape)
         assert torch.equal(back, tpack.unpack_codes_plain(w, b, codes.shape))
         assert torch.equal(back, r), name
+    for bad in ("n_chunks", "width", "short", "long"):
+        codes, w, b = _bad_stream(bad)
+        with pytest.raises(ValueError):
+            tpack.unpack_codes(_words(w).cuda(), torch.from_numpy(b).cuda(),
+                               codes.shape)
+        torch.cuda.synchronize()
 
 
 def test_width_table_that_disagrees_with_the_words_raises():

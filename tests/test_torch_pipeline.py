@@ -195,6 +195,25 @@ def test_truncated_szj2_stream_raises_what_the_reference_raises():
         assert isinstance(info.value, tsz.TruncatedStreamError)
 
 
+@pytest.mark.parametrize("device_path", ["auto", True])
+@pytest.mark.parametrize("xi", [0.0, -1.0])
+def test_invalid_xi_raises_what_the_reference_raises(xi, device_path):
+    f = _field("climate", (8, 10), np.float32)
+    with pytest.raises(Exception) as ref:
+        jpipe.compress_preserving_mss(f, xi, device_path=device_path)
+    with pytest.raises(Exception) as port:
+        tpipe.compress_preserving_mss(f, xi, device_path=device_path,
+                                      device="cpu")
+    assert type(port.value) is type(ref.value) is ValueError
+    # the reference prefixes its device-path refusal with "device_path=True
+    # but"; both messages then start with the codec's own words
+    start = "error bound must be positive"
+    assert str(port.value).startswith(start)
+    assert str(ref.value).split("device_path=True but ")[-1].startswith(start)
+    if device_path == "auto":
+        assert str(port.value) == str(ref.value)
+
+
 @pytest.mark.parametrize("entropy", ["deflate", "device-pack"])
 def test_compress_timings_split_the_entropy_stage(entropy):
     f = _field("nyx", (8, 9, 10), np.float32)
