@@ -44,6 +44,28 @@ Phases, each asserting (any failure exits non-zero):
    512^3 float32 field and the climate 1800x3600 field, once with
    ``entropy="deflate"`` and once with ``entropy="device-pack"``, with
    the launch counts set to 0 just before each run and read just after.
+   The fix loop takes the dirty-slab worklist there (>= 64 slabs): one
+   extrema and one fix-pass launch a span of running slab groups, so
+   extrema = fixpass = the loop's span count, between the iteration
+   count and iterations x groups.
+3b. fix-loop strategies on the main path's inputs at both sizes: the
+   dense loop, the "auto" worklist (through ``fused_fix`` and through
+   ``fused_fix_worklist``), ``cuda_worklist`` (groups of 4) and
+   ``cuda_tiled`` (tiles of 8, worklist off) give the same g bitwise
+   and the same iterations; each timed, its launches and skipped slabs
+   counted.
+3c. batches: ``compress_preserving_mss_batch`` of 8 climate timesteps
+   (seeds 3-10) under both codecs and of 4 nyx 128^3 members with one
+   bound each (so they converge at different iterations); every artifact
+   byte-identical to its solo call, ``decompress_artifact_batch``
+   bitwise the solo decode, ``verify_preservation_batch`` preserved and
+   in bound; the nyx members also through ``derive_edits_batch`` under
+   "compact" (every 2) and "fused", bitwise the solo ``derive_edits``.
+   Launches counted from 0 around each batch call.
+3d. the host path: ``device_path=False`` on climate (f32) and nyx 128^3
+   (f64) gives the device path's bytes; climate x 1e6 in f64 with xi
+   1e-3 (outside the int32 device range) takes the host path under
+   "auto" and decodes with its MSS preserved.
 4. whole-path parity at 128^3: the ``cuda`` and ``reference`` backends on
    the card give the same payload bytes, fix-iteration count and g, for
    both entropy codecs; the host codecs agree with the device path; the
@@ -741,15 +763,34 @@ def phase_kernels_main(f_np, xi: float, reps: int) -> dict:
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
+def n_groups(shape, group: int = 8) -> int:
+    """Slab groups of the worklist on a field of ``shape``."""
+    return -(-shape[0] // group)
+
+
+def check_fix_launches(label: str, launches: dict, iters: int, shape,
+                       spans: int) -> None:
+    """The fix loop's launches under the worklist: one extrema and one
+    fix-pass launch a span, at least one span an iteration and at most
+    one a group."""
+    ext, fix = launches["extrema"], launches["fixpass"]
+    if not (ext == fix == spans
+            and iters <= ext <= iters * n_groups(shape)):
+        raise AssertionError(
+            f"{label}: extrema {ext}, fixpass {fix}, spans {spans} for "
+            f"{iters} iterations of {n_groups(shape)} groups")
+
+
 def phase_main_path(label: str, f, xi: float, entropy: str) -> dict:
     import torch
     from repro_torch.compress import (compress_preserving_mss,
                                       decompress_preserving_mss,
                                       overall_compression_ratio)
-    from repro_torch.core import verify_preservation
+    from repro_torch.core import backend, verify_preservation
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    backend.worklist_spans = 0
     stages = {}
     t0 = time.perf_counter()
     art = compress_preserving_mss(f, xi, entropy=entropy, timings=stages)
@@ -760,13 +801,14 @@ def phase_main_path(label: str, f, xi: float, entropy: str) -> dict:
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     launches = read_launches()
+    spans = backend.worklist_spans
     if not (report["mss_preserved"] and report["bound_ok"]):
         raise AssertionError(f"{label}: MSS not preserved: {report}")
+    check_fix_launches(label, launches, art.fix_iters, f.shape, spans)
     packed = int(entropy == "device-pack")
-    want = {"extrema": art.fix_iters, "fixpass": art.fix_iters, "lorenzo": 1,
-            "pack": packed, "unpack": packed, "flash": 0}
-    if launches != want:
-        raise AssertionError(f"{label}: launches {launches} != {want}")
+    want = {"lorenzo": 1, "pack": packed, "unpack": packed, "flash": 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
     if art.entropy != entropy or art.path != "device":
         raise AssertionError(f"{label}: artifact records entropy "
                              f"{art.entropy!r} on path {art.path!r}")
@@ -782,9 +824,230 @@ def phase_main_path(label: str, f, xi: float, entropy: str) -> dict:
           "mss_preserved": report["mss_preserved"],
           "bound_ok": report["bound_ok"],
           "max_abs_err": report["max_abs_err"], "launches": launches,
+          "worklist_spans": spans, "worklist_groups": n_groups(f.shape),
           "seconds": stages,
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 3b-3d: fix-loop strategies, batches, the host path
+# ---------------------------------------------------------------------------
+
+def timed(fn):
+    """(result, seconds) of ``fn()``, the card synced on both sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_fixloop_strategies(label: str, f_np, xi: float) -> None:
+    """The fix loop of the main path's inputs (f_hat from the Lorenzo
+    kernel and its inverse, the original's topology) under the dense
+    loop, the "auto" worklist (``fused_fix`` on ``cuda``, and
+    ``fused_fix_worklist`` on the same backend), ``cuda_worklist``
+    (groups of 4) and ``cuda_tiled`` (tiles of 8, worklist off): equal g
+    bitwise and equal iterations; each strategy timed and its launches
+    counted."""
+    import dataclasses
+    import torch
+    from repro_torch.compress import szlike
+    from repro_torch.core import backend, fixes
+    from repro_torch.core.backend import get_backend
+    from repro_torch.kernels import lorenzo as kl
+    f = torch.from_numpy(f_np).cuda()
+    step = torch.tensor(szlike.effective_step(f_np, xi), dtype=f.dtype,
+                        device="cuda")
+    f_hat = szlike.sz_inverse(kl.lorenzo_quant(f, step), step)
+    topo = fixes.field_topology(f, xi)
+    dense_be = dataclasses.replace(get_backend("cuda"), worklist=False)
+    tiled_be = dataclasses.replace(get_backend("cuda_tiled"), worklist=False)
+    runs = {
+        "dense": lambda: fixes.fused_fix(f_hat, topo, backend=dense_be)
+        + (None,),
+        "auto": lambda: fixes.fused_fix(f_hat, topo, backend="cuda")
+        + (None,),
+        "auto_worklist": lambda: fixes.fused_fix_worklist(f_hat, topo,
+                                                          backend="cuda"),
+        "cuda_worklist": lambda: fixes.fused_fix_worklist(
+            f_hat, topo, backend="cuda_worklist"),
+        "cuda_tiled": lambda: fixes.fused_fix(f_hat, topo, backend=tiled_be)
+        + (None,),
+    }
+    records, g_dense = {}, None
+    for name, run in runs.items():
+        reset_launches()
+        backend.worklist_spans = 0
+        (g, iters, ok, skipped), secs = timed(run)
+        launches = read_launches()
+        if g_dense is None:
+            g_dense, it_dense = g, iters
+        elif not (torch.equal(g, g_dense) and iters == it_dense):
+            raise AssertionError(f"fixloop {label} {name}: g or iterations "
+                                 "differ from the dense loop")
+        if not ok:
+            raise AssertionError(f"fixloop {label} {name}: not converged")
+        records[name] = dict(seconds=secs, iters=iters,
+                             extrema=launches["extrema"],
+                             fixpass=launches["fixpass"],
+                             spans=backend.worklist_spans,
+                             skipped_slabs=skipped)
+    r = records
+    if not (r["dense"]["extrema"] == r["dense"]["fixpass"] == it_dense):
+        raise AssertionError(f"fixloop {label}: dense launches {r['dense']}")
+    tiles = -(-f_np.shape[0] // 8)
+    if not (r["cuda_tiled"]["extrema"] == r["cuda_tiled"]["fixpass"]
+            == it_dense * tiles):
+        raise AssertionError(f"fixloop {label}: tiled launches "
+                             f"{r['cuda_tiled']}")
+    for name in ("auto", "auto_worklist"):
+        check_fix_launches(f"fixloop {label} {name}",
+                           r[name], it_dense, f_np.shape, r[name]["spans"])
+    if r["auto"]["spans"] != r["auto_worklist"]["spans"]:
+        raise AssertionError(f"fixloop {label}: the two worklist routes "
+                             "ran different spans")
+    emit({"phase": "fixloop_strategies", "field": label,
+          "shape": list(f_np.shape), "xi": xi, "iters": it_dense,
+          "groups": n_groups(f_np.shape), "g_identical": True,
+          "strategies": records})
+    del f, f_hat, topo, g, g_dense
+    torch.cuda.empty_cache()
+
+
+def phase_batch(label: str, fields, xis, entropy: str, batchings=()) -> dict:
+    """``compress_preserving_mss_batch`` against solo calls (every
+    artifact byte-identical), ``decompress_artifact_batch`` against solo
+    ``decompress_preserving_mss`` (bitwise), ``verify_preservation_batch``
+    (every member preserved and in bound); launches counted from 0 around
+    each batch call. ``batchings``: ``derive_edits_batch`` options run
+    on the members' (f, f_hat) pairs, each member bitwise its solo
+    ``derive_edits``."""
+    import torch
+    from repro_torch.compress import (compress_preserving_mss,
+                                      compress_preserving_mss_batch,
+                                      decompress_artifact_batch,
+                                      decompress_preserving_mss)
+    from repro_torch.core import (derive_edits, derive_edits_batch,
+                                  verify_preservation_batch)
+    B = len(fields)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    arts, t_batch = timed(lambda: compress_preserving_mss_batch(
+        fields, xis, entropy=entropy))
+    launches_c = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    solo, t_solo = timed(lambda: [
+        compress_preserving_mss(f, x, entropy=entropy)
+        for f, x in zip(fields, xis)])
+    for i, (a, b) in enumerate(zip(arts, solo)):
+        for k in ("base_payload", "edit_payload", "fix_iters", "edit_ratio",
+                  "path", "entropy", "base_magic"):
+            if getattr(a, k) != getattr(b, k):
+                raise AssertionError(f"batch {label} {entropy} member {i}: "
+                                     f"{k} differs from the solo call")
+    iters = [a.fix_iters for a in arts]
+    packed = B if entropy == "device-pack" else 0
+    want = {"extrema": sum(iters), "fixpass": sum(iters), "lorenzo": B,
+            "pack": packed, "unpack": 0, "flash": 0}
+    if launches_c != want:
+        raise AssertionError(f"batch {label} {entropy}: compress launches "
+                             f"{launches_c} != {want}")
+    reset_launches()
+    gs, t_dec = timed(lambda: decompress_artifact_batch(arts))
+    launches_d = read_launches()
+    if launches_d["unpack"] != packed:
+        raise AssertionError(f"batch {label} {entropy}: decompress launches "
+                             f"{launches_d}")
+    g_solo, t_dec_solo = timed(lambda: [decompress_preserving_mss(a)
+                                        for a in arts])
+    for i, (x, y) in enumerate(zip(gs, g_solo)):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"batch {label} {entropy} member {i}: "
+                                 "batch decode differs from the solo one")
+    verdicts = verify_preservation_batch(np.stack(fields), np.stack(gs), xis)
+    if not all(v["mss_preserved"] and v["bound_ok"] for v in verdicts):
+        raise AssertionError(f"batch {label} {entropy}: {verdicts}")
+    strategies = {}
+    if batchings:
+        from repro_torch.compress import sz_decompress
+        f_hats = np.stack([sz_decompress(a.base_payload) for a in arts])
+        solo_res = [derive_edits(f, fh, x)
+                    for f, fh, x in zip(fields, f_hats, xis)]
+        for kw in batchings:
+            reset_launches()
+            res, secs = timed(lambda: derive_edits_batch(
+                np.stack(fields), f_hats, xis, **kw))
+            for i, (r, s_) in enumerate(zip(res, solo_res)):
+                if not (np.array_equal(r.g, s_.g) and r.iters == s_.iters
+                        and np.array_equal(r.edits_idx, s_.edits_idx)):
+                    raise AssertionError(f"batch {label} {kw} member {i}: "
+                                         "differs from solo derive_edits")
+            strategies[kw["batching"] + str(kw.get("compact_every", ""))] = \
+                dict(seconds=secs, extrema=read_launches()["extrema"],
+                     iters=[r.iters for r in res])
+        if len(set(iters)) < 2:
+            raise AssertionError(f"batch {label}: members converged at one "
+                                 f"iteration count {iters}")
+    emit({"phase": "batch", "field": label, "entropy": entropy,
+          "members": B, "shape": list(fields[0].shape),
+          "xi": [float(x) for x in xis], "fix_iters": iters,
+          "artifacts_identical": True, "g_identical": True,
+          "mss_preserved": True, "bound_ok": True,
+          "payload_bytes": sum(len(a.base_payload) for a in arts),
+          "edit_bytes": sum(len(a.edit_payload) for a in arts),
+          "launches_compress": launches_c, "launches_decompress": launches_d,
+          "launches_per_member": {k: v / B for k, v in launches_c.items()},
+          "seconds": {"compress_batch": t_batch, "compress_solo": t_solo,
+                      "decompress_batch": t_dec,
+                      "decompress_solo": t_dec_solo},
+          "peak_device_bytes": peak, "derive_edits_batch": strategies})
+    torch.cuda.empty_cache()
+    return launches_c
+
+
+def phase_host_path(label: str, f, xi: float, over_int32: bool = False
+                    ) -> None:
+    """The host path: ``device_path=False`` gives the device path's bytes
+    (its fix loop still on the card); a field outside the int32 device
+    range takes the host path under "auto" and decodes with its MSS
+    preserved."""
+    import torch
+    from repro_torch.compress import (compress_preserving_mss,
+                                      decompress_preserving_mss)
+    from repro_torch.core import verify_preservation
+    reset_launches()
+    host, secs = timed(lambda: compress_preserving_mss(
+        f, xi, device_path="auto" if over_int32 else False))
+    launches = read_launches()
+    if host.path != "host" or launches["lorenzo"] != 0 \
+            or launches["extrema"] < host.fix_iters:
+        raise AssertionError(f"host path {label}: path {host.path}, "
+                             f"launches {launches}")
+    rec = {"phase": "host_path", "field": label, "shape": list(f.shape),
+           "dtype": str(f.dtype), "xi": xi, "fix_iters": host.fix_iters,
+           "launches": launches, "seconds_host": secs,
+           "payload_bytes": len(host.base_payload),
+           "edit_bytes": len(host.edit_payload)}
+    if over_int32:
+        g = decompress_preserving_mss(host)
+        v = verify_preservation(f, g, xi)
+        if not (v["mss_preserved"] and v["bound_ok"]):
+            raise AssertionError(f"host path {label}: {v}")
+        rec.update(auto_took_host_path=True, mss_preserved=True,
+                   bound_ok=True)
+    else:
+        dev, secs_dev = timed(lambda: compress_preserving_mss(f, xi))
+        if (host.base_payload, host.edit_payload, host.fix_iters) != (
+                dev.base_payload, dev.edit_payload, dev.fix_iters):
+            raise AssertionError(f"host path {label}: bytes differ from "
+                                 "the device path's")
+        rec.update(bytes_equal_device_path=True, seconds_device=secs_dev)
+    emit(rec)
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1122,6 +1385,9 @@ def main(argv=None) -> int:
                     help="shape of the 2D climate field of phase 3")
     ap.add_argument("--parity", type=int, default=128,
                     help="edge of the cubic field of phase 4")
+    ap.add_argument("--batch-nyx", type=int, default=128,
+                    help="edge of the nyx batch members and the f64 host "
+                         "path field")
     ap.add_argument("--reps", type=int, default=10,
                     help="timed launches per kernel (median reported)")
     ap.add_argument("--lm-batch", type=int, default=8,
@@ -1174,6 +1440,29 @@ def main(argv=None) -> int:
             xi = 1e-3 * float(np.ptp(f))
             for k, v in phase_main_path(label, f, xi, entropy).items():
                 launches[k] += v
+
+    for label, f in fields:
+        phase_fixloop_strategies(label, f, 1e-3 * float(np.ptp(f)))
+    steps = [synthetic_field("climate", climate_shape, seed=s)
+             for s in range(3, 11)]
+    for entropy in ("deflate", "device-pack"):
+        phase_batch("climate", steps, [1e-3 * float(np.ptp(f))
+                                       for f in steps], entropy)
+    members = [synthetic_field("nyx", (args.batch_nyx,) * 3, seed=s)
+               for s in range(1, 5)]
+    phase_batch("nyx", members,
+                [c * float(np.ptp(f)) for c, f in
+                 zip((1e-2, 3e-3, 1e-3, 3e-4), members)], "deflate",
+                batchings=(dict(batching="compact", compact_every=2),
+                           dict(batching="fused")))
+    del steps
+    phase_host_path("climate", fields[1][1],
+                    1e-3 * float(np.ptp(fields[1][1])))
+    f64 = members[0].astype(np.float64)
+    phase_host_path("nyx", f64, 1e-3 * float(np.ptp(f64)))
+    del members, f64
+    phase_host_path("climate x 1e6", fields[1][1].astype(np.float64) * 1e6,
+                    1e-3, over_int32=True)
 
     phase_parity(args.parity)
 

@@ -4,9 +4,12 @@ from .szlike import (TruncatedStreamError, check_int32_range,
                      effective_step, sz_blob_entropy, sz_compress,
                      sz_decompress, sz_encode_packed, sz_inverse,
                      sz_parse_packed, sz_transform)
-from .codec import encode_edits, decode_edits
-from .preserve import (CompressedArtifact, payload_codec, payload_magic,
-                       check_artifact, resolve_edit_dtype, exact_edit_dtype)
+from .codec import encode_edits, decode_edits, decode_edits_batch
+from .preserve import (CompressedArtifact, PreservingCodec,
+                       register_preserving_codec, get_preserving_codec,
+                       available_preserving_codecs, payload_codec,
+                       payload_magic, check_artifact, decode_payload,
+                       resolve_edit_dtype, exact_edit_dtype)
 from .pipeline import (compress_preserving_mss, compress_preserving_mss_batch,
                        decompress_artifact, decompress_artifact_batch,
                        decompress_preserving_mss, overall_compression_ratio)
@@ -15,8 +18,10 @@ __all__ = [
     "TruncatedStreamError", "check_int32_range", "effective_step",
     "sz_blob_entropy", "sz_compress", "sz_decompress", "sz_encode_packed",
     "sz_inverse", "sz_parse_packed", "sz_transform", "encode_edits",
-    "decode_edits",
-    "CompressedArtifact", "payload_codec", "payload_magic", "check_artifact",
+    "decode_edits", "decode_edits_batch",
+    "CompressedArtifact", "PreservingCodec", "register_preserving_codec",
+    "get_preserving_codec", "available_preserving_codecs", "payload_codec",
+    "payload_magic", "check_artifact", "decode_payload",
     "resolve_edit_dtype", "exact_edit_dtype",
     "compress_preserving_mss", "compress_preserving_mss_batch",
     "decompress_artifact", "decompress_artifact_batch",

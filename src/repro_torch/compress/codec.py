@@ -6,12 +6,15 @@ ascending, delta-encoded, LEB128-varint-packed and DEFLATE'd; values are
 stored as f32, f64 (the exact dtype for f64 fields) or bf16 (rounded to
 nearest even) and DEFLATE'd separately. Truncated or over-long blobs are
 hard errors. Equal edits give equal bytes on both packages.
+
+A batch of blobs decodes on a thread pool (``iter_decode_blobs``,
+``decode_edits_batch``): DEFLATE releases the GIL.
 """
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -206,3 +209,64 @@ def decode_edits(blob: bytes) -> Tuple[np.ndarray, np.ndarray]:
     else:
         raise ValueError(f"unknown edit value dtype code {dt}")
     return idx, val.copy()
+
+
+def iter_decode_blobs(decode, blobs, max_workers: Optional[int] = None,
+                      window: Optional[int] = None):
+    """Lazily yield ``decode(blob)`` results in blob order from a thread
+    pool of ``max_workers`` (default: one a core, at most one a blob).
+    At most ``window`` (default 2x workers) decodes are in flight or
+    undelivered, so resident memory stays O(window) decoded blobs
+    however large the batch. Single-element (or empty) batches skip the
+    pool."""
+    n = len(blobs)
+    if n <= 1:
+        for b in blobs:
+            yield decode(b)
+        return
+    import os
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+    workers = max_workers or min(n, os.cpu_count() or 1)
+    window = window or 2 * workers
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        pending = deque()
+        i = 0
+        while i < n or pending:
+            while i < n and len(pending) < window:
+                pending.append(ex.submit(decode, blobs[i]))
+                i += 1
+            yield pending.popleft().result()
+
+
+def decode_blobs_parallel(decode, blobs, max_workers: Optional[int] = None):
+    """Eager form of ``iter_decode_blobs``: the full result list."""
+    return list(iter_decode_blobs(decode, blobs, max_workers))
+
+
+def decode_edits_batch(blobs, fill_idx: Optional[int] = None):
+    """Decode many edit blobs in one call.
+
+    With ``fill_idx=None`` returns the list of per-blob ``(idx, val)``
+    pairs. With ``fill_idx`` set (the field size) returns the dense
+    layout ``(idx_b, val_b, counts)``: (B, L) arrays padded to the
+    longest member, indices with ``fill_idx`` and values with 0, and
+    each member's true edit count. The widest value dtype wins (an
+    f8-coded blob promotes the batch to f64). Padding keeps every row
+    sorted ascending; a consumer scatters ``idx_b[i, :counts[i]]``.
+    """
+    pairs = decode_blobs_parallel(decode_edits, blobs)
+    if fill_idx is None:
+        return pairs
+    B = len(pairs)
+    L = max((i.size for i, _ in pairs), default=0)
+    idx_b = np.full((B, L), np.int64(fill_idx), np.int64)
+    vdt = np.result_type(np.float32, *(v.dtype for _, v in pairs)) \
+        if pairs else np.dtype(np.float32)
+    val_b = np.zeros((B, L), vdt)
+    counts = np.zeros(B, np.int64)
+    for i, (idx, val) in enumerate(pairs):
+        idx_b[i, :idx.size] = idx
+        val_b[i, :idx.size] = val
+        counts[i] = idx.size
+    return idx_b, val_b, counts

@@ -1,28 +1,38 @@
-"""The preserve layer of the port: the artifact format, payload-magic
-negotiation and the edit-value dtype policy, after
-``repro.compress.preserve``.
+"""The preserve layer of the port, after ``repro.compress.preserve``:
+the artifact format, the ``PreservingCodec`` registry and payload-magic
+negotiation, the edit-value dtype policy with its checked encoders, and
+the codec-agnostic host correction path (``compress_host``,
+``compress_host_batch``).
 
 ``CompressedArtifact`` (version 4) has the reference's fields, so an
 artifact moves between the packages as a plain dict
-(``repro_torch.convert``) and each side decodes the other's. This slice
-reads the ``szlike`` base only: ``SZJ2`` and ``SZP1`` payloads decode,
-``SZJ1`` is refused with the reference's reason, and the format of the
-unported codec (``ZFJ2``) raises ``NotImplementedError``.
+(``repro_torch.convert``) and each side decodes the other's. The
+registry holds ``szlike``: ``SZJ2`` and ``SZP1`` payloads decode,
+``SZJ1`` is refused with the reference's reason. The reference's
+``zfplike`` is not ported yet: its name and its ``ZFJ2`` format raise
+``NotImplementedError`` and its retired ``ZFJ1`` is refused.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
+from typing import Callable, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
-from ..device import _h2d
-from . import codec
+from ..core.driver import (MszResult, apply_edits, derive_edits,
+                           derive_edits_batch, verify_preservation)
+from ..device import DeviceLike, _h2d
+from . import codec, szlike
 
 __all__ = [
-    "ARTIFACT_VERSION", "CompressedArtifact", "payload_magic",
-    "payload_codec", "check_artifact", "resolve_edit_dtype",
-    "exact_edit_dtype", "encode_edits_checked_dev",
+    "ARTIFACT_VERSION", "CompressedArtifact", "PreservingCodec",
+    "register_preserving_codec", "get_preserving_codec",
+    "available_preserving_codecs", "payload_magic", "payload_codec",
+    "check_artifact", "decode_payload", "resolve_edit_dtype",
+    "exact_edit_dtype", "encode_edits_checked", "encode_edits_checked_dev",
+    "compress_host", "compress_host_batch",
 ]
 
 #: v4: ``base_magic`` records the payload's leading four bytes
@@ -56,27 +66,84 @@ class CompressedArtifact:
         return len(self.base_payload) + len(self.edit_payload)
 
 
-#: magic -> codec name of the formats the port reads
-_READABLE = {b"SZJ2": "szlike", b"SZP1": "szlike"}
+@dataclasses.dataclass(frozen=True)
+class PreservingCodec:
+    """The contract a base codec signs to be topology-corrected:
+    ``compress(f, xi) -> payload`` and ``decompress(payload) -> f_hat``
+    in the field's dtype with ``max|f - f_hat| <= xi``; ``magics`` are
+    the leading four bytes of every blob format it reads; ``refused``
+    maps retired magics to the reason they must not be decoded;
+    ``device_transform`` marks a codec whose transform the stencil
+    backends also run on the device."""
+    name: str
+    compress: Callable[..., bytes]
+    decompress: Callable[[bytes], np.ndarray]
+    magics: Tuple[bytes, ...]
+    refused: Mapping[bytes, str] = dataclasses.field(default_factory=dict)
+    device_transform: bool = False
 
-#: retired magics and why they must not be decoded (the reference's text)
-_REFUSED = {
-    b"SZJ1": (
+
+_REGISTRY: Dict[str, PreservingCodec] = {}
+
+#: the reference's codecs the port has not yet: name -> (its magics,
+#: its retired magics and why they are refused)
+_NOT_PORTED = {
+    "zfplike": ((b"ZFJ2",), {b"ZFJ1": (
+        "ZFJ1 blobs record no field dtype and always decode to float32, "
+        "so an f64 artifact would silently lose the precision its error "
+        "bound was derived in; re-compress with the current codec")}),
+}
+
+
+def _not_ported_error(name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{name} is not yet ported (ROADMAP.md Queue 1: 'zfplike and the "
+        "paper-mode loop')")
+
+
+def register_preserving_codec(pc: PreservingCodec) -> PreservingCodec:
+    """Register ``pc`` under its name (later registrations win); returns
+    ``pc``."""
+    if not pc.magics:
+        raise ValueError(f"codec {pc.name!r} declares no payload magics")
+    for m in tuple(pc.magics) + tuple(pc.refused):
+        if len(m) != 4:
+            raise ValueError(
+                f"codec {pc.name!r}: payload magic {m!r} must be 4 bytes")
+    _REGISTRY[pc.name] = pc
+    return pc
+
+
+def get_preserving_codec(name: str) -> PreservingCodec:
+    """A registered codec by name; an unported reference codec raises
+    ``NotImplementedError``, any other unknown name ``KeyError``."""
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        if name in _NOT_PORTED:
+            raise _not_ported_error(f"codec {name!r}") from None
+        raise KeyError(
+            f"unknown preserving codec {name!r}; registered: "
+            f"{available_preserving_codecs()}") from None
+
+
+def available_preserving_codecs() -> Tuple[str, ...]:
+    """Names of the registered preserving codecs, sorted."""
+    return tuple(sorted(_REGISTRY))
+
+
+register_preserving_codec(PreservingCodec(
+    name="szlike",
+    compress=szlike.sz_compress,
+    decompress=szlike.sz_decompress,
+    magics=(b"SZJ2", b"SZP1"),
+    refused={b"SZJ1": (
         "SZJ1 blobs predate the shared host/device dequantization "
         "contract (f64-multiply-then-cast) and would silently "
         "reconstruct a different f_hat; re-compress with the current "
-        "codec"),
-    b"ZFJ1": (
-        "ZFJ1 blobs record no field dtype and always decode to float32, "
-        "so an f64 artifact would silently lose the precision its error "
-        "bound was derived in; re-compress with the current codec"),
-}
-
-#: magics of formats the reference reads that the port does not yet
-_NOT_PORTED = {
-    b"ZFJ2": "zfplike (ROADMAP.md Queue 1: 'zfplike and the paper-mode "
-             "loop')",
-}
+        "codec")},
+    device_transform=True,
+))
 
 
 def payload_magic(payload: bytes) -> bytes:
@@ -87,39 +154,56 @@ def payload_magic(payload: bytes) -> bytes:
     return bytes(payload[:4])
 
 
-def payload_codec(payload: bytes) -> str:
-    """The name of the codec that reads ``payload``, from its magic.
-    Retired magics raise their refusal; formats of unported codecs raise
+def payload_codec(payload: bytes) -> PreservingCodec:
+    """The codec that reads ``payload``, from its magic. Retired magics
+    raise their refusal; formats of unported codecs raise
     ``NotImplementedError``; unknown magics raise ``ValueError``."""
     magic = payload_magic(payload)
-    if magic in _READABLE:
-        return _READABLE[magic]
-    if magic in _REFUSED:
+    refused = {}
+    for pc in _REGISTRY.values():
+        if magic in pc.magics:
+            return pc
+        refused.update(pc.refused)
+    for name, (magics, retired) in _NOT_PORTED.items():
+        if magic in magics:
+            raise _not_ported_error(
+                f"{magic.decode('ascii', 'replace')!r} payloads ({name})")
+        refused.update(retired)
+    if magic in refused:
         raise ValueError(
             f"refusing retired {magic.decode('ascii', 'replace')!r} "
-            f"payload: {_REFUSED[magic]}")
-    if magic in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{magic.decode('ascii', 'replace')!r} payloads are not yet "
-            f"ported: {_NOT_PORTED[magic]}")
-    known = sorted(m.decode("ascii") for m in _READABLE)
+            f"payload: {refused[magic]}")
+    known = sorted(m.decode("ascii", "replace")
+                   for pc in _REGISTRY.values() for m in pc.magics)
     raise ValueError(
         f"unknown base payload magic {magic!r}; readable formats: {known}")
 
 
-def check_artifact(art: CompressedArtifact) -> str:
-    """Cross-check ``art.base`` against the payload's magic; returns the
-    codec name. A mismatch raises instead of trusting either side."""
-    name = payload_codec(art.base_payload)
-    if art.base != name:
-        if art.base == "zfplike":
-            raise NotImplementedError(
-                "base='zfplike' is not yet ported (ROADMAP.md Queue 1: "
-                "'zfplike and the paper-mode loop')")
+def check_artifact(art: CompressedArtifact) -> PreservingCodec:
+    """Cross-check ``art.base`` against the payload's magic and return
+    the codec that reads it; a mismatch raises instead of trusting
+    either side."""
+    pc = get_preserving_codec(art.base)
+    magic = payload_magic(art.base_payload)
+    if magic not in pc.magics:
+        sniffed = payload_codec(art.base_payload)   # raises on retired/unknown
         raise ValueError(
             f"artifact records base={art.base!r} but its payload magic "
-            f"{payload_magic(art.base_payload)!r} belongs to codec {name!r}")
-    return name
+            f"{magic!r} belongs to codec {sniffed.name!r}")
+    return pc
+
+
+def decode_payload(art: CompressedArtifact) -> np.ndarray:
+    """Magic-negotiated host decode of an artifact's base payload:
+    ``f_hat`` in the artifact's recorded dtype (a disagreement with the
+    payload raises)."""
+    pc = check_artifact(art)
+    f_hat = pc.decompress(art.base_payload)
+    if f_hat.dtype != np.dtype(art.dtype):
+        raise ValueError(
+            f"artifact records dtype {art.dtype} but the {pc.name!r} "
+            f"payload decodes to {f_hat.dtype}")
+    return f_hat
 
 
 #: edit-value storage dtypes the pipeline accepts
@@ -146,14 +230,31 @@ def resolve_edit_dtype(edit_value_dtype: str, field_dtype) -> str:
     return edit_value_dtype
 
 
+def encode_edits_checked(f: np.ndarray, f_hat: np.ndarray, res: MszResult,
+                         xi: float, edit_value_dtype: str,
+                         device: DeviceLike = None) -> bytes:
+    """Encode the edits of ``res``; a lossy edit dtype (bf16, or f4 on
+    an f64 field) is re-verified after a decode round trip (the edits
+    applied on the host, the check on ``device``) and falls back to the
+    exact dtype when rounding breaks preservation or the bound."""
+    evd = resolve_edit_dtype(edit_value_dtype, f.dtype)
+    blob = codec.encode_edits(res.edits_idx, res.edits_val, evd)
+    if evd != exact_edit_dtype(f.dtype):
+        idx2, val2 = codec.decode_edits(blob)
+        g2 = apply_edits(f_hat, idx2, val2)
+        v = verify_preservation(f, g2, xi, device=device)
+        if not (v["mss_preserved"] and v["bound_ok"]):
+            blob = codec.encode_edits(res.edits_idx, res.edits_val,
+                                      exact_edit_dtype(f.dtype))
+    return blob
+
+
 def encode_edits_checked_dev(fj: torch.Tensor, f_hat: torch.Tensor,
                              idx: np.ndarray, val: np.ndarray, xi: float,
                              edit_value_dtype: str) -> bytes:
-    """Encode the edits; a lossy edit dtype (bf16, or f4 on an f64
-    field) is re-verified on DEVICE tensors after a decode round trip and
-    falls back to the exact dtype when rounding breaks preservation or
-    the bound — the reference's decision, so the bytes agree."""
-    from ..core.driver import verify_preservation
+    """Device-path twin of ``encode_edits_checked``: the re-verification
+    runs on DEVICE tensors with the same predicate, so both paths make
+    the same fallback decision and the bytes agree."""
     evd = resolve_edit_dtype(edit_value_dtype, f_hat.dtype)
     blob = codec.encode_edits(idx, val, evd)
     if evd != exact_edit_dtype(f_hat.dtype):
@@ -166,3 +267,83 @@ def encode_edits_checked_dev(fj: torch.Tensor, f_hat: torch.Tensor,
         if not (v["mss_preserved"] and v["bound_ok"]):
             blob = codec.encode_edits(idx, val, exact_edit_dtype(f_hat.dtype))
     return blob
+
+
+def _make_artifact(f: np.ndarray, payload: bytes, blob: bytes, xi: float,
+                   base: str, res: MszResult, t_base: float,
+                   t_fix: float) -> CompressedArtifact:
+    return CompressedArtifact(
+        base=base, base_payload=payload, edit_payload=blob,
+        shape=f.shape, dtype=str(f.dtype), xi=xi,
+        t_base=t_base, t_fix=t_fix,
+        edit_ratio=res.edit_ratio, fix_iters=res.iters,
+        backend=res.backend,
+        base_magic=payload_magic(payload).decode("ascii", "replace"),
+    )
+
+
+def compress_host(name: str, f: np.ndarray, xi: float, *,
+                  compressor: Callable[..., bytes] = None,
+                  mode: str = "fused", edit_value_dtype: str = "auto",
+                  max_iters: int = 512, backend="auto", mesh=None,
+                  device: DeviceLike = None) -> CompressedArtifact:
+    """The codec-agnostic host compression path: base round trip on the
+    host through the registered codec ``name`` (or ``compressor``, a
+    pre-bound variant of it), the fix loop (``core.driver.derive_edits``
+    on ``device``), checked edit encoding, one artifact format."""
+    pc = get_preserving_codec(name)
+    f = np.asarray(f)
+    comp = compressor if compressor is not None else pc.compress
+    t0 = time.perf_counter()
+    payload = comp(f, xi)
+    f_hat = pc.decompress(payload)
+    t1 = time.perf_counter()
+    res = derive_edits(f, f_hat, xi, mode=mode, max_iters=max_iters,
+                       backend=backend, mesh=mesh, device=device)
+    if not res.converged:
+        raise RuntimeError("MSz fix loops did not converge within max_iters")
+    t2 = time.perf_counter()
+    blob = encode_edits_checked(f, f_hat, res, xi, edit_value_dtype,
+                                device=device)
+    return _make_artifact(f, payload, blob, xi, pc.name, res, t1 - t0,
+                          t2 - t1)
+
+
+def compress_host_batch(name: str, fields: List[np.ndarray],
+                        xi_arr: np.ndarray, *,
+                        compressor: Callable[..., bytes] = None,
+                        edit_value_dtype: str = "auto",
+                        max_iters: int = 512, backend="auto", mesh=None,
+                        device: DeviceLike = None
+                        ) -> List[CompressedArtifact]:
+    """Batch form of ``compress_host``: per-member base round trips on
+    the host, then one batched fix loop over the stacked members
+    (``core.driver.derive_edits_batch``). Each artifact is bitwise a
+    solo ``compress_host`` call's; t_fix is the batch's split evenly."""
+    pc = get_preserving_codec(name)
+    comp = compressor if compressor is not None else pc.compress
+    payloads, fhats, t_bases = [], [], []
+    for fi, xi_i in zip(fields, xi_arr):
+        t0 = time.perf_counter()
+        payload = comp(fi, float(xi_i))
+        fhats.append(pc.decompress(payload))
+        t_bases.append(time.perf_counter() - t0)
+        payloads.append(payload)
+
+    t0 = time.perf_counter()
+    results = derive_edits_batch(np.stack(fields), np.stack(fhats), xi_arr,
+                                 max_iters=max_iters, backend=backend,
+                                 mesh=mesh, device=device)
+    t_fix_each = (time.perf_counter() - t0) / max(len(fields), 1)
+
+    arts = []
+    for fi, xi_i, payload, f_hat, res, t_base in zip(
+            fields, xi_arr, payloads, fhats, results, t_bases):
+        if not res.converged:
+            raise RuntimeError(
+                "MSz fix loops did not converge within max_iters")
+        blob = encode_edits_checked(fi, f_hat, res, float(xi_i),
+                                    edit_value_dtype, device=device)
+        arts.append(_make_artifact(fi, payload, blob, float(xi_i), pc.name,
+                                   res, t_base, t_fix_each))
+    return arts

@@ -8,9 +8,11 @@ from .labels import (mss_labels, pointer_jump, default_pointer_iters,
 from .backend import (StencilMasks, ReferenceBackend, CudaBackend,
                       register_backend, available_backends, get_backend,
                       resolve_backend, false_critical_masks, trouble_masks)
-from .fixes import FieldTopo, field_topology, fused_pass, fused_fix
-from .driver import (MszResult, derive_edits, extract_edits, apply_edits,
-                     apply_edits_device, verify_preservation)
+from .fixes import (FieldTopo, field_topology, fused_pass, fused_fix,
+                    fused_fix_batch, fused_fix_worklist)
+from .driver import (MszResult, derive_edits, derive_edits_batch,
+                     extract_edits, apply_edits, apply_edits_device,
+                     verify_preservation, verify_preservation_batch)
 
 __all__ = [
     "OFFSETS_2D", "OFFSETS_3D", "offsets_for", "n_neighbors", "self_code",
@@ -21,6 +23,8 @@ __all__ = [
     "register_backend", "available_backends", "get_backend",
     "resolve_backend", "false_critical_masks", "trouble_masks",
     "FieldTopo", "field_topology", "fused_pass", "fused_fix",
-    "MszResult", "derive_edits", "extract_edits", "apply_edits",
-    "apply_edits_device", "verify_preservation",
+    "fused_fix_batch", "fused_fix_worklist",
+    "MszResult", "derive_edits", "derive_edits_batch", "extract_edits",
+    "apply_edits", "apply_edits_device", "verify_preservation",
+    "verify_preservation_batch",
 ]

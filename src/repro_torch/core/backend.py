@@ -24,7 +24,12 @@ Registered implementations:
   * ``cuda`` — the hand-written kernels of ``repro_torch.kernels``
     behind ``extrema_masks``/``fix_pass``/``fused_step``/``transform``/
     ``pack_codes``/``unpack_codes`` (on a CPU tensor each kernel wrapper
-    runs its plain version).
+    runs its plain version), with the dirty-slab worklist loop
+    (``worklist_loop``) that ``fixes.fused_fix`` takes on fields of at
+    least ``worklist_min_slabs`` slabs;
+  * ``cuda_tiled`` (``z_tile=8``) and ``cuda_worklist`` (worklist always
+    on, groups of 4 slabs) — the same kernels, configured to exercise
+    slab tiles and the worklist's skips on small fields.
 
 Both take ``reconstruct`` and ``scatter_edits`` from torch ops. Backends
 are bitwise-interchangeable: same g trajectory, same violation counts,
@@ -34,8 +39,9 @@ for a field on a CUDA device and ``reference`` for one on the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import grid
@@ -44,6 +50,10 @@ __all__ = ["FalseMasks", "false_critical_masks", "trouble_masks",
            "StencilMasks", "ReferenceBackend", "CudaBackend",
            "register_backend", "available_backends", "get_backend",
            "resolve_backend", "_halve_toward_lower", "_pull"]
+
+#: slab spans run by ``CudaBackend.worklist_loop`` so far (one extrema
+#: and one fix-pass call each)
+worklist_spans = 0
 
 
 def _halve_toward_lower(g: torch.Tensor, lower: torch.Tensor,
@@ -202,8 +212,28 @@ class ReferenceBackend(_TorchTail):
 @dataclasses.dataclass(frozen=True)
 class CudaBackend(_TorchTail):
     """The hand-written CUDA kernels (``kernels.extrema``,
-    ``kernels.fixpass``, ``kernels.lorenzo``, ``kernels.pack``)."""
+    ``kernels.fixpass``, ``kernels.lorenzo``, ``kernels.pack``).
+
+    ``z_tile``: slabs per tile of ``fused_step`` (None: one launch of
+    each kernel over the whole field; the kernels need no tiling on the
+    card). Tiled and untiled steps are bitwise equal: each tile reads g
+    with a 2-slab halo, the kernels compute in global coordinates, and
+    only the tile's own slabs are kept.
+
+    ``worklist`` / ``worklist_group`` / ``worklist_min_slabs``: the
+    dirty-slab worklist loop. ``None`` engages it for solo fix loops on
+    fields of at least ``worklist_min_slabs`` slabs; True/False force
+    it. The slab axis is split into groups of ``worklist_group`` slabs,
+    and each iteration re-runs the stencils only on groups within 2
+    slabs of an edit target of the previous iteration — bitwise equal to
+    the dense loop, because a slab's masks are a function of g on its
+    2-slab neighbourhood.
+    """
     name: str = "cuda"
+    z_tile: Optional[int] = None
+    worklist: Optional[bool] = None
+    worklist_group: int = 8
+    worklist_min_slabs: int = 64
 
     def extrema_masks(self, g: torch.Tensor, topo) -> StencilMasks:
         """Classification pass through the extrema kernel."""
@@ -222,8 +252,122 @@ class CudaBackend(_TorchTail):
         return g2, viol.sum().to(torch.int32)
 
     def fused_step(self, g: torch.Tensor, topo):
-        """One fused fix iteration: (g_next, n_violations)."""
+        """One fused fix iteration: (g_next, n_violations), in tiles of
+        ``z_tile`` slabs when it is set."""
+        if self.z_tile is not None and max(int(self.z_tile), 1) < g.shape[0]:
+            return self._tiled_step(g, topo, max(int(self.z_tile), 1))
         return self.fix_pass(g, topo, self.extrema_masks(g, topo))
+
+    def _span_step(self, g: torch.Tensor, topo,
+                   spans: List[Tuple[int, int]]):
+        """Both kernels on each slab span [z0, z1), all reading the
+        pre-iteration g: extrema on [z0-2, z1+2) and the fix pass on
+        [z0-1, z1+1), clipped to the field and placed in global
+        coordinates. Returns (z0, z1, g', src, tgt) a span, each tensor
+        the span's own slabs only (the fix kernel pulls nothing from
+        outside its tile, so its first and last slab are dropped)."""
+        from ..kernels.extrema import extrema_masks
+        from ..kernels.fixpass import fix_pass
+        n = g.shape[0]
+        out = []
+        for z0, z1 in spans:
+            a, b = max(z0 - 2, 0), min(z1 + 2, n)
+            c, d = max(z0 - 1, 0), min(z1 + 1, n)
+            up_c, _, selfe, dem, pro = extrema_masks(
+                g[a:b], topo.M[a:b], topo.m[a:b], topo.is_max[a:b],
+                topo.is_min[a:b], slab_lo=a, n_slabs_total=n)
+            ss = slice(c - a, d - a)
+            g2, src, tgt = fix_pass(
+                g[c:d], topo.lower[c:d], selfe[ss], dem[ss], pro[ss],
+                up_c[ss], topo.dn_c[c:d], slab_lo=c, n_slabs_total=n)
+            tp = slice(z0 - c, z1 - c)
+            out.append((z0, z1, g2[tp], src[tp], tgt[tp]))
+        return out
+
+    def _tiled_step(self, g: torch.Tensor, topo, tile: int):
+        """One iteration in tiles of ``tile`` slabs: (g_next,
+        n_violations), bitwise the untiled step's."""
+        n = g.shape[0]
+        parts = self._span_step(
+            g, topo, [(z0, min(z0 + tile, n)) for z0 in range(0, n, tile)])
+        viol = torch.stack([p[3].sum() for p in parts]).sum()
+        return (torch.cat([p[2] for p in parts], dim=0),
+                viol.to(torch.int32))
+
+    def use_worklist(self, shape) -> bool:
+        """Whether a solo fix loop on ``shape`` runs through
+        ``worklist_loop``: an explicit ``worklist`` wins (True needs at
+        least 2 slabs); None engages it from ``worklist_min_slabs``
+        slabs."""
+        if len(shape) not in (2, 3):
+            return False
+        if self.worklist is not None:
+            return bool(self.worklist) and shape[0] >= 2
+        return shape[0] >= self.worklist_min_slabs
+
+    def worklist_loop(self, g0: torch.Tensor, topo, *, max_iters: int):
+        """The fused fix loop with per-slab-group early exit: returns
+        (g, iters, converged, skipped_slabs), the first three bitwise
+        the dense loop's.
+
+        An iteration re-runs the stencils on a group of slabs iff a slab
+        within 2 slabs of it had an edit target in the previous
+        iteration (the first iteration runs every group). Consecutive
+        running groups merge into one span, so each span is one extrema
+        and one fix-pass launch, and an iteration where every group
+        runs is exactly the dense step. Skipped groups keep their g and
+        their stale (still exact) per-slab source counts, and count zero
+        targets. Convergence tests the summed source counts, the dense
+        loop's violation count. An iteration copies each span's slabs
+        into g in place (after every span has read it) and makes one
+        device->host copy, of the spans' per-slab source and target
+        counts; the counts of every slab live on the host.
+        ``skipped_slabs`` sums the slabs of skipped groups over
+        iterations.
+        """
+        global worklist_spans
+        n = g0.shape[0]
+        wg = max(int(self.worklist_group), 1)
+        groups = [(z0, min(z0 + wg, n)) for z0 in range(0, n, wg)]
+        g = g0
+        src = np.zeros(n, np.int64)     # per-slab fix sources, on the host
+        dirty = np.ones(n, bool)        # sentinel: every group runs first
+        it = skipped = 0
+        while it == 0 or (src.sum() > 0 and it < max_iters):
+            near = dirty.copy()
+            for s in (1, 2):            # dilate by the 2-slab stencil radius
+                near[:-s] |= dirty[s:]
+                near[s:] |= dirty[:-s]
+            spans: List[List[int]] = []
+            for z0, z1 in groups:
+                if not near[z0:z1].any():
+                    skipped += z1 - z0
+                elif spans and spans[-1][1] == z0:
+                    spans[-1][1] = z1
+                else:
+                    spans.append([z0, z1])
+            parts = self._span_step(g, topo, [tuple(sp) for sp in spans])
+            worklist_spans += len(parts)
+            if len(parts) == 1 and spans[0] == [0, n]:
+                g = parts[0][2]
+            else:
+                if g is g0:
+                    g = g0.clone()
+                # in stream order after every span has read the
+                # pre-iteration g (their halos may overlap)
+                for z0, z1, gp, _, _ in parts:
+                    g[z0:z1] = gp
+            counts = (torch.cat([t for p in parts for t in p[3:]]).cpu()
+                      .numpy() if parts else np.zeros(0, np.int32))
+            dirty = np.zeros(n, bool)
+            k = 0
+            for z0, z1, _, _, _ in parts:
+                m = z1 - z0
+                src[z0:z1] = counts[k:k + m]
+                dirty[z0:z1] = counts[k + m:k + 2 * m] > 0
+                k += 2 * m
+            it += 1
+        return g, it, bool(src.sum() == 0), skipped
 
     def transform(self, f: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
         """Quantize + integer Lorenzo through the Lorenzo kernel."""
@@ -290,3 +434,9 @@ def resolve_backend(spec: BackendLike, shape, dtype: torch.dtype,
 
 register_backend(ReferenceBackend())
 register_backend(CudaBackend())
+# small fixed tile: exercises the span path of fused_step on modest fields
+register_backend(CudaBackend(name="cuda_tiled", z_tile=8))
+# worklist always on with small groups: exercises the dirty-slab loop
+# (and its skips) on modest fields
+register_backend(CudaBackend(name="cuda_worklist", worklist=True,
+                             worklist_group=4))

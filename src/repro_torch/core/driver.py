@@ -1,10 +1,11 @@
 """High-level MSz API, the PyTorch port of ``repro.core.driver`` (fused
-mode): derive edits at compression time, apply them at decompression
-time, verify exact MSS preservation."""
+mode): derive edits at compression time (one field, or a batch through
+``fixes.fused_fix_batch``), apply them at decompression time, verify
+exact MSS preservation."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -74,19 +75,65 @@ def derive_edits(f, f_hat, xi: float, mode: str = "fused",
     topo = fixes.field_topology(ft, xi)
     be = resolve_backend(backend, ft.shape, ft.dtype, ft.device)
     g, iters, ok = fixes.fused_fix(fh, topo, max_iters=max_iters, backend=be)
-    delta = (g - fh).cpu().numpy()
+    return _package_result(ft, fh, g, iters, ok, be.name)
+
+
+def _package_result(f: torch.Tensor, f_hat: torch.Tensor, g: torch.Tensor,
+                    iters: int, ok: bool, backend_name: str) -> MszResult:
+    delta = (g - f_hat).cpu().numpy()
     idx = np.flatnonzero(delta != 0.0)
     g_np = g.cpu().numpy()
     return MszResult(
         g=g_np,
         edits_idx=idx.astype(np.int64),
         edits_val=delta.reshape(-1)[idx],
-        iters=iters,
-        converged=ok,
+        iters=int(iters),
+        converged=bool(ok),
         edit_ratio=float(idx.size) / float(delta.size),
-        max_abs_err=float(np.max(np.abs(ft.cpu().numpy() - g_np))),
-        backend=be.name,
+        max_abs_err=float(np.max(np.abs(f.cpu().numpy() - g_np))),
+        backend=backend_name,
     )
+
+
+def derive_edits_batch(f, f_hat, xi: Union[float, Sequence[float]],
+                       max_iters: int = 512, backend: BackendLike = "auto",
+                       mesh=None, batching: str = "auto",
+                       compact_every: int = 8,
+                       device: DeviceLike = None) -> List[MszResult]:
+    """Batched ``derive_edits`` over a leading batch axis (fused mode).
+    ``f``/``f_hat``: (B, *spatial) with 2D/3D members; ``xi`` a scalar
+    or one bound a member (each member's topology honours its own).
+    The fix loops run through ``fixes.fused_fix_batch`` (``batching``
+    and ``compact_every`` passed through); each member's result is
+    bitwise a solo ``derive_edits`` call's."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet (ROADMAP.md Queue 1: 'Multi-GPU "
+            "sharded fix loop')")
+    ft = _as_tensor(f, device)
+    fh = _as_tensor(f_hat, ft.device, ft.dtype)
+    if ft.shape != fh.shape:
+        raise ValueError(f"shape mismatch {tuple(ft.shape)} vs "
+                         f"{tuple(fh.shape)}")
+    if ft.ndim not in (3, 4):
+        raise ValueError(
+            "derive_edits_batch expects (B, *spatial) with 2D/3D members; "
+            f"got shape {tuple(ft.shape)}")
+    B = ft.shape[0]
+    xi_arr = np.broadcast_to(np.asarray(xi, np.float64), (B,))
+    for i in range(B):
+        _check_inputs(ft[i], fh[i], float(xi_arr[i]))
+    topos = [fixes.field_topology(ft[i], float(xi_arr[i])) for i in range(B)]
+    topo_b = fixes.FieldTopo(*(torch.stack(leaves)
+                               for leaves in zip(*topos)))
+    be = resolve_backend(backend, ft.shape[1:], ft.dtype, ft.device)
+    g_b, iters_b, ok_b = fixes.fused_fix_batch(
+        fh, topo_b, max_iters=max_iters, backend=be, batching=batching,
+        compact_every=compact_every)
+    iters_b, ok_b = iters_b.cpu().numpy(), ok_b.cpu().numpy()
+    return [_package_result(ft[i], fh[i], g_b[i], iters_b[i], ok_b[i],
+                            be.name)
+            for i in range(B)]
 
 
 def extract_edits(f_hat: torch.Tensor, g: torch.Tensor
@@ -157,3 +204,24 @@ def verify_preservation(f, g, xi: float, device: DeviceLike = None) -> dict:
         mss_preserved=max_label_ok and min_label_ok,
         right_labeled_ratio=right,
     )
+
+
+def verify_preservation_batch(f_b, g_b, xi, device: DeviceLike = None
+                              ) -> list:
+    """Member-wise ``verify_preservation`` over stacked batches: ``f_b``
+    and ``g_b`` are (B, *spatial) with 2D/3D members, ``xi`` a scalar or
+    one bound a member. Returns one verdict dict a member."""
+    f_b = np.asarray(f_b)
+    g_b = np.asarray(g_b)
+    if f_b.ndim not in (3, 4):
+        raise ValueError(
+            f"verify_preservation_batch takes a (B, *spatial) stack of "
+            f"2D/3D fields (got shape {f_b.shape})")
+    if f_b.shape != g_b.shape:
+        raise ValueError(
+            f"batch shapes disagree: f {f_b.shape} vs g {g_b.shape}")
+    B = f_b.shape[0]
+    xi_arr = np.broadcast_to(np.asarray(xi, np.float64), (B,))
+    return [verify_preservation(f_b[i], g_b[i], float(xi_arr[i]),
+                                device=device)
+            for i in range(B)]

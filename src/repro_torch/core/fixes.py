@@ -8,12 +8,16 @@ is the reference's ``_fused_fix_impl``: the first step runs outside the
 loop and the count starts at 1; the loop runs while violations remain
 and fewer than ``max_iters`` steps were taken; converged means the last
 step saw no violation. The convergence test is a host sync per
-iteration.
+iteration. A backend with a dirty-slab worklist (``cuda``) runs the
+loop through it where its policy says so (``use_worklist``), bitwise
+equal. ``fused_fix_batch`` runs many members, each bitwise its solo
+loop.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from . import grid
@@ -57,6 +61,9 @@ def fused_fix(g0: torch.Tensor, topo: FieldTopo, max_iters: int = 512,
     tensor, ``reference`` on a CPU one); every backend gives the same
     trajectory bit for bit."""
     be = resolve_backend(backend, g0.shape, g0.dtype, g0.device)
+    if hasattr(be, "worklist_loop") and be.use_worklist(g0.shape):
+        g, iters, ok, _ = be.worklist_loop(g0, topo, max_iters=max_iters)
+        return g, iters, ok
     g, viol = be.fused_step(g0, topo)
     n_viol = int(viol)
     iters = 1
@@ -65,3 +72,79 @@ def fused_fix(g0: torch.Tensor, topo: FieldTopo, max_iters: int = 512,
         n_viol = int(viol)
         iters += 1
     return g, iters, n_viol == 0
+
+
+def fused_fix_worklist(g0: torch.Tensor, topo: FieldTopo,
+                       max_iters: int = 512,
+                       backend: BackendLike = "cuda_worklist"
+                       ) -> Tuple[torch.Tensor, int, bool, int]:
+    """Run the fused loop through a backend's dirty-slab worklist,
+    whatever its engage threshold. Returns (g, iters, converged,
+    skipped_slabs), the first three bitwise ``fused_fix``'s;
+    ``skipped_slabs`` counts the slabs of skipped groups summed over
+    iterations."""
+    be = resolve_backend(backend, g0.shape, g0.dtype, g0.device)
+    if not hasattr(be, "worklist_loop"):
+        raise ValueError(
+            f"backend {be.name!r} has no dirty-slab worklist driver; "
+            "use the cuda backend family")
+    return be.worklist_loop(g0, topo, max_iters=max_iters)
+
+
+def _member(topo: FieldTopo, i: int) -> FieldTopo:
+    return FieldTopo(*(x[i] for x in topo))
+
+
+def fused_fix_batch(g0: torch.Tensor, topo: FieldTopo, max_iters: int = 512,
+                    backend: BackendLike = "auto", batching: str = "auto",
+                    compact_every: int = 8
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused loop over a leading batch axis (timestep series,
+    ensemble members). ``g0``: (B, *spatial); every FieldTopo leaf has
+    the same leading axis. Returns (g (B, *spatial), iters (B,) int32,
+    converged (B,) bool), each member bitwise its solo ``fused_fix``
+    (dense schedule).
+
+    Every member takes the first step; after that only members whose
+    last step saw violations step again, each through the backend's
+    ``fused_step``, and one device->host copy of their stacked
+    violation counts an iteration decides who goes on. A member stops
+    the iteration its count is 0; at ``max_iters`` the rest report
+    ``converged=False``.
+
+    ``batching`` ("auto", "compact" or "fused") and ``compact_every``
+    (>= 1) are checked as the reference checks them. The reference
+    chooses between freezing converged members inside one vmapped loop
+    and compacting the active ones into smaller buckets; here no member
+    occupies a lane, so every choice runs the same member loop, which
+    already steps only the active members.
+    """
+    if batching not in ("auto", "compact", "fused"):
+        raise ValueError(
+            'batching must be "auto", "compact", or "fused"; '
+            f"got {batching!r}")
+    if compact_every < 1:
+        raise ValueError(f"compact_every must be >= 1, got {compact_every}")
+    be = resolve_backend(backend, g0.shape[1:], g0.dtype, g0.device)
+    B = g0.shape[0]
+    gs = list(g0.unbind(0))
+    topos = [_member(topo, i) for i in range(B)]
+    iters = np.zeros(B, np.int32)
+    viol = np.ones(B, np.int64)         # 1-sentinel: everyone steps once
+    active = np.arange(B)
+    it = 0
+    while active.size and it < max_iters:
+        counts = []
+        for i in active:
+            gs[i], v = be.fused_step(gs[i], topos[i])
+            counts.append(v.reshape(1))
+        viol_a = torch.cat(counts).cpu().numpy()
+        # mszlint: disable=scatter-discipline -- active is unique
+        iters[active] += 1
+        viol[active] = viol_a
+        active = active[viol_a > 0]
+        it += 1
+    dev = g0.device
+    g = torch.stack(gs) if gs else g0.clone()
+    return (g, torch.from_numpy(iters).to(dev),
+            torch.from_numpy(viol == 0).to(dev))

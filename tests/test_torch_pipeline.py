@@ -155,7 +155,7 @@ def test_retired_and_unported_payloads():
 
 @pytest.mark.parametrize("kwargs", [
     dict(codec="zfplike"), dict(base="zfplike"), dict(mode="paper"),
-    dict(mesh=object()), dict(device_path=False),
+    dict(mesh=object()),
 ])
 def test_unserved_arguments_raise_not_implemented(kwargs):
     f = _field("climate", (8, 10), np.float32)
@@ -165,16 +165,16 @@ def test_unserved_arguments_raise_not_implemented(kwargs):
 
 def test_unserved_entry_points_raise_not_implemented():
     f = _field("climate", (8, 10), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpipe.compress_preserving_mss_batch([f, f], 1e-2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpipe.decompress_artifact_batch([])
     art = tpipe.compress_preserving_mss(f, 1e-2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tpipe.decompress_preserving_mss(art, mesh=object(), device="cpu")
-    # a bound too tight for the int32 device path would need the host path
-    with pytest.raises(NotImplementedError, match="host path"):
-        tpipe.compress_preserving_mss(f * 1e6, 1e-3, device="cpu")
+    for kwargs in (dict(codec="zfplike"), dict(mesh=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tpipe.compress_preserving_mss_batch([f, f], 1e-2, device="cpu",
+                                                **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tpipe.decompress_artifact_batch([art], mesh=object(), device="cpu")
+    # device_path=True refuses a bound too tight for the int32 device path
     with pytest.raises(ValueError, match="device_path=True"):
         tpipe.compress_preserving_mss(f * 1e6, 1e-3, device="cpu",
                                       device_path=True)
