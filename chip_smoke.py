@@ -66,6 +66,31 @@ Phases, each asserting (any failure exits non-zero):
    (f64) gives the device path's bytes; climate x 1e6 in f64 with xi
    1e-3 (outside the int32 device range) takes the host path under
    "auto" and decodes with its MSS preserved.
+3e. zfplike (``codec="zfplike"``) round trips on climate 1800x3600 in
+   f32 and f64 and nyx 256^3 (cut from 512^3 for time): the host ZFJ2
+   codec, the fix loop on the card (extrema = fixpass = worklist spans,
+   lorenzo = pack = 0), the host MSE1 encode, each stage timed; MSS
+   preserved and bound held; at 64^3 the ``cuda`` and ``reference``
+   backends give the same artifact bytes.
+3f. paper mode (``mode="paper"``) round trips on nyx 128^3 and climate
+   1800x3600: no kernel launch, MSS preserved; the paper loop timed
+   beside the fused loop on the same (f, f_hat); ``derive_edits(mode=
+   "paper")`` gives the same g and iterations on the card and on the CPU
+   at 32^3 and 60x70.
+3g. the service: one ``CompressionService(window=8, max_batch=4)`` takes
+   the 8 climate timesteps under deflate, then under device-pack, the 4
+   nyx 128^3 members with their bounds and 2 zfplike climate requests,
+   then decompresses every artifact; each artifact byte-identical to its
+   solo call and each g to the solo decode; the stream's wall time
+   beside the solo loop's, its stats, the calibration record and the
+   launches of each kernel (each MSS kernel at least once).
+3h. the launcher: ``repro_torch.launch.serve.main(["--smoke"])`` and
+   ``["--fields", "16", "--shape", "128,128,128", "--verify"]``.
+3i. the guards: a device-pack stream batch under ``MSZ_SANITIZERS=1``
+   completes with the solo bytes; the pipelined device stage under
+   ``no_transfers`` completes with its audited crossings counted; an
+   untracked ``.item()`` and ``torch.tensor(..., device="cuda")`` raise
+   inside the guard; another thread's d2h during it does not.
 4. whole-path parity at 128^3: the ``cuda`` and ``reference`` backends on
    the card give the same payload bytes, fix-iteration count and g, for
    both entropy codecs; the host codecs agree with the device path; the
@@ -80,7 +105,8 @@ Phases, each asserting (any failure exits non-zero):
    weights on both; prefill and 8 decode steps agree within 1e-4 and
    give the same greedy tokens.
 
-Stdout carries JSON records; the line before the last is the per-kernel
+Phases 3e-3i run after phase 4. Stdout carries JSON records, then the
+script's total seconds; the line before the last is the per-kernel
 summary, and the last line is ``{"ok": true, "device": {...}}``. Without a
 CUDA GPU, or without the repository around it, the script exits non-zero
 and prints no result. Options shrink the sizes for a quick check.
@@ -98,6 +124,9 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+
+#: where the phases of the service and the guards put their tensors
+DEVICE = "cuda"
 
 #: H100 SXM data-sheet peaks: HBM3 bandwidth, dense FP32 and bf16 rates
 HBM_BYTES_PER_S = 3.35e12
@@ -1051,6 +1080,315 @@ def phase_host_path(label: str, f, xi: float, over_int32: bool = False
 
 
 # ---------------------------------------------------------------------------
+# phases 3e-3i: zfplike, paper mode, the service, its launcher, the guards
+# ---------------------------------------------------------------------------
+
+def same_artifact(a, b) -> bool:
+    return (a.base_payload, a.edit_payload, a.fix_iters) == (
+        b.base_payload, b.edit_payload, b.fix_iters)
+
+
+def phase_zfplike(label: str, f, xi: float) -> dict:
+    """A ``codec="zfplike"`` round trip on the card: the host ZFJ2 codec,
+    the fix loop on the card (the worklist at >= 64 slabs), the host MSE1
+    encode; MSS preserved and bound held; launches counted from 0."""
+    import torch
+    from repro_torch.compress import (compress_preserving_mss,
+                                      decompress_preserving_mss,
+                                      overall_compression_ratio)
+    from repro_torch.core import backend, verify_preservation
+    torch.cuda.synchronize()
+    reset_launches()
+    backend.worklist_spans = 0
+    art, t_comp = timed(lambda: compress_preserving_mss(f, xi,
+                                                        codec="zfplike"))
+    g, t_dec = timed(lambda: decompress_preserving_mss(art))
+    launches = read_launches()
+    spans = backend.worklist_spans
+    report = verify_preservation(f, g, xi)
+    if not (report["mss_preserved"] and report["bound_ok"]):
+        raise AssertionError(f"zfplike {label}: {report}")
+    if art.base_magic != "ZFJ2" or art.path != "host":
+        raise AssertionError(f"zfplike {label}: {art.base_magic} on "
+                             f"{art.path}")
+    check_fix_launches(f"zfplike {label}", launches, art.fix_iters,
+                       f.shape, spans)
+    if any(launches[k] for k in ("lorenzo", "pack", "unpack", "flash")):
+        raise AssertionError(f"zfplike {label}: launches {launches}")
+    emit({"phase": "zfplike", "field": label, "shape": list(f.shape),
+          "dtype": str(f.dtype), "xi": xi, "fix_iters": art.fix_iters,
+          "edit_ratio": art.edit_ratio,
+          "compression_ratio": overall_compression_ratio(f, art),
+          "payload_bytes": len(art.base_payload),
+          "edit_bytes": len(art.edit_payload),
+          "mss_preserved": True, "bound_ok": True,
+          "max_abs_err": report["max_abs_err"], "launches": launches,
+          "worklist_spans": spans,
+          "seconds": {"zfp_round_trip": art.t_base, "fix": art.t_fix,
+                      "edit_encode": t_comp - art.t_base - art.t_fix,
+                      "compress": t_comp, "decompress": t_dec}})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_zfplike_parity(n: int) -> None:
+    """zfplike artifacts under the ``cuda`` and ``reference`` backends on
+    the card: the same bytes and iterations."""
+    from repro_torch.compress import compress_preserving_mss
+    from repro_torch.data import synthetic_field
+    f = synthetic_field("nyx", (n, n, n))
+    xi = 1e-3 * float(np.ptp(f))
+    a = compress_preserving_mss(f, xi, codec="zfplike", backend="cuda")
+    b = compress_preserving_mss(f, xi, codec="zfplike", backend="reference")
+    if not same_artifact(a, b):
+        raise AssertionError("zfplike parity: artifacts differ between "
+                             "backends")
+    emit({"phase": "zfplike_parity", "shape": [n, n, n],
+          "fix_iters": a.fix_iters, "bytes_identical": True})
+
+
+def phase_paper(label: str, f, xi: float) -> dict:
+    """``mode="paper"`` round trip on the card, and the paper loop beside
+    the fused loop on the same (f, f_hat); launches counted from 0 (the
+    paper loop runs on torch ops)."""
+    import torch
+    from repro_torch.compress import (compress_preserving_mss,
+                                      decompress_preserving_mss,
+                                      sz_decompress)
+    from repro_torch.core import derive_edits, verify_preservation
+    reset_launches()
+    art, t_comp = timed(lambda: compress_preserving_mss(f, xi, mode="paper"))
+    g, t_dec = timed(lambda: decompress_preserving_mss(art))
+    launches = read_launches()
+    report = verify_preservation(f, g, xi)
+    if not (report["mss_preserved"] and report["bound_ok"]):
+        raise AssertionError(f"paper {label}: {report}")
+    if any(launches[k] for k in ("extrema", "fixpass", "lorenzo", "pack",
+                                 "flash")):
+        raise AssertionError(f"paper {label}: launches {launches}")
+    f_hat = sz_decompress(art.base_payload)
+    paper, t_paper = timed(lambda: derive_edits(f, f_hat, xi, mode="paper"))
+    fused, t_fused = timed(lambda: derive_edits(f, f_hat, xi, mode="fused"))
+    if paper.iters != art.fix_iters or not (paper.converged
+                                            and fused.converged):
+        raise AssertionError(f"paper {label}: {paper.iters} iterations, "
+                             f"artifact {art.fix_iters}")
+    emit({"phase": "paper_mode", "field": label, "shape": list(f.shape),
+          "dtype": str(f.dtype), "xi": xi, "outer_iters": art.fix_iters,
+          "fused_iters": fused.iters, "edit_ratio": art.edit_ratio,
+          "fused_edit_ratio": fused.edit_ratio,
+          "mss_preserved": True, "bound_ok": True, "launches": launches,
+          "seconds": {"compress": t_comp, "decompress": t_dec,
+                      "paper_loop": t_paper, "fused_loop": t_fused}})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_paper_card_vs_cpu() -> None:
+    """g, iterations and convergence of ``derive_edits(mode="paper")``
+    bitwise the same on the card and on the CPU."""
+    from repro_torch.core import derive_edits
+    from repro_torch.data import synthetic_field
+    out = {}
+    for name, shape in (("nyx", (32, 32, 32)), ("climate", (60, 70))):
+        f = synthetic_field(name, shape)
+        xi = 1e-2 * float(np.ptp(f))
+        rng = np.random.default_rng(5)
+        f_hat = (f + rng.uniform(-xi, xi, f.shape)).astype(f.dtype)
+        f_hat = np.clip(f_hat, f - xi, f + xi)
+        card = derive_edits(f, f_hat, xi, mode="paper")
+        cpu = derive_edits(f, f_hat, xi, mode="paper", device="cpu")
+        if not (np.array_equal(card.g, cpu.g) and card.iters == cpu.iters
+                and card.converged == cpu.converged):
+            raise AssertionError(f"paper card vs cpu {shape}: differ")
+        out["x".join(map(str, shape))] = card.iters
+    emit({"phase": "paper_card_vs_cpu", "iters": out, "g_identical": True})
+
+
+def phase_service(steps, members, member_xis, zfp_fields) -> dict:
+    """One ``CompressionService(window=8, max_batch=4)``: the climate
+    timesteps under deflate then device-pack, the nyx members with their
+    bounds, two zfplike requests, then every artifact decompressed
+    through the service. Each artifact byte-identical to its solo call,
+    each g equal to the solo decode; the stream's wall time beside the
+    solo loop's."""
+    import torch
+    from repro_torch.compress import (calibrate, compress_preserving_mss,
+                                      decompress_preserving_mss, pipeline)
+    from repro_torch.core.backend import resolve_backend
+    from repro_torch.serve import CompressionService, ServiceConfig
+    reqs = ([(f, 1e-3 * float(np.ptp(f)), "szlike", "deflate")
+             for f in steps]
+            + [(f, 1e-3 * float(np.ptp(f)), "szlike", "device-pack")
+               for f in steps]
+            + [(f, x, "szlike", "deflate")
+               for f, x in zip(members, member_xis)]
+            + [(f, 1e-3 * float(np.ptp(f)), "zfplike", "deflate")
+               for f in zfp_fields])
+    torch.cuda.synchronize()
+    reset_launches()
+    cfg = ServiceConfig(window=8, max_batch=4)
+    with CompressionService(cfg) as svc:
+        def run():
+            futs = [svc.submit_compress(f, x, codec=c, entropy=e)
+                    for f, x, c, e in reqs]
+            return [fut.result() for fut in futs]
+        arts, t_stream = timed(run)
+        gs, t_stream_dec = timed(lambda: [
+            fut.result() for fut in
+            [svc.submit_decompress(a) for a in arts]])
+        svc.flush()
+        st = svc.stats()
+    launches = read_launches()
+    for k in ("extrema", "fixpass", "lorenzo", "pack", "unpack"):
+        if launches[k] == 0:
+            raise AssertionError(f"service: no {k} launch ({launches})")
+    solo, t_solo = timed(lambda: [
+        compress_preserving_mss(f, x, codec=c, entropy=e)
+        for f, x, c, e in reqs])
+    for i, (a, b) in enumerate(zip(arts, solo)):
+        if not same_artifact(a, b):
+            raise AssertionError(f"service request {i}: artifact differs "
+                                 "from the solo call")
+    g_solo, t_solo_dec = timed(lambda: [decompress_preserving_mss(a)
+                                        for a in solo])
+    for i, (x, y) in enumerate(zip(gs, g_solo)):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"service request {i}: decode differs "
+                                 "from the solo decode")
+    # the device stage of one 4-member climate batch run solo, in the
+    # mode the service's policy picked for it
+    be = resolve_backend("auto", steps[0].shape, torch.float32, DEVICE)
+    cal = calibrate.fused_fix_threshold(be, np.float32, DEVICE)
+    four = steps[:4]
+    xi4 = np.asarray([1e-3 * float(np.ptp(f)) for f in four])
+    steps4 = [pipeline._device_path_reason(f, x)[1] for f, x in
+              zip(four, xi4)]
+    stage = (pipeline._device_batch_stage
+             if four[0].size <= cal.threshold_voxels
+             else pipeline._device_pipelined_stage)
+    _, t_stage = timed(lambda: stage(four, xi4, be, 512, steps4,
+                                     torch.device(DEVICE)))
+    c = st["compress"]
+    emit({"phase": "service", "requests": len(reqs),
+          "artifacts_identical": True, "g_identical": True,
+          "launches": launches,
+          "seconds": {"stream_compress": t_stream,
+                      "solo_compress": t_solo,
+                      "stream_decompress": t_stream_dec,
+                      "solo_decompress": t_solo_dec,
+                      "stream_device_stage": c["t_device_s"],
+                      "stream_encode": c["t_encode_s"],
+                      "solo_device_stage_climate_x4": t_stage},
+          "stats": {leg: {k: st[leg][k] for k in (
+              "fields_per_sec", "batches", "batch_occupancy",
+              "padded_members", "fix_modes", "cache", "nbytes_h2d",
+              "nbytes_d2h", "entropy_codecs", "straggler",
+              "max_in_flight")} for leg in ("compress", "decompress")},
+          "calibration": {"threshold_voxels": cal.threshold_voxels,
+                          "overhead_s": cal.overhead_s,
+                          "solo_voxel_s": cal.solo_voxel_s,
+                          "batched_voxel_s": cal.batched_voxel_s,
+                          "source": cal.source}})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_launcher(shape: str) -> dict:
+    """``repro_torch.launch.serve.main`` on the card: ``--smoke``, then
+    16 nyx fields of ``shape`` (128,128,128) with ``--verify``; its
+    printout kept in the record."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    totals = dict.fromkeys(COUNTERS, 0)
+    runs = {}
+    for argv in (["--smoke"],
+                 ["--fields", "16", "--shape", shape, "--verify"]):
+        reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            arts, secs = timed(lambda: serve.main(argv))
+        lines = buf.getvalue().strip().splitlines()
+        if not lines or lines[-1] != "OK" or not any(
+                ln.startswith("# verified") for ln in lines):
+            raise AssertionError(f"serve launcher {argv}: {lines}")
+        launches = read_launches()
+        for k, v in launches.items():
+            totals[k] += v
+        runs[" ".join(argv)] = {"seconds": secs, "artifacts": len(arts),
+                                "launches": launches, "printout": lines}
+    emit({"phase": "serve_launcher", "runs": runs, "verified": True})
+    return totals
+
+
+def phase_guards(fields) -> dict:
+    """The transfer guard on the card: a device-pack stream batch under
+    ``MSZ_SANITIZERS=1`` completes with the solo call's bytes; the same
+    device stage under ``no_transfers`` in this thread completes with
+    its audited crossings counted; an untracked ``.item()`` and a
+    ``torch.tensor(..., device="cuda")`` raise inside the guard; another
+    thread's d2h during the guard does not."""
+    import os
+    import threading
+    import torch
+    from repro_torch.compress import (CompressStream, compress_preserving_mss,
+                                      pipeline)
+    from repro_torch.core.backend import resolve_backend
+    from repro_torch.debug import TransferError, no_transfers
+    xis = [1e-3 * float(np.ptp(f)) for f in fields]
+    reset_launches()
+    os.environ["MSZ_SANITIZERS"] = "1"
+    try:
+        with CompressStream(window=4, max_batch=4, linger_ms=50) as cs:
+            futs = [cs.submit(f, x, entropy="device-pack")
+                    for f, x in zip(fields, xis)]
+            arts = [fut.result() for fut in futs]
+            st = cs.stats()
+    finally:
+        del os.environ["MSZ_SANITIZERS"]
+    launches = read_launches()
+    for i, (f, x, a) in enumerate(zip(fields, xis, arts)):
+        if not same_artifact(a, compress_preserving_mss(
+                f, x, entropy="device-pack")):
+            raise AssertionError(f"guards: member {i} differs from solo")
+    be = resolve_backend("auto", fields[0].shape, torch.float32, DEVICE)
+    steps = [pipeline._device_path_reason(f, x)[1]
+             for f, x in zip(fields, xis)]
+    with no_transfers() as counts:
+        pipeline._device_pipelined_stage(fields, np.asarray(xis), be, 512,
+                                         steps, torch.device(DEVICE),
+                                         entropy="device-pack")
+    t = torch.arange(8.0, device=DEVICE)
+    raised = {}
+    seen = {}
+
+    def worker():
+        seen["d2h"] = t.cpu().sum().item()
+    with no_transfers():
+        for what, fn in (("item", lambda: t.sum().item()),
+                         ("tensor_h2d", lambda: torch.tensor(
+                             1.0, device=DEVICE))):
+            try:
+                fn()
+                raised[what] = False
+            except TransferError:
+                raised[what] = True
+        th = threading.Thread(target=worker)
+        th.start()
+        th.join(timeout=60)
+    if not (all(raised.values()) and seen.get("d2h") == 28.0):
+        raise AssertionError(f"guards: raised {raised}, worker {seen}")
+    emit({"phase": "guards", "stream_batch_completed": True,
+          "artifacts_identical": True, "fix_modes": st["fix_modes"],
+          "audited": {"h2d": counts.h2d, "d2h": counts.d2h,
+                      "h2d_bytes": counts.h2d_bytes,
+                      "d2h_bytes": counts.d2h_bytes},
+          "raised": raised, "worker_d2h_ok": True, "launches": launches})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: whole-path parity
 # ---------------------------------------------------------------------------
 
@@ -1388,6 +1726,16 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-nyx", type=int, default=128,
                     help="edge of the nyx batch members and the f64 host "
                          "path field")
+    ap.add_argument("--zfp-nyx", type=int, default=256,
+                    help="edge of the cubic nyx field of the zfplike phase "
+                         "(cut from 512 for time)")
+    ap.add_argument("--paper-nyx", type=int, default=128,
+                    help="edge of the cubic nyx field of the paper phase")
+    ap.add_argument("--paper-climate", type=str, default="1800x3600",
+                    help="shape of the climate field of the paper phase")
+    ap.add_argument("--launcher-shape", type=str, default="128,128,128",
+                    help="field shape of the service launcher's verified "
+                         "run")
     ap.add_argument("--reps", type=int, default=10,
                     help="timed launches per kernel (median reported)")
     ap.add_argument("--lm-batch", type=int, default=8,
@@ -1397,6 +1745,7 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-steps", type=int, default=32,
                     help="greedy decode steps after the prefill")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -1455,16 +1804,43 @@ def main(argv=None) -> int:
                  zip((1e-2, 3e-3, 1e-3, 3e-4), members)], "deflate",
                 batchings=(dict(batching="compact", compact_every=2),
                            dict(batching="fused")))
-    del steps
     phase_host_path("climate", fields[1][1],
                     1e-3 * float(np.ptp(fields[1][1])))
     f64 = members[0].astype(np.float64)
     phase_host_path("nyx", f64, 1e-3 * float(np.ptp(f64)))
-    del members, f64
+    del f64
     phase_host_path("climate x 1e6", fields[1][1].astype(np.float64) * 1e6,
                     1e-3, over_int32=True)
 
     phase_parity(args.parity)
+
+    # the paths of the eighth slice, each with its launches counted from 0
+    climate = fields[1][1]
+    zfp_nyx = synthetic_field("nyx", (args.zfp_nyx,) * 3)
+    for label, f in (("climate", climate),
+                     ("climate f64", climate.astype(np.float64)),
+                     (f"nyx {args.zfp_nyx}", zfp_nyx)):
+        for k, v in phase_zfplike(label, f, 1e-3 * float(np.ptp(f))).items():
+            launches[k] += v
+    del zfp_nyx
+    phase_zfplike_parity(64)
+    paper_climate = tuple(int(s) for s in args.paper_climate.split("x"))
+    for label, f in (
+            (f"nyx {args.paper_nyx}",
+             synthetic_field("nyx", (args.paper_nyx,) * 3)),
+            ("climate", synthetic_field("climate", paper_climate))):
+        phase_paper(label, f, 1e-3 * float(np.ptp(f)))
+    phase_paper_card_vs_cpu()
+    for phase in (
+            lambda: phase_service(steps, members,
+                                  [c * float(np.ptp(f)) for c, f in
+                                   zip((1e-2, 3e-3, 1e-3, 3e-4), members)],
+                                  steps[:2]),
+            lambda: phase_serve_launcher(args.launcher_shape),
+            lambda: phase_guards(steps[:4])):
+        for k, v in phase().items():
+            launches[k] += v
+    del steps, members
 
     launches["flash"] = phase_lm_serve(args.lm_batch, args.lm_prompt,
                                        args.lm_steps, seed=0)
@@ -1488,6 +1864,7 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms")})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

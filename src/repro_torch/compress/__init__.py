@@ -1,9 +1,11 @@
-"""repro_torch.compress — the szlike base codec, the MSE1 edit codec,
-the artifact format and the end-to-end MSS-preserving pipeline."""
+"""repro_torch.compress — the szlike and zfplike base codecs, the MSE1
+edit codec, the artifact format, the end-to-end MSS-preserving pipeline
+and the streaming scheduler."""
 from .szlike import (TruncatedStreamError, check_int32_range,
                      effective_step, sz_blob_entropy, sz_compress,
                      sz_decompress, sz_encode_packed, sz_inverse,
                      sz_parse_packed, sz_transform)
+from .zfplike import zfp_compress, zfp_decompress, zfp_roundtrip
 from .codec import encode_edits, decode_edits, decode_edits_batch
 from .preserve import (CompressedArtifact, PreservingCodec,
                        register_preserving_codec, get_preserving_codec,
@@ -13,8 +15,13 @@ from .preserve import (CompressedArtifact, PreservingCodec,
 from .pipeline import (compress_preserving_mss, compress_preserving_mss_batch,
                        decompress_artifact, decompress_artifact_batch,
                        decompress_preserving_mss, overall_compression_ratio)
+from .stream import (CompressStream, DecompressStream, SpecCache,
+                     StreamBackpressure, StreamClosed)
 
 __all__ = [
+    "CompressStream", "DecompressStream", "SpecCache",
+    "StreamBackpressure", "StreamClosed",
+    "zfp_compress", "zfp_decompress", "zfp_roundtrip",
     "TruncatedStreamError", "check_int32_range", "effective_step",
     "sz_blob_entropy", "sz_compress", "sz_decompress", "sz_encode_packed",
     "sz_inverse", "sz_parse_packed", "sz_transform", "encode_edits",

@@ -19,14 +19,17 @@ Two paths give byte-identical artifacts:
   packed words and the chunk widths cross. The edits cross once and are
   encoded on the host either way.
 * **host** (``device_path=False``, or "auto" when the device path's
-  preconditions fail): the base codec round trip on the host
+  preconditions fail: the ``zfplike`` codec, ``mode="paper"``, a field
+  outside the int32 range): the base codec round trip on the host
   (``preserve.compress_host``), the fix loop still on the resolved
   device.
 
 ``compress_preserving_mss_batch`` runs many same-shape fields through
 one h2d of the stacked fields, the transform once a member, and one
 batched fix loop (``fixes.fused_fix_batch``); only entropy coding runs
-per member on the host.
+per member on the host. ``_device_pipelined_stage`` is the stream
+scheduler's alternative: one h2d and one transform for the batch, then
+a solo fix loop a member.
 
 ``decompress_preserving_mss`` decodes an SZJ2 stream on the host and
 copies the codes up once; a device-path SZP1 artifact instead ships its
@@ -36,8 +39,8 @@ the edit scatter run on the device, and g comes down once.
 artifacts (threaded host inflate, one d2h of the stacked g). Artifacts
 and g are bitwise the reference's.
 
-Arguments this slice does not serve raise ``NotImplementedError`` naming
-the ROADMAP.md item that brings them; nothing is silently rerouted.
+``mesh=`` raises ``NotImplementedError`` naming the ROADMAP.md item
+that brings it; nothing is silently rerouted.
 """
 from __future__ import annotations
 
@@ -74,11 +77,17 @@ def _device_dtype_ok(dtype) -> bool:
     return np.dtype(dtype) in (np.float32, np.float64)
 
 
-def _device_path_reason(f: np.ndarray, xi: float
+def _device_path_reason(f: np.ndarray, xi: float, base: str = "szlike",
+                        mode: str = "fused"
                         ) -> Tuple[Optional[str], Optional[float]]:
-    """(None, step) when the device path can serve this szlike fused-mode
-    call, else (why not, None). One field scan: max|f| feeds both the
-    step headroom and the range check."""
+    """(None, step) when the device path can serve this call (the szlike
+    codec in fused mode), else (why not, None). One field scan: max|f|
+    feeds both the step headroom and the range check."""
+    if base != "szlike":
+        return (f"device path serves the szlike base only (got {base!r}); "
+                "zfplike's block transform stays host-side"), None
+    if mode != "fused":
+        return f"device path requires mode='fused' (got {mode!r})", None
     if f.ndim not in (2, 3) or f.size == 0:
         return (f"device path needs a non-empty 2D/3D field "
                 f"(shape {f.shape})"), None
@@ -93,25 +102,34 @@ def _device_path_reason(f: np.ndarray, xi: float
     return None, step
 
 
+def _check_base_entropy(base: str, entropy: str) -> None:
+    """Validate the (base, entropy) pair: the residual entropy codec
+    choice exists for the szlike residual stream only."""
+    szlike.check_entropy(entropy)
+    if entropy != "deflate" and base != "szlike":
+        raise ValueError(
+            f"entropy={entropy!r} applies to the szlike base only "
+            f"(got base={base!r})")
+
+
 def _check_served(base: str, xi, mode: str, mesh, entropy: str) -> None:
-    """Raise for what this slice does not serve, and the codec's own
-    error for a bound (or any of a sequence of bounds) that is not
-    finite and positive, whichever path would have run."""
-    if base == "zfplike":
-        raise _not_ported("codec='zfplike'", "zfplike and the paper-mode loop")
-    if base != "szlike":
+    """Raise for an unknown codec or mode, for ``mesh=`` (not ported),
+    for an entropy codec the base has not, and szlike's own error for a
+    bound (or any of a sequence of bounds) that is not finite and
+    positive, whichever path would have run. zfplike checks its bound
+    itself (``xi = 0`` is allowed there)."""
+    if base not in ("szlike", "zfplike"):
         raise ValueError(f"unknown base codec {base!r}")
-    for x in np.atleast_1d(np.asarray(xi, np.float64)).reshape(-1):
-        if not (np.isfinite(x) and x > 0):
-            raise szlike.error_bound_error(xi if np.ndim(xi) == 0
-                                           else float(x))
-    if mode == "paper":
-        raise _not_ported("mode='paper'", "zfplike and the paper-mode loop")
-    if mode != "fused":
+    if base == "szlike":
+        for x in np.atleast_1d(np.asarray(xi, np.float64)).reshape(-1):
+            if not (np.isfinite(x) and x > 0):
+                raise szlike.error_bound_error(xi if np.ndim(xi) == 0
+                                               else float(x))
+    if mode not in ("fused", "paper"):
         raise ValueError(f"unknown mode {mode!r}")
     if mesh is not None:
         raise _not_ported("mesh=", "Multi-GPU sharded fix loop")
-    szlike.check_entropy(entropy)
+    _check_base_entropy(base, entropy)
 
 
 def _host_compressor(base: str, entropy: str) -> Optional[Callable]:
@@ -210,15 +228,18 @@ def _device_compress(f: np.ndarray, xi: float, be, max_iters: int,
 class _DeviceBatch:
     """The finished device stage of one compress batch: everything up
     to and including the d2h of the residual codes (or their packed
-    streams under device-pack) has run; what remains per member is host
-    entropy coding (``_encode_batch_member``)."""
+    streams under device-pack) and of each member's edits has run; what
+    remains per member is host entropy coding (``_encode_batch_member``),
+    which touches the device only to re-verify a lossy edit dtype. So
+    the stream's worker threads, which run it, wait on no kernel the
+    scheduler queued for the next batch."""
     fields: List[np.ndarray]
     xi_arr: np.ndarray
     steps: List[float]
     f_b: torch.Tensor             # device originals (lossy-edit re-verify)
     fhat_b: torch.Tensor          # device reconstructions
     r_host: Optional[np.ndarray]  # residual codes on the host (DEFLATE)
-    edits: List[Tuple[torch.Tensor, torch.Tensor]]  # device (idx, val)
+    edits: List[Tuple[np.ndarray, np.ndarray]]  # host (idx int64, val)
     iters_b: np.ndarray
     backend_name: str
     t_transform_each: float
@@ -274,14 +295,24 @@ def _pull_batch_codes(be, r_b: torch.Tensor, entropy: str):
     return r_host, None, r_host.nbytes
 
 
+def _pull_edits(edits_d: List[Tuple[torch.Tensor, torch.Tensor]]
+                ) -> Tuple[List[Tuple[np.ndarray, np.ndarray]], int]:
+    """Each member's device (idx, val) on the host, idx as int64; and
+    the bytes that crossed."""
+    edits = [(_d2h(i).astype(np.int64), _d2h(v)) for i, v in edits_d]
+    nbytes = sum(i.nbytes // 2 + v.nbytes for i, v in edits)
+    return edits, nbytes
+
+
 def _device_batch_stage(fields: List[np.ndarray], xi_arr: np.ndarray,
                         be, max_iters: int, steps: List[float],
                         dev: torch.device, entropy: str = "deflate"
                         ) -> _DeviceBatch:
     """The device half of a compress batch: one h2d of the stacked
     fields, the transform a member, one batched fix loop, edit
-    extraction on the device, then the codes' d2h. ``steps`` come
-    checked from the caller's ``_device_path_reason`` sweep."""
+    extraction on the device, then the d2h of the codes and of the
+    edits. ``steps`` come checked from the caller's
+    ``_device_path_reason`` sweep."""
     B = len(fields)
     t0 = time.perf_counter()
     f_stack, f_b, step_b, r_b, fhat_b, base_errs = _batch_transform(
@@ -300,11 +331,12 @@ def _device_batch_stage(fields: List[np.ndarray], xi_arr: np.ndarray,
     del topo_b
     if not _d2h(ok_b.all()):
         raise RuntimeError("MSz fix loops did not converge within max_iters")
-    edits = [extract_edits(fhat_b[i], g_b[i]) for i in range(B)]
+    edits_d = [extract_edits(fhat_b[i], g_b[i]) for i in range(B)]
     del g_b
     t2 = time.perf_counter()
 
     r_host, packed, nbytes_codes = _pull_batch_codes(be, r_b, entropy)
+    edits, nbytes_edits = _pull_edits(edits_d)
     t_pull = time.perf_counter() - t2
     return _DeviceBatch(
         fields=fields, xi_arr=xi_arr, steps=steps,
@@ -313,7 +345,59 @@ def _device_batch_stage(fields: List[np.ndarray], xi_arr: np.ndarray,
         t_transform_each=(t1 - t0) / B, t_fix_each=(t2 - t1) / B,
         t_pull_each=t_pull / B,
         nbytes_h2d=f_stack.nbytes + step_b.numel() * step_b.element_size(),
-        nbytes_d2h=nbytes_codes + base_errs.nbytes,
+        nbytes_d2h=nbytes_codes + nbytes_edits + base_errs.nbytes,
+        entropy=entropy, packed=packed,
+    )
+
+
+def _device_pipelined_stage(fields: List[np.ndarray], xi_arr: np.ndarray,
+                            be, max_iters: int, steps: List[float],
+                            dev: torch.device, n_real: Optional[int] = None,
+                            entropy: str = "deflate") -> _DeviceBatch:
+    """The stream scheduler's alternative to ``_device_batch_stage``: one
+    h2d and one transform of the batch, then a solo ``fixes.fused_fix``
+    a member (each member stops at its own convergence; the solo loop
+    takes the worklist where its policy says so), so each g is the
+    one-shot call's. ``n_real``: members beyond it are batch padding,
+    transformed but never fixed."""
+    B = len(fields)
+    n_real = B if n_real is None else n_real
+    t0 = time.perf_counter()
+    f_stack, f_b, step_b, r_b, fhat_b, base_errs = _batch_transform(
+        fields, xi_arr, be, steps, n_real, dev)
+    t1 = time.perf_counter()
+
+    edits_d = []
+    iters_list: List[int] = []
+    for i in range(n_real):
+        # mszlint: disable=transfer-discipline -- xi_arr is the host bounds
+        topo = fixes.field_topology(f_b[i], float(xi_arr[i]))
+        g, iters, ok = fixes.fused_fix(fhat_b[i], topo, max_iters=max_iters,
+                                       backend=be)
+        if not ok:
+            raise RuntimeError(
+                "MSz fix loops did not converge within max_iters")
+        edits_d.append(extract_edits(fhat_b[i], g))
+        iters_list.append(iters)
+        del g, topo
+    t2 = time.perf_counter()
+
+    r_host, packed, nbytes_codes = _pull_batch_codes(be, r_b, entropy)
+    edits, nbytes_edits = _pull_edits(edits_d)
+    t_pull = time.perf_counter() - t2
+    empty = (np.zeros(0, np.int64), np.zeros(0, fields[0].dtype))
+    return _DeviceBatch(
+        fields=fields, xi_arr=xi_arr, steps=steps,
+        f_b=f_b, fhat_b=fhat_b, r_host=r_host,
+        edits=edits + [empty] * (B - n_real),
+        # mszlint: disable=transfer-discipline -- iters_list is python ints
+        iters_b=np.asarray(iters_list + [0] * (B - n_real), np.int32),
+        backend_name=be.name,
+        t_transform_each=(t1 - t0) / B,
+        t_fix_each=(t2 - t1) / max(n_real, 1),
+        t_pull_each=t_pull / B,
+        nbytes_h2d=f_stack.nbytes + step_b.numel() * step_b.element_size(),
+        nbytes_d2h=nbytes_codes + nbytes_edits + base_errs.nbytes,
         entropy=entropy, packed=packed,
     )
 
@@ -331,8 +415,7 @@ def _encode_batch_member(db: _DeviceBatch, i: int,
     else:
         payload = szlike.sz_encode_residuals(db.r_host[i], fi.shape,
                                              fi.dtype, db.steps[i])
-    idx = _d2h(db.edits[i][0]).astype(np.int64)
-    val = _d2h(db.edits[i][1])
+    idx, val = db.edits[i]
     xi = float(db.xi_arr[i])  # mszlint: disable=transfer-discipline -- host
     blob = preserve.encode_edits_checked_dev(db.f_b[i], db.fhat_b[i], idx,
                                              val, xi, edit_value_dtype)
@@ -377,6 +460,8 @@ def compress_preserving_mss(f: np.ndarray, xi: float, base: str = "szlike",
                             ) -> CompressedArtifact:
     """Compress ``f`` (numpy, float32/float64) with absolute bound ``xi``
     so that decompression has exactly f's Morse-Smale segmentation.
+    ``codec`` (an alias that overrides ``base``): "szlike" or
+    "zfplike"; ``mode``: "fused" or "paper" (the paper's C/R loops).
     ``device=None`` runs on CUDA and raises without a GPU; ``backend``
     picks the stencil backend ('auto': ``cuda`` on the GPU,
     ``reference`` on the CPU). ``entropy``: the residual codec,
@@ -387,17 +472,16 @@ def compress_preserving_mss(f: np.ndarray, xi: float, base: str = "szlike",
     path. ``timings``: a dict that receives the seconds of each device
     path stage (transform, topology, fix_loop, extraction,
     entropy_residual, entropy_edits), measured with a device sync
-    between stages.
-
-    The reference's other options raise ``NotImplementedError`` here:
-    ``codec="zfplike"``, ``mode="paper"`` and ``mesh=``."""
+    between stages. zfplike and paper mode take the host path (under
+    ``device_path=True`` they raise the reference's ``ValueError``);
+    ``mesh=`` raises ``NotImplementedError``."""
     if codec is not None:
         base = codec
     _check_served(base, xi, mode, mesh, entropy)
     f = np.asarray(f)
     dev = resolve_device(device)
     if device_path is not False:
-        reason, step = _device_path_reason(f, xi)
+        reason, step = _device_path_reason(f, xi, base, mode)
         if reason is None:
             be = resolve_backend(backend, f.shape, torch_dtype(f.dtype), dev)
             return _device_compress(f, xi, be, max_iters, edit_value_dtype,
@@ -449,7 +533,7 @@ def compress_preserving_mss_batch(
 
     use_dev, steps = False, []
     if device_path is not False:
-        reasons = [_device_path_reason(fi, float(xi_i))
+        reasons = [_device_path_reason(fi, float(xi_i), base)
                    for fi, xi_i in zip(fields, xi_arr)]
         use_dev = all(r is None for r, _ in reasons)
         steps = [s for _, s in reasons]
@@ -483,6 +567,9 @@ def decompress_artifact(art: CompressedArtifact) -> np.ndarray:
 def _device_decode_reason(art: CompressedArtifact) -> Optional[str]:
     """None when the device decode can serve ``art`` on metadata grounds
     (the code-range check runs after the entropy decode), else why not."""
+    if art.base != "szlike":
+        return (f"device decode serves the szlike base only (got "
+                f"{art.base!r}); zfplike's block transform stays host-side")
     if len(art.shape) not in (2, 3) or min(art.shape) == 0:
         return f"device decode needs a non-empty 2D/3D field ({art.shape})"
     if not _device_dtype_ok(art.dtype):

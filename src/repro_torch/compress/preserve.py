@@ -7,10 +7,9 @@ the codec-agnostic host correction path (``compress_host``,
 ``CompressedArtifact`` (version 4) has the reference's fields, so an
 artifact moves between the packages as a plain dict
 (``repro_torch.convert``) and each side decodes the other's. The
-registry holds ``szlike``: ``SZJ2`` and ``SZP1`` payloads decode,
-``SZJ1`` is refused with the reference's reason. The reference's
-``zfplike`` is not ported yet: its name and its ``ZFJ2`` format raise
-``NotImplementedError`` and its retired ``ZFJ1`` is refused.
+registry holds ``szlike`` (``SZJ2`` and ``SZP1`` payloads decode,
+``SZJ1`` is refused) and ``zfplike`` (``ZFJ2`` decodes, ``ZFJ1`` is
+refused), each refusal with the reference's reason.
 """
 from __future__ import annotations
 
@@ -24,7 +23,7 @@ import torch
 from ..core.driver import (MszResult, apply_edits, derive_edits,
                            derive_edits_batch, verify_preservation)
 from ..device import DeviceLike, _h2d
-from . import codec, szlike
+from . import codec, szlike, zfplike
 
 __all__ = [
     "ARTIFACT_VERSION", "CompressedArtifact", "PreservingCodec",
@@ -85,21 +84,6 @@ class PreservingCodec:
 
 _REGISTRY: Dict[str, PreservingCodec] = {}
 
-#: the reference's codecs the port has not yet: name -> (its magics,
-#: its retired magics and why they are refused)
-_NOT_PORTED = {
-    "zfplike": ((b"ZFJ2",), {b"ZFJ1": (
-        "ZFJ1 blobs record no field dtype and always decode to float32, "
-        "so an f64 artifact would silently lose the precision its error "
-        "bound was derived in; re-compress with the current codec")}),
-}
-
-
-def _not_ported_error(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} is not yet ported (ROADMAP.md Queue 1: 'zfplike and the "
-        "paper-mode loop')")
-
 
 def register_preserving_codec(pc: PreservingCodec) -> PreservingCodec:
     """Register ``pc`` under its name (later registrations win); returns
@@ -115,13 +99,10 @@ def register_preserving_codec(pc: PreservingCodec) -> PreservingCodec:
 
 
 def get_preserving_codec(name: str) -> PreservingCodec:
-    """A registered codec by name; an unported reference codec raises
-    ``NotImplementedError``, any other unknown name ``KeyError``."""
+    """A registered codec by name; an unknown name raises ``KeyError``."""
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in _NOT_PORTED:
-            raise _not_ported_error(f"codec {name!r}") from None
         raise KeyError(
             f"unknown preserving codec {name!r}; registered: "
             f"{available_preserving_codecs()}") from None
@@ -145,6 +126,17 @@ register_preserving_codec(PreservingCodec(
     device_transform=True,
 ))
 
+register_preserving_codec(PreservingCodec(
+    name="zfplike",
+    compress=zfplike.zfp_compress,
+    decompress=zfplike.zfp_decompress,
+    magics=(b"ZFJ2",),
+    refused={b"ZFJ1": (
+        "ZFJ1 blobs record no field dtype and always decode to float32, "
+        "so an f64 artifact would silently lose the precision its error "
+        "bound was derived in; re-compress with the current codec")},
+))
+
 
 def payload_magic(payload: bytes) -> bytes:
     """The leading four bytes of a base payload (its format magic)."""
@@ -156,23 +148,15 @@ def payload_magic(payload: bytes) -> bytes:
 
 def payload_codec(payload: bytes) -> PreservingCodec:
     """The codec that reads ``payload``, from its magic. Retired magics
-    raise their refusal; formats of unported codecs raise
-    ``NotImplementedError``; unknown magics raise ``ValueError``."""
+    raise their codec's refusal; unknown magics raise ``ValueError``."""
     magic = payload_magic(payload)
-    refused = {}
     for pc in _REGISTRY.values():
         if magic in pc.magics:
             return pc
-        refused.update(pc.refused)
-    for name, (magics, retired) in _NOT_PORTED.items():
-        if magic in magics:
-            raise _not_ported_error(
-                f"{magic.decode('ascii', 'replace')!r} payloads ({name})")
-        refused.update(retired)
-    if magic in refused:
-        raise ValueError(
-            f"refusing retired {magic.decode('ascii', 'replace')!r} "
-            f"payload: {refused[magic]}")
+        if magic in pc.refused:
+            raise ValueError(
+                f"refusing retired {magic.decode('ascii', 'replace')!r} "
+                f"payload: {pc.refused[magic]}")
     known = sorted(m.decode("ascii", "replace")
                    for pc in _REGISTRY.values() for m in pc.magics)
     raise ValueError(

@@ -44,6 +44,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..device import _d2h
 from . import grid
 
 __all__ = ["FalseMasks", "false_critical_masks", "trouble_masks",
@@ -357,8 +358,8 @@ class CudaBackend(_TorchTail):
                 # pre-iteration g (their halos may overlap)
                 for z0, z1, gp, _, _ in parts:
                     g[z0:z1] = gp
-            counts = (torch.cat([t for p in parts for t in p[3:]]).cpu()
-                      .numpy() if parts else np.zeros(0, np.int32))
+            counts = (_d2h(torch.cat([t for p in parts for t in p[3:]]))
+                      if parts else np.zeros(0, np.int32))
             dirty = np.zeros(n, bool)
             k = 0
             for z0, z1, _, _, _ in parts:

@@ -1,7 +1,7 @@
-"""High-level MSz API, the PyTorch port of ``repro.core.driver`` (fused
-mode): derive edits at compression time (one field, or a batch through
-``fixes.fused_fix_batch``), apply them at decompression time, verify
-exact MSS preservation."""
+"""High-level MSz API, the PyTorch port of ``repro.core.driver``: derive
+edits at compression time (one field in fused or paper mode, or a batch
+through ``fixes.fused_fix_batch``), apply them at decompression time,
+verify exact MSS preservation."""
 from __future__ import annotations
 
 import dataclasses
@@ -58,13 +58,13 @@ def derive_edits(f, f_hat, xi: float, mode: str = "fused",
                  max_iters: int = 512, backend: BackendLike = "auto",
                  mesh=None, device: DeviceLike = None) -> MszResult:
     """Edits such that f_hat + delta has exactly the MS segmentation of f
-    with |f - (f_hat + delta)| <= xi (fused mode). ``device=None`` runs on
-    CUDA (numpy inputs); tensors stay on their device unless ``device``
-    names another."""
-    if mode != "fused":
-        raise NotImplementedError(
-            f"mode={mode!r} is not ported yet (ROADMAP.md Queue 1: "
-            "'zfplike and the paper-mode loop')")
+    with |f - (f_hat + delta)| <= xi. ``mode``: "fused" (the fused loop
+    on ``backend``) or "paper" (``fixes.paper_fix`` on torch ops, whatever
+    ``backend`` says, as in the reference). ``device=None`` runs on CUDA
+    (numpy inputs); tensors stay on their device unless ``device`` names
+    another."""
+    if mode not in ("fused", "paper"):
+        raise ValueError(f"unknown mode {mode!r}")
     if mesh is not None:
         raise NotImplementedError(
             "mesh= is not ported yet (ROADMAP.md Queue 1: 'Multi-GPU "
@@ -73,6 +73,9 @@ def derive_edits(f, f_hat, xi: float, mode: str = "fused",
     fh = _as_tensor(f_hat, ft.device, ft.dtype)
     _check_inputs(ft, fh, xi)
     topo = fixes.field_topology(ft, xi)
+    if mode == "paper":
+        g, iters, ok = fixes.paper_fix(fh, topo, max_iters=max_iters)
+        return _package_result(ft, fh, g, iters, ok, "reference")
     be = resolve_backend(backend, ft.shape, ft.dtype, ft.device)
     g, iters, ok = fixes.fused_fix(fh, topo, max_iters=max_iters, backend=be)
     return _package_result(ft, fh, g, iters, ok, be.name)

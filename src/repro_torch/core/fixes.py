@@ -1,5 +1,5 @@
-"""The fused fix loop, the PyTorch port of ``repro.core.fixes`` (fused
-mode).
+"""The fix loops, the PyTorch port of ``repro.core.fixes``: fused mode
+and the paper's mode.
 
 All six fix conditions are local stencil predicates applied at once in
 one dense pass per iteration (the stencil backend's ``fused_step``);
@@ -20,8 +20,11 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..device import _d2h, _h2d
 from . import grid
-from .backend import BackendLike, get_backend, resolve_backend
+from .backend import (BackendLike, _halve_toward_lower, _pull,
+                      false_critical_masks, get_backend, resolve_backend,
+                      trouble_masks)
 from .labels import labels_from_codes
 
 
@@ -43,7 +46,8 @@ def field_topology(f: torch.Tensor, xi: float) -> FieldTopo:
     up_c, dn_c = grid.steepest_dirs(f)
     M, m = labels_from_codes(up_c, dn_c)
     sc = grid.self_code(f.ndim)
-    xi_t = torch.tensor(xi, dtype=f.dtype, device=f.device)
+    np_dtype = np.float64 if f.dtype == torch.float64 else np.float32
+    xi_t = _h2d(np.asarray(xi, np_dtype), f.device)
     return FieldTopo(up_c, dn_c, up_c == sc, dn_c == sc, M, m, f - xi_t)
 
 
@@ -65,11 +69,11 @@ def fused_fix(g0: torch.Tensor, topo: FieldTopo, max_iters: int = 512,
         g, iters, ok, _ = be.worklist_loop(g0, topo, max_iters=max_iters)
         return g, iters, ok
     g, viol = be.fused_step(g0, topo)
-    n_viol = int(viol)
+    n_viol = int(_d2h(viol))
     iters = 1
     while n_viol > 0 and iters < max_iters:
         g, viol = be.fused_step(g, topo)
-        n_viol = int(viol)
+        n_viol = int(_d2h(viol))
         iters += 1
     return g, iters, n_viol == 0
 
@@ -138,7 +142,7 @@ def fused_fix_batch(g0: torch.Tensor, topo: FieldTopo, max_iters: int = 512,
         for i in active:
             gs[i], v = be.fused_step(gs[i], topos[i])
             counts.append(v.reshape(1))
-        viol_a = torch.cat(counts).cpu().numpy()
+        viol_a = _d2h(torch.cat(counts))
         # mszlint: disable=scatter-discipline -- active is unique
         iters[active] += 1
         viol[active] = viol_a
@@ -146,5 +150,108 @@ def fused_fix_batch(g0: torch.Tensor, topo: FieldTopo, max_iters: int = 512,
         it += 1
     dev = g0.device
     g = torch.stack(gs) if gs else g0.clone()
-    return (g, torch.from_numpy(iters).to(dev),
-            torch.from_numpy(viol == 0).to(dev))
+    return g, _h2d(iters, dev), _h2d(viol == 0, dev)
+
+
+# ---------------------------------------------------------------------------
+# paper mode: sequential sub-loops, label recomputation in R-passes
+# ---------------------------------------------------------------------------
+
+_CLASSES = ("fpmax", "fpmin", "fnmax", "fnmin")
+
+
+def _count(mask: torch.Tensor) -> int:
+    """The host count of a mask (one read through the seam)."""
+    return int(_d2h(mask.sum()))
+
+
+def _n_false(fm) -> int:
+    """False critical points of all four classes (one read)."""
+    return int(_d2h(fm.fpmax.sum() + fm.fpmin.sum() + fm.fnmax.sum()
+                    + fm.fnmin.sum()))
+
+
+def _subloop(g: torch.Tensor, topo: FieldTopo, which: str,
+             max_iters: int) -> Tuple[torch.Tensor, int]:
+    """Run one false-critical-point class to its fixpoint (Section 5.1).
+    Returns (g, steps). The reference computes the masks of the new g at
+    the end of a step and again at the start of the next; here they are
+    computed once and carried."""
+    def target_of(fm):
+        if which == "fpmax":      # Eq. 2: decrease the vertex itself
+            return fm.fpmax
+        if which == "fnmin":      # Eq. 5: decrease the vertex itself
+            return fm.fnmin
+        if which == "fpmin":
+            # DEVIATION from Eq. 3 as printed ("decrease the maximal
+            # neighbor"): that target can pin at its lower bound while
+            # still above g_i (e.g. neighbors j: f_j >> f_i and k:
+            # f_k < f_i — the fix never touches k), deadlocking the
+            # sub-loop. We decrease the ORIGINAL steepest-descending
+            # neighbor dir_dn_f(i) instead: f_c - xi < f_i - xi <= g_i
+            # guarantees it eventually undercuts g_i. See DESIGN.md §2.
+            return _pull(fm.fpmin, topo.dn_c)
+        if which == "fnmax":      # Eq. 4: decrease i's maximal (g) neighbor
+            return _pull(fm.fnmax, fm.up_c_g)
+        raise ValueError(which)
+
+    fm = false_critical_masks(g, topo)
+    n = _count(getattr(fm, which))
+    it = 0
+    while n > 0 and it < max_iters:
+        g = _halve_toward_lower(g, topo.lower, target_of(fm))
+        fm = false_critical_masks(g, topo)
+        n = _count(getattr(fm, which))
+        it += 1
+    return g, it
+
+
+def _c_loop(g: torch.Tensor, topo: FieldTopo, max_iters: int
+            ) -> torch.Tensor:
+    """One C-loop: the four sub-loops in the paper's order, repeated
+    until no false critical point remains."""
+    n = _n_false(false_critical_masks(g, topo))
+    it = 0
+    while n > 0 and it < max_iters:
+        for which in _CLASSES:
+            g, _ = _subloop(g, topo, which, max_iters)
+        n = _n_false(false_critical_masks(g, topo))
+        it += 1
+    return g
+
+
+def _r_pass(g: torch.Tensor, topo: FieldTopo
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One R-pass (Section 5.2): recompute the MSS labels of g, find the
+    falsely labeled regular points, locate their troublemakers and
+    reroute each with one edit. Returns (g', falsely labeled count as a
+    device scalar)."""
+    fm = false_critical_masks(g, topo)
+    Mg, mg = labels_from_codes(fm.up_c_g, fm.dn_c_g)
+    wrong_max_lab = Mg != topo.M
+    wrong_min_lab = mg != topo.m
+    t_max, t_min = trouble_masks(fm, topo)
+    # paper: troublemaker = FIRST discrepancy along a falsely-labeled
+    # vertex's integral line == locally-diverging AND itself falsely
+    # labeled.
+    t_max = t_max & wrong_max_lab
+    t_min = t_min & wrong_min_lab
+    target = _pull(t_max, fm.up_c_g) | _pull(t_min, topo.dn_c)
+    g2 = _halve_toward_lower(g, topo.lower, target)
+    return g2, wrong_max_lab.sum() + wrong_min_lab.sum()
+
+
+def paper_fix(g0: torch.Tensor, topo: FieldTopo, max_iters: int = 512
+              ) -> Tuple[torch.Tensor, int, bool]:
+    """Alternate C- and R-loops until no false critical or falsely
+    labeled point remains (Section 5.3). Returns (g, outer_iters,
+    converged), bitwise the reference's."""
+    g, it, n = g0, 0, 1
+    while n > 0 and it < max_iters:
+        g = _c_loop(g, topo, max_iters)
+        g, n_wrong = _r_pass(g, topo)
+        fm = false_critical_masks(g, topo)
+        n = int(_d2h(n_wrong + fm.fpmax.sum() + fm.fpmin.sum()
+                     + fm.fnmax.sum() + fm.fnmin.sum()))
+        it += 1
+    return g, it, n == 0

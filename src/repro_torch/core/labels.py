@@ -5,7 +5,8 @@ Every vertex stores the next vertex of its ascending (descending)
 integral line; ``nxt <- nxt[nxt]`` halves every path per sweep, so the
 labels converge in O(log(longest integral line)) gathers. The loop is a
 Python loop with the reference's bound and early exit: it stops at the
-first sweep that changes nothing.
+first sweep that changes nothing (one read through the ``device._d2h``
+seam a sweep).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import _d2h
 from . import grid
 
 
@@ -37,7 +39,7 @@ def pointer_jump(nxt: torch.Tensor,
     it = 0
     while it < max_iters:
         nn = cur[cur]
-        if torch.equal(nn, cur):
+        if bool(_d2h((nn == cur).all())):
             break
         cur = nn
         it += 1

@@ -11,6 +11,8 @@ from typing import Optional, Union
 
 import torch
 
+from .debug.guards import seam
+
 DeviceLike = Optional[Union[str, torch.device]]
 
 
@@ -60,14 +62,18 @@ def torch_dtype(dtype) -> torch.dtype:
 def _h2d(x, device) -> torch.Tensor:
     """The host->device seam: a numpy array (or scalar) copied into a new
     tensor on ``device``. The copy is also made for the CPU, so later
-    in-place work never reaches the caller's array."""
+    in-place work never reaches the caller's array. ``debug.no_transfers``
+    permits and counts it."""
     import numpy as np
     x = np.asarray(x)
     if not (x.flags.c_contiguous and x.flags.writeable):
         x = x.copy(order="C")
-    return torch.from_numpy(x).to(device=device, copy=True)
+    with seam("h2d", x.nbytes):
+        return torch.from_numpy(x).to(device=device, copy=True)
 
 
 def _d2h(t: torch.Tensor):
-    """The device->host seam: a tensor as a numpy array."""
-    return t.detach().cpu().numpy()
+    """The device->host seam: a tensor as a numpy array, permitted and
+    counted by ``debug.no_transfers``."""
+    with seam("d2h", t.numel() * t.element_size()):
+        return t.detach().cpu().numpy()

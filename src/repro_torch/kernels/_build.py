@@ -6,6 +6,8 @@ repository root (``REPRO_TORCH_BUILD_DIR`` overrides), and loads through
 ``ctypes``. A library is named after the hash of its sources and flags,
 so an edited source rebuilds and an unchanged one loads as it is.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all.
+Each nvcc run and each library load is reported to
+``debug.no_recompiles`` (``debug.guards.note_compile``).
 
 The C entry points return ``cudaGetLastError()`` after the launch; the
 wrappers raise on anything but 0. Pointers and the stream cross as
@@ -26,6 +28,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
+
+from ..debug.guards import note_compile
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("extrema", "fixpass", "lorenzo", "pack", "flash")
@@ -67,6 +71,7 @@ def _start(name: str):
     out = _lib_path(name)
     if out.exists():
         return None
+    note_compile(f"nvcc csrc/{name}.cu")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log = open(out.with_suffix(".log"), "w")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -147,6 +152,7 @@ def load(name: str) -> ctypes.CDLL:
         with _lock:
             lib = _libs.get(name)
             if lib is None:
+                note_compile(f"load lib{name}")
                 lib = ctypes.CDLL(str(_lib_path(name)))
                 _libs[name] = lib
     return lib

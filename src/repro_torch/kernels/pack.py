@@ -49,6 +49,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import _d2h
 from . import _build
 
 #: codes per chunk (one bit width each); a multiple of 32 so that a
@@ -305,7 +306,7 @@ def launch_unpack(words: torch.Tensor, bits: torch.Tensor, out: torch.Tensor,
 def _read_meta(scratch: torch.Tensor) -> Tuple[int, int]:
     """(stream length the widths demand, widths outside [0, 32]): one
     16-byte device-to-host read, after the launch."""
-    total, bad = scratch[:2].cpu().tolist()
+    total, bad = _d2h(scratch[:2]).tolist()
     return total, bad
 
 

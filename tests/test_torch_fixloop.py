@@ -89,8 +89,13 @@ def test_derive_edits_matches_reference():
     assert np.array_equal(got.edits_val, want.edits_val)
     assert (got.iters, got.converged, got.edit_ratio, got.max_abs_err) == \
         (want.iters, want.converged, want.edit_ratio, want.max_abs_err)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdriver.derive_edits(f, f_hat, xi, mode="paper", device="cpu")
+    # paper mode is served too, bitwise the reference's
+    want_p = j_derive_edits(f, f_hat, xi, mode="paper", backend="reference")
+    got_p = tdriver.derive_edits(f, f_hat, xi, mode="paper", device="cpu")
+    assert np.array_equal(got_p.g, want_p.g)
+    assert np.array_equal(got_p.edits_idx, want_p.edits_idx)
+    assert (got_p.iters, got_p.converged, got_p.backend) == \
+        (want_p.iters, want_p.converged, want_p.backend)
 
 
 def test_extract_and_apply_edits_match():

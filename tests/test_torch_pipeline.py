@@ -1,7 +1,8 @@
 """The port's MSS-preserving round trip against ``repro``'s, bitwise:
 payload and edit bytes, artifact metadata, cross-decoding in both
 directions, f64 under x64, the byte codecs, refusals and hard errors,
-and the arguments this slice does not serve."""
+zfplike and paper mode against the reference, and ``mesh=``, which the
+port does not serve."""
 import dataclasses
 import struct
 import zlib
@@ -144,9 +145,15 @@ def test_retired_and_unported_payloads():
             jpipe.CompressedArtifact(**artifact_to_dict(szj1)))
     zfp = jpipe.compress_preserving_mss(f, 1e-2, codec="zfplike",
                                         backend="reference")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tpipe.decompress_preserving_mss(
-            artifact_from_dict(dataclasses.asdict(zfp)), device="cpu")
+    # the reference's zfplike artifact decodes in the port to its g
+    g_port = tpipe.decompress_preserving_mss(
+        artifact_from_dict(dataclasses.asdict(zfp)), device="cpu")
+    assert np.array_equal(g_port, jpipe.decompress_preserving_mss(zfp))
+    zfj1 = dataclasses.replace(
+        artifact_from_dict(dataclasses.asdict(zfp)),
+        base_payload=b"ZFJ1" + zfp.base_payload[4:])
+    with pytest.raises(ValueError, match="refusing retired 'ZFJ1'"):
+        tpipe.decompress_preserving_mss(zfj1, device="cpu")
     with pytest.raises(ValueError, match="unknown base payload magic"):
         tpipe.decompress_preserving_mss(
             dataclasses.replace(art, base_payload=b"XXXX" + b"\0" * 40),
@@ -158,9 +165,19 @@ def test_retired_and_unported_payloads():
     dict(mesh=object()),
 ])
 def test_unserved_arguments_raise_not_implemented(kwargs):
+    """``mesh=`` is not ported and raises; zfplike and paper mode are
+    served, byte for byte the reference's."""
     f = _field("climate", (8, 10), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpipe.compress_preserving_mss(f, 1e-2, device="cpu", **kwargs)
+    if "mesh" in kwargs:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tpipe.compress_preserving_mss(f, 1e-2, device="cpu", **kwargs)
+        return
+    ref = jpipe.compress_preserving_mss(f, 1e-2, backend="reference",
+                                        **kwargs)
+    art = tpipe.compress_preserving_mss(f, 1e-2, device="cpu", **kwargs)
+    assert art.path == ref.path == "host"
+    for k in KEYS:
+        assert getattr(art, k) == getattr(ref, k), k
 
 
 def test_unserved_entry_points_raise_not_implemented():
@@ -168,10 +185,18 @@ def test_unserved_entry_points_raise_not_implemented():
     art = tpipe.compress_preserving_mss(f, 1e-2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tpipe.decompress_preserving_mss(art, mesh=object(), device="cpu")
-    for kwargs in (dict(codec="zfplike"), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tpipe.compress_preserving_mss_batch([f, f], 1e-2, device="cpu",
-                                                **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tpipe.compress_preserving_mss_batch([f, f], 1e-2, device="cpu",
+                                            mesh=object())
+    # a zfplike batch is served, each artifact the reference's
+    refs = jpipe.compress_preserving_mss_batch([f, f * 2], 1e-2,
+                                               codec="zfplike",
+                                               backend="reference")
+    arts = tpipe.compress_preserving_mss_batch([f, f * 2], 1e-2,
+                                               codec="zfplike", device="cpu")
+    for a, r in zip(arts, refs):
+        for k in KEYS:
+            assert getattr(a, k) == getattr(r, k), k
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tpipe.decompress_artifact_batch([art], mesh=object(), device="cpu")
     # device_path=True refuses a bound too tight for the int32 device path
