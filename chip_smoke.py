@@ -54,6 +54,26 @@ Phases, each asserting (any failure exits non-zero):
    ``cuda_tiled`` (tiles of 8, worklist off) give the same g bitwise
    and the same iterations; each timed, its launches and skipped slabs
    counted.
+3s. the block-sharded fix loop (``mesh=``) on one card, every block on
+   cuda:0: (a) on the main path's nyx 512^3 and climate inputs,
+   ``fused_fix(mesh=m)`` on a 4-block slab chain and a (2, 2) block
+   mesh, overlap off and on, worklist off and on: g bitwise the dense
+   loop's, the same iterations, extrema = fixpass = block-iterations
+   (x (1 + 2 x sharded axes) under the overlap schedule's interior pass
+   and shells; exactly that with the worklist off, at most with it on),
+   copied halo bytes = ``halo_plan`` x iterations with the worklist
+   off, seconds beside the dense loop's and the peak bytes, and the
+   overlap schedule's parts (``time_step_parts``); after 3c, (b) climate
+   round trips on the (2, 2) mesh under both codecs, payloads equal to
+   the main path's solo artifacts, g the solo decode, preserved, 4
+   Lorenzo launches a compress; (c) a (2, 1, 2) mesh (``data_x`` = 2) on
+   nyx 128^3 and 130x127x129, artifacts equal to the solo ones; (d) a
+   ``CompressionService`` over the (2, 2) mesh on 4 climate timesteps,
+   artifacts equal to 3c's solo ones, shard halo bytes = ``halo_plan`` x
+   each member's iterations, ``shard_timings``; (e) the launcher with
+   ``--devices 4`` on the one card (blocks round robin); (f) with two or
+   more cards, the (2, 2) mesh on distinct cards (otherwise a record
+   that it did not run).
 3c. batches: ``compress_preserving_mss_batch`` of 8 climate timesteps
    (seeds 3-10) under both codecs and of 4 nyx 128^3 members with one
    bound each (so they converge at different iterations); every artifact
@@ -127,6 +147,8 @@ ROOT = Path(__file__).resolve().parent
 
 #: where the phases of the service and the guards put their tensors
 DEVICE = "cuda"
+#: where the sharded phase's one-card meshes put every block
+MESH_DEVICE = "cuda:0"
 
 #: H100 SXM data-sheet peaks: HBM3 bandwidth, dense FP32 and bf16 rates
 HBM_BYTES_PER_S = 3.35e12
@@ -810,6 +832,11 @@ def check_fix_launches(label: str, launches: dict, iters: int, shape,
             f"{iters} iterations of {n_groups(shape)} groups")
 
 
+#: (field, entropy) -> (artifact, g or None) of the main-path runs, for
+#: the sharded phase to hold its artifacts to
+MAIN_ARTS: dict = {}
+
+
 def phase_main_path(label: str, f, xi: float, entropy: str) -> dict:
     import torch
     from repro_torch.compress import (compress_preserving_mss,
@@ -842,6 +869,7 @@ def phase_main_path(label: str, f, xi: float, entropy: str) -> dict:
         raise AssertionError(f"{label}: artifact records entropy "
                              f"{art.entropy!r} on path {art.path!r}")
     stages.update(compress=t1 - t0, decompress=t2 - t1, verify=t3 - t2)
+    MAIN_ARTS[(label, entropy)] = (art, g if f.size <= 1 << 24 else None)
     emit({"phase": "main_path", "field": label, "entropy": entropy,
           "base_magic": art.base_magic, "shape": list(f.shape),
           "dtype": str(f.dtype), "xi": xi, "fix_iters": art.fix_iters,
@@ -942,8 +970,267 @@ def phase_fixloop_strategies(label: str, f_np, xi: float) -> None:
           "shape": list(f_np.shape), "xi": xi, "iters": it_dense,
           "groups": n_groups(f_np.shape), "g_identical": True,
           "strategies": records})
-    del f, f_hat, topo, g, g_dense
+    del f, g
+    return dict(f_hat=f_hat, topo=topo, g=g_dense, iters=it_dense,
+                seconds={k: r[k]["seconds"] for k in ("dense", "auto")})
+
+
+# ---------------------------------------------------------------------------
+# phase 3s: the block-sharded fix loop (mesh=) on one card
+# ---------------------------------------------------------------------------
+
+#: the sharded phase's mesh legs: (name, mesh shape, overlap, worklist)
+SHARDED_LEGS = (("chain4", 4, None, False), ("chain4", 4, None, None),
+                ("block2x2", (2, 2), False, False),
+                ("block2x2", (2, 2), False, None),
+                ("block2x2", (2, 2), True, False),
+                ("block2x2", (2, 2), True, None))
+
+
+def one_card_mesh(shape):
+    """A chain (int) or block mesh (tuple) with every block on
+    ``MESH_DEVICE``."""
+    from repro_torch.launch.mesh import make_block_mesh, make_data_mesh
+    if isinstance(shape, int):
+        return make_data_mesh(shape, devices=[MESH_DEVICE] * shape)
+    return make_block_mesh(shape,
+                           devices=[MESH_DEVICE] * int(np.prod(shape)))
+
+
+def sharded_launch_bound(plan, overlap: bool) -> int:
+    """Extrema (= fix-pass) launches of one block-iteration: one on the
+    plain schedule; the interior pass plus a low and a high shell a
+    sharded axis on the overlap schedule."""
+    return 1 + 2 * len(plan.sharded) if overlap else 1
+
+
+def phase_sharded_fix(label: str, solo: dict) -> dict:
+    """The main path's fix loop (3b's f_hat, topology and dense g)
+    through ``fused_fix(mesh=m)`` on a 4-block chain and a (2, 2) block
+    mesh, every block on cuda:0, each leg with the launch counts and the
+    halo-byte counters set to 0 just before it: g bitwise the dense
+    loop's, the same iterations, the launches and (worklist off) the
+    copied halo bytes as the plan says; seconds and peak bytes beside
+    the dense loop's; the overlap schedule's parts timed on the block
+    mesh."""
+    import torch
+    from repro_torch.core import fixes
+    from repro_torch.distributed import shardfix as sf
+    f_hat, topo, g_ref, it_ref = (solo[k] for k in ("f_hat", "topo", "g",
+                                                    "iters"))
+    shape = tuple(f_hat.shape)
+    meshes = {}
+    legs, totals = [], dict.fromkeys(COUNTERS, 0)
+    for name, mshape, overlap, worklist in SHARDED_LEGS:
+        mesh = meshes.setdefault(name, one_card_mesh(mshape))
+        be = sf.ShardedBackend(mesh=mesh, overlap=overlap, worklist=worklist)
+        plan = sf.plan_blocks(shape, mesh)
+        ov, wl = sf._resolve_modes(plan, overlap, worklist)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        sf.reset_halo_bytes()
+        (g, iters, ok), secs = timed(lambda: fixes.fused_fix(
+            f_hat, topo, backend=be, mesh=mesh))
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        halo = dict(sf.halo_bytes)
+        tag = f"sharded {label} {name} overlap={ov} worklist={wl}"
+        if not (ok and iters == it_ref and torch.equal(g, g_ref)):
+            raise AssertionError(f"{tag}: g or iterations ({iters}) differ "
+                                 f"from the dense loop ({it_ref})")
+        per = sharded_launch_bound(plan, ov)
+        most = len(sf._Layout(plan, mesh).ids) * iters * per
+        ext, fix = launches["extrema"], launches["fixpass"]
+        if ext != fix or (ext != most if not wl else not
+                          per * iters <= ext <= most):
+            raise AssertionError(f"{tag}: extrema {ext}, fixpass {fix}, "
+                                 f"want {'' if not wl else '<= '}{most}")
+        want = {k: v * iters for k, v in sf.halo_plan(
+            shape, np.float32, mesh, overlap=ov, worklist=wl).items()}
+        if not wl and halo != want:
+            raise AssertionError(f"{tag}: copied halo bytes {halo} != "
+                                 f"halo_plan x iterations {want}")
+        for k, v in launches.items():
+            totals[k] += v
+        legs.append(dict(mesh=name, mesh_shape=mesh.shape, overlap=ov,
+                         worklist=wl, iters=iters, seconds=secs,
+                         launches=launches, launches_max=most,
+                         halo_bytes=halo,
+                         halo_bytes_per_iter=sf.halo_plan(
+                             shape, np.float32, mesh, overlap=ov,
+                             worklist=wl),
+                         peak_device_bytes=peak, g_identical=True))
+        del g
+    parts = sf.time_step_parts(solo["f_hat"], topo, meshes["block2x2"],
+                               reps=3)
+    emit({"phase": "sharded_fix", "field": label, "shape": list(shape),
+          "iters": it_ref, "devices": [MESH_DEVICE] * 4,
+          "solo_seconds": solo["seconds"], "legs": legs,
+          "step_parts_block2x2": parts})
     torch.cuda.empty_cache()
+    return totals
+
+
+def phase_sharded_paths(climate, steps, nyx_edge: int,
+                        launcher_shape: str) -> dict:
+    """(b) climate round trips on the (2, 2) mesh under both codecs
+    against the main path's solo artifacts and g; (c) a (2, 1, 2) mesh
+    on nyx ``nyx_edge``^3 and 130x127x129 against solo artifacts; (d) a
+    ``CompressionService`` over the (2, 2) mesh on 4 climate timesteps
+    against the batch phase's solo artifacts, with its shard stats and
+    ``shard_timings``; (e) the launcher with ``--devices 4``; (f) the
+    (2, 2) mesh on distinct cards when there are two or more. Launches
+    counted from 0 around each leg."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.compress import (compress_preserving_mss,
+                                      decompress_preserving_mss)
+    from repro_torch.core import fixes, verify_preservation
+    from repro_torch.data import synthetic_field
+    from repro_torch.distributed import shardfix as sf
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_block_mesh
+    from repro_torch.serve import CompressionService, ServiceConfig
+    totals = dict.fromkeys(COUNTERS, 0)
+
+    def count(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    block = one_card_mesh((2, 2))
+    xi = 1e-3 * float(np.ptp(climate))
+    round_trips = {}
+    for entropy in ("deflate", "device-pack"):
+        solo, g_solo = MAIN_ARTS[("climate", entropy)]
+        reset_launches()
+        art, t_c = timed(lambda: compress_preserving_mss(
+            climate, xi, entropy=entropy, mesh=block, device=DEVICE))
+        lc = read_launches()
+        reset_launches()
+        g, t_d = timed(lambda: decompress_preserving_mss(art, mesh=block,
+                                                         device=DEVICE))
+        ld = read_launches()
+        count(lc)
+        count(ld)
+        tag = f"sharded climate {entropy}"
+        if not (same_artifact(art, solo) and art.backend == "sharded"):
+            raise AssertionError(f"{tag}: artifact differs from the main "
+                                 "path's solo artifact")
+        if not np.array_equal(g, g_solo):
+            raise AssertionError(f"{tag}: g differs from the solo decode")
+        rep = verify_preservation(climate, g, xi, device=DEVICE)
+        if not (rep["mss_preserved"] and rep["bound_ok"]):
+            raise AssertionError(f"{tag}: MSS not preserved: {rep}")
+        packed = int(entropy == "device-pack")
+        if (lc["lorenzo"], lc["pack"], ld["unpack"]) != (4, packed, packed):
+            raise AssertionError(f"{tag}: launches {lc} / {ld}")
+        round_trips[entropy] = dict(seconds_compress=t_c,
+                                    seconds_decompress=t_d,
+                                    fix_iters=art.fix_iters,
+                                    launches_compress=lc,
+                                    launches_decompress=ld)
+    emit({"phase": "sharded_round_trip", "field": "climate",
+          "mesh": block.shape, "artifacts_identical": True,
+          "g_identical": True, "mss_preserved": True,
+          "runs": round_trips})
+
+    mesh3 = one_card_mesh((2, 1, 2))
+    three = {}
+    for shape in ((nyx_edge,) * 3, (130, 127, 129)):
+        f = synthetic_field("nyx", shape)
+        xf = 1e-3 * float(np.ptp(f))
+        solo = compress_preserving_mss(f, xf, device=DEVICE)
+        reset_launches()
+        art, secs = timed(lambda: compress_preserving_mss(
+            f, xf, mesh=mesh3, device=DEVICE))
+        count(read_launches())
+        g = decompress_preserving_mss(art, mesh=mesh3, device=DEVICE)
+        if not (same_artifact(art, solo) and np.array_equal(
+                g, decompress_preserving_mss(solo, device=DEVICE))):
+            raise AssertionError(f"sharded {shape} on {mesh3.shape}: "
+                                 "artifact or g differs from the solo one")
+        three["x".join(map(str, shape))] = dict(seconds=secs,
+                                                fix_iters=art.fix_iters)
+    emit({"phase": "sharded_three_axis", "mesh": mesh3.shape,
+          "artifacts_identical": True, "g_identical": True, "runs": three})
+
+    solo = BATCH_SOLO[("climate", "deflate")][:len(steps)]
+    xis = [1e-3 * float(np.ptp(f)) for f in steps]
+    reset_launches()
+    with CompressionService(ServiceConfig(window=8, max_batch=4,
+                                          mesh=block, device=DEVICE)) as svc:
+        arts, t_svc = timed(lambda: [fut.result() for fut in [
+            svc.submit_compress(f, x) for f, x in zip(steps, xis)]])
+        st = svc.stats()["compress"]
+        probe = svc.shard_timings(refresh=True)
+    count(read_launches())
+    for i, (a, b) in enumerate(zip(arts, solo)):
+        if not same_artifact(a, b):
+            raise AssertionError(f"sharded service request {i}: artifact "
+                                 "differs from the solo call")
+    plan = sf.halo_plan(steps[0].shape, np.float32, block)
+    iters = sum(a.fix_iters for a in arts)
+    want = {k: v * iters for k, v in plan.items()}
+    if st["shard"]["halo_bytes_by_axis"] != want:
+        raise AssertionError(f"sharded service: shard stats {st['shard']} "
+                             f"!= halo_plan x iterations {want}")
+    if not probe or not {"t_interior_s", "t_exchange_s",
+                         "t_full_s"} <= set(probe):
+        raise AssertionError(f"sharded service: shard_timings {probe}")
+    emit({"phase": "sharded_service", "requests": len(arts),
+          "artifacts_identical": True, "seconds": t_svc,
+          "shard": st["shard"], "fix_modes": st["fix_modes"],
+          "padded_members": st["padded_members"], "shard_timings": probe})
+
+    argv = ["--devices", "4", "--fields", "16", "--shape", launcher_shape,
+            "--verify"]
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out, secs = timed(lambda: serve.main(argv, device=DEVICE))
+    count(read_launches())
+    lines = buf.getvalue().strip().splitlines()
+    if not (lines and lines[-1] == "OK"
+            and any(ln.startswith("# verified") for ln in lines)
+            and any("serving over 4 blocks" in ln for ln in lines)
+            and all(a.backend == "sharded" for a in out)):
+        raise AssertionError(f"sharded launcher {argv}: {lines}")
+    emit({"phase": "sharded_launcher", "argv": argv, "seconds": secs,
+          "verified": True, "printout": lines})
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        f = synthetic_field("nyx", (nyx_edge,) * 3)
+        xf = 1e-3 * float(np.ptp(f))
+        ft = torch.from_numpy(f).cuda()
+        topo = fixes.field_topology(ft, xf)
+        f_hat = ft + 0.5 * xf * torch.sin(ft)
+        g_ref, it_ref, _ = fixes.fused_fix(f_hat, topo, backend="cuda")
+        spread = make_block_mesh((2, 2), devices=[f"cuda:{i % cards}"
+                                                  for i in range(4)])
+        for ov in (False, True):
+            reset_launches()
+            g, it, ok = fixes.fused_fix(
+                f_hat, topo, mesh=spread,
+                backend=sf.ShardedBackend(mesh=spread, overlap=ov))
+            count(read_launches())
+            if not (ok and it == it_ref and torch.equal(g, g_ref)):
+                raise AssertionError(f"sharded on {cards} cards overlap={ov}:"
+                                     " g or iterations differ")
+        emit({"phase": "sharded_multi_card", "ran": True, "cards": cards,
+              "g_identical": True})
+    else:
+        emit({"phase": "sharded_multi_card", "ran": False, "cards": cards,
+              "reason": "fewer than two visible cards: the blocks of every "
+                        "other leg share one card"})
+    torch.cuda.empty_cache()
+    return totals
+
+
+#: (field, entropy) -> the batch phase's solo artifacts
+BATCH_SOLO: dict = {}
 
 
 def phase_batch(label: str, fields, xis, entropy: str, batchings=()) -> dict:
@@ -972,6 +1259,7 @@ def phase_batch(label: str, fields, xis, entropy: str, batchings=()) -> dict:
     solo, t_solo = timed(lambda: [
         compress_preserving_mss(f, x, entropy=entropy)
         for f, x in zip(fields, xis)])
+    BATCH_SOLO[(label, entropy)] = solo
     for i, (a, b) in enumerate(zip(arts, solo)):
         for k in ("base_payload", "edit_payload", "fix_iters", "edit_ratio",
                   "path", "entropy", "base_magic"):
@@ -1736,6 +2024,9 @@ def main(argv=None) -> int:
     ap.add_argument("--launcher-shape", type=str, default="128,128,128",
                     help="field shape of the service launcher's verified "
                          "run")
+    ap.add_argument("--sharded-nyx", type=int, default=128,
+                    help="edge of the cubic nyx field of the sharded "
+                         "phase's 3-axis mesh (beside 130x127x129)")
     ap.add_argument("--reps", type=int, default=10,
                     help="timed launches per kernel (median reported)")
     ap.add_argument("--lm-batch", type=int, default=8,
@@ -1790,13 +2081,27 @@ def main(argv=None) -> int:
             for k, v in phase_main_path(label, f, xi, entropy).items():
                 launches[k] += v
 
+    t_sharded = 0.0
     for label, f in fields:
-        phase_fixloop_strategies(label, f, 1e-3 * float(np.ptp(f)))
+        solo = phase_fixloop_strategies(label, f, 1e-3 * float(np.ptp(f)))
+        t0 = time.perf_counter()
+        for k, v in phase_sharded_fix(label, solo).items():
+            launches[k] += v
+        t_sharded += time.perf_counter() - t0
+        del solo
+        torch.cuda.empty_cache()
     steps = [synthetic_field("climate", climate_shape, seed=s)
              for s in range(3, 11)]
     for entropy in ("deflate", "device-pack"):
         phase_batch("climate", steps, [1e-3 * float(np.ptp(f))
                                        for f in steps], entropy)
+    t0 = time.perf_counter()
+    for k, v in phase_sharded_paths(fields[1][1], steps[:4],
+                                    args.sharded_nyx,
+                                    args.launcher_shape).items():
+        launches[k] += v
+    emit({"phase": "sharded_total",
+          "seconds": t_sharded + time.perf_counter() - t0})
     members = [synthetic_field("nyx", (args.batch_nyx,) * 3, seed=s)
                for s in range(1, 5)]
     phase_batch("nyx", members,

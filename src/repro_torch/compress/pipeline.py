@@ -39,8 +39,11 @@ the edit scatter run on the device, and g comes down once.
 artifacts (threaded host inflate, one d2h of the stacked g). Artifacts
 and g are bitwise the reference's.
 
-``mesh=`` raises ``NotImplementedError`` naming the ROADMAP.md item
-that brings it; nothing is silently rerouted.
+``mesh=`` (a ``repro_torch.launch.mesh`` device mesh) runs the
+transform, the fix loop, the reconstruction and the edit scatter on the
+mesh's blocks through the ``sharded`` backend, and the pack kernels on
+the global code array; artifacts and g stay byte for byte the solo
+path's.
 """
 from __future__ import annotations
 
@@ -65,11 +68,6 @@ __all__ = ["CompressedArtifact", "compress_preserving_mss",
            "compress_preserving_mss_batch", "decompress_preserving_mss",
            "decompress_artifact", "decompress_artifact_batch",
            "overall_compression_ratio"]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1: {item!r})")
 
 
 def _device_dtype_ok(dtype) -> bool:
@@ -112,9 +110,9 @@ def _check_base_entropy(base: str, entropy: str) -> None:
             f"(got base={base!r})")
 
 
-def _check_served(base: str, xi, mode: str, mesh, entropy: str) -> None:
-    """Raise for an unknown codec or mode, for ``mesh=`` (not ported),
-    for an entropy codec the base has not, and szlike's own error for a
+def _check_served(base: str, xi, mode: str, entropy: str) -> None:
+    """Raise for an unknown codec or mode, for an entropy codec the base
+    has not, and szlike's own error for a
     bound (or any of a sequence of bounds) that is not finite and
     positive, whichever path would have run. zfplike checks its bound
     itself (``xi = 0`` is allowed there)."""
@@ -127,8 +125,6 @@ def _check_served(base: str, xi, mode: str, mesh, entropy: str) -> None:
                                                else float(x))
     if mode not in ("fused", "paper"):
         raise ValueError(f"unknown mode {mode!r}")
-    if mesh is not None:
-        raise _not_ported("mesh=", "Multi-GPU sharded fix loop")
     _check_base_entropy(base, entropy)
 
 
@@ -473,17 +469,20 @@ def compress_preserving_mss(f: np.ndarray, xi: float, base: str = "szlike",
     path stage (transform, topology, fix_loop, extraction,
     entropy_residual, entropy_edits), measured with a device sync
     between stages. zfplike and paper mode take the host path (under
-    ``device_path=True`` they raise the reference's ``ValueError``);
-    ``mesh=`` raises ``NotImplementedError``."""
+    ``device_path=True`` they raise the reference's ``ValueError``).
+    ``mesh``: a device mesh whose >= 2 data-axis blocks carry the
+    transform and the fix loop (the sharded backend); the bytes do not
+    change."""
     if codec is not None:
         base = codec
-    _check_served(base, xi, mode, mesh, entropy)
+    _check_served(base, xi, mode, entropy)
     f = np.asarray(f)
     dev = resolve_device(device)
     if device_path is not False:
         reason, step = _device_path_reason(f, xi, base, mode)
         if reason is None:
-            be = resolve_backend(backend, f.shape, torch_dtype(f.dtype), dev)
+            be = fixes._bind(resolve_backend(
+                backend, f.shape, torch_dtype(f.dtype), dev, mesh=mesh))
             return _device_compress(f, xi, be, max_iters, edit_value_dtype,
                                     step, dev, entropy, timings)
         if device_path is True:
@@ -491,7 +490,7 @@ def compress_preserving_mss(f: np.ndarray, xi: float, base: str = "szlike",
     art = preserve.compress_host(
         base, f, xi, compressor=_host_compressor(base, entropy), mode=mode,
         edit_value_dtype=edit_value_dtype, max_iters=max_iters,
-        backend=backend, device=dev)
+        backend=backend, mesh=mesh, device=dev)
     art.entropy = entropy
     return art
 
@@ -521,7 +520,7 @@ def compress_preserving_mss_batch(
     if codec is not None:
         base = codec
     fields = [np.asarray(fi) for fi in fields]
-    _check_served(base, xi, "fused", mesh, entropy)
+    _check_served(base, xi, "fused", entropy)
     if not fields:
         return []
     if any(fi.shape != fields[0].shape for fi in fields):
@@ -541,15 +540,16 @@ def compress_preserving_mss_batch(
             bad = next(r for r, _ in reasons if r is not None)
             raise ValueError(f"device_path=True but {bad}")
     if use_dev:
-        be = resolve_backend(backend, fields[0].shape,
-                             torch_dtype(fields[0].dtype), dev)
+        be = fixes._bind(resolve_backend(backend, fields[0].shape,
+                                         torch_dtype(fields[0].dtype), dev,
+                                         mesh=mesh))
         return _device_compress_batch(fields, xi_arr, be, max_iters,
                                       edit_value_dtype, steps, dev,
                                       entropy=entropy)
     arts = preserve.compress_host_batch(
         base, fields, xi_arr, compressor=_host_compressor(base, entropy),
         edit_value_dtype=edit_value_dtype, max_iters=max_iters,
-        backend=backend, device=dev)
+        backend=backend, mesh=mesh, device=dev)
     for art in arts:
         art.entropy = entropy
     return arts
@@ -591,8 +591,16 @@ def _is_device_pack(art: CompressedArtifact) -> bool:
             and szlike.sz_blob_entropy(art.base_payload) == "device-pack")
 
 
+def _decode_backend(backend: BackendLike, shape, dtype, mesh,
+                    dev: torch.device):
+    """The stencil backend of a decode call, with the mesh (passed or
+    active) bound in."""
+    return fixes._bind(resolve_backend(backend, shape, torch_dtype(dtype),
+                                       dev, mesh=mesh))
+
+
 def _device_unpack_decompress(art: CompressedArtifact,
-                              backend: BackendLike, dev: torch.device
+                              backend: BackendLike, mesh, dev: torch.device
                               ) -> Optional[np.ndarray]:
     """The read path with no host entropy decode of the codes, for
     device-path SZP1 artifacts: split the blob into (words, bits) on the
@@ -608,7 +616,7 @@ def _device_unpack_decompress(art: CompressedArtifact,
     w_j = _h2d(words.view(np.int32), dev)
     b_j = _h2d(bits, dev)
     step_t = _h2d(np.asarray(step, dtype), dev)
-    be = resolve_backend(backend, shape, step_t.dtype, dev)
+    be = _decode_backend(backend, shape, dtype, mesh, dev)
     f_hat = be.reconstruct(be.unpack_codes(w_j, b_j, shape), step_t,
                            step_t.dtype)
     g = be.scatter_edits(f_hat, _h2d(idx, dev), _h2d(val, dev))
@@ -627,16 +635,15 @@ def decompress_preserving_mss(art: CompressedArtifact, device_path="auto",
     Artifacts whose codes overflow the int32 reconstruction (host-path
     artifacts) take ``decompress_artifact`` under ``device_path="auto"``
     and raise under ``True``, as in the reference. ``device_path=False``
-    is ``decompress_artifact``."""
-    if mesh is not None:
-        raise _not_ported("mesh=", "Multi-GPU sharded fix loop")
+    is ``decompress_artifact``. ``mesh`` runs the reconstruction and the
+    scatter on the mesh's blocks."""
     if device_path is False:
         return decompress_artifact(art)
     preserve.check_artifact(art)
     dev = resolve_device(device)
     reason = _device_decode_reason(art)
     if reason is None and _is_device_pack(art):
-        g = _device_unpack_decompress(art, backend, dev)
+        g = _device_unpack_decompress(art, backend, mesh, dev)
         if g is not None:
             return g
     if reason is None:
@@ -649,7 +656,7 @@ def decompress_preserving_mss(art: CompressedArtifact, device_path="auto",
     idx, val = codec.decode_edits(art.edit_payload)
     r_j = _h2d(np.asarray(r, np.int32), dev)
     step_t = _h2d(np.asarray(step, dtype), dev)
-    be = resolve_backend(backend, shape, step_t.dtype, dev)
+    be = _decode_backend(backend, shape, dtype, mesh, dev)
     f_hat = be.reconstruct(r_j, step_t, step_t.dtype)
     g = be.scatter_edits(f_hat, _h2d(idx, dev), _h2d(val, dev))
     return _d2h(g)
@@ -672,9 +679,9 @@ def decompress_artifact_batch(arts: Sequence[CompressedArtifact],
     Mixed batches (shapes, dtypes or bases) and ``device_path=False``
     decompress member by member; a batch the device cannot serve (a
     member's codes overflow the int32 reconstruction, say) falls back
-    to ``decompress_artifact`` under "auto" and raises under True."""
-    if mesh is not None:
-        raise _not_ported("mesh=", "Multi-GPU sharded fix loop")
+    to ``decompress_artifact`` under "auto" and raises under True.
+    ``mesh`` serves each member's reconstruction and scatter on the
+    mesh's blocks."""
     arts = list(arts)
     if not arts:
         return []
@@ -683,7 +690,8 @@ def decompress_artifact_batch(arts: Sequence[CompressedArtifact],
                   and a.dtype == a0.dtype for a in arts)
     if device_path is False or not uniform:
         return [decompress_preserving_mss(a, device_path=device_path,
-                                          backend=backend, device=device)
+                                          backend=backend, mesh=mesh,
+                                          device=device)
                 for a in arts]
     for a in arts:
         preserve.check_artifact(a)
@@ -695,7 +703,7 @@ def decompress_artifact_batch(arts: Sequence[CompressedArtifact],
         return [decompress_artifact(a) for a in arts]
 
     shape, dtype = tuple(a0.shape), np.dtype(a0.dtype)
-    be = resolve_backend(backend, shape, torch_dtype(dtype), dev)
+    be = _decode_backend(backend, shape, dtype, mesh, dev)
     idx_b, val_b, counts = codec.decode_edits_batch(
         [a.edit_payload for a in arts], fill_idx=math.prod(shape))
     idx_j = _h2d(idx_b, dev)

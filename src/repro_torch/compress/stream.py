@@ -31,14 +31,17 @@ continuously, so this module overlaps the two:
   blocks (or raises ``StreamBackpressure`` with ``block=False``) until a
   slot frees, so memory stays O(window x field).
 * ``SpecCache`` — an LRU of dispatch specializations keyed by
-  ``(shape, dtype, xi, backend)``; values hold the resolved stencil
-  backend. Hits, misses and evictions feed the service stats.
+  ``(shape, dtype, xi, backend)`` plus the mesh's data-axis widths when
+  a mesh is given; values hold the resolved, mesh-bound stencil backend.
+  Hits, misses and evictions feed the service stats.
 
 Every artifact (and decompressed field) is byte-identical to its
 one-shot ``compress_preserving_mss`` / ``decompress_preserving_mss``
 counterpart: the stream reorders and overlaps work, never changes it.
-``mesh=`` raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 6);
-the shard stats stay empty.
+With ``mesh=`` a batch's members run one after another through the
+sharded fix loop (no batch padding: it would only add work), and
+``stats()["shard"]`` adds up the per-axis halo bytes (``halo_plan`` x
+each member's iterations).
 """
 from __future__ import annotations
 
@@ -51,9 +54,11 @@ from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..core import fixes
 from ..core.backend import BackendLike, resolve_backend
 from ..debug import sanitize_transfers
 from ..device import DeviceLike, resolve_device, torch_dtype
+from ..distributed.shardfix import ALL_DATA_AXES
 from ..distributed.straggler import StepWatchdog
 from . import calibrate, pipeline, szlike
 
@@ -175,10 +180,6 @@ class _StreamBase:
                  cache_size: int = 32,
                  device: DeviceLike = None,
                  start: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported yet (ROADMAP.md Queue 1: 'Multi-GPU "
-                "sharded fix loop')")
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         if max_batch < 1:
@@ -191,6 +192,7 @@ class _StreamBase:
         self.max_batch = max_batch
         self.linger_s = max(linger_ms, 0.0) / 1e3
         self._backend = backend
+        self._mesh = mesh
         self._device = resolve_device(device)
         self._device_path = device_path
         self._max_iters = max_iters
@@ -212,6 +214,13 @@ class _StreamBase:
         self._linger_scale = 1.0
         self._linger_scale_max = 8.0
         self._watchdog_verdicts: Dict[str, int] = {}
+
+        # sharded-dispatch accounting: per-mesh-axis halo bytes moved by
+        # the fix loops (analytic halo_plan x observed iteration counts)
+        self._halo_bytes: Dict[str, int] = {}    # guarded-by: self._lock
+        self._halo_iters = 0                     # guarded-by: self._lock
+        # guarded-by: self._lock
+        self._shard_meta: Optional[Dict[str, object]] = None
 
         self._slots = threading.Semaphore(window)
         self._lock = threading.Lock()
@@ -433,6 +442,23 @@ class _StreamBase:
                     self._linger_scale = min(self._linger_scale_max,
                                              self._linger_scale * 2.0)
 
+    def _note_shard(self, be, shape, dtype, iters: int) -> None:
+        """Record one sharded dispatch: ``iters`` fix iterations of the
+        backend's per-axis halo traffic (``be.halo_plan``) into the
+        byte counters the service stats surface."""
+        try:
+            plan = be.halo_plan(tuple(shape), dtype)
+        except Exception:       # noqa: BLE001 — stats must never fail a batch
+            return
+        with self._lock:
+            self._halo_iters += int(iters)
+            for ax, nbytes in plan.items():
+                self._halo_bytes[ax] = \
+                    self._halo_bytes.get(ax, 0) + int(nbytes) * int(iters)
+            self._shard_meta = dict(shape=tuple(int(s) for s in shape),
+                                    dtype=str(np.dtype(dtype)),
+                                    backend=getattr(be, "name", "sharded"))
+
     def _note_fix_mode(self, mode: str) -> None:
         """Record which fix-loop strategy one dispatched batch took
         ("fused" / "pipelined" / "host") — surfaced per-mode in
@@ -494,22 +520,37 @@ class _StreamBase:
                     flagged_steps=self._watchdog.flagged_steps,
                     verdicts=dict(self._watchdog_verdicts),
                 ),
-                shard=dict(halo_bytes_by_axis={}, halo_bytes_total=0,
-                           fix_iters=0, last=None),
+                shard=dict(
+                    halo_bytes_by_axis=dict(self._halo_bytes),
+                    halo_bytes_total=sum(self._halo_bytes.values()),
+                    fix_iters=self._halo_iters,
+                    last=dict(self._shard_meta) if self._shard_meta else None,
+                ),
             )
 
     # -- subclass hooks -----------------------------------------------
     def _dispatch(self, batch: List[_Request]) -> None:
         raise NotImplementedError
 
-    def _resolved_backend(self, shape: Tuple[int, ...], dtype, xi: float):
-        """The stencil backend for one request class, through the LRU
-        ``SpecCache`` (key: shape, dtype, xi, backend)."""
+    def _backend_key_part(self) -> Tuple:
         name = self._backend if isinstance(self._backend, str) \
             else getattr(self._backend, "name", str(self._backend))
-        key = (tuple(shape), str(dtype), float(xi), name)
-        return self.cache.get(key, lambda: resolve_backend(
-            self._backend, tuple(shape), torch_dtype(dtype), self._device))
+        if self._mesh is None:
+            return (name, ())
+        # the per-axis (name, size) layout, not just a block count: a
+        # (2, 2) block mesh and a 4-block slab chain run different
+        # decompositions and take different SpecCache slots
+        data_axes = tuple((ax, int(n)) for ax, n in self._mesh.shape.items()
+                          if ax in ALL_DATA_AXES)
+        return (name, data_axes)
+
+    def _resolved_backend(self, shape: Tuple[int, ...], dtype, xi: float):
+        """The mesh-bound stencil backend for one request class, through
+        the LRU ``SpecCache`` (key: shape, dtype, xi, backend, mesh)."""
+        key = (tuple(shape), str(dtype), float(xi), *self._backend_key_part())
+        return self.cache.get(key, lambda: fixes._bind(resolve_backend(
+            self._backend, tuple(shape), torch_dtype(dtype), self._device,
+            mesh=self._mesh)))
 
 
 # ---------------------------------------------------------------------------
@@ -598,9 +639,12 @@ class CompressStream(_StreamBase):
                                     float(xi_arr[0]))
         # pad the batch to a power-of-two member count, as the reference
         # does (its jit specializes on batch sizes; here a padding member
-        # just costs its transform, and in a fused batch its fix loop)
+        # just costs its transform, and in a fused batch its fix loop).
+        # The sharded loop runs members one after another: padding would
+        # only add work there
         B = len(fields)
-        cap = _pow2_at_least(B) if self._pad_pow2 else B
+        cap = _pow2_at_least(B) if (
+            self._pad_pow2 and not hasattr(be, "fix_loop")) else B
         pad = cap - B
         if pad:
             fields = fields + [fields[-1]] * pad
@@ -626,6 +670,9 @@ class CompressStream(_StreamBase):
                                                       entropy=entropy)
         self._note_batch(B, pad, db.nbytes_h2d, db.nbytes_d2h,
                          time.perf_counter() - t0)
+        if hasattr(be, "halo_plan"):
+            self._note_shard(be, fields[0].shape, fields[0].dtype,
+                             int(np.sum(db.iters_b[:B])))
         for i, req in enumerate(batch):
             if db.packed is not None:
                 # device-pack: the entropy stream already left the device
@@ -644,7 +691,10 @@ class CompressStream(_StreamBase):
         leaves it ``None``, the first auto decision runs the one-shot
         machine calibration (``compress.calibrate``, cached per
         backend/dtype/device type, ``MSZ_FUSED_FIX_VOXELS``
-        overrides)."""
+        overrides). A sharded backend always takes the batch stage: its
+        fix loops run members one after another either way."""
+        if hasattr(be, "fix_loop"):
+            return True
         if self._fix_batching != "auto":
             return self._fix_batching == "fused"
         if self._fused_fix_voxels is None:
@@ -660,7 +710,8 @@ class CompressStream(_StreamBase):
             arts = pipeline.compress_preserving_mss_batch(
                 fields, xi_arr, base=base, edit_value_dtype=evd,
                 max_iters=self._max_iters, backend=self._backend,
-                device_path=False, entropy=entropy, device=self._device)
+                mesh=self._mesh, device_path=False, entropy=entropy,
+                device=self._device)
         except BaseException as exc:                # noqa: BLE001
             self._fail_batch(batch, exc)
             return
@@ -752,11 +803,13 @@ class DecompressStream(_StreamBase):
                 # d2h) for singleton batches — output is identical
                 gs = [pipeline.decompress_preserving_mss(
                     arts[0], device_path=self._device_path,
-                    backend=self._backend, device=self._device)]
+                    backend=self._backend, mesh=self._mesh,
+                    device=self._device)]
             else:
                 gs = pipeline.decompress_artifact_batch(
                     arts, device_path=self._device_path,
-                    backend=self._backend, device=self._device)
+                    backend=self._backend, mesh=self._mesh,
+                    device=self._device)
         except BaseException as exc:                # noqa: BLE001
             self._fail_batch(batch, exc)
             return

@@ -31,10 +31,14 @@ Registered implementations:
     on, groups of 4 slabs) — the same kernels, configured to exercise
     slab tiles and the worklist's skips on small fields.
 
-Both take ``reconstruct`` and ``scatter_edits`` from torch ops. Backends
-are bitwise-interchangeable: same g trajectory, same violation counts,
-same iteration count. ``resolve_backend("auto", ...)`` picks ``cuda``
-for a field on a CUDA device and ``reference`` for one on the CPU.
+Both take ``reconstruct`` and ``scatter_edits`` from torch ops. The
+``sharded`` backend (``repro_torch.distributed.shardfix``, imported when
+first named) runs the same kernels on the blocks of a device mesh.
+Backends are bitwise-interchangeable: same g trajectory, same violation
+counts, same iteration count. ``resolve_backend("auto", ...)`` picks
+``sharded`` when a mesh with >= 2 data-axis blocks is passed or active,
+else ``cuda`` for a field on a CUDA device and ``reference`` for one on
+the CPU.
 """
 from __future__ import annotations
 
@@ -392,14 +396,29 @@ BackendLike = Union[str, ReferenceBackend, CudaBackend]
 
 _REGISTRY: Dict[str, object] = {}
 
+# backends of higher layers register themselves on import; naming one
+# imports its module, so get_backend("sharded") works without the caller
+# importing repro_torch.distributed first
+_LAZY_MODULES: Dict[str, str] = {
+    "sharded": "repro_torch.distributed.shardfix"}
+
 
 def register_backend(backend, name=None) -> None:
     """Register a backend instance under ``name`` (default: its name)."""
     _REGISTRY[name or backend.name] = backend
 
 
+def _ensure_lazy_backends() -> None:
+    import importlib
+    for name, module in _LAZY_MODULES.items():
+        if name not in _REGISTRY:
+            importlib.import_module(module)
+
+
 def available_backends():
-    """Sorted names of the registered backends."""
+    """Sorted names of the registered backends (the lazy ones imported
+    first, so the list is whole)."""
+    _ensure_lazy_backends()
     return tuple(sorted(_REGISTRY))
 
 
@@ -409,6 +428,8 @@ def get_backend(spec: BackendLike):
         if spec == "auto":
             raise ValueError(
                 "'auto' needs the field's device — use resolve_backend()")
+        if spec not in _REGISTRY and spec in _LAZY_MODULES:
+            _ensure_lazy_backends()
         try:
             return _REGISTRY[spec]
         except KeyError:
@@ -419,17 +440,46 @@ def get_backend(spec: BackendLike):
     return spec
 
 
+def _auto_sharded(shape, dtype, mesh):
+    """The ``sharded`` backend bound to ``mesh`` when it (or the active
+    ``with mesh:`` one) has >= 2 data-axis blocks, else None."""
+    be = get_backend("sharded")
+    if mesh is not None:
+        be = be.with_mesh(mesh)
+    else:
+        try:
+            be = be.bind()
+        except ValueError:
+            return None
+    if be.n_data_devices() < 2 or not be.supports(shape, dtype):
+        return None
+    return be
+
+
 def resolve_backend(spec: BackendLike, shape, dtype: torch.dtype,
-                    device: torch.device):
-    """Like ``get_backend``, but 'auto' picks ``cuda`` for a field on a
-    CUDA device and ``reference`` for one on the CPU. A backend that does
-    not support the shape or dtype raises."""
+                    device: torch.device, mesh=None):
+    """Like ``get_backend``, but 'auto' picks ``sharded`` when a mesh
+    with >= 2 data-axis blocks is passed or active, else ``cuda`` for a
+    field on a CUDA device and ``reference`` for one on the CPU. ``mesh``
+    is bound into a mesh-less sharded backend. A named backend that does
+    not support the shape or dtype raises (the sharded one without a
+    mesh raises that it needs one)."""
+    shape = tuple(shape)
     if isinstance(spec, str) and spec == "auto":
+        be = _auto_sharded(shape, dtype, mesh)
+        if be is not None:
+            return be
         spec = "cuda" if torch.device(device).type == "cuda" else "reference"
     be = get_backend(spec)
-    if not be.supports(tuple(shape), dtype):
-        raise ValueError(f"backend {be.name!r} does not support fields of "
-                         f"shape {tuple(shape)} dtype {dtype}")
+    if mesh is not None and hasattr(be, "with_mesh") \
+            and getattr(be, "mesh", None) is None:
+        be = be.with_mesh(mesh)
+    if not be.supports(shape, dtype):
+        if hasattr(be, "bind"):
+            be.bind()   # raises the 'needs a mesh' error when that is why
+        raise ValueError(
+            f"backend {be.name!r} does not support fields of shape {shape} "
+            f"dtype {dtype}; use backend='auto' for automatic fallback")
     return be
 
 

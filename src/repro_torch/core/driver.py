@@ -60,15 +60,12 @@ def derive_edits(f, f_hat, xi: float, mode: str = "fused",
     """Edits such that f_hat + delta has exactly the MS segmentation of f
     with |f - (f_hat + delta)| <= xi. ``mode``: "fused" (the fused loop
     on ``backend``) or "paper" (``fixes.paper_fix`` on torch ops, whatever
-    ``backend`` says, as in the reference). ``device=None`` runs on CUDA
-    (numpy inputs); tensors stay on their device unless ``device`` names
-    another."""
+    ``backend`` says, as in the reference). "auto" takes the sharded
+    loop when ``mesh`` (or the active ``with mesh:`` one) has >= 2
+    data-axis blocks. ``device=None`` runs on CUDA (numpy inputs);
+    tensors stay on their device unless ``device`` names another."""
     if mode not in ("fused", "paper"):
         raise ValueError(f"unknown mode {mode!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP.md Queue 1: 'Multi-GPU "
-            "sharded fix loop')")
     ft = _as_tensor(f, device)
     fh = _as_tensor(f_hat, ft.device, ft.dtype)
     _check_inputs(ft, fh, xi)
@@ -76,7 +73,8 @@ def derive_edits(f, f_hat, xi: float, mode: str = "fused",
     if mode == "paper":
         g, iters, ok = fixes.paper_fix(fh, topo, max_iters=max_iters)
         return _package_result(ft, fh, g, iters, ok, "reference")
-    be = resolve_backend(backend, ft.shape, ft.dtype, ft.device)
+    be = fixes._bind(resolve_backend(backend, ft.shape, ft.dtype, ft.device,
+                                     mesh=mesh))
     g, iters, ok = fixes.fused_fix(fh, topo, max_iters=max_iters, backend=be)
     return _package_result(ft, fh, g, iters, ok, be.name)
 
@@ -107,12 +105,9 @@ def derive_edits_batch(f, f_hat, xi: Union[float, Sequence[float]],
     ``f``/``f_hat``: (B, *spatial) with 2D/3D members; ``xi`` a scalar
     or one bound a member (each member's topology honours its own).
     The fix loops run through ``fixes.fused_fix_batch`` (``batching``
-    and ``compact_every`` passed through); each member's result is
-    bitwise a solo ``derive_edits`` call's."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP.md Queue 1: 'Multi-GPU "
-            "sharded fix loop')")
+    and ``compact_every`` passed through; under a mesh the members run
+    one after another through the sharded loop); each member's result
+    is bitwise a solo ``derive_edits`` call's."""
     ft = _as_tensor(f, device)
     fh = _as_tensor(f_hat, ft.device, ft.dtype)
     if ft.shape != fh.shape:
@@ -129,7 +124,8 @@ def derive_edits_batch(f, f_hat, xi: Union[float, Sequence[float]],
     topos = [fixes.field_topology(ft[i], float(xi_arr[i])) for i in range(B)]
     topo_b = fixes.FieldTopo(*(torch.stack(leaves)
                                for leaves in zip(*topos)))
-    be = resolve_backend(backend, ft.shape[1:], ft.dtype, ft.device)
+    be = fixes._bind(resolve_backend(backend, ft.shape[1:], ft.dtype,
+                                     ft.device, mesh=mesh))
     g_b, iters_b, ok_b = fixes.fused_fix_batch(
         fh, topo_b, max_iters=max_iters, backend=be, batching=batching,
         compact_every=compact_every)

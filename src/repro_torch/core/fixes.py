@@ -10,8 +10,9 @@ and fewer than ``max_iters`` steps were taken; converged means the last
 step saw no violation. The convergence test is a host sync per
 iteration. A backend with a dirty-slab worklist (``cuda``) runs the
 loop through it where its policy says so (``use_worklist``), bitwise
-equal. ``fused_fix_batch`` runs many members, each bitwise its solo
-loop.
+equal; a backend with a whole-loop driver (``fix_loop``: the sharded
+backend over a device mesh, ``mesh=``) runs the loop there.
+``fused_fix_batch`` runs many members, each bitwise its solo loop.
 """
 from __future__ import annotations
 
@@ -57,14 +58,26 @@ def fused_pass(g: torch.Tensor, topo: FieldTopo,
     return get_backend(backend).fused_step(g, topo)
 
 
+def _bind(be):
+    """Freeze call-time context (the active mesh, for the sharded
+    backend) into the instance."""
+    return be.bind() if hasattr(be, "bind") else be
+
+
 def fused_fix(g0: torch.Tensor, topo: FieldTopo, max_iters: int = 512,
-              backend: BackendLike = "auto"
+              backend: BackendLike = "auto", mesh=None
               ) -> Tuple[torch.Tensor, int, bool]:
     """Run the fused loop to convergence. Returns (g, iters, converged).
-    ``backend`` picks the stencil execution ('auto': ``cuda`` on a CUDA
-    tensor, ``reference`` on a CPU one); every backend gives the same
-    trajectory bit for bit."""
-    be = resolve_backend(backend, g0.shape, g0.dtype, g0.device)
+    ``backend`` picks the stencil execution ('auto': ``sharded`` under a
+    mesh of >= 2 data-axis blocks, else ``cuda`` on a CUDA tensor and
+    ``reference`` on a CPU one); ``mesh`` routes the loop through the
+    sharded backend. Every backend gives the same trajectory bit for
+    bit."""
+    be = _bind(resolve_backend(backend, g0.shape, g0.dtype, g0.device,
+                               mesh=mesh))
+    if hasattr(be, "fix_loop"):
+        # the sharded loop: blocks resident for the whole loop
+        return be.fix_loop(g0, topo, max_iters=max_iters)
     if hasattr(be, "worklist_loop") and be.use_worklist(g0.shape):
         g, iters, ok, _ = be.worklist_loop(g0, topo, max_iters=max_iters)
         return g, iters, ok
@@ -80,14 +93,16 @@ def fused_fix(g0: torch.Tensor, topo: FieldTopo, max_iters: int = 512,
 
 def fused_fix_worklist(g0: torch.Tensor, topo: FieldTopo,
                        max_iters: int = 512,
-                       backend: BackendLike = "cuda_worklist"
+                       backend: BackendLike = "cuda_worklist", mesh=None
                        ) -> Tuple[torch.Tensor, int, bool, int]:
     """Run the fused loop through a backend's dirty-slab worklist,
     whatever its engage threshold. Returns (g, iters, converged,
     skipped_slabs), the first three bitwise ``fused_fix``'s;
     ``skipped_slabs`` counts the slabs of skipped groups summed over
-    iterations."""
-    be = resolve_backend(backend, g0.shape, g0.dtype, g0.device)
+    iterations. ``mesh`` binds into a sharded backend, which has no
+    slab worklist and raises, as in the reference."""
+    be = _bind(resolve_backend(backend, g0.shape, g0.dtype, g0.device,
+                               mesh=mesh))
     if not hasattr(be, "worklist_loop"):
         raise ValueError(
             f"backend {be.name!r} has no dirty-slab worklist driver; "
@@ -100,8 +115,8 @@ def _member(topo: FieldTopo, i: int) -> FieldTopo:
 
 
 def fused_fix_batch(g0: torch.Tensor, topo: FieldTopo, max_iters: int = 512,
-                    backend: BackendLike = "auto", batching: str = "auto",
-                    compact_every: int = 8
+                    backend: BackendLike = "auto", mesh=None,
+                    batching: str = "auto", compact_every: int = 8
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused loop over a leading batch axis (timestep series,
     ensemble members). ``g0``: (B, *spatial); every FieldTopo leaf has
@@ -122,6 +137,11 @@ def fused_fix_batch(g0: torch.Tensor, topo: FieldTopo, max_iters: int = 512,
     and compacting the active ones into smaller buckets; here no member
     occupies a lane, so every choice runs the same member loop, which
     already steps only the active members.
+
+    With a sharded backend (``mesh`` with >= 2 data-axis blocks, or
+    ``backend="sharded"``) the members run one after another through
+    the mesh's loop, each bitwise its solo run; ``batching`` is checked
+    and otherwise ignored, as in the reference.
     """
     if batching not in ("auto", "compact", "fused"):
         raise ValueError(
@@ -129,8 +149,16 @@ def fused_fix_batch(g0: torch.Tensor, topo: FieldTopo, max_iters: int = 512,
             f"got {batching!r}")
     if compact_every < 1:
         raise ValueError(f"compact_every must be >= 1, got {compact_every}")
-    be = resolve_backend(backend, g0.shape[1:], g0.dtype, g0.device)
+    be = _bind(resolve_backend(backend, g0.shape[1:], g0.dtype, g0.device,
+                               mesh=mesh))
+    dev = g0.device
     B = g0.shape[0]
+    if hasattr(be, "fix_loop"):
+        outs = [be.fix_loop(g0[i], _member(topo, i), max_iters=max_iters)
+                for i in range(B)]
+        return (torch.stack([g for g, _, _ in outs]) if outs else g0.clone(),
+                _h2d(np.asarray([it for _, it, _ in outs], np.int32), dev),
+                _h2d(np.asarray([ok for _, _, ok in outs], bool), dev))
     gs = list(g0.unbind(0))
     topos = [_member(topo, i) for i in range(B)]
     iters = np.zeros(B, np.int32)
@@ -148,7 +176,6 @@ def fused_fix_batch(g0: torch.Tensor, topo: FieldTopo, max_iters: int = 512,
         viol[active] = viol_a
         active = active[viol_a > 0]
         it += 1
-    dev = g0.device
     g = torch.stack(gs) if gs else g0.clone()
     return g, _h2d(iters, dev), _h2d(viol == 0, dev)
 

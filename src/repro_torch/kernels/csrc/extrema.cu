@@ -381,7 +381,10 @@ int launch(const void* g, const void* Mf, const void* mf, const void* maxf,
                       const void* maxf, const void* minf, void* up,        \
                       void* dn, void* se, void* dem, void* pro, int ndim,  \
                       int nz, int ny, int nx, int z0, int y0, int x0,      \
-                      int N, int NY, int NX, void* stream) {               \
+                      int N, int NY, int NX, int device,                   \
+                      void* stream) {                                      \
+    const cudaError_t e = cudaSetDevice(device);                           \
+    if (e != cudaSuccess) return (int)e;                                   \
     return msz::launch<T>(g, Mf, mf, maxf, minf, up, dn, se, dem, pro,     \
                           ndim,                                            \
                           msz::make_geo(nz, ny, nx, z0, y0, x0, N, NY, NX), \

@@ -291,7 +291,10 @@ int launch(const void* g, const void* low, const void* se, const void* dem,
                       const void* dem, const void* pro, const void* upg,    \
                       const void* dnf, void* g_out, void* viol, void* tgt,  \
                       int ndim, int nz, int ny, int nx, int z0, int y0,     \
-                      int x0, int N, int NY, int NX, void* stream) {        \
+                      int x0, int N, int NY, int NX, int device,            \
+                      void* stream) {                                       \
+    const cudaError_t e = cudaSetDevice(device);                            \
+    if (e != cudaSuccess) return (int)e;                                    \
     return msz::launch<T>(g, low, se, dem, pro, upg, dnf, g_out, viol, tgt, \
                           ndim,                                             \
                           msz::make_geo(nz, ny, nx, z0, y0, x0, N, NY, NX),  \

@@ -204,7 +204,9 @@ int launch(const void* f, const void* step, void* r, Geo s, void* stream) {
 #define MSZ_LORENZO_ENTRY(NAME, T)                                       \
   extern "C" int NAME(const void* f, const void* step, void* r, int nz, \
                       int ny, int nx, int z0, int y0, int x0,           \
-                      void* stream) {                                   \
+                      int device, void* stream) {                       \
+    const cudaError_t e = cudaSetDevice(device);                        \
+    if (e != cudaSuccess) return (int)e;                                \
     return msz::launch<T>(                                              \
         f, step, r, msz::make_geo(nz, ny, nx, z0, y0, x0, 0, 0, 0),     \
         stream);                                                        \

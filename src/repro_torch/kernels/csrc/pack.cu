@@ -377,12 +377,15 @@ inline cudaError_t clear_scratch(void* scratch, int n, cudaStream_t s,
 }  // namespace msz
 
 // r: n int32 codes; words: room for n_chunks * 1024 int32; bits: n_chunks
-// int32; scratch: at least 3 + n_chunks int64, zeroed here.
+// int32; scratch: at least 3 + n_chunks int64, zeroed here; device: the
+// CUDA device of every pointer and of the stream, made current first.
 extern "C" int msz_pack(const void* r, void* words, void* bits,
-                        void* scratch, int n, void* stream) {
+                        void* scratch, int n, int device, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   int n_chunks, n_tiles;
-  cudaError_t e = msz::clear_scratch(scratch, n, s, &n_chunks, &n_tiles);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  e = msz::clear_scratch(scratch, n, s, &n_chunks, &n_tiles);
   if (e != cudaSuccess) return (int)e;
   if (n_chunks > 0)
     msz::pack_kernel<<<n_tiles, msz::kThreads, 0, s>>>(
@@ -392,12 +395,15 @@ extern "C" int msz_pack(const void* r, void* words, void* bits,
 }
 
 // words: n_words int32; bits: n_chunks int32; out: n int32 (16-byte
-// aligned); scratch as for msz_pack.
+// aligned); scratch and device as for msz_pack.
 extern "C" int msz_unpack(const void* words, const void* bits, void* out,
-                          void* scratch, int n, int n_words, void* stream) {
+                          void* scratch, int n, int n_words, int device,
+                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   int n_chunks, n_tiles;
-  cudaError_t e = msz::clear_scratch(scratch, n, s, &n_chunks, &n_tiles);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  e = msz::clear_scratch(scratch, n, s, &n_chunks, &n_tiles);
   if (e != cudaSuccess) return (int)e;
   if (n_chunks > 0)
     msz::unpack_kernel<<<n_tiles, msz::kThreads, 0, s>>>(

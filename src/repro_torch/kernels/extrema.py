@@ -111,7 +111,7 @@ def extrema_masks_plain(g, M_f, m_f, is_max_f, is_min_f, geo: Geometry,
 def _entry(dtype):
     lib = _build.load("extrema")
     sym = "msz_extrema_f32" if dtype == torch.float32 else "msz_extrema_f64"
-    return _build.entry(lib, sym, 10, 10, 0)
+    return _build.entry(lib, sym, 10, 11, 0)
 
 
 def extrema_masks(g: torch.Tensor, M_f: torch.Tensor, m_f: torch.Tensor,
@@ -143,8 +143,10 @@ def extrema_masks(g: torch.Tensor, M_f: torch.Tensor, m_f: torch.Tensor,
                           g.shape)
     outs = [torch.empty(g.shape, dtype=i32, device=dev) for _ in range(5)]
     fn = _entry(g.dtype)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in (g, M_f, m_f, is_max_f, is_min_f, *outs)]
-    _build.check(fn(*ptrs, geo.ndim, *geo.c_ints(), stream), "extrema")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(fn(*ptrs, geo.ndim, *geo.c_ints(), dev.index, stream),
+                     "extrema")
     launches += 1
     return tuple(outs)

@@ -91,7 +91,7 @@ def fix_pass_plain(g, lower, self_edit, demote_src, promote_src, up_code_g,
 def _entry(dtype):
     lib = _build.load("fixpass")
     sym = "msz_fixpass_f32" if dtype == torch.float32 else "msz_fixpass_f64"
-    return _build.entry(lib, sym, 10, 10, 0)
+    return _build.entry(lib, sym, 10, 11, 0)
 
 
 def fix_pass(g: torch.Tensor, lower: torch.Tensor, self_edit: torch.Tensor,
@@ -125,8 +125,10 @@ def fix_pass(g: torch.Tensor, lower: torch.Tensor, self_edit: torch.Tensor,
     viol = torch.zeros(geo.nz, dtype=i32, device=dev)
     tgt = torch.zeros(geo.nz, dtype=i32, device=dev)
     fn = _entry(g.dtype)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in (*args, g2, viol, tgt)]
-    _build.check(fn(*ptrs, geo.ndim, *geo.c_ints(), stream), "fix_pass")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(fn(*ptrs, geo.ndim, *geo.c_ints(), dev.index, stream),
+                     "fix_pass")
     launches += 1
     return g2, viol, tgt

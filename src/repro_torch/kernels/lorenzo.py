@@ -54,7 +54,7 @@ def lorenzo_quant_plain(f: torch.Tensor, step: torch.Tensor,
 def _entry(dtype):
     lib = _build.load("lorenzo")
     sym = "msz_lorenzo_f32" if dtype == torch.float32 else "msz_lorenzo_f64"
-    return _build.entry(lib, sym, 3, 6, 0)
+    return _build.entry(lib, sym, 3, 7, 0)
 
 
 def lorenzo_quant(f: torch.Tensor, step: torch.Tensor, *,
@@ -80,8 +80,10 @@ def lorenzo_quant(f: torch.Tensor, step: torch.Tensor, *,
         raise ValueError(f"lorenzo_quant: step on {step.device}, f on {dev}")
     r = torch.empty(f.shape, dtype=torch.int32, device=dev)
     fn = _entry(f.dtype)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(fn(f.data_ptr(), step.data_ptr(), r.data_ptr(),
-                    *geo.c_ints()[:6], stream), "lorenzo_quant")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(fn(f.data_ptr(), step.data_ptr(), r.data_ptr(),
+                        *geo.c_ints()[:6], dev.index, stream),
+                     "lorenzo_quant")
     launches += 1
     return r

@@ -276,31 +276,35 @@ def _check_size(what: str, n: int) -> None:
                          "2^31)")
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def launch_pack(r: torch.Tensor, words: torch.Tensor, bits: torch.Tensor,
                 scratch: torch.Tensor) -> None:
-    """The pack kernel alone, on the current stream, into preallocated
-    buffers: ``words`` int32 with room for ``n_chunks * CHUNK``, ``bits``
-    int32 ``n_chunks``, ``scratch`` int64 ``scratch_size(n_chunks)``
-    (zeroed by the launch). Counts nothing and reads nothing back."""
+    """The pack kernel alone, on the current stream of ``r``'s device,
+    into preallocated buffers on that device: ``words`` int32 with room
+    for ``n_chunks * CHUNK``, ``bits`` int32 ``n_chunks``, ``scratch``
+    int64 ``scratch_size(n_chunks)`` (zeroed by the launch). Counts
+    nothing and reads nothing back."""
     lib = _build.load("pack")
-    _build.check(_build.entry(lib, "msz_pack", 4, 1, 0)(
-        r.data_ptr(), words.data_ptr(), bits.data_ptr(), scratch.data_ptr(),
-        r.numel(), _stream(r.device)), "pack_codes")
+    dev = r.device
+    with torch.cuda.device(dev):
+        _build.check(_build.entry(lib, "msz_pack", 4, 2, 0)(
+            r.data_ptr(), words.data_ptr(), bits.data_ptr(),
+            scratch.data_ptr(), r.numel(), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream), "pack_codes")
 
 
 def launch_unpack(words: torch.Tensor, bits: torch.Tensor, out: torch.Tensor,
                   scratch: torch.Tensor) -> None:
-    """The unpack kernel alone, on the current stream: ``out`` int32 of
-    the code count (16-byte aligned), ``scratch`` as in ``launch_pack``.
-    Counts nothing and reads nothing back."""
+    """The unpack kernel alone, on the current stream of ``out``'s
+    device: ``out`` int32 of the code count (16-byte aligned),
+    ``scratch`` as in ``launch_pack``. Counts nothing and reads nothing
+    back."""
     lib = _build.load("pack")
-    _build.check(_build.entry(lib, "msz_unpack", 4, 2, 0)(
-        words.data_ptr(), bits.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        out.numel(), words.numel(), _stream(out.device)), "unpack_codes")
+    dev = out.device
+    with torch.cuda.device(dev):
+        _build.check(_build.entry(lib, "msz_unpack", 4, 3, 0)(
+            words.data_ptr(), bits.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), out.numel(), words.numel(), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream), "unpack_codes")
 
 
 def _read_meta(scratch: torch.Tensor) -> Tuple[int, int]:

@@ -134,7 +134,8 @@ def check_plane(what: str, geo: Geometry) -> None:
 
 def check_cuda_args(what: str, tensors, dtypes, shape) -> torch.device:
     """Shared wrapper checks: one CUDA device, contiguous, expected
-    dtypes and shape. Returns the device."""
+    dtypes and shape. Returns the device, which the C entry makes
+    current before its launch."""
     dev = tensors[0].device
     for t, dt in zip(tensors, dtypes):
         if t.device != dev:
@@ -146,10 +147,4 @@ def check_cuda_args(what: str, tensors, dtypes, shape) -> torch.device:
                 f"{what}: shape {tuple(t.shape)} != {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
-    if dev.index not in (None, 0):
-        # the libraries' own CUDA runtime launches on its current device,
-        # device 0; the multi-GPU slice (ROADMAP.md Queue 1, 'Multi-GPU
-        # sharded fix loop') adds the device to the C interface
-        raise NotImplementedError(
-            f"{what}: the kernels launch on cuda:0 only, got {dev}")
     return dev

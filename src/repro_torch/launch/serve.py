@@ -14,9 +14,12 @@ round-trips every artifact through the decompress stream.
 ``--stats-port P`` serves the live stats document at
 ``http://127.0.0.1:P/stats`` while the run is in flight. ``--verify``
 checks exact MSS preservation and byte-identity against the one-shot
-pipeline on every request. ``--devices N`` with N > 1 raises
-``NotImplementedError`` (ROADMAP.md Queue 1 item 6). Runs on CUDA; a
-caller of ``main`` may pass ``device="cpu"``.
+pipeline on every request. ``--devices N`` (N > 1) serves every fix loop
+sharded over an N-block ``('data',)`` mesh: a block a card where N
+cards are visible, else the blocks placed round robin on the cards
+there are (said in the printout) — the counterpart of the reference's
+emulated host devices, still on the card. Runs on CUDA; a caller of
+``main`` may pass ``device="cpu"`` (the blocks then lie on the CPU).
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ def _parse_args(argv=None):
                     help="stencil backend (auto | reference | cuda | "
                          "cuda_tiled | cuda_worklist)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="serve over N devices (N > 1 is not ported)")
+                    help="serve every fix loop sharded over an N-block "
+                         "('data',) mesh (round robin on fewer cards)")
     ap.add_argument("--mixed", action="store_true",
                     help="mix a second field shape and per-request bounds "
                          "into the traffic (exercises per-spec batching)")
@@ -60,12 +64,30 @@ def _parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def _mesh(n: int, dev):
+    """The ``--devices N`` mesh: N blocks of a ``('data',)`` chain, one
+    a card, or round robin on the cards there are (on the CPU when the
+    run is on the CPU); None for N <= 1."""
+    if n <= 1:
+        return None
+    import torch
+
+    from .mesh import make_data_mesh
+    if dev.type == "cpu":
+        places = ["cpu"] * n
+    else:
+        count = torch.cuda.device_count()
+        places = [f"cuda:{i % count}" for i in range(n)]
+        if count < n:
+            print(f"# {n} blocks on {count} visible card(s): placed round "
+                  f"robin ({', '.join(places)})")
+    mesh = make_data_mesh(n, devices=places)
+    print(f"# serving over {n} blocks (mesh axes {mesh.shape})")
+    return mesh
+
+
 def main(argv=None, *, device: DeviceLike = None):
     args = _parse_args(argv)
-    if args.devices > 1:
-        raise NotImplementedError(
-            f"--devices {args.devices} is not ported yet (ROADMAP.md Queue "
-            "1: 'Multi-GPU sharded fix loop')")
     if args.smoke:
         args.fields = min(args.fields, 8)
         args.shape = "12,12,12"
@@ -82,6 +104,7 @@ def main(argv=None, *, device: DeviceLike = None):
 
     dev = resolve_device(device)
     shape = tuple(int(s) for s in args.shape.split(","))
+    mesh = _mesh(args.devices, dev)
     shapes = [shape] * args.fields
     if args.mixed:
         alt = tuple(max(s // 2, 8) for s in shape)
@@ -95,7 +118,7 @@ def main(argv=None, *, device: DeviceLike = None):
 
     cfg = ServiceConfig(window=args.window, max_batch=args.max_batch,
                         coalesce_ms=args.coalesce_ms, backend=args.backend,
-                        device=dev)
+                        mesh=mesh, device=dev)
     with CompressionService(cfg) as service:
         server = None
         if args.stats_port:

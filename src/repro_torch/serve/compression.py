@@ -16,9 +16,10 @@ Requests are served by the same pipeline the one-shot API uses, so every
 artifact and every decompressed field is byte-identical to a solo
 ``compress_preserving_mss`` / ``decompress_preserving_mss`` call; the
 service only changes *when* work runs, never *what* it computes. It runs
-on one GPU (``device=None``) or, when the config asks, on the CPU; a
-mesh raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 6), and
-``shard_timings()`` returns ``None``.
+on one GPU (``device=None``) or, when the config asks, on the CPU; with
+a mesh (``ServiceConfig(mesh=...)``) every fix loop runs on the mesh's
+blocks, ``stats()["compress"]["shard"]`` counts the halo bytes, and
+``shard_timings()`` probes one sharded iteration's parts.
 
     service = CompressionService(ServiceConfig(window=16, max_batch=4))
     fut = service.submit_compress(field, xi=1e-3)
@@ -71,7 +72,7 @@ class ServiceConfig:
         dispatching — the service's latency/occupancy trade-off.
     ``backend`` / ``mesh`` / ``device_path`` / ``max_iters``
         Forwarded to the pipeline (see ``compress_preserving_mss``);
-        a mesh raises ``NotImplementedError`` (not ported).
+        a mesh (``repro_torch.launch.mesh``) shards every fix loop.
     ``workers``
         Host worker threads per stream for entropy coding/decoding
         (default: scales with ``max_batch``). Device-pack requests
@@ -145,6 +146,8 @@ class CompressionService:
         self._compress = CompressStream(**kw)
         self._decompress = DecompressStream(**kw)
         self._t_start = time.perf_counter()
+        self._lock = threading.Lock()
+        self._shard_probe = None               # guarded-by: self._lock
 
     # -- submission ---------------------------------------------------
     def _guard(self, submit, *args, **kw) -> Future:
@@ -201,18 +204,50 @@ class CompressionService:
     # -- observability ------------------------------------------------
     def shard_timings(self, *, refresh: bool = False
                       ) -> Optional[Dict[str, object]]:
-        """The reference's sharded-step timing probe. The port has no
-        sharded dispatch (ROADMAP.md Queue 1 item 6), so there is
-        nothing to probe: always ``None``."""
-        return None
+        """Time one sharded fix iteration's interior pass, ghost
+        exchange and full step on the last sharded request class
+        (``distributed.shardfix.time_step_parts``, synthetic data of the
+        recorded shape and dtype, seeded). The probe runs the first time
+        — and again only with ``refresh`` — and is then served from its
+        cache; None when no sharded dispatch has happened yet or no
+        data mesh is reachable."""
+        shard = self._compress.stats().get("shard") or {}
+        meta = shard.get("last")
+        if not meta:
+            return None
+        from ..distributed.shardfix import active_data_mesh, time_step_parts
+        mesh = self.config.mesh
+        if mesh is None:
+            mesh = active_data_mesh()
+        if mesh is None:
+            return None
+        shape = tuple(meta["shape"])
+        key = (shape, meta["dtype"], tuple(mesh.axis_names),
+               tuple(mesh.devices.shape))
+        with self._lock:
+            probe = self._shard_probe
+        if probe is not None and not refresh and probe[0] == key:
+            return probe[1]
+        from ..core import field_topology
+        from ..device import _h2d, resolve_device
+        rng = np.random.default_rng(0)
+        f = _h2d(rng.normal(size=shape).astype(meta["dtype"]),
+                 resolve_device(self.config.device))
+        timings = time_step_parts(f, field_topology(f, 0.1), mesh)
+        doc = dict(shape=list(shape), dtype=meta["dtype"], **timings)
+        with self._lock:
+            self._shard_probe = (key, doc)
+        return doc
 
     def stats(self) -> Dict[str, object]:
         """The service stats document (what the HTTP endpoint serves):
         uptime plus one ``repro_torch.compress.stream`` counter snapshot
         per direction — fields/sec, batch occupancy, in-flight depth,
         transfer bytes, spec-cache hit/miss/eviction counts and the
-        straggler policy's live coalescing scale. ``shard_timings`` is
-        ``None`` (no sharded dispatch in the port)."""
+        straggler policy's live coalescing scale, and the per-mesh-axis
+        halo bytes of sharded dispatches. ``shard_timings`` carries the
+        cached probe when one has run (``shard_timings()`` triggers
+        it)."""
         return dict(
             uptime_s=time.perf_counter() - self._t_start,
             config=dict(window=self.config.window,
@@ -221,8 +256,12 @@ class CompressionService:
                         overload=self.config.overload),
             compress=self._compress.stats(),
             decompress=self._decompress.stats(),
-            shard_timings=None,
+            shard_timings=self._shard_timings_snapshot(),
         )
+
+    def _shard_timings_snapshot(self) -> Optional[Dict[str, object]]:
+        with self._lock:
+            return self._shard_probe[1] if self._shard_probe else None
 
     # -- lifecycle ----------------------------------------------------
     def flush(self) -> None:

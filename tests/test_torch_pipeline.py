@@ -1,8 +1,8 @@
 """The port's MSS-preserving round trip against ``repro``'s, bitwise:
 payload and edit bytes, artifact metadata, cross-decoding in both
 directions, f64 under x64, the byte codecs, refusals and hard errors,
-zfplike and paper mode against the reference, and ``mesh=``, which the
-port does not serve."""
+zfplike and paper mode against the reference, and ``mesh=`` on a CPU
+device mesh against the reference's bytes and g."""
 import dataclasses
 import struct
 import zlib
@@ -18,6 +18,7 @@ from repro.data import synthetic_field
 from repro_torch.compress import codec as tcodec
 from repro_torch.compress import pipeline as tpipe, szlike as tsz
 from repro_torch.convert import artifact_from_dict, artifact_to_dict
+from repro_torch.launch.mesh import make_block_mesh, make_data_mesh
 
 #: artifact fields that must agree (timings and backend differ by design)
 KEYS = ("base_payload", "edit_payload", "fix_iters", "edit_ratio", "shape",
@@ -162,15 +163,29 @@ def test_retired_and_unported_payloads():
 
 @pytest.mark.parametrize("kwargs", [
     dict(codec="zfplike"), dict(base="zfplike"), dict(mode="paper"),
-    dict(mesh=object()),
+    dict(mesh=(2, 2)),
 ])
 def test_unserved_arguments_raise_not_implemented(kwargs):
-    """``mesh=`` is not ported and raises; zfplike and paper mode are
-    served, byte for byte the reference's."""
+    """Arguments the port once refused are served, byte for byte the
+    reference's: zfplike, paper mode, and ``mesh=`` (a (2, 2) block
+    mesh of CPU blocks, its g the reference's decode); a mesh that is
+    no mesh raises what the reference raises."""
     f = _field("climate", (8, 10), np.float32)
     if "mesh" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tpipe.compress_preserving_mss(f, 1e-2, device="cpu", **kwargs)
+        mesh = make_block_mesh(kwargs["mesh"], devices=["cpu"] * 4)
+        ref = jpipe.compress_preserving_mss(f, 1e-2, backend="reference")
+        art = tpipe.compress_preserving_mss(f, 1e-2, device="cpu", mesh=mesh)
+        assert art.backend == "sharded" and art.path == ref.path == "device"
+        for k in KEYS:
+            assert getattr(art, k) == getattr(ref, k), k
+        assert np.array_equal(
+            tpipe.decompress_preserving_mss(art, device="cpu", mesh=mesh),
+            jpipe.decompress_preserving_mss(ref, backend="reference"))
+        with pytest.raises(AttributeError, match="axis_names"):
+            jpipe.compress_preserving_mss(f, 1e-2, mesh=object())
+        with pytest.raises(AttributeError, match="axis_names"):
+            tpipe.compress_preserving_mss(f, 1e-2, device="cpu",
+                                          mesh=object())
         return
     ref = jpipe.compress_preserving_mss(f, 1e-2, backend="reference",
                                         **kwargs)
@@ -181,13 +196,31 @@ def test_unserved_arguments_raise_not_implemented(kwargs):
 
 
 def test_unserved_entry_points_raise_not_implemented():
+    """The batch and decode entry points serve ``mesh=`` (a CPU slab
+    chain here) with the reference's bytes and g, and raise what the
+    reference raises for a mesh that is no mesh."""
     f = _field("climate", (8, 10), np.float32)
     art = tpipe.compress_preserving_mss(f, 1e-2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpipe.decompress_preserving_mss(art, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpipe.compress_preserving_mss_batch([f, f], 1e-2, device="cpu",
-                                            mesh=object())
+    mesh = make_data_mesh(2, devices=["cpu", "cpu"])
+    g_ref = jpipe.decompress_preserving_mss(
+        jpipe.compress_preserving_mss(f, 1e-2, backend="reference"),
+        backend="reference")
+    assert np.array_equal(
+        tpipe.decompress_preserving_mss(art, mesh=mesh, device="cpu"), g_ref)
+    for bad in (tpipe, jpipe):
+        with pytest.raises(AttributeError, match="axis_names"):
+            kw = dict(device="cpu") if bad is tpipe else {}
+            bad.decompress_preserving_mss(art if bad is tpipe else
+                                          jpipe.CompressedArtifact(
+                                              **artifact_to_dict(art)),
+                                          mesh=object(), **kw)
+    refs2 = jpipe.compress_preserving_mss_batch([f, f * 2], 1e-2,
+                                                backend="reference")
+    arts2 = tpipe.compress_preserving_mss_batch([f, f * 2], 1e-2,
+                                                device="cpu", mesh=mesh)
+    for a, r in zip(arts2, refs2):
+        for k in KEYS:
+            assert getattr(a, k) == getattr(r, k), k
     # a zfplike batch is served, each artifact the reference's
     refs = jpipe.compress_preserving_mss_batch([f, f * 2], 1e-2,
                                                codec="zfplike",
@@ -197,8 +230,10 @@ def test_unserved_entry_points_raise_not_implemented():
     for a, r in zip(arts, refs):
         for k in KEYS:
             assert getattr(a, k) == getattr(r, k), k
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpipe.decompress_artifact_batch([art], mesh=object(), device="cpu")
+    gs = tpipe.decompress_artifact_batch(arts2, mesh=mesh, device="cpu")
+    for g, r in zip(gs, refs2):
+        assert np.array_equal(
+            g, jpipe.decompress_preserving_mss(r, backend="reference"))
     # device_path=True refuses a bound too tight for the int32 device path
     with pytest.raises(ValueError, match="device_path=True"):
         tpipe.compress_preserving_mss(f * 1e6, 1e-3, device="cpu",

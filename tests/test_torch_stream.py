@@ -6,8 +6,9 @@ under out-of-order completion, backpressure, ``strict_uniform``, the
 off the worker pool, the decompress stream, zfplike through the host
 leg, the service's overload reject and its ``/stats`` and ``/healthz``
 endpoints; calibration; the straggler watchdog; the thread-local
-guards; and the launcher. The reference's sharded cases have no
-counterpart (``mesh=`` is not ported). Everything runs on the CPU."""
+guards; and the launcher, with and without a mesh (the sharded cases
+in full are in ``test_torch_shardfix.py``). Everything runs on the
+CPU."""
 import functools
 import json
 import threading
@@ -29,6 +30,7 @@ from repro_torch.compress import (CompressStream, DecompressStream,
 from repro_torch.debug import guards
 from repro_torch.distributed import StepWatchdog
 from repro_torch.launch import serve as tserve
+from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.serve import (CompressionService, ServiceConfig,
                                ServiceOverloaded, start_stats_server)
 
@@ -144,13 +146,22 @@ def test_error_propagates_to_the_request_future():
 
 
 def test_submit_after_close_raises_and_mesh_is_not_ported():
+    """A closed stream refuses submits; a stream over a mesh (a CPU slab
+    chain) serves the solo bytes both ways."""
     cs = CompressStream(window=2, **CPU)
     cs.close()
     with pytest.raises(StreamClosed):
         cs.submit(np.zeros(SHAPE_3D, np.float32), 1e-3)
-    for cls in (CompressStream, DecompressStream):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cls(mesh=object(), **CPU)
+    fields, xis, refs = _solo_artifacts(SHAPE_3D, 2)
+    mesh = make_data_mesh(2, devices=["cpu", "cpu"])
+    with CompressStream(window=2, mesh=mesh, **CPU) as cs:
+        arts = [cs.submit(f, xi).result() for f, xi in zip(fields, xis)]
+    _assert_identical(arts, refs)
+    with DecompressStream(window=2, mesh=mesh, **CPU) as ds:
+        gs = [ds.submit(a).result() for a in arts]
+    for g, r in zip(gs, refs):
+        assert np.array_equal(g, jpipe.decompress_preserving_mss(
+            r, backend="reference"))
 
 
 def test_close_drains_a_never_started_stream():
@@ -612,5 +623,9 @@ def test_launcher_smoke(capsys):
     out = capsys.readouterr().out
     assert "verified: 8 artifacts" in out and out.strip().endswith("OK")
     assert len(arts) == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tserve.main(["--smoke", "--devices", "2"], device="cpu")
+    # --devices 2 serves over a 2-block chain (on the CPU here) and
+    # verifies every artifact against the one-shot pipeline
+    arts2 = tserve.main(["--smoke", "--devices", "2"], device="cpu")
+    out = capsys.readouterr().out
+    assert "serving over 2 blocks" in out and "verified: 8 artifacts" in out
+    assert all(a.backend == "sharded" for a in arts2)
