@@ -32,10 +32,17 @@ Phases, each asserting (any failure exits non-zero):
    back, and every timed call checked bitwise against the first). The
    flash
    kernel against its plain version in f32 and bf16, causal and not,
-   ragged S, S != T and head widths 16..128, within a stated tolerance
-   (bf16: one ulp, rtol 2^-7), then at the prefill shapes (8 x 2048 and
-   1 x 32768 of smollm-135m's 9/3 heads of 64) and at granite-8b's heads
-   of 128 (2 x 4096), timed beside its plain version and
+   ragged S, S != T, head widths 16..128 and the head layouts of
+   qwen3-moe (64/4 of 128) and llava (56/8 of 128), and whisper's
+   cross-attention layout at a ragged S (33 against T 1500, non-causal),
+   within a stated tolerance (bf16: one ulp, rtol 2^-7); (2c) in f32 and
+   bf16 at every shape phase 7 gives it, taken from ``LM_FAMILIES``
+   (whisper's encoder 8 x 1500 x 1500, decoder 8 x 32 causal and
+   cross-attention S 32 and 1 against T 1500; the qwen3-moe and llava
+   4 x 2048 prefills); (2b) then at the prefill
+   shapes (8 x 2048 and 1 x 32768 of smollm-135m's 9/3 heads of 64), at
+   granite-8b's heads of 128 (2 x 4096) and at the 4 x 2048 prefills of
+   qwen3-moe and llava, timed beside its plain version and
    ``scaled_dot_product_attention`` (timed only; the port never calls
    it), whose bf16 rounding of p must fail that tolerance at the prefill
    shapes.
@@ -124,6 +131,28 @@ Phases, each asserting (any failure exits non-zero):
 6. LM parity, card against CPU: smollm-135m at 2 layers in f32, the same
    weights on both; prefill and 8 decode steps agree within 1e-4 and
    give the same greedy tokens.
+7. The other transformer families at their published widths, bf16,
+   seeded random weights, through ``make_prefill`` and 16 (whisper: 32)
+   ``make_serve_step`` calls, the launch counts set to 0 just before
+   each model and read just after: qwen3-moe-235b-a22b (8 of 94 layers,
+   4 x 2048-token prompts; 8 flash launches), gemma2-9b (all 42 layers,
+   2 x 8192 tokens, past its 4096 window; 0: the softcap sends its
+   attention to the chunked torch path), llava-next-34b (8 of 60
+   layers, 4 x (576 image embeddings + 1472 tokens); 8) and whisper-base
+   (8 x 1500 frame embeddings, 32-token decoder prompts; 18 in the
+   prefill and 6 a decode step, 210); every flash call's shape is one
+   that phase 2c checked. Logits finite; each model's prefill seconds,
+   decode ms, tokens/s, peak bytes (of the init too), ``n_params`` and
+   (MoE) the router's aux loss (summed over layers, and a layer's mean),
+   each layer's share of assignments dropped at capacity and its busiest
+   expert's load; each model freed before the next.
+8. family parity, card against CPU in f32, equal greedy tokens and
+   logits within 1e-4: qwen3-moe at 2 layers (128 experts, top-8, 64/4
+   heads of 128, d_model 512), with two card prefills bitwise equal and
+   a zero router (every probability tied) picking the CPU's experts;
+   gemma2 at 2 layers (window 64 under 128-token prompts, softcaps,
+   d_model 512); whisper-base at full width with 2 + 2 layers over 1500
+   frames.
 
 Phases 3e-3i run after phase 4. Stdout carries JSON records, then the
 script's total seconds; the line before the last is the per-kernel
@@ -134,6 +163,8 @@ and prints no result. Options shrink the sizes for a quick check.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import statistics
 import subprocess
@@ -1733,9 +1764,18 @@ def phase_parity(n: int) -> None:
 # ---------------------------------------------------------------------------
 
 #: (B, S, H, Hk, Dh) of the small flash cases: GQA and MHA, one KV head,
-#: ragged S, and each head width the kernel is built for
+#: ragged S, each head width the kernel is built for, and the head
+#: layouts of qwen3-moe (64/4 of 128, G 16) and llava (56/8 of 128, G 7)
 FLASH_CASES = ((2, 64, 4, 2, 16), (1, 128, 8, 8, 32), (2, 96, 6, 3, 16),
-               (1, 64, 2, 1, 64), (2, 1000, 9, 3, 64), (1, 256, 32, 8, 128))
+               (1, 64, 2, 1, 64), (2, 1000, 9, 3, 64), (1, 256, 32, 8, 128),
+               (2, 130, 64, 4, 128), (2, 130, 56, 8, 128))
+
+#: (B, S, T, H, Hk, Dh, causal) of the cases with S != T: a short query
+#: over a longer key range, and whisper's cross-attention layout, 8/8
+#: heads of 64 over the 1,500-frame encoder memory, at a ragged query
+#: length (S 33; phase 2c holds the shapes phase 7 runs, S 1 and 32)
+FLASH_CROSS = ((2, 80, 200, 6, 2, 32, False), (2, 80, 200, 6, 2, 32, True),
+               (2, 33, 1500, 8, 8, 64, False))
 
 #: kernel-vs-plain (rtol, atol) by output dtype: both compute in f32 and
 #: differ in the order of their sums; in bf16 both round that f32 result
@@ -1748,8 +1788,10 @@ FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-5)}
 FLASH_MAIN = ((8, 2048, 9, 3, 64), (1, 32768, 9, 3, 64))
 
 #: a head width of 128, timed beside the prefill shapes: granite-8b's 32/8
-#: heads (deepseek-coder-33b's width too) over 2 x 4096 tokens
-FLASH_WIDE = ((2, 4096, 32, 8, 128),)
+#: heads (deepseek-coder-33b's width too) over 2 x 4096 tokens, and the
+#: 4 x 2048 prefills of phase 7's qwen3-moe (64/4 heads) and llava (56/8)
+FLASH_WIDE = ((2, 4096, 32, 8, 128), (4, 2048, 64, 4, 128),
+              (4, 2048, 56, 8, 128))
 
 
 def _dtype_name(dt) -> str:
@@ -1793,7 +1835,7 @@ def phase_flash_small(seed: int) -> None:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cases = [(B, S, S, H, Hk, Dh, c) for (B, S, H, Hk, Dh) in FLASH_CASES
              for c in (True, False)]
-    cases += [(2, 80, 200, 6, 2, 32, False), (2, 80, 200, 6, 2, 32, True)]
+    cases += list(FLASH_CROSS)
     for B, S, T, H, Hk, Dh, causal in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(B, S, T, H, Hk, Dh, dtype, gen)
@@ -1803,6 +1845,31 @@ def phase_flash_small(seed: int) -> None:
                   "shape": [B, S, T, H, Hk, Dh], "causal": causal,
                   "dtype": _dtype_name(dtype), "max_abs_err": err,
                   "rtol_atol": FLASH_TOL[_dtype_name(dtype)]})
+
+
+def phase_flash_families(seed: int) -> None:
+    """Phase 2c: the kernel against its plain version, f32 and bf16, at
+    every shape phase 7's serving runs give it (``family_flash_calls`` of
+    each of ``LM_FAMILIES``): whisper's encoder, decoder and
+    cross-attention, the qwen3-moe and llava prefills."""
+    import torch
+    from repro_torch.configs import get_config
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for arch, _, batch, prompt_len, n_steps in LM_FAMILIES:
+        shapes = family_flash_calls(get_config(arch), batch, prompt_len,
+                                    n_steps)
+        for B, S, T, H, Hk, Dh, causal in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = flash_inputs(B, S, T, H, Hk, Dh, dtype, gen)
+                label = f"{(B, S, T, H, Hk, Dh)} causal={causal}"
+                err, _ = check_flash(f"{arch} {label}", q, k, v, causal)
+                emit({"phase": "kernels_vs_plain",
+                      "case": f"flash {arch} {label}", "model": arch,
+                      "shape": [B, S, T, H, Hk, Dh], "causal": causal,
+                      "dtype": _dtype_name(dtype), "max_abs_err": err,
+                      "rtol_atol": FLASH_TOL[_dtype_name(dtype)]})
+                del q, k, v
+        torch.cuda.empty_cache()
 
 
 def phase_sass() -> None:
@@ -1885,20 +1952,22 @@ def phase_flash_main(reps: int, seed: int) -> dict:
 # phases 5 and 6: LM serving
 # ---------------------------------------------------------------------------
 
-def serve_run(cfg, params, prompt, n_steps: int):
-    """``make_prefill`` over ``prompt`` then ``n_steps`` greedy
+def serve_run(cfg, params, prompt, n_steps: int, extra=None):
+    """``make_prefill`` over ``prompt`` (and the ``extra`` inputs: llava's
+    ``image_embeds``, whisper's ``frames``) then ``n_steps`` greedy
     ``make_serve_step`` calls. Returns the logits (prefill's last, then
     each step's), the generated tokens (B, 1 + n_steps), the prefill
     seconds and each step's milliseconds (device synced)."""
     import torch
     from repro_torch.serve import make_prefill, make_serve_step
     B, S = prompt.shape
+    S += cfg.n_img_tokens if extra and "image_embeds" in extra else 0
     sync = torch.cuda.synchronize if prompt.is_cuda else (lambda: None)
     prefill = make_prefill(cfg, max_len=S + n_steps)
     step = make_serve_step(cfg)
     sync()
     t0 = time.perf_counter()
-    cache, last = prefill(params, {"tokens": prompt})
+    cache, last = prefill(params, {"tokens": prompt, **(extra or {})})
     sync()
     prefill_s = time.perf_counter() - t0
     tok = torch.argmax(last[:, -1], dim=-1).to(torch.int32)[:, None]
@@ -2003,6 +2072,335 @@ def phase_lm_parity(seed: int, batch: int = 2, prompt_len: int = 128,
           "tokens_equal": True, "tokens_request0": tk_c[0].tolist()})
 
 
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the MoE, gemma2, llava and whisper families
+# ---------------------------------------------------------------------------
+
+#: phase 7's models: (arch, layers kept (None: all), requests, prompt
+#: tokens, decode steps). llava's 1,472 tokens follow 576 image
+#: embeddings (2,048 positions); whisper's 32-token decoder prompts
+#: attend over 1,500 frame embeddings
+LM_FAMILIES = (("qwen3-moe-235b-a22b", 8, 4, 2048, 16),
+               ("gemma2-9b", None, 2, 8192, 16),
+               ("llava-next-34b", 8, 4, 1472, 16),
+               ("whisper-base", None, 8, 32, 32))
+
+
+def family_flash_calls(cfg, batch: int, prompt_len: int,
+                       n_steps: int) -> collections.Counter:
+    """The flash calls of one ``serve_run``, as a count of each
+    (B, S, T, H, Hk, Dh, causal): every plain causal or full attention of
+    the prefill (one a layer; whisper's encoder self-attention over its
+    frames, its decoder's causal self-attention and its cross-attention
+    over the encoder memory), and whisper's cross-attention at every
+    decode step. Decode self-attention (``q_offset`` > 0) and gemma2's
+    softcapped attention go to the chunked torch path."""
+    H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    calls = collections.Counter()
+    if cfg.enc_dec:
+        Te = cfg.enc_positions
+        calls[(batch, Te, Te, H, Hk, Dh, False)] += cfg.n_enc_layers
+        calls[(batch, prompt_len, prompt_len, H, Hk, Dh, True)] += \
+            cfg.n_layers
+        calls[(batch, prompt_len, Te, H, Hk, Dh, False)] += cfg.n_layers
+        calls[(batch, 1, Te, H, Hk, Dh, False)] += cfg.n_layers * n_steps
+    elif cfg.attn_softcap is None:
+        S = prompt_len + (cfg.n_img_tokens or 0)
+        calls[(batch, S, S, H, Hk, Dh, True)] += cfg.n_layers
+    return calls
+
+
+@contextlib.contextmanager
+def recording_flash_calls():
+    """Count the (B, S, T, H, Hk, Dh, causal) of every call of the flash
+    wrapper made inside the block; the wrapper itself runs unchanged."""
+    from repro_torch.kernels import flash as kfl
+    calls = collections.Counter()
+    wrapper = kfl.flash_attention
+
+    def record(q, k, v, *, causal=True):
+        B, S, H, Dh = q.shape
+        calls[(B, S, k.shape[1], H, k.shape[2], Dh, bool(causal))] += 1
+        return wrapper(q, k, v, causal=causal)
+    kfl.flash_attention = record
+    try:
+        yield calls
+    finally:
+        kfl.flash_attention = wrapper
+
+
+@contextlib.contextmanager
+def recording_moe_load():
+    """For each ``layers.moe_ffn`` call inside the block, the share of
+    its N*K assignments dropped at capacity and its busiest expert's load
+    over the mean, recounted from the router's top-k; ``moe_ffn`` itself
+    runs unchanged."""
+    import torch
+    from repro_torch.models import layers
+    loads = []
+    moe_ffn = layers.moe_ffn
+
+    def record(x, p, n_experts, top_k, capacity_factor=1.25):
+        N = x.shape[0] * x.shape[1]
+        probs = torch.softmax(x.reshape(N, -1).float() @ p["router"].float(),
+                              dim=-1)
+        ids = layers._top_k(probs, top_k)[1]
+        count = torch.bincount(ids.reshape(-1), minlength=n_experts)
+        cap = int(np.ceil(N * top_k / n_experts * capacity_factor / 8)) * 8
+        mean = N * top_k / n_experts
+        loads.append({"dropped_share": float((count - cap).clamp_min(0).sum())
+                      / (N * top_k), "max_over_mean": float(count.max())
+                      / mean, "cap": cap})
+        return moe_ffn(x, p, n_experts, top_k, capacity_factor)
+    layers.moe_ffn = record
+    try:
+        yield loads
+    finally:
+        layers.moe_ffn = moe_ffn
+
+
+def family_inputs(cfg, batch: int, prompt_len: int, seed: int):
+    """Seeded prompt tokens on the card, and llava's image embeddings or
+    whisper's frame embeddings (normal(0, 1), bf16)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt_len))
+                              .astype(np.int32)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    extra = {}
+    if cfg.n_img_tokens:
+        extra["image_embeds"] = torch.randn(
+            (batch, cfg.n_img_tokens, cfg.d_model), generator=gen,
+            device="cuda").to(torch.bfloat16)
+    if cfg.enc_dec:
+        extra["frames"] = torch.randn(
+            (batch, cfg.enc_positions, cfg.d_model), generator=gen,
+            device="cuda").to(torch.bfloat16)
+    return prompt, extra
+
+
+def phase_lm_family(arch: str, n_layers, batch: int, prompt_len: int,
+                    n_steps: int, seed: int) -> int:
+    """One model at its published widths (depth cut to ``n_layers``),
+    bf16 with seeded random weights, through ``make_prefill`` and
+    ``make_serve_step``; returns its flash launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    full = get_config(arch)
+    cfg = full if n_layers is None else dataclasses.replace(
+        full, n_layers=n_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                         "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    leaves = [t for v in params.values() for t in
+              (v.values() if isinstance(v, dict) else (v,))]
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    prompt, extra = family_inputs(cfg, batch, prompt_len, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with recording_flash_calls() as calls:
+        logits, toks, prefill_s, step_ms = serve_run(cfg, params, prompt,
+                                                     n_steps, extra)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    # phase 2c held the kernel against its plain version at exactly the
+    # shapes of family_flash_calls: the run must have used no other
+    want_calls = family_flash_calls(cfg, batch, prompt_len, n_steps)
+    if calls != want_calls:
+        raise AssertionError(f"lm_family {cfg.name}: flash calls "
+                             f"{dict(calls)} != {dict(want_calls)}")
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash"] = sum(want_calls.values())
+    if launches != want:
+        raise AssertionError(f"lm_family {cfg.name}: launches {launches} "
+                             f"!= {want}")
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    if not finite:
+        raise AssertionError(f"lm_family {cfg.name}: non-finite logits")
+    if tuple(logits[0].shape) != (batch, 1, cfg.vocab) or \
+            tuple(toks.shape) != (batch, 1 + n_steps):
+        raise AssertionError(f"lm_family {cfg.name}: logits "
+                             f"{tuple(logits[0].shape)}, tokens "
+                             f"{tuple(toks.shape)}")
+    rec = {}
+    if cfg.moe is not None:
+        # the router's load-balancing loss of the same prompt (a forward
+        # outside the counted run: the serving entry points return none)
+        with recording_moe_load() as loads:
+            aux = forward(cfg, params, {"tokens": prompt, **extra},
+                          logits_mode="last").aux_loss
+        # the loss is summed over layers; a balanced router gives top_k
+        # in each layer
+        rec["aux_loss"] = float(aux)
+        rec["aux_loss_per_layer"] = float(aux) / cfg.n_layers
+        rec["moe_capacity"] = loads[0]["cap"]
+        rec["moe_dropped_share"] = [d["dropped_share"] for d in loads]
+        rec["moe_max_over_mean"] = [d["max_over_mean"] for d in loads]
+        if not np.isfinite(rec["aux_loss"]) or rec["aux_loss"] <= 0:
+            raise AssertionError(f"lm_family {cfg.name}: aux_loss "
+                                 f"{rec['aux_loss']}")
+    decode_s = sum(step_ms) / 1e3
+    positions = prompt_len + (cfg.n_img_tokens if cfg.n_img_tokens else 0)
+    emit({"phase": "lm_family", "model": cfg.name, "family": cfg.family,
+          "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+          "n_layers_published": full.n_layers,
+          "n_enc_layers": cfg.n_enc_layers, "batch": batch,
+          "prompt_len": prompt_len, "image_tokens": cfg.n_img_tokens,
+          "frames": cfg.enc_positions if cfg.enc_dec else 0,
+          "cached_positions": positions, "decode_steps": n_steps,
+          "n_params": n_params, "param_bytes": param_bytes,
+          "init_s": init_s, "init_peak_device_bytes": init_peak,
+          "launches": launches, "prefill_s": prefill_s,
+          "decode_ms_per_step": statistics.median(step_ms),
+          "decode_ms_mean": sum(step_ms) / n_steps,
+          "decode_ms_first": step_ms[0],
+          "generated_tokens": batch * (1 + n_steps),
+          "tokens_per_s": batch * (1 + n_steps) / (prefill_s + decode_s),
+          "decode_tokens_per_s": batch * n_steps / decode_s,
+          "prefill_tokens_per_s": batch * positions / prefill_s,
+          "peak_device_bytes": peak, "logits_finite": finite,
+          **rec, "first_tokens_request0": toks[0, :8].tolist()})
+    del params, logits, prompt, extra, leaves
+    torch.cuda.empty_cache()
+    return launches["flash"]
+
+
+def card_vs_cpu(label: str, cfg, seed: int, batch: int, prompt_len: int,
+                n_steps: int, extra_shapes=()) -> dict:
+    """``cfg`` in f32, one set of weights on the CPU and on the card,
+    through ``serve_run`` on both: equal greedy tokens, logits within
+    1e-4, and the card's flash calls exactly ``family_flash_calls``.
+    ``extra_shapes`` names the seeded normal(0, 1) inputs beside the
+    prompt (``image_embeds``, ``frames``) with their shapes."""
+    import torch
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models import init_params
+    cpu = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    gpu = params_from_numpy(params_to_numpy(cpu), cfg, "cuda")
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt_len))
+                              .astype(np.int32))
+    extra = {name: torch.from_numpy(rng.standard_normal(shape)
+                                    .astype(np.float32))
+             for name, shape in extra_shapes}
+    lg_c, tk_c, _, _ = serve_run(cfg, cpu, prompt, n_steps, extra)
+    with recording_flash_calls() as calls:
+        lg_g, tk_g, _, _ = serve_run(
+            cfg, gpu, prompt.cuda(), n_steps,
+            {k: v.cuda() for k, v in extra.items()})
+    want_calls = family_flash_calls(cfg, batch, prompt_len, n_steps)
+    if calls != want_calls:
+        raise AssertionError(f"{label}: flash calls on the card "
+                             f"{dict(calls)} != {dict(want_calls)}")
+    errs = [max_abs_diff([g.cpu()], [c]) for g, c in zip(lg_g, lg_c)]
+    for i, (g, c) in enumerate(zip(lg_g, lg_c)):
+        if not torch.allclose(g.cpu(), c, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"{label}: logits of call {i} differ by "
+                                 f"{errs[i]} (tolerance 1e-4)")
+    if not torch.equal(tk_g.cpu(), tk_c):
+        raise AssertionError(f"{label}: greedy tokens differ")
+    rec = {"model": cfg.name, "n_layers": cfg.n_layers,
+           "n_enc_layers": cfg.n_enc_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "batch": batch, "prompt_len": prompt_len,
+           "decode_steps": n_steps, "flash_launches":
+           sum(calls.values()), "prefill_max_abs_err": errs[0],
+           "decode_max_abs_err": max(errs[1:]), "tol": 1e-4,
+           "tokens_equal": True, "tokens_request0": tk_c[0].tolist()}
+    return dict(rec=rec, gpu=gpu, prompt=prompt, rng=rng)
+
+
+def phase_moe_parity(seed: int, batch: int = 2, prompt_len: int = 128,
+                     n_steps: int = 8) -> None:
+    """qwen3-moe at 2 layers in f32 with its 128 experts, top-8, its 64/4
+    heads of 128 and its vocabulary, d_model narrowed to 512 and the
+    expert d_ff to 256, one set of weights: the card against the CPU
+    (``card_vs_cpu``), two card prefills bitwise equal, and on a zero
+    router (every probability tied) the card's ``moe_ffn`` picks the
+    CPU's experts."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash as kfl
+    from repro_torch.models import layers
+    from repro_torch.serve import make_prefill
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"), n_layers=2,
+                              d_model=512, d_ff=256, dtype="float32")
+    run = card_vs_cpu("moe_parity", cfg, seed, batch, prompt_len, n_steps)
+    gpu, prompt, rng = run["gpu"], run["prompt"], run["rng"]
+    prefill = make_prefill(cfg, prompt_len)
+    before = kfl.launches
+    (c1, l1), (c2, l2) = (prefill(gpu, {"tokens": prompt.cuda()})
+                          for _ in range(2))
+    if kfl.launches - before != 2 * cfg.n_layers:
+        raise AssertionError(f"moe_parity: {kfl.launches - before} flash "
+                             f"launches in two prefills, "
+                             f"{2 * cfg.n_layers} expected")
+    repeat_equal = bool(torch.equal(l1, l2) and torch.equal(c1["k"], c2["k"])
+                        and torch.equal(c1["v"], c2["v"]))
+    if not repeat_equal:
+        raise AssertionError("moe_parity: two card prefills differ")
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    x = torch.from_numpy(rng.standard_normal((2, 64, 256))
+                         .astype(np.float32))
+    p = {"router": torch.zeros((256, E)),
+         **{k: torch.from_numpy((rng.standard_normal(shape) * 0.06)
+                                .astype(np.float32))
+            for k, shape in (("w_gate", (E, 256, 64)), ("w_up", (E, 256, 64)),
+                             ("w_down", (E, 64, 256)))}}
+    y_c = layers.moe_ffn(x, p, E, K).y
+    y_g = layers.moe_ffn(x.cuda(), {k: v.cuda() for k, v in p.items()},
+                         E, K).y
+    ids = layers._top_k(torch.full((4, E), 1.0 / E, device="cuda"), K)[1]
+    tie_err = max_abs_diff([y_g.cpu()], [y_c])
+    if ids.tolist() != [list(range(K))] * 4 or \
+            not torch.allclose(y_g.cpu(), y_c, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"moe_parity: zero router, experts "
+                             f"{ids[0].tolist()}, y differs by {tie_err}")
+    emit({"phase": "moe_parity", **run["rec"], "experts": E, "top_k": K,
+          "repeat_prefill_bitwise": repeat_equal,
+          "zero_router_max_abs_err": tie_err})
+    del run, gpu, c1, c2
+    torch.cuda.empty_cache()
+
+
+def phase_family_parity(seed: int, batch: int = 2, n_steps: int = 8) -> None:
+    """gemma2 and whisper, card against CPU in f32 (``card_vs_cpu``).
+    gemma2-9b at 2 layers (one local, one global) with its 16/8 heads of
+    256, its softcaps and vocabulary, d_model narrowed to 512, d_ff to
+    1024 and the window to 64 under 128-token prompts, so the local layer
+    masks; whisper-base at its full width with 2 encoder and 2 decoder
+    layers over 1500 frame embeddings and 32-token prompts."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    gemma = dataclasses.replace(get_config("gemma2-9b"), n_layers=2,
+                                d_model=512, d_ff=1024, sliding_window=64,
+                                dtype="float32")
+    whisper = dataclasses.replace(get_config("whisper-base"), n_layers=2,
+                                  n_enc_layers=2, dtype="float32")
+    for cfg, prompt_len, extra in (
+            (gemma, 128, ()),
+            (whisper, 32, (("frames", (batch, whisper.enc_positions,
+                                       whisper.d_model)),))):
+        run = card_vs_cpu("family_parity", cfg, seed, batch, prompt_len,
+                          n_steps, extra)
+        rec = run["rec"]
+        if cfg.sliding_window:
+            rec["sliding_window"] = cfg.sliding_window
+        emit({"phase": "family_parity", **rec})
+        del run
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nyx", type=int, default=512,
@@ -2034,7 +2432,7 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-prompt", type=int, default=2048,
                     help="prompt tokens per request (smollm's context)")
     ap.add_argument("--lm-steps", type=int, default=32,
-                    help="greedy decode steps after the prefill")
+                    help="greedy decode steps after the phase-5 prefill")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2063,6 +2461,7 @@ def main(argv=None) -> int:
     phase_stencil_dense(seed=5)
     phase_pack_small(seed=7)
     phase_flash_small(seed=11)
+    phase_flash_families(seed=17)
     flash_timing = phase_flash_main(args.reps, seed=13)
 
     climate_shape = tuple(int(s) for s in args.climate.split("x"))
@@ -2150,6 +2549,12 @@ def main(argv=None) -> int:
     launches["flash"] = phase_lm_serve(args.lm_batch, args.lm_prompt,
                                        args.lm_steps, seed=0)
     phase_lm_parity(seed=1)
+    t0 = time.perf_counter()
+    for spec in LM_FAMILIES:
+        launches["flash"] += phase_lm_family(*spec, seed=2)
+    phase_moe_parity(seed=3)
+    phase_family_parity(seed=4)
+    emit({"phase": "lm_families_total", "seconds": time.perf_counter() - t0})
 
     # each kernel's row: its times at its main-path shape (nyx for the
     # MSS kernels, the 8 x 2048 prefill for flash), its largest error

@@ -1,8 +1,8 @@
 """Assigned-architecture registry: ``get_config(arch_id)``.
 
 The port's own copy of ``repro.configs``: the same ten configs and smoke
-configs, as pure data. The model serves the dense family without
-gemma2's local/global window and softcaps; the others raise
+configs, as pure data. The model serves every transformer family
+(dense, gemma2, MoE, llava, whisper); xLSTM and hymba raise
 ``NotImplementedError`` in ``models.model``."""
 from __future__ import annotations
 

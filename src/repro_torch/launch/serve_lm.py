@@ -3,12 +3,18 @@
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch smollm-135m \\
       --smoke --batch 4 --prompt-len 16 --new-tokens 32
 
-The flags are those of ``repro.launch.serve_lm``; there is no mesh. Like
-the reference launcher it prefills token by token through decode steps
-(``serve.greedy_generate``), so it launches no kernel: the flash kernel
-runs only where the prompt goes through the full forward, in
-``serve.make_prefill`` (``chip_smoke.py`` drives that path). Runs on
-CUDA; a caller of ``main`` may pass ``device="cpu"``."""
+The flags are those of ``repro.launch.serve_lm``; there is no mesh.
+``--arch`` takes every family the port serves (dense, gemma2, MoE,
+llava, whisper); xLSTM and hymba raise ``NotImplementedError``. Like the
+reference launcher it prefills token by token through decode steps
+(``serve.greedy_generate``): llava gets no image embeddings and
+whisper's encoder memory stays the cache's zeros, as there. Decode steps
+run the attention in plain torch, so for the decoder-only families the
+launcher launches no kernel (the flash kernel runs where the prompt goes
+through the full forward, in ``serve.make_prefill``; ``chip_smoke.py``
+drives that path). Whisper's steps do: each layer's cross-attention over
+the 1,500-frame memory is one flash launch a step. Runs on CUDA; a
+caller of ``main`` may pass ``device="cpu"``."""
 from __future__ import annotations
 
 import argparse

@@ -2,7 +2,9 @@
 parameter dicts in, tensors out), with the reference's conventions:
 
   * activations in ``cfg.dtype``, reductions, softmax and norms in f32;
-  * attention is flash-style and never materializes the S x T logits.
+  * attention is flash-style and never materializes the S x T logits;
+  * MoE uses the reference's sort-based token dispatch with a static
+    capacity (no E x C one-hot dispatch tensors).
 
 ``flash_attention`` keeps the reference's chunked online softmax (its
 non-Pallas path, the jnp oracle) in plain torch, and routes the plain
@@ -15,8 +17,9 @@ the Pallas kernel's numbers, which differ from the oracle's in bf16
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..kernels import flash as kflash
@@ -160,3 +163,88 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bhgt,bthd->bhgd", p.to(v_cache.dtype).float(),
                        vc.float())
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (sort-based dispatch, static capacity)
+# ---------------------------------------------------------------------------
+
+class MoEOut(NamedTuple):
+    y: torch.Tensor
+    aux_loss: torch.Tensor
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest entries of each row, lower
+    index first among equal values, as ``jax.lax.top_k`` orders them
+    (``torch.topk`` breaks ties in no stated order, and on a row of equal
+    probabilities picks others)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _mean0_f32(x: torch.Tensor) -> torch.Tensor:
+    """f32 mean over axis 0 as XLA computes ``jnp.mean``: the sum times
+    the f32 reciprocal of the count."""
+    recip = np.float32(1.0) / np.float32(x.shape[0])
+    return x.sum(0) * float(recip)
+
+
+def moe_ffn(x: torch.Tensor, p, n_experts: int, top_k: int,
+            capacity_factor: float = 1.25) -> MoEOut:
+    """Top-k MoE with the reference's sort-based dispatch.
+
+    x: (B, S, d). p: router (d, E), w_gate/w_up (E, d, ff), w_down
+    (E, ff, d). Assignments beyond an expert's static capacity are
+    dropped exactly where the reference drops them (the same stable sort,
+    left search and capacity); aux_loss is the Switch load-balancing loss.
+    The grouped expert GEMMs are ``torch.bmm``. The combine un-sorts the
+    N*K weighted rows with the inverse permutation of the sort and sums
+    each token's K rows in f32, where the reference scatter-adds them:
+    no atomics, so the result is the same from run to run."""
+    B, S, d = x.shape
+    N = B * S
+    E, K = n_experts, top_k
+    dev = x.device
+    xf = x.reshape(N, d)
+    logits = xf.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = _top_k(probs, K)                   # (N, K)
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(-1, keepdim=True), 1e-9)
+
+    # load-balance loss (Switch): E * sum_e f_e * P_e
+    me = _mean0_f32(probs)
+    ce = _mean0_f32(torch.zeros((N, E), dtype=torch.float32, device=dev)
+                    .scatter_add_(1, expert_ids,
+                                  torch.ones((N, K), device=dev)))
+    aux = float(E) * torch.sum(me * ce)
+
+    cap = int(np.ceil(N * K / E * capacity_factor / 8)) * 8
+
+    flat_e = expert_ids.reshape(-1)                           # (N*K,)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    group_start = torch.searchsorted(
+        sorted_e, torch.arange(E, dtype=sorted_e.dtype, device=dev))
+    pos_in_grp = torch.arange(N * K, device=dev) - group_start[sorted_e]
+    keep = pos_in_grp < cap
+    slot = torch.where(keep, sorted_e * cap + pos_in_grp, E * cap)
+    tok = order // K
+
+    # row E * cap takes every dropped assignment and is never read back
+    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=dev)
+    buf[slot] = xf[tok]
+    h_in = buf[:E * cap].reshape(E, cap, d)
+    g = torch.bmm(h_in, p["w_gate"])
+    u = torch.bmm(h_in, p["w_up"])
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    out_e = torch.bmm(h, p["w_down"]).reshape(E * cap, d)
+    out_e = torch.cat([out_e, out_e.new_zeros((1, d))], 0)
+
+    w = (gate_vals.reshape(-1)[order] * keep).float()
+    weighted = out_e[slot].float() * w[:, None]               # sorted order
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(N * K, device=dev)
+    y = weighted[inv].reshape(N, K, d).sum(1)
+    return MoEOut(y.reshape(B, S, d).to(x.dtype), aux)

@@ -1,6 +1,7 @@
 """Serving: prefill (populate the KV cache from a prompt through the full
-forward, whose attention is the flash kernel) and serve_step (one batched
-greedy decode step)."""
+forward, whose plain causal or full attention is the flash kernel) and
+serve_step (one batched greedy decode step; whisper's cross-attention
+over the encoder memory is the flash kernel there too)."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -29,8 +30,11 @@ def make_prefill(cfg: ArchConfig, max_len: int) -> Callable:
     """prefill(params, batch) -> (cache, last_logits). Runs the full
     forward with ``return_cache`` (every position's logits, as the
     reference does) and writes the per-layer k and v, (L, B, S, Hk, Dh),
-    into a zeroed cache of ``max_len`` positions at position 0. Sets the
-    full-precision matmul flags (``device.full_precision_matmuls``)."""
+    into a zeroed cache of ``max_len`` positions at position 0. B comes
+    from the tokens and S from the forward's k, so llava's image
+    positions are cached too; whisper's cache takes the encoder memory
+    ``enc_out``. Sets the full-precision matmul flags
+    (``device.full_precision_matmuls``)."""
     full_precision_matmuls()
     def prefill(params, batch):
         out = forward(cfg, params, batch, return_cache=True)
@@ -41,6 +45,8 @@ def make_prefill(cfg: ArchConfig, max_len: int) -> Callable:
         S = k.shape[2]
         cache["k"][:, :, :S] = k
         cache["v"][:, :, :S] = v
+        if cfg.enc_dec:
+            cache["enc_out"] = out.cache["enc_out"]
         # a copy, so the (B, S, V) logits are freed on return
         return cache, out.logits[:, -1:].clone()
     return prefill
