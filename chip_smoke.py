@@ -39,10 +39,12 @@ Phases, each asserting (any failure exits non-zero):
    bf16 at every shape phase 7 gives it, taken from ``LM_FAMILIES``
    (whisper's encoder 8 x 1500 x 1500, decoder 8 x 32 causal and
    cross-attention S 32 and 1 against T 1500; the qwen3-moe and llava
-   4 x 2048 prefills); (2b) then at the prefill
+   4 x 2048 prefills; hymba's global layers, 8 x 2048 with 25/5 heads of
+   64); (2b) then at the prefill
    shapes (8 x 2048 and 1 x 32768 of smollm-135m's 9/3 heads of 64), at
-   granite-8b's heads of 128 (2 x 4096) and at the 4 x 2048 prefills of
-   qwen3-moe and llava, timed beside its plain version and
+   granite-8b's heads of 128 (2 x 4096), at the 4 x 2048 prefills of
+   qwen3-moe and llava and at hymba's 8 x 2048 (25/5 heads of 64),
+   timed beside its plain version and
    ``scaled_dot_product_attention`` (timed only; the port never calls
    it), whose bf16 rounding of p must fail that tolerance at the prefill
    shapes.
@@ -140,19 +142,30 @@ Phases, each asserting (any failure exits non-zero):
    attention to the chunked torch path), llava-next-34b (8 of 60
    layers, 4 x (576 image embeddings + 1472 tokens); 8) and whisper-base
    (8 x 1500 frame embeddings, 32-token decoder prompts; 18 in the
-   prefill and 6 a decode step, 210); every flash call's shape is one
-   that phase 2c checked. Logits finite; each model's prefill seconds,
-   decode ms, tokens/s, peak bytes (of the init too), ``n_params`` and
-   (MoE) the router's aux loss (summed over layers, and a layer's mean),
-   each layer's share of assignments dropped at capacity and its busiest
-   expert's load; each model freed before the next.
+   prefill and 6 a decode step, 210), and at full depth xlstm-1.3b (48
+   layers, 8 x 2048 tokens; 0: its scans are plain torch) and hymba-1.5b
+   (32 layers, 8 x 2048 tokens, past its 1024 window; 3, its global
+   layers; the sliding layers take the chunked torch path); every flash
+   call's shape is one that phase 2c checked. Logits finite; each
+   model's prefill seconds, decode ms, tokens/s, peak bytes (of the init
+   too), ``n_params``, (MoE) the router's aux loss (summed over layers,
+   and a layer's mean), each layer's share of assignments dropped at
+   capacity and its busiest expert's load, and (xLSTM, hymba) the
+   seconds of the mLSTM, sLSTM and SSM scans inside the prefill (host
+   clock, card synchronized around each call); each model freed before
+   the next.
 8. family parity, card against CPU in f32, equal greedy tokens and
    logits within 1e-4: qwen3-moe at 2 layers (128 experts, top-8, 64/4
    heads of 128, d_model 512), with two card prefills bitwise equal and
    a zero router (every probability tied) picking the CPU's experts;
    gemma2 at 2 layers (window 64 under 128-token prompts, softcaps,
    d_model 512); whisper-base at full width with 2 + 2 layers over 1500
-   frames.
+   frames; xlstm-1.3b at full width with 2 layers (one mLSTM, one sLSTM
+   block), each card decode step from the CPU's state (its bf16 matrix
+   memory amplifies one-ulp differences step after step); hymba-1.5b at
+   full width with 4 layers, window 64 under 128-token prompts (the
+   sliding layer masks, its ring wraps); both also through
+   ``greedy_generate`` with equal tokens.
 
 Phases 3e-3i run after phase 4. Stdout carries JSON records, then the
 script's total seconds; the line before the last is the per-kernel
@@ -1793,6 +1806,10 @@ FLASH_MAIN = ((8, 2048, 9, 3, 64), (1, 32768, 9, 3, 64))
 FLASH_WIDE = ((2, 4096, 32, 8, 128), (4, 2048, 64, 4, 128),
               (4, 2048, 56, 8, 128))
 
+#: hymba-1.5b's global layers in phase 7: 8 x 2048 tokens, 25/5 heads of
+#: 64 (G 5), timed beside the others
+FLASH_HYMBA = ((8, 2048, 25, 5, 64),)
+
 
 def _dtype_name(dt) -> str:
     return str(dt).split(".")[-1]
@@ -1902,14 +1919,15 @@ def flash_bound(B, S, T, H, Hk, Dh, itemsize: int) -> tuple:
 
 
 def phase_flash_main(reps: int, seed: int) -> dict:
-    """The kernel at the prefill shapes and at ``FLASH_WIDE``, bf16
-    causal: checked against the plain version, then timed beside it and
-    beside one ``scaled_dot_product_attention`` call (the yardstick)."""
+    """The kernel at the prefill shapes, ``FLASH_WIDE`` and
+    ``FLASH_HYMBA``, bf16 causal: checked against the plain version, then
+    timed beside it and beside one ``scaled_dot_product_attention`` call
+    (the yardstick)."""
     import torch
     from repro_torch.kernels import flash as kfl
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = {}
-    for B, S, H, Hk, Dh in FLASH_MAIN + FLASH_WIDE:
+    for B, S, H, Hk, Dh in FLASH_MAIN + FLASH_WIDE + FLASH_HYMBA:
         q, k, v = flash_inputs(B, S, S, H, Hk, Dh, torch.bfloat16, gen)
         err, want = check_flash(f"main {(B, S, H, Hk, Dh)}", q, k, v, True)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -2083,7 +2101,9 @@ def phase_lm_parity(seed: int, batch: int = 2, prompt_len: int = 128,
 LM_FAMILIES = (("qwen3-moe-235b-a22b", 8, 4, 2048, 16),
                ("gemma2-9b", None, 2, 8192, 16),
                ("llava-next-34b", 8, 4, 1472, 16),
-               ("whisper-base", None, 8, 32, 32))
+               ("whisper-base", None, 8, 32, 32),
+               ("xlstm-1.3b", None, 8, 2048, 16),
+               ("hymba-1.5b", None, 8, 2048, 16))
 
 
 def family_flash_calls(cfg, batch: int, prompt_len: int,
@@ -2093,10 +2113,20 @@ def family_flash_calls(cfg, batch: int, prompt_len: int,
     the prefill (one a layer; whisper's encoder self-attention over its
     frames, its decoder's causal self-attention and its cross-attention
     over the encoder memory), and whisper's cross-attention at every
-    decode step. Decode self-attention (``q_offset`` > 0) and gemma2's
-    softcapped attention go to the chunked torch path."""
+    decode step; hymba's layers whose window covers the prompt (its
+    global layers), xLSTM none. Decode self-attention (``q_offset`` > 0),
+    gemma2's softcapped attention and a window that masks go to the
+    chunked torch path."""
+    from repro_torch.models import window_schedule
     H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     calls = collections.Counter()
+    if cfg.family == "ssm":
+        return calls
+    if cfg.family == "hybrid":
+        S = prompt_len
+        calls[(batch, S, S, H, Hk, Dh, True)] += int(
+            (window_schedule(cfg) >= S).sum())
+        return calls
     if cfg.enc_dec:
         Te = cfg.enc_positions
         calls[(batch, Te, Te, H, Hk, Dh, False)] += cfg.n_enc_layers
@@ -2159,6 +2189,38 @@ def recording_moe_load():
         layers.moe_ffn = moe_ffn
 
 
+@contextlib.contextmanager
+def timing_scans():
+    """Seconds spent in each recurrent scan (``layers.mlstm_scan``,
+    ``slstm_scan``, ``ssm_scan``) inside the block, on the host clock with
+    the card synchronized on both sides of every call; the scans run
+    unchanged."""
+    import torch
+    from repro_torch.models import layers
+    names = ("mlstm_scan", "slstm_scan", "ssm_scan")
+    seconds = dict.fromkeys(names, 0.0)
+    calls = dict.fromkeys(names, 0)
+    real = {name: getattr(layers, name) for name in names}
+
+    def timed_scan(name):
+        def scan(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*args, **kw)
+            torch.cuda.synchronize()
+            seconds[name] += time.perf_counter() - t0
+            calls[name] += 1
+            return out
+        return scan
+    for name in names:
+        setattr(layers, name, timed_scan(name))
+    try:
+        yield seconds, calls
+    finally:
+        for name in names:
+            setattr(layers, name, real[name])
+
+
 def family_inputs(cfg, batch: int, prompt_len: int, seed: int):
     """Seeded prompt tokens on the card, and llava's image embeddings or
     whisper's frame embeddings (normal(0, 1), bf16)."""
@@ -2207,7 +2269,8 @@ def phase_lm_family(arch: str, n_layers, batch: int, prompt_len: int,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    with recording_flash_calls() as calls:
+    with recording_flash_calls() as calls, timing_scans() as (scan_s,
+                                                               scan_n):
         logits, toks, prefill_s, step_ms = serve_run(cfg, params, prompt,
                                                      n_steps, extra)
     launches = read_launches()
@@ -2248,6 +2311,14 @@ def phase_lm_family(arch: str, n_layers, batch: int, prompt_len: int,
         if not np.isfinite(rec["aux_loss"]) or rec["aux_loss"] <= 0:
             raise AssertionError(f"lm_family {cfg.name}: aux_loss "
                                  f"{rec['aux_loss']}")
+    if cfg.family in ("ssm", "hybrid"):
+        # the scans' seconds inside the prefill (the decode steps run
+        # no scan), each beside its share of the prefill
+        rec["scan_seconds"] = {k: v for k, v in scan_s.items() if scan_n[k]}
+        rec["scan_calls"] = {k: v for k, v in scan_n.items() if v}
+        rec["scan_share_of_prefill"] = {k: v / prefill_s for k, v in
+                                        rec["scan_seconds"].items()}
+        rec["sliding_window"] = cfg.sliding_window
     decode_s = sum(step_ms) / 1e3
     positions = prompt_len + (cfg.n_img_tokens if cfg.n_img_tokens else 0)
     emit({"phase": "lm_family", "model": cfg.name, "family": cfg.family,
@@ -2315,7 +2386,100 @@ def card_vs_cpu(label: str, cfg, seed: int, batch: int, prompt_len: int,
            sum(calls.values()), "prefill_max_abs_err": errs[0],
            "decode_max_abs_err": max(errs[1:]), "tol": 1e-4,
            "tokens_equal": True, "tokens_request0": tk_c[0].tolist()}
-    return dict(rec=rec, gpu=gpu, prompt=prompt, rng=rng)
+    return dict(rec=rec, cpu=cpu, gpu=gpu, prompt=prompt, rng=rng)
+
+
+def stepwise_card_vs_cpu(label: str, cfg, seed: int, batch: int,
+                         prompt_len: int, n_steps: int) -> dict:
+    """``card_vs_cpu`` for xLSTM, whose matrix memory is bf16 whatever
+    ``cfg.dtype`` is: an f32 difference of one ulp flips a bf16 rounding
+    now and then and the decode amplifies it step after step (the CPU
+    against itself, its embedding one ulp away, drifts by 5.6e-4 in 8
+    steps at 2 layers of full width). So each card decode step starts
+    from the CPU's state (copied over) and is held, logits within 1e-4
+    and the same greedy token, to the CPU's step; the prefill is held as
+    in ``card_vs_cpu``. No flash call may run."""
+    import torch
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models import init_params
+    from repro_torch.serve import make_prefill, make_serve_step
+    cpu = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    gpu = params_from_numpy(params_to_numpy(cpu), cfg, "cuda")
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt_len))
+                              .astype(np.int32))
+    prefill = make_prefill(cfg, prompt_len + n_steps)
+    step = make_serve_step(cfg)
+    with recording_flash_calls() as calls:
+        cache_c, last_c = prefill(cpu, {"tokens": prompt})
+        cache_g, last_g = prefill(gpu, {"tokens": prompt.cuda()})
+        pairs = [(last_g, last_c)]
+        tok = torch.argmax(last_c[:, -1], dim=-1).to(torch.int32)[:, None]
+        toks = [tok]
+        for i in range(n_steps):
+            cache_g = {k: v.cuda() for k, v in cache_c.items()}
+            tok_g, lg_g, _ = step(gpu, cache_g, tok.cuda(), prompt_len + i)
+            tok, lg_c, cache_c = step(cpu, cache_c, tok, prompt_len + i)
+            if not torch.equal(tok_g.cpu(), tok):
+                raise AssertionError(f"{label}: greedy tokens of step {i} "
+                                     "differ")
+            pairs.append((lg_g, lg_c))
+            toks.append(tok)
+    if calls:
+        raise AssertionError(f"{label}: flash calls {dict(calls)}")
+    errs = [max_abs_diff([g.cpu()], [c]) for g, c in pairs]
+    for i, (g, c) in enumerate(pairs):
+        if not torch.allclose(g.cpu(), c, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"{label}: logits of call {i} differ by "
+                                 f"{errs[i]} (tolerance 1e-4)")
+    rec = {"model": cfg.name, "n_layers": cfg.n_layers,
+           "slstm_every": cfg.slstm_every, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "batch": batch, "prompt_len": prompt_len,
+           "decode_steps": n_steps, "flash_launches": 0,
+           "decode_from": "the CPU's state each step",
+           "prefill_max_abs_err": errs[0],
+           "decode_max_abs_err": max(errs[1:]), "tol": 1e-4,
+           "tokens_equal": True,
+           "tokens_request0": torch.cat(toks, dim=1)[0].tolist()}
+    return dict(rec=rec, cpu=cpu, gpu=gpu, prompt=prompt, rng=rng)
+
+
+def phase_recurrent_parity(seed: int, batch: int = 2, n_steps: int = 8
+                           ) -> None:
+    """xLSTM and hymba, card against CPU in f32 at their published widths:
+    xlstm-1.3b at 2 layers with ``slstm_every`` 2 (one mLSTM block, one
+    sLSTM block) and 128-token prompts (``stepwise_card_vs_cpu``); hymba
+    at 4 layers (globals 0, 2 and 3, layer 1 sliding) with the window cut
+    to 64 under 128-token prompts, so the sliding layer masks in the
+    prefill and its 64-slot ring wraps in the decode (``card_vs_cpu``:
+    3 flash calls). Then ``greedy_generate`` of ``n_steps`` tokens from
+    position 0 on both, the same tokens."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serve import greedy_generate
+    xlstm = dataclasses.replace(get_config("xlstm-1.3b"), n_layers=2,
+                                slstm_every=2, dtype="float32")
+    hymba = dataclasses.replace(get_config("hymba-1.5b"), n_layers=4,
+                                sliding_window=64, dtype="float32")
+    for cfg, check in ((xlstm, stepwise_card_vs_cpu), (hymba, card_vs_cpu)):
+        run = check("family_parity", cfg, seed, batch, 128, n_steps)
+        t0 = time.perf_counter()
+        want = greedy_generate(cfg, run["cpu"], run["prompt"], n_steps)
+        got = greedy_generate(cfg, run["gpu"], run["prompt"].cuda(),
+                              n_steps)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"family_parity {cfg.name}: "
+                                 "greedy_generate tokens differ")
+        rec = run["rec"]
+        if cfg.sliding_window:
+            rec["sliding_window"] = cfg.sliding_window
+        emit({"phase": "family_parity", **rec,
+              "greedy_generate_tokens_equal": True,
+              "greedy_generate_s": time.perf_counter() - t0,
+              "greedy_request0": want[0].tolist()})
+        del run
+        torch.cuda.empty_cache()
 
 
 def phase_moe_parity(seed: int, batch: int = 2, prompt_len: int = 128,
@@ -2554,6 +2718,7 @@ def main(argv=None) -> int:
         launches["flash"] += phase_lm_family(*spec, seed=2)
     phase_moe_parity(seed=3)
     phase_family_parity(seed=4)
+    phase_recurrent_parity(seed=5)
     emit({"phase": "lm_families_total", "seconds": time.perf_counter() - t0})
 
     # each kernel's row: its times at its main-path shape (nyx for the

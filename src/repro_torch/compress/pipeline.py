@@ -67,7 +67,7 @@ from .preserve import CompressedArtifact
 __all__ = ["CompressedArtifact", "compress_preserving_mss",
            "compress_preserving_mss_batch", "decompress_preserving_mss",
            "decompress_artifact", "decompress_artifact_batch",
-           "overall_compression_ratio"]
+           "overall_compression_ratio", "overall_bit_rate", "psnr"]
 
 
 def _device_dtype_ok(dtype) -> bool:
@@ -745,3 +745,22 @@ def overall_compression_ratio(f: np.ndarray, art: CompressedArtifact
                               ) -> float:
     """OCR: original bytes / (base payload + edit payload)."""
     return f.nbytes / art.nbytes
+
+
+def overall_bit_rate(f: np.ndarray, art: CompressedArtifact) -> float:
+    """OBR: average bits per data point after combining data + edits."""
+    return art.nbytes * 8.0 / f.size
+
+
+def psnr(f: np.ndarray, g: np.ndarray) -> float:
+    """PSNR normalized by the value range max(f) - min(f), as in the
+    paper; inf for an exact reconstruction, -inf for a constant field
+    reconstructed with error."""
+    f64 = np.asarray(f, np.float64)
+    mse = float(np.mean((f64 - np.asarray(g, np.float64)) ** 2))
+    if mse == 0:
+        return float("inf")
+    rng = float(np.max(f64) - np.min(f64))
+    if rng == 0:
+        return float("-inf")
+    return 20.0 * np.log10(rng / np.sqrt(mse))

@@ -369,3 +369,11 @@ def sz_decompress(blob: bytes) -> np.ndarray:
     if dtype == np.float32:
         return q.astype(np.float32) * np.float32(step)
     return q.astype(np.float64) * step
+
+
+def sz_roundtrip(f: np.ndarray, xi: float) -> Tuple[np.ndarray, int]:
+    """Compress + decompress in one call on the host codec: (f_hat,
+    compressed bytes), the benchmarks' convenience for the SZ-like
+    base."""
+    blob = sz_compress(f, xi)
+    return sz_decompress(blob), len(blob)

@@ -67,18 +67,19 @@ def params_from_numpy(tree: Mapping, cfg: ArchConfig,
     """The port's parameter dict from the reference's, given as a nested
     dict of float32 numpy arrays (e.g. ``jax.tree.map(lambda a:
     np.asarray(a.astype(jnp.float32)), params)``), as tensors in
-    ``cfg.dtype`` on ``device``."""
+    ``cfg.dtype`` on ``device``; hymba's ``A_log`` stays float32, as the
+    reference keeps it."""
     dev = resolve_device(device)
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
-    def conv(node):
+    def conv(node, name=None):
         if isinstance(node, Mapping):
-            return {k: conv(v) for k, v in node.items()}
+            return {k: conv(v, k) for k, v in node.items()}
         a = np.asarray(node)
         if a.dtype != np.float32:
             raise TypeError(f"params_from_numpy: float32 arrays, got "
                             f"{a.dtype}")
-        return _h2d(a, dev).to(dt)
+        return _h2d(a, dev).to(torch.float32 if name == "A_log" else dt)
     return conv(tree)
 
 

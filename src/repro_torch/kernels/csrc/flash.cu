@@ -605,10 +605,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace msz_flash
 
+// device: the CUDA device of every pointer and of the stream, made
+// current first (the library links its own cudart, whose current device
+// is not the caller's).
 #define MSZ_FLASH_ENTRY(NAME, BF16)                                       \
   extern "C" int NAME(const void* q, const void* k, const void* v,       \
                       void* o, int B, int S, int T_, int H, int Hk,       \
-                      int D, int causal, float scale, void* stream) {     \
+                      int D, int causal, int device, float scale,         \
+                      void* stream) {                                     \
+    const cudaError_t e = cudaSetDevice(device);                          \
+    if (e != cudaSuccess) return (int)e;                                  \
     return msz_flash::launch<BF16>(q, k, v, o, B, S, T_, H, Hk, D,       \
                                    causal, scale, stream);               \
   }

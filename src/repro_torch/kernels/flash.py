@@ -21,7 +21,8 @@ rows) and loop over 64-key K/V tiles that stop at the diagonal; see the
 note at the head of ``csrc/flash.cu`` for the design and its numbers.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel on that tensor's card (the C entry takes the device
+and makes it current) or raises.
 """
 from __future__ import annotations
 
@@ -112,7 +113,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 def _entry(dtype):
     lib = _build.load("flash")
     sym = "msz_flash_f32" if dtype == torch.float32 else "msz_flash_bf16"
-    return _build.entry(lib, sym, 4, 7, 1)
+    return _build.entry(lib, sym, 4, 8, 1)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -138,9 +139,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             f"{q.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: tensors must be contiguous")
-    if dev.index not in (None, 0):
-        raise NotImplementedError(
-            f"flash_attention: the kernels launch on cuda:0 only, got {dev}")
     B, S, H, Dh = q.shape
     T, Hk = k.shape[1], k.shape[2]
     if Dh not in HEAD_DIMS:
@@ -155,10 +153,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         # the tensor-core kernel copies rows 16 bytes at a time
         q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
                    for x in (q, k, v))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(_entry(q.dtype)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, S, T, H, Hk, Dh, 1 if causal else 0, softmax_scale(Dh), stream),
-        "flash_attention")
+    with torch.cuda.device(dev):
+        _build.check(_entry(q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, S, T, H, Hk, Dh, 1 if causal else 0, dev.index,
+            softmax_scale(Dh), torch.cuda.current_stream(dev).cuda_stream),
+            "flash_attention")
     launches += 1
     return o

@@ -4,15 +4,15 @@
       --smoke --batch 4 --prompt-len 16 --new-tokens 32
 
 The flags are those of ``repro.launch.serve_lm``; there is no mesh.
-``--arch`` takes every family the port serves (dense, gemma2, MoE,
-llava, whisper); xLSTM and hymba raise ``NotImplementedError``. Like the
-reference launcher it prefills token by token through decode steps
-(``serve.greedy_generate``): llava gets no image embeddings and
-whisper's encoder memory stays the cache's zeros, as there. Decode steps
-run the attention in plain torch, so for the decoder-only families the
-launcher launches no kernel (the flash kernel runs where the prompt goes
-through the full forward, in ``serve.make_prefill``; ``chip_smoke.py``
-drives that path). Whisper's steps do: each layer's cross-attention over
+``--arch`` takes every config of ``configs`` (dense, gemma2, MoE, llava,
+whisper, xLSTM and hymba). Like the reference launcher it prefills token
+by token through decode steps (``serve.greedy_generate``): llava gets no
+image embeddings and whisper's encoder memory stays the cache's zeros,
+as there; xLSTM and hymba build their recurrent states this way. Decode
+steps run the attention in plain torch, so for the decoder-only families
+the launcher launches no kernel (the flash kernel runs where the prompt
+goes through the full forward, in ``serve.make_prefill``;
+``chip_smoke.py`` drives that path). Whisper's steps do: each layer's cross-attention over
 the 1,500-frame memory is one flash launch a step. Runs on CUDA; a
 caller of ``main`` may pass ``device="cpu"``."""
 from __future__ import annotations

@@ -4,7 +4,10 @@ parameter dicts in, tensors out), with the reference's conventions:
   * activations in ``cfg.dtype``, reductions, softmax and norms in f32;
   * attention is flash-style and never materializes the S x T logits;
   * MoE uses the reference's sort-based token dispatch with a static
-    capacity (no E x C one-hot dispatch tensors).
+    capacity (no E x C one-hot dispatch tensors);
+  * the recurrent blocks' scans (mLSTM and the SSM chunkwise, the sLSTM
+    step by step) and their O(1) decode steps are plain torch, as the
+    reference's are plain jnp: no kernel.
 
 ``flash_attention`` keeps the reference's chunked online softmax (its
 non-Pallas path, the jnp oracle) in plain torch, and routes the plain
@@ -248,3 +251,193 @@ def moe_ffn(x: torch.Tensor, p, n_experts: int, top_k: int,
     inv[order] = torch.arange(N * K, device=dev)
     y = weighted[inv].reshape(N, K, d).sum(1)
     return MoEOut(y.reshape(B, S, d).to(x.dtype), aux)
+
+
+# ---------------------------------------------------------------------------
+# recurrent scans: plain torch, as the reference's are plain jnp (no kernel)
+# ---------------------------------------------------------------------------
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) with no threshold
+    (``torch.nn.functional.softplus`` returns x above 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: -softplus(-x)."""
+    return -_softplus(-x)
+
+
+def _tril(L: int, device) -> torch.Tensor:
+    return torch.tril(torch.ones((L, L), dtype=torch.bool, device=device))
+
+
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               log_f: torch.Tensor, log_i: torch.Tensor,
+               chunk: int = 256) -> torch.Tensor:
+    """Chunkwise-parallel mLSTM (matrix memory), the reference's
+    ``mlstm_scan``: a Python loop over chunks of ``_pick_chunk(S, chunk)``
+    carrying C (B, H, D, D) and n (B, H, D) in f32.
+
+    q/k/v: (B, S, H, D); log_f/log_i: (B, S, H). Returns (B, S, H, D) in
+    q's dtype. C_t = f_t C_{t-1} + i_t v_t k_t^T; n_t = f_t n_{t-1} + i_t
+    k_t; h_t = C_t q_t / max(|n_t . q_t|, 1). The reference's
+    three-operand einsums are contracted two at a time (C . q, then the
+    decay; v scaled by the weights, then one product with k), so nothing
+    of (B, L, H, D, D) is formed."""
+    B, S, H, D = q.shape
+    L = _pick_chunk(S, chunk)
+    dev = q.device
+    tri = _tril(L, dev)[None, :, :, None]                 # (1, L, M, 1)
+    C = torch.zeros((B, H, D, D), dtype=torch.float32, device=dev)
+    n = torch.zeros((B, H, D), dtype=torch.float32, device=dev)
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+    for s0 in range(0, S, L):
+        qc = q[:, s0:s0 + L].float() * (D ** -0.5)
+        kc = k[:, s0:s0 + L].float()
+        vc = v[:, s0:s0 + L].float()
+        li = log_i[:, s0:s0 + L].float()
+        LF = torch.cumsum(log_f[:, s0:s0 + L].float(), dim=1)  # (B, L, H)
+        tot = LF[:, -1]                                   # (B, H)
+        # w[t, s] = exp(LF_t - LF_s + li_s), s <= t      (B, L, M, H)
+        w = torch.where(tri, torch.exp(LF[:, :, None] - LF[:, None]
+                                       + li[:, None]), 0.0)
+        dec = torch.exp(LF)                               # (B, L, H)
+        h_inter = torch.einsum("bhde,blhe->blhd", C, qc) * dec[..., None]
+        n_inter = dec[..., None] * n[:, None]             # (B, L, H, D)
+        A = torch.einsum("blhd,bmhd->blmh", qc, kc) * w
+        h_intra = torch.einsum("blmh,bmhd->blhd", A, vc)
+        denom = torch.abs((n_inter * qc).sum(-1) + A.sum(2))
+        out[:, s0:s0 + L] = ((h_inter + h_intra)
+                             / torch.clamp_min(denom, 1.0)[..., None])
+        wk = torch.exp(tot[:, None] - LF + li)            # (B, L, H)
+        et = torch.exp(tot)
+        C = et[..., None, None] * C + torch.einsum(
+            "blhd,blhe->bhde", vc * wk[..., None], kc)
+        n = et[..., None] * n + torch.einsum("blh,blhd->bhd", wk, kc)
+    return out
+
+
+def mlstm_step(state, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               log_f: torch.Tensor, log_i: torch.Tensor):
+    """O(1) mLSTM decode step. state: (C (B, H, D, D) f32 or bf16, n
+    (B, H, D) f32); q/k/v: (B, 1, H, D); log_f/log_i: (B, 1, H). The C
+    update is computed in f32 and returned in C's dtype (round to
+    nearest); the readout uses the f32 update. Returns ((C, n), h
+    (B, 1, H, D))."""
+    C, n = state
+    D = q.shape[-1]
+    qf = q[:, 0].float() * (D ** -0.5)
+    kf = k[:, 0].float()
+    vf = v[:, 0].float()
+    f = torch.exp(log_f[:, 0].float())[..., None, None]
+    i = torch.exp(log_i[:, 0].float())[..., None, None]
+    C2 = f * C.float() + i * (vf[..., :, None] * kf[..., None, :])
+    n2 = f[..., 0] * n + i[..., 0] * kf
+    num = torch.einsum("bhde,bhe->bhd", C2, qf)
+    den = torch.clamp_min(torch.abs((n2 * qf).sum(-1)), 1.0)
+    h = (num / den[..., None])[:, None].to(q.dtype)
+    return (C2.to(C.dtype), n2), h
+
+
+def _slstm_gates(zi, zf, zz, zo):
+    """The sLSTM's per-position gate terms, f32: log forget, log input,
+    the cell input tanh(zz) and the output gate sigmoid(zo)."""
+    return (_log_sigmoid(zf.float()), zi.float(), torch.tanh(zz.float()),
+            torch.sigmoid(zo.float()))
+
+
+def _slstm_cell(c, n, m, lf, li, z, o):
+    """One stabilized sLSTM update: m' = max(lf + m, li), c and n in the
+    exp(. - m') domain; returns (c', n', m', h)."""
+    lfm = lf + m
+    m2 = torch.maximum(lfm, li)
+    a = torch.exp(lfm - m2)
+    b = torch.exp(li - m2)
+    c2 = a * c + b * z
+    n2 = a * n + b
+    return c2, n2, m2, o * c2 / torch.clamp_min(n2, 1.0)
+
+
+def slstm_scan(zi: torch.Tensor, zf: torch.Tensor, zz: torch.Tensor,
+               zo: torch.Tensor) -> torch.Tensor:
+    """The reference's stabilized sLSTM scan, sequential over S (a Python
+    loop; the gate activations are taken for every position first). zi/
+    zf/zz/zo: (B, S, H, D) pre-activations; c and n start at 0, m at
+    -1e30. Returns (B, S, H, D) in zz's dtype."""
+    B, S, H, D = zz.shape
+    lf, li, z, o = _slstm_gates(zi, zf, zz, zo)
+    dev = zz.device
+    c = torch.zeros((B, H, D), dtype=torch.float32, device=dev)
+    n = torch.zeros_like(c)
+    m = torch.full((B, H, D), -1e30, dtype=torch.float32, device=dev)
+    out = torch.empty((B, S, H, D), dtype=zz.dtype, device=dev)
+    for t in range(S):
+        c, n, m, out[:, t] = _slstm_cell(c, n, m, lf[:, t], li[:, t],
+                                         z[:, t], o[:, t])
+    return out
+
+
+def slstm_step(state, zi: torch.Tensor, zf: torch.Tensor, zz: torch.Tensor,
+               zo: torch.Tensor):
+    """O(1) sLSTM decode step. state: (c, n, m), each (B, H, D) f32;
+    pre-activations (B, 1, H, D). Returns ((c, n, m), h (B, 1, H, D))."""
+    c, n, m = state
+    lf, li, z, o = _slstm_gates(zi[:, 0], zf[:, 0], zz[:, 0], zo[:, 0])
+    c2, n2, m2, h = _slstm_cell(c, n, m, lf, li, z, o)
+    return (c2, n2, m2), h[:, None].to(zz.dtype)
+
+
+def ssm_scan(x: torch.Tensor, delta: torch.Tensor, Bmat: torch.Tensor,
+             Cmat: torch.Tensor, A_log: torch.Tensor,
+             chunk: int = 256) -> torch.Tensor:
+    """Chunkwise diagonal selective SSM, the reference's ``ssm_scan``: a
+    Python loop over chunks of ``_pick_chunk(S, chunk)`` carrying the
+    state h (B, H, N, D) in f32.
+
+    x: (B, S, H, D); delta: (B, S, H); Bmat/Cmat: (B, S, H, N); A_log
+    (H, N) (A = -exp(A_log)). h_t = exp(delta_t A) h_{t-1} + delta_t B_t
+    x_t^T; y_t = C_t . h_t. The intra-chunk weights (B, L, M, H, N) are
+    formed once a chunk, as the reference forms them, and reduced in
+    place. Returns (B, S, H, D) in x's dtype."""
+    B, S, H, D = x.shape
+    L = _pick_chunk(S, chunk)
+    dev = x.device
+    A = -torch.exp(A_log.float())                         # (H, N)
+    dt = _softplus(delta.float())                         # (B, S, H)
+    lg = dt[..., None] * A                                # (B, S, H, N)
+    xB = dt[..., None] * Bmat.float()
+    above = ~_tril(L, dev)[None, :, :, None, None]        # (1, L, M, 1, 1)
+    h = torch.zeros((B, H, Bmat.shape[-1], D), dtype=torch.float32,
+                    device=dev)
+    out = torch.empty((B, S, H, D), dtype=x.dtype, device=dev)
+    for s0 in range(0, S, L):
+        xc = x[:, s0:s0 + L].float()
+        bc = xB[:, s0:s0 + L]
+        cc = Cmat[:, s0:s0 + L].float()
+        LG = torch.cumsum(lg[:, s0:s0 + L], dim=1)        # (B, L, H, N)
+        tot = LG[:, -1]                                   # (B, H, N)
+        y = torch.einsum("blhn,bhnd->blhd", cc * torch.exp(LG), h)
+        # y_intra[t] = sum_s C_t . (w[t, s] B_s) x_s, w = exp(LG_t - LG_s)
+        w = (LG[:, :, None] - LG[:, None]).exp_().masked_fill_(above, 0.0)
+        cb = w.mul_(cc[:, :, None]).mul_(bc[:, None]).sum(-1)  # (B, L, M, H)
+        del w
+        y += torch.einsum("blmh,bmhd->blhd", cb, xc)
+        out[:, s0:s0 + L] = y
+        wk = torch.exp(tot[:, None] - LG)                 # (B, L, H, N)
+        h = torch.exp(tot)[..., None] * h + torch.einsum(
+            "blhn,blhd->bhnd", wk * bc, xc)
+    return out
+
+
+def ssm_step(h: torch.Tensor, x: torch.Tensor, delta: torch.Tensor,
+             Bmat: torch.Tensor, Cmat: torch.Tensor, A_log: torch.Tensor):
+    """O(1) SSM decode step. h: (B, H, N, D) f32; x (B, 1, H, D), delta
+    (B, 1, H), Bmat/Cmat (B, 1, H, N). Returns (h', y (B, 1, H, D))."""
+    A = -torch.exp(A_log.float())
+    dt = _softplus(delta[:, 0].float())                   # (B, H)
+    dec = torch.exp(dt[..., None] * A)                    # (B, H, N)
+    xb = dt[..., None] * Bmat[:, 0].float()               # (B, H, N)
+    h2 = dec[..., None] * h + xb[..., None] * x[:, 0].float()[:, :, None]
+    y = torch.einsum("bhn,bhnd->bhd", Cmat[:, 0].float(), h2)
+    return h2, y[:, None].to(x.dtype)

@@ -1,14 +1,16 @@
-"""Model assembly for the transformer families of ``repro.models``:
-parameter init, the stacked-layer forward (a Python loop where the
-reference scans), prefill-with-cache and single-token decode.
+"""Model assembly for every family of ``repro.models``: parameter init,
+the stacked-layer forward (a Python loop where the reference scans),
+prefill-with-cache and single-token decode.
 
 The port serves the dense family (smollm-135m, granite-8b,
 deepseek-coder-33b and gemma2-9b with its local/global windows, post-norms
 and softcaps), MoE (qwen3-moe-235b-a22b, grok-1-314b; sort-based dispatch,
 ``layers.moe_ffn``), the llava backbone (image embeddings prepended to the
-tokens) and whisper's encoder-decoder (the encoder memory kept in the
-decode cache). The ssm (xLSTM) and hybrid (hymba) families raise
-``NotImplementedError`` (ROADMAP Queue 1 item 7)."""
+tokens), whisper's encoder-decoder (the encoder memory kept in the decode
+cache), xLSTM (``ssm``: groups of mLSTM blocks closed by one sLSTM block,
+recurrent states in the decode cache) and hymba (``hybrid``: attention and
+an SSM in parallel in every layer, a ring-buffered KV cache and an SSM
+state a layer)."""
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from . import blocks, layers
+from . import blocks, layers, recurrent
 from .blocks import GLOBAL_WINDOW
 from .config import ArchConfig
 
@@ -28,14 +30,17 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+#: the families of ``ArchConfig.family``, every one of them served
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
+
+
 def check_served(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config this slice does not
-    serve: the recurrent families."""
-    if cfg.family in ("ssm", "hybrid"):
+    """Raise ``NotImplementedError`` for a config whose family is none of
+    ``FAMILIES``; every config of ``configs`` is served."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
-            "port serves the dense, MoE, vlm and audio families (ROADMAP "
-            "Queue 1 item 7)")
+            f"{cfg.name}: unknown family {cfg.family!r}; the port serves "
+            f"{', '.join(FAMILIES)}")
 
 
 # ---------------------------------------------------------------------------
@@ -58,10 +63,38 @@ def _layer_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
         p.update(w1=(d, ff), w2=(ff, d))   # whisper GELU MLP
     else:
         p.update(w_gate=(d, ff), w_up=(d, ff), w_down=(ff, d))
+    if cfg.family == "hybrid":
+        N = cfg.ssm_state
+        p.update(ssm_in=(d, H * Dh), ssm_dt=(d, H), ssm_B=(d, H * N),
+                 ssm_C=(d, H * N), A_log=(H, N),
+                 attn_norm=(H * Dh,), ssm_norm=(H * Dh,))
     if cfg.enc_dec:                       # decoder cross-attention
         p.update(ln_x=(d,), wq_x=(d, H * Dh), wk_x=(d, Hk * Dh),
                  wv_x=(d, Hk * Dh), wo_x=(H * Dh, d))
     return p
+
+
+def _mlstm_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """The reference's Dh-major layout: (d, Dh, H) projections and a
+    (Dh, H, d) down-projection."""
+    d, H = cfg.d_model, cfg.n_heads
+    Dh = d // H
+    return dict(ln1=(d,), wq3=(d, Dh, H), wk3=(d, Dh, H), wv3=(d, Dh, H),
+                w_z3=(d, Dh, H), w_if=(d, 2 * H), w_down3=(Dh, H, d))
+
+
+def _slstm_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    d = cfg.d_model
+    return dict(ln1=(d,), w_zi=(d, d), w_zf=(d, d), w_zz=(d, d),
+                w_zo=(d, d), w_down=(d, d))
+
+
+def _xlstm_groups(cfg: ArchConfig) -> Tuple[int, int]:
+    """(G, per): G groups of per - 1 mLSTM blocks and one sLSTM block."""
+    per = cfg.slstm_every if cfg.slstm_every else cfg.n_layers
+    if cfg.n_layers % per:
+        raise ValueError("n_layers must divide by slstm_every")
+    return cfg.n_layers // per, per
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -73,8 +106,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     generator's device from ``generator`` and cast to ``cfg.dtype`` on
     ``device``. A stack is drawn a layer at a time into its preallocated
     ``cfg.dtype`` tensor, so the f32 draw never holds more than one
-    layer of one weight. The numbers differ from ``jax.random``'s; tests
-    carry the reference's weights across with
+    layer of one weight. xLSTM's blocks are ``mlstm`` stacked (G, per - 1)
+    and ``slstm`` stacked (G,) (``_xlstm_groups``); hymba's ``A_log`` is
+    log(1..N) in float32 whatever ``cfg.dtype`` is. The numbers differ
+    from ``jax.random``'s; tests carry the reference's weights across with
     ``convert.params_from_numpy`` instead."""
     check_served(cfg)
     dev = resolve_device(device)
@@ -88,14 +123,19 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     def normal(shape, scale):
         return draw_into(torch.empty(shape, dtype=dt, device=dev), scale)
 
-    def group(shapes: Dict[str, Tuple[int, ...]], L: int) -> Params:
+    def group(shapes: Dict[str, Tuple[int, ...]], *stack: int) -> Params:
         out: Params = {}
         for name, shp in sorted(shapes.items()):
-            if len(shp) == 1:
-                out[name] = torch.zeros((L,) + shp, dtype=dt, device=dev)
+            if name == "A_log":
+                out[name] = torch.log(torch.arange(
+                    1, shp[-1] + 1, dtype=torch.float32, device=dev)
+                ).expand(stack + shp).contiguous()
                 continue
-            t = torch.empty((L,) + shp, dtype=dt, device=dev)
-            for i in range(L):
+            if len(shp) == 1:
+                out[name] = torch.zeros(stack + shp, dtype=dt, device=dev)
+                continue
+            t = torch.empty(stack + shp, dtype=dt, device=dev)
+            for i in np.ndindex(*stack):
                 draw_into(t[i], shp[0] ** -0.5)
             out[name] = t
         return out
@@ -107,6 +147,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["unembed"] = normal((cfg.d_model, cfg.vocab),
                                    cfg.d_model ** -0.5)
+    if cfg.family == "ssm":
+        G, per = _xlstm_groups(cfg)
+        params["mlstm"] = group(_mlstm_param_shapes(cfg), G, per - 1)
+        params["slstm"] = group(_slstm_param_shapes(cfg), G)
+        return params
     shapes = _layer_param_shapes(cfg)
     if cfg.enc_dec:
         params["enc_blocks"] = group(
@@ -135,8 +180,9 @@ def window_schedule(cfg: ArchConfig) -> np.ndarray:
     return w
 
 
-def _layer(stack: Params, i: int) -> Params:
-    """Layer ``i``'s parameters: views into a stacked group."""
+def _layer(stack: Params, i) -> Params:
+    """Layer ``i``'s parameters (an int, or a tuple into xLSTM's
+    (G, per - 1) mLSTM stack): views into a stacked group."""
     return {k: v[i] for k, v in stack.items()}
 
 
@@ -148,7 +194,8 @@ class ForwardOut(NamedTuple):
     logits: torch.Tensor
     aux_loss: torch.Tensor
     cache: Optional[Any]          # {"kv": (k, v)}, each (L, B, S, Hk, Dh),
-                                  # and whisper's "enc_out" (B, Te, d)
+                                  # and whisper's "enc_out" (B, Te, d);
+                                  # None for xLSTM
 
 
 def _embed_tokens(cfg: ArchConfig, params: Params,
@@ -195,7 +242,9 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     image_embeds (B, Ni, d); whisper adds frames (B, Te, d).
 
     logits_mode: 'all' (every position, f32), 'last' (unembed only the
-    final position), 'hidden' (the final hidden states in ``.logits``)."""
+    final position), 'hidden' (the final hidden states in ``.logits``).
+    xLSTM returns no cache (its recurrent states are not threaded out,
+    as in the reference); hymba's is every layer's k and v."""
     check_served(cfg)
     x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
@@ -218,6 +267,16 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
                 ks.append(k)
                 vs.append(v)
         extra["enc_out"] = enc
+    elif cfg.family == "ssm":
+        x = _xlstm_stack(cfg, params, x)
+    elif cfg.family == "hybrid":
+        for i, w in enumerate(window_schedule(cfg)):
+            x, k, v = recurrent.hymba_block(
+                cfg, _layer(params["blocks"], i), x, positions,
+                window=int(w), q_offset=q_offset)
+            if return_cache:
+                ks.append(k)
+                vs.append(v)
     else:
         for i, w in enumerate(window_schedule(cfg)):
             lp = _layer(params["blocks"], i)
@@ -229,7 +288,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
                 ks.append(a.k)
                 vs.append(a.v)
     cache = {"kv": (torch.stack(ks), torch.stack(vs)), **extra} \
-        if return_cache else None
+        if return_cache and ks else None
     del ks, vs                    # the stack holds copies: free before
                                   # the unembed's f32 buffers
 
@@ -241,18 +300,57 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     return ForwardOut(_unembed(cfg, params, x), aux_total, cache)
 
 
+def _xlstm_stack(cfg: ArchConfig, params: Params, x: torch.Tensor
+                 ) -> torch.Tensor:
+    G, per = _xlstm_groups(cfg)
+    for g in range(G):
+        for j in range(per - 1):
+            x = recurrent.mlstm_block(cfg, _layer(params["mlstm"], (g, j)),
+                                      x)
+        x = recurrent.slstm_block(cfg, _layer(params["slstm"], g), x)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # decode (single token, KV caches)
 # ---------------------------------------------------------------------------
 
 def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
-                      device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """The zeroed KV cache, k and v each (L, B, max_len, Hk, Dh) in
-    ``cfg.dtype``; whisper's also holds the encoder memory ``enc_out``
-    (B, enc_positions, d)."""
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    """The zeroed decode cache in the reference's layout and dtypes: k
+    and v each (L, B, max_len, Hk, Dh) in ``cfg.dtype``, whisper's with
+    the encoder memory ``enc_out`` (B, enc_positions, d); xLSTM's
+    recurrent states (``mlstm_C`` (G, per - 1, B, H, D, D) in bf16
+    whatever ``cfg.dtype`` is, ``mlstm_n`` and the sLSTM's c, n in f32,
+    its m filled with -1e30); hymba's ``{"layers": [{k, v, ssm}, ...]}``,
+    a layer's k and v ring of min(window, max_len) positions and its SSM
+    state (B, H, N, Dh) in f32."""
     check_served(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
+    f32 = dict(dtype=torch.float32, device=dev)
+    if cfg.family == "ssm":
+        G, per = _xlstm_groups(cfg)
+        H, D = cfg.n_heads, cfg.d_model // cfg.n_heads
+        return {
+            "mlstm_C": torch.zeros((G, per - 1, batch, H, D, D),
+                                   dtype=torch.bfloat16, device=dev),
+            "mlstm_n": torch.zeros((G, per - 1, batch, H, D), **f32),
+            "slstm_c": torch.zeros((G, batch, H, D), **f32),
+            "slstm_n": torch.zeros((G, batch, H, D), **f32),
+            "slstm_m": torch.full((G, batch, H, D), -1e30, **f32),
+        }
+    if cfg.family == "hybrid":
+        H, N, Hk, Dh = (cfg.n_heads, cfg.ssm_state, cfg.n_kv_heads,
+                        cfg.head_dim)
+        layers_ = []
+        for w in window_schedule(cfg):
+            T = min(int(w), max_len)
+            layers_.append({
+                "k": torch.zeros((batch, T, Hk, Dh), dtype=dt, device=dev),
+                "v": torch.zeros((batch, T, Hk, Dh), dtype=dt, device=dev),
+                "ssm": torch.zeros((batch, H, N, Dh), **f32)})
+        return {"layers": layers_}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
              "v": torch.zeros(shape, dtype=dt, device=dev)}
@@ -267,12 +365,21 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: tokens (B, 1) at position ``t`` (a Python int) ->
     logits (B, 1, V) f32 and the cache. The cache is updated in place
-    (row ``t`` of every layer's k and v), where the reference returns new
-    arrays; the returned cache is the same dict. Whisper's step attends
-    over ``cache["enc_out"]`` in every layer (the flash kernel on CUDA)."""
+    (row ``t`` of every layer's k and v; hymba's ring slot t % T_cache;
+    every recurrent state), where the reference returns new arrays; the
+    returned cache is the same dict. Whisper's step attends over
+    ``cache["enc_out"]`` in every layer (the flash kernel on CUDA)."""
     check_served(cfg)
     x = _embed_tokens(cfg, params, tokens)
-    if cfg.enc_dec:
+    if cfg.family == "ssm":
+        x = _xlstm_decode(cfg, params, cache, x)
+    elif cfg.family == "hybrid":
+        for i, lc in enumerate(cache["layers"]):
+            x, _, _, s2 = recurrent.hymba_block_step(
+                cfg, _layer(params["blocks"], i), x, lc["k"], lc["v"],
+                lc["ssm"], t)
+            lc["ssm"].copy_(s2)
+    elif cfg.enc_dec:
         for i in range(cfg.n_layers):
             lp = _layer(params["blocks"], i)
             x, _, _ = blocks.attention_decode(cfg, lp, x, cache["k"][i],
@@ -288,3 +395,23 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
             x, _ = blocks.ffn_block(cfg, lp, x)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, x), cache
+
+
+def _xlstm_decode(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
+                  x: torch.Tensor) -> torch.Tensor:
+    """Every block's decode step, its new state copied into the cache."""
+    G, per = _xlstm_groups(cfg)
+    for g in range(G):
+        for j in range(per - 1):
+            x, (C2, n2) = recurrent.mlstm_block_step(
+                cfg, _layer(params["mlstm"], (g, j)), x,
+                (cache["mlstm_C"][g, j], cache["mlstm_n"][g, j]))
+            cache["mlstm_C"][g, j].copy_(C2)
+            cache["mlstm_n"][g, j].copy_(n2)
+        names = ("slstm_c", "slstm_n", "slstm_m")
+        x, state = recurrent.slstm_block_step(
+            cfg, _layer(params["slstm"], g), x,
+            tuple(cache[k][g] for k in names))
+        for k, s2 in zip(names, state):
+            cache[k][g].copy_(s2)
+    return x

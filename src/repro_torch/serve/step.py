@@ -33,7 +33,11 @@ def make_prefill(cfg: ArchConfig, max_len: int) -> Callable:
     into a zeroed cache of ``max_len`` positions at position 0. B comes
     from the tokens and S from the forward's k, so llava's image
     positions are cached too; whisper's cache takes the encoder memory
-    ``enc_out``. Sets the full-precision matmul flags
+    ``enc_out``. The recurrent families' caches are returned as
+    ``init_decode_cache`` made them, as the reference returns them: xLSTM's
+    forward threads no state out, and hymba's per-layer cache has no
+    stacked "k" to write (their states come from decoding from position
+    0, ``greedy_generate``). Sets the full-precision matmul flags
     (``device.full_precision_matmuls``)."""
     full_precision_matmuls()
     def prefill(params, batch):
@@ -41,6 +45,8 @@ def make_prefill(cfg: ArchConfig, max_len: int) -> Callable:
         tokens = batch["tokens"]
         cache = init_decode_cache(cfg, tokens.shape[0], max_len,
                                   device=tokens.device)
+        if cfg.family in ("ssm", "hybrid"):
+            return cache, out.logits[:, -1:].clone()
         k, v = out.cache["kv"]
         S = k.shape[2]
         cache["k"][:, :, :S] = k

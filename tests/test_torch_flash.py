@@ -10,7 +10,9 @@
 * ``models.layers.decode_attention`` against the reference's;
 * the bf16 CUDA kernel's split-bf16 arithmetic (q' and p as bf16 hi +
   lo, products summed in f32), emulated in plain torch, against the
-  Pallas kernel, and the same with p_hi alone failing the tolerance.
+  Pallas kernel, and the same with p_hi alone failing the tolerance;
+* the wrapper's launch on the card that holds its tensors (any index
+  reaches the C entry, which makes it current), with the entry replaced.
 
 Tolerances: f32 2e-5 (the reference's own kernel test); the plain
 version against the Pallas kernel, and the CUDA kernel against the plain
@@ -296,3 +298,69 @@ def test_cuda_kernel_matches_plain():
             want = tflash.flash_attention_plain(q, k, v, causal=causal)
             torch.testing.assert_close(got.float(), want.float(),
                                        rtol=rtol, atol=atol)
+
+
+# --- the wrapper launches on the card that holds its tensors ----------------
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports ``cuda:<INDEX>`` as its device, so the
+    wrapper's launch path runs here with the C entry replaced."""
+    INDEX = 0
+
+    @property
+    def device(self):
+        return torch.device("cuda", _OnCard.INDEX)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("index", [0, 1, 3])
+def test_wrapper_passes_its_tensors_card_to_the_entry(monkeypatch, index,
+                                                      dtype):
+    """Any card index reaches the C entry as its last int, and the launch
+    runs with that card current (no refusal of cuda:1 and up)."""
+    import contextlib
+    entered, calls = [], []
+
+    @contextlib.contextmanager
+    def device_ctx(dev):
+        entered.append(dev)
+        yield
+
+    class Stream:
+        cuda_stream = 4321
+
+    def entry(dt):
+        assert dt == dtype
+        return lambda *args: calls.append(args) or 0
+
+    monkeypatch.setattr(_OnCard, "INDEX", index)
+    monkeypatch.setattr(tflash, "_entry", entry)
+    monkeypatch.setattr(torch.cuda, "device", device_ctx)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: Stream)
+    q, k, v = (torch.Tensor._make_subclass(_OnCard, torch.zeros(s, dtype=dtype))
+               for s in ((2, 64, 4, 16), (2, 48, 2, 16), (2, 48, 2, 16)))
+    assert q.device == torch.device("cuda", index)
+    before = tflash.launches
+    tflash.flash_attention(q, k, v, causal=False)
+    assert tflash.launches == before + 1
+    assert entered == [torch.device("cuda", index)]
+    (args,) = calls
+    # 4 pointers, then B, S, T, H, Hk, Dh, causal, device; the scale; the
+    # stream
+    assert args[4:12] == (2, 64, 48, 4, 2, 16, 0, index)
+    assert args[12] == tflash.softmax_scale(16) and args[13] == 4321
+
+
+def test_flash_entry_makes_its_device_current():
+    """The C entry takes the device as its last int and calls
+    ``cudaSetDevice`` before it launches, as the stencil and pack entries
+    do (each library links its own cudart)."""
+    import pathlib
+    src = (pathlib.Path(tflash.__file__).parent / "csrc" / "flash.cu"
+           ).read_text()
+    entry = src[src.index("#define MSZ_FLASH_ENTRY"):]
+    entry = entry[:entry.index("MSZ_FLASH_ENTRY(msz_flash_f32")]
+    sig = " ".join(entry[entry.index("NAME("):entry.index("{")]
+                   .replace("\\", " ").split())
+    assert "int causal, int device, float scale, void* stream" in sig
+    assert entry.index("cudaSetDevice(device)") < entry.index("launch<BF16>")

@@ -1,8 +1,18 @@
 #!/usr/bin/env python3
-"""The block-sharded fix loop with its blocks on distinct cards.
+"""The block-sharded fix loop with its blocks on distinct cards, and the
+flash kernel on every card.
 
     python3 tools/sharded_cards.py            # needs >= 2 CUDA cards
     python3 tools/sharded_cards.py --nyx 128 --climate 180x360
+    python3 tools/sharded_cards.py --flash-only
+
+First, on every visible card in turn (cuda:0 staying the current
+device), the flash kernel against its plain version on that card, f32
+and bf16, causal and not, at a ragged shape and at hymba's 25/5 heads of
+64; the output must lie on the inputs' card and each call must count one
+launch. Then a 2-layer smollm-135m ``make_prefill`` in f32 on that card
+against the CPU on the same weights: last logits and KV cache within
+1e-4, one flash launch a layer. ``--flash-only`` stops there.
 
 On the main path's inputs (nyx and climate: f_hat from the Lorenzo
 kernel and its inverse, the original's topology) the dense solo loop on
@@ -46,10 +56,78 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
+#: (B, S, T, H, Hk, Dh) of the flash leg: ragged, S != T, hymba's heads
+FLASH_SHAPES = ((2, 130, 130, 9, 3, 64), (2, 80, 200, 6, 2, 32),
+                (2, 256, 256, 25, 5, 64))
+
+
+def flash_leg(cards: int) -> None:
+    """The flash kernel and a 2-layer smollm prefill on each card."""
+    import dataclasses
+    import torch
+    from chip_smoke import FLASH_TOL, emit, max_abs_diff, within_flash_tol
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.kernels import flash as kfl
+    from repro_torch.models import init_params
+    from repro_torch.serve import make_prefill
+    cfg = dataclasses.replace(get_config("smollm-135m"), n_layers=2,
+                              dtype="float32")
+    cpu = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 128)).astype(np.int32))
+    want_cache, want_last = make_prefill(cfg, 136)(cpu, {"tokens": prompt})
+    gen = torch.Generator().manual_seed(0)
+    for i in range(cards):
+        dev = torch.device("cuda", i)
+        errs = []
+        for B, S, T, H, Hk, Dh in FLASH_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
+                           for shape in ((B, S, H, Dh), (B, T, Hk, Dh),
+                                         (B, T, Hk, Dh)))
+                for causal in (True, False):
+                    before = kfl.launches
+                    got = kfl.flash_attention(q, k, v, causal=causal)
+                    want = kfl.flash_attention_plain(q, k, v, causal=causal)
+                    tag = f"flash cuda:{i} {(B, S, T, H, Hk, Dh)} {dtype}"
+                    if kfl.launches != before + 1 or got.device != dev:
+                        raise AssertionError(f"{tag}: launches or device")
+                    if not within_flash_tol(got, want):
+                        raise AssertionError(f"{tag}: differs from the "
+                                             "plain version")
+                    errs.append(max_abs_diff([got], [want]))
+        gpu = params_from_numpy(params_to_numpy(cpu), cfg, dev)
+        before = kfl.launches
+        cache, last = make_prefill(cfg, 136)(gpu, {"tokens": prompt.to(dev)})
+        launches = kfl.launches - before
+        if launches != cfg.n_layers:
+            raise AssertionError(f"prefill cuda:{i}: {launches} flash "
+                                 "launches")
+        prefill_err = max_abs_diff([last.cpu(), cache["k"].cpu(),
+                                    cache["v"].cpu()],
+                                   [want_last, want_cache["k"],
+                                    want_cache["v"]])
+        for t, w in ((last, want_last), (cache["k"], want_cache["k"]),
+                     (cache["v"], want_cache["v"])):
+            if not torch.allclose(t.cpu(), w, rtol=1e-4, atol=1e-4):
+                raise AssertionError(f"prefill cuda:{i}: differs from the "
+                                     f"CPU by {prefill_err}")
+        emit({"phase": "flash_cards", "device": str(dev),
+              "current_device": torch.cuda.current_device(),
+              "kernel_max_abs_err": max(errs), "rtol_atol": FLASH_TOL,
+              "prefill_model": cfg.name, "prefill_layers": cfg.n_layers,
+              "prefill_flash_launches": launches,
+              "prefill_max_abs_err": prefill_err, "tol": 1e-4})
+        del gpu, cache, last
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nyx", type=int, default=512)
     ap.add_argument("--climate", default="1800x3600")
+    ap.add_argument("--flash-only", action="store_true",
+                    help="run the flash leg alone")
     args = ap.parse_args(argv)
     import torch
     if torch.cuda.device_count() < 2:
@@ -77,7 +155,13 @@ def main(argv=None) -> int:
     cards = torch.cuda.device_count()
     emit({"phase": "cards", "count": cards, "smi": smi,
           "build_s": _build.build_all(("extrema", "fixpass", "lorenzo",
-                                       "pack"))})
+                                       "pack", "flash"))})
+    flash_leg(cards)
+    if args.flash_only:
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": cards}}), flush=True)
+        return 0
     spread = [f"cuda:{i % cards}" for i in range(4)]
     placements = {"one_card": ["cuda:0"] * 4, "spread": spread}
     climate_shape = tuple(int(s) for s in args.climate.split("x"))
