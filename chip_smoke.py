@@ -166,6 +166,27 @@ Phases, each asserting (any failure exits non-zero):
    full width with 4 layers, window 64 under 128-token prompts (the
    sliding layer masks, its ring wraps); both also through
    ``greedy_generate`` with equal tokens.
+9. training, the launch counts set to 0 just before each leg and read
+   just after. (9a) smollm-135m at full width and depth (bf16, seeded
+   weights) through ``repro_torch.launch.train.main`` with ``--steps 12
+   --batch 8 --seq 2048 --ckpt-every 6`` (remat, lr 3e-4 after its
+   warmup): each step's seconds, tokens/s, peak bytes, the first and
+   last loss (``improved`` must be true), flash launches exactly 60 a
+   step (30 layers: the forward and the remat recompute; the backward
+   is the oracle's gradient, no kernel), each checkpoint's seconds and
+   bytes; then ``--resume`` from the step-6 checkpoint alone: the
+   restored tensors bitwise the saved ones (sha1), steps 7-12's losses
+   within 1e-2 relative of the first run's (a card's sums need not
+   repeat bit for bit from run to run). (9b) smollm at full width with 2
+   layers in f32, one set of weights on the card and the CPU: the first
+   batch's gradients (each leaf within 1e-4 of its largest |g|; wq, wk,
+   wv non-zero), the compressed sync over two pods on cuda:0 within one
+   quantization step an element, and 3 train steps (losses within 1e-5
+   relative, params within 1e-4 but for one element in 10^5, which
+   AdamW may step the other way). (9c) one train step of each family's
+   smoke config in f32 (dense, gemma2, MoE, llava, whisper, xLSTM,
+   hymba), card against CPU within the same tolerances, flash launches
+   exactly two per plain attention a step.
 
 Phases 3e-3i run after phase 4. Stdout carries JSON records, then the
 script's total seconds; the line before the last is the per-kernel
@@ -2565,6 +2586,400 @@ def phase_family_parity(seed: int, batch: int = 2, n_steps: int = 8) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training
+# ---------------------------------------------------------------------------
+
+#: phase 9b and 9c's AdamW: a one-step warmup, so a few steps move the
+#: parameters by up to lr_peak an element a step
+TRAIN_OPT = dict(lr_peak=1e-3, warmup_steps=1, decay_steps=10)
+#: card against CPU in f32: the loss (relative), each gradient leaf (x its
+#: largest |g|; the CPU tests hold the port to the reference at 1e-4
+#: too), and the parameters after the steps: within ``param`` (a tenth of
+#: lr_peak) but for at most ``param_share`` of the elements, which must
+#: stay within 2 lr_peak a step. AdamW moves an element by about lr
+#: whatever the size of its gradient, so one whose gradient lies within
+#: the card-vs-CPU noise of zero can step the other way (12 of 63.7
+#: million at 9b's size on an H100)
+TRAIN_TOL = dict(loss=1e-5, grad=1e-4, param=1e-4, param_share=1e-5)
+#: phase 9c's families, one smoke config each
+TRAIN_FAMILIES = ("smollm-135m", "gemma2-9b", "qwen3-moe-235b-a22b",
+                  "llava-next-34b", "whisper-base", "xlstm-1.3b",
+                  "hymba-1.5b")
+
+
+def train_flash_per_step(cfg, seq: int, remat: bool) -> int:
+    """The flash launches of one train step of ``cfg`` over ``seq``
+    tokens: one for each plain causal or full attention of the forward
+    (the prefill's, ``family_flash_calls``), and under remat as many
+    again when the backward recomputes each layer. The backward itself
+    is the chunked oracle's gradient and launches no kernel."""
+    n = sum(family_flash_calls(cfg, 1, seq, 0).values())
+    return n * (2 if remat else 1)
+
+
+def tensor_sha1s(tree_) -> dict:
+    """sha1 of each tensor's bytes (bf16 as its 16-bit pattern), by the
+    checkpoint's key."""
+    import hashlib
+    import torch
+    from repro_torch import tree
+    out = {}
+    for key, t in tree.flatten_with_path(tree_):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        out[key] = hashlib.sha1(t.numpy().tobytes()).hexdigest()
+    return out
+
+
+def checkpoint_sha1s(path: Path) -> dict:
+    """sha1 of the bytes of each tensor a checkpoint directory holds,
+    decoded from its files."""
+    import hashlib
+    from repro_torch.checkpoint import manager
+    tensors = json.loads((path / "manifest.json").read_text())["tensors"]
+    return {k: hashlib.sha1(manager._decode(
+        (path / m["file"]).read_bytes(), m).tobytes()).hexdigest()
+        for k, m in tensors.items()}
+
+
+def run_launcher(argv):
+    """``launch.train.main(argv)`` with its printed lines kept out of
+    this script's output; returns its ``TrainRun`` and closing JSON."""
+    import io
+    from repro_torch.launch import train as launcher
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        run = launcher.main(argv)
+    return run, json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def train_step_parts(cfg, state, batch: dict) -> dict:
+    """One more train step of ``state`` on ``batch``, split on the host
+    clock with the card synced at each boundary: the forward and loss,
+    the backward (with the remat recompute of each layer), inside it the
+    attention's backward (``layers._KernelAttention.backward``: the
+    oracle's gradient recomputed from q, k and v), and the AdamW
+    update."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import layers
+    from repro_torch.train import AdamWConfig, TrainStepConfig, adamw_update
+    from repro_torch.train.step import make_loss_fn
+    loss_fn = make_loss_fn(cfg, TrainStepConfig())
+    real = layers._KernelAttention.backward
+    attn = [0.0, 0]
+
+    def timed(ctx, dout):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(ctx, dout)
+        torch.cuda.synchronize()
+        attn[0] += time.perf_counter() - t
+        attn[1] += 1
+        return out
+    layers._KernelAttention.backward = staticmethod(timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flat = [p.detach().requires_grad_(True)
+                for p in tree.leaves(state.params)]
+        total, _ = loss_fn(tree.unflatten(state.params, flat), batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(total, flat)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        adamw_update(AdamWConfig(), state.opt, state.params,
+                     tree.unflatten(state.params, list(grads)), inplace=True)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        layers._KernelAttention.backward = staticmethod(real)
+    return {"forward_loss_s": t1 - t0, "backward_s": t2 - t1,
+            "attention_backward_s": attn[0], "attention_backward_calls":
+            attn[1], "adamw_s": t3 - t2, "step_s": t3 - t0}
+
+
+def phase_train_full(seed: int, steps: int = 12, batch: int = 8,
+                     seq: int = 2048, ckpt_every: int = 6) -> int:
+    """9a: smollm-135m at full width and depth (bf16, seeded weights)
+    through ``python -m repro_torch.launch.train`` (remat, lr 3e-4 with
+    its warmup), a checkpoint every ``ckpt_every`` steps; then a
+    ``--resume`` from the middle checkpoint alone, which must restore the
+    saved tensors bit for bit and repeat the later losses within 1e-2.
+    Returns the flash launches of both runs."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    cfg = get_config("smollm-135m")
+    work = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    argv = ["--arch", "smollm-135m", "--steps", str(steps), "--batch",
+            str(batch), "--seq", str(seq), "--ckpt-every", str(ckpt_every),
+            "--seed", str(seed), "--log-every", "1"]
+    per_step = train_flash_per_step(cfg, seq, remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_launches()
+    run, closing = run_launcher(argv + ["--ckpt-dir", str(work / "a")])
+    launches = read_launches()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash"] = per_step * steps
+    if launches != want:
+        raise AssertionError(f"train 9a: launches {launches} != {want}")
+    if not (closing["improved"] and all(np.isfinite(run.losses))
+            and len(run.losses) == steps):
+        raise AssertionError(f"train 9a: losses {run.losses}")
+    # the resume: a directory holding only the middle checkpoint
+    mid = f"step_{ckpt_every:010d}"
+    shutil.copytree(work / "a" / mid, work / "b" / mid)
+    saved = checkpoint_sha1s(work / "b" / mid)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    restored, at = CheckpointManager(work / "b").restore_latest(run.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    restored_bitwise = at == ckpt_every and tensor_sha1s(restored) == saved
+    if not restored_bitwise:
+        raise AssertionError("train 9a: the restored state is not the "
+                             "saved one")
+    del restored
+    reset_launches()
+    again, closing2 = run_launcher(argv + ["--ckpt-dir", str(work / "b"),
+                                           "--resume"])
+    launches2 = read_launches()
+    want["flash"] = per_step * (steps - ckpt_every)
+    if launches2 != want or again.start_step != ckpt_every:
+        raise AssertionError(f"train 9a resume: launches {launches2}, "
+                             f"start {again.start_step}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(again.losses,
+                                               run.losses[ckpt_every:])]
+    if len(rel) != steps - ckpt_every or max(rel) > 1e-2:
+        raise AssertionError(f"train 9a resume: losses {again.losses} "
+                             f"against {run.losses[ckpt_every:]}")
+    median = statistics.median(run.step_seconds[1:])
+    from repro_torch.data import TokenPipeline
+    pipe = TokenPipeline(vocab_size=cfg.vocab, batch=batch, seq_len=seq,
+                         seed=seed)
+    parts = train_step_parts(cfg, again.state, _on(pipe.get_batch(steps),
+                                                   "cuda"))
+    emit({"phase": "train", "leg": "9a full width", "model": cfg.name,
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": batch,
+          "seq": seq, "steps": steps, "remat": True,
+          "n_params": sum(t.numel() for t in
+                          _leaves(run.state.params)),
+          "losses": run.losses, "first_loss": closing["first_loss"],
+          "final_loss": closing["final_loss"],
+          "improved": closing["improved"],
+          "step_seconds": run.step_seconds,
+          "step_s_median_after_first": median,
+          "tokens_per_s": batch * seq / median,
+          "step_parts": parts, "peak_device_bytes": peak,
+          "flash_launches_per_step": per_step, "launches": launches,
+          "checkpoint_saves": [{"step": s, "seconds": t, "bytes": n}
+                               for s, t, n in run.saves],
+          "restore_seconds": restore_s,
+          "restore_bytes": sum(f.stat().st_size for f in
+                               (work / "b" / mid).iterdir()),
+          "restored_bitwise": restored_bitwise,
+          "resume": {"start_step": again.start_step,
+                     "losses": again.losses,
+                     "max_rel_loss_diff": max(rel),
+                     "launcher_restore_seconds": again.restore_seconds,
+                     "step_s_median": statistics.median(again.step_seconds),
+                     "launches": launches2},
+          "seconds": seconds + time.perf_counter() - t1})
+    shutil.rmtree(work, ignore_errors=True)
+    del run, again
+    torch.cuda.empty_cache()
+    return launches["flash"] + launches2["flash"]
+
+
+def _leaves(tree_):
+    from repro_torch import tree
+    return tree.leaves(tree_)
+
+
+def _train_inputs(cfg, batch: int, seq: int, step: int, seed: int) -> dict:
+    """The token pipeline's batch (numpy), with llava's image and
+    whisper's frame embeddings (seeded normal(0, 1), f32)."""
+    from repro_torch.data import synthetic_tokens
+    b = synthetic_tokens(cfg.vocab, batch, seq, step, seed)
+    rng = np.random.default_rng(seed + step)
+    if cfg.n_img_tokens:
+        b["image_embeds"] = rng.standard_normal(
+            (batch, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.enc_dec:
+        b["frames"] = rng.standard_normal(
+            (batch, cfg.enc_positions, cfg.d_model)).astype(np.float32)
+    return b
+
+
+def _on(b: dict, dev: str) -> dict:
+    import torch
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def _weights_both(cfg, seed: int):
+    """One set of seeded weights on the CPU and on the card."""
+    import torch
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models import init_params
+    cpu = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    return cpu, params_from_numpy(params_to_numpy(cpu), cfg, "cuda")
+
+
+def _steps_both(cfg, cpu, gpu, batches, label: str) -> tuple:
+    """``make_train_step`` (remat, ``TRAIN_OPT``) on both sides over
+    ``batches``; each step's loss within ``TRAIN_TOL["loss"]``, the
+    parameters after the last within ``TRAIN_TOL["param"]`` (see
+    there). Returns (losses (cpu, card) a step, a record of the
+    parameter differences)."""
+    from repro_torch.train import (AdamWConfig, TrainState,
+                                   TrainStepConfig, adamw_init,
+                                   make_train_step)
+    fn = make_train_step(cfg, TrainStepConfig(), AdamWConfig(**TRAIN_OPT))
+    sc = TrainState(cpu, adamw_init(cpu))
+    sg = TrainState(gpu, adamw_init(gpu))
+    losses = []
+    for b in batches:
+        sc, mc = fn(sc, _on(b, "cpu"))
+        sg, mg = fn(sg, _on(b, "cuda"))
+        lc, lg = float(mc["loss"]), float(mg["loss"])
+        losses.append((lc, lg))
+        if not abs(lg - lc) <= TRAIN_TOL["loss"] * abs(lc):
+            raise AssertionError(f"{label}: loss {lg} on the card, {lc} on "
+                                 f"the CPU")
+    over, total, err = 0, 0, 0.0
+    for a, b in zip(_leaves(sc.params), _leaves(sg.params)):
+        d = (b.cpu() - a).abs()
+        over += int((d > TRAIN_TOL["param"]).sum())
+        total += d.numel()
+        err = max(err, float(d.max()))
+    bound = 2 * TRAIN_OPT["lr_peak"] * len(batches)
+    if over > TRAIN_TOL["param_share"] * total or err > bound:
+        raise AssertionError(f"{label}: {over} of {total} params differ by "
+                             f"more than {TRAIN_TOL['param']} after "
+                             f"{len(batches)} steps, the most by {err}")
+    return losses, {"param_max_abs_err": err, "params_over_tol": over,
+                    "params": total, "param_tol": TRAIN_TOL["param"]}
+
+
+def phase_train_parity(seed: int, batch: int = 2, seq: int = 128,
+                       steps: int = 3) -> int:
+    """9b: smollm-135m at full width with 2 layers, f32, one set of
+    weights on the CPU and on the card: the first batch's gradients
+    (each leaf, and wq, wk, wv non-zero on both: what a kernel that cut
+    the gradient would fail), the compressed sync with two pods (both on
+    cuda:0) within one quantization step an element, then ``steps``
+    train steps. Returns the card's flash launches."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash as kfl
+    from repro_torch.train import TrainStepConfig
+    from repro_torch.train.step import make_grad_fn
+    cfg = dataclasses.replace(get_config("smollm-135m"), n_layers=2,
+                              dtype="float32")
+    cpu, gpu = _weights_both(cfg, seed)
+    batches = [_train_inputs(cfg, batch, seq, i, seed) for i in range(steps)]
+    per_step = train_flash_per_step(cfg, seq, remat=True)
+    before = kfl.launches
+    grad = make_grad_fn(cfg, TrainStepConfig())
+    g_c, _ = grad(cpu, _on(batches[0], "cpu"))
+    g_g, _ = grad(gpu, _on(batches[0], "cuda"))
+    grad_rel = {}
+    for (key, a), b in zip(tree.flatten_with_path(g_c), _leaves(g_g)):
+        scale = float(a.abs().max())
+        err = float((b.cpu() - a).abs().max())
+        grad_rel[key] = err / scale if scale else err
+        if not err <= TRAIN_TOL["grad"] * scale:
+            raise AssertionError(f"train 9b: gradient {key} differs by "
+                                 f"{err} (largest |g| {scale})")
+    qkv_abs = {k: [float(g["blocks"][k].abs().max()) for g in (g_c, g_g)]
+               for k in ("wq", "wk", "wv")}
+    if not all(min(v) > 0 for v in qkv_abs.values()):
+        raise AssertionError(f"train 9b: attention gradients {qkv_abs}")
+    # the compressed sync, both pods on cuda:0; its step from the pods'
+    # own gradients
+    half = {k: [v[:batch // 2], v[batch // 2:]] for k, v in
+            batches[0].items()}
+    pods = [grad(cpu, _on({k: v[i] for k, v in half.items()}, "cpu"))[0]
+            for i in range(2)]
+    sync = make_grad_fn(cfg, TrainStepConfig(grad_compress=True, n_pods=2))
+    q_c, _ = sync(cpu, _on(batches[0], "cpu"))
+    q_g, _ = sync(gpu, _on(batches[0], "cuda"))
+    in_steps = 0.0
+    for (key, a), b, p0, p1 in zip(tree.flatten_with_path(q_c),
+                                   _leaves(q_g), _leaves(pods[0]),
+                                   _leaves(pods[1])):
+        amax = max(float(p0.abs().max()), float(p1.abs().max()))
+        qstep = max(amax * 2e-3, amax / (32767 / 2), 1e-30)
+        err = float((b.cpu() - a).abs().max())
+        in_steps = max(in_steps, err / qstep)
+        if not err <= qstep:
+            raise AssertionError(f"train 9b: compressed {key} differs by "
+                                 f"{err}, a step is {qstep}")
+    losses, param_rec = _steps_both(cfg, cpu, gpu, batches, "train 9b")
+    launches = kfl.launches - before
+    # grads once, two pods, then the steps
+    if launches != per_step * (1 + 2 + steps):
+        raise AssertionError(f"train 9b: {launches} flash launches, "
+                             f"{per_step * (3 + steps)} expected")
+    emit({"phase": "train", "leg": "9b card vs CPU", "model": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "dtype": cfg.dtype, "batch": batch, "seq": seq, "steps": steps,
+          "losses_cpu_card": losses, "loss_tol": TRAIN_TOL["loss"],
+          "grad_max_rel_err": max(grad_rel.values()),
+          "grad_rel_err_attention": {k: grad_rel[f"blocks/{k}"]
+                                     for k in ("wq", "wk", "wv")},
+          "attention_grad_abs_max_cpu_card": qkv_abs,
+          "grad_tol": TRAIN_TOL["grad"],
+          "compressed_max_err_in_quant_steps": in_steps, **param_rec,
+          "flash_launches": launches})
+    del cpu, gpu, g_c, g_g, q_c, q_g
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_families(seed: int, batch: int = 2, seq: int = 16) -> int:
+    """9c: one train step of each family's smoke config in f32 on the
+    card and on the CPU, one set of weights: the loss and the updated
+    parameters within ``TRAIN_TOL``, and the card's flash launches
+    exactly ``train_flash_per_step``. Returns them."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash as kfl
+    total = 0
+    for arch in TRAIN_FAMILIES:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        cpu, gpu = _weights_both(cfg, seed)
+        before = kfl.launches
+        losses, param_rec = _steps_both(
+            cfg, cpu, gpu, [_train_inputs(cfg, batch, seq, 0, seed)],
+            f"train 9c {cfg.name}")
+        launches = kfl.launches - before
+        want = train_flash_per_step(cfg, seq, remat=True)
+        if launches != want:
+            raise AssertionError(f"train 9c {cfg.name}: {launches} flash "
+                                 f"launches, {want} expected")
+        total += launches
+        emit({"phase": "train", "leg": "9c family", "model": cfg.name,
+              "family": cfg.family, "dtype": cfg.dtype, "batch": batch,
+              "seq": seq, "loss_cpu_card": losses[0],
+              "loss_rel_err": abs(losses[0][1] - losses[0][0])
+              / abs(losses[0][0]), **param_rec,
+              "flash_launches": launches})
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nyx", type=int, default=512,
@@ -2720,6 +3135,12 @@ def main(argv=None) -> int:
     phase_family_parity(seed=4)
     phase_recurrent_parity(seed=5)
     emit({"phase": "lm_families_total", "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    launches["flash"] += phase_train_full(seed=6)
+    launches["flash"] += phase_train_parity(seed=7)
+    launches["flash"] += phase_train_families(seed=8)
+    emit({"phase": "train_total", "seconds": time.perf_counter() - t0})
 
     # each kernel's row: its times at its main-path shape (nyx for the
     # MSS kernels, the 8 x 2048 prefill for flash), its largest error

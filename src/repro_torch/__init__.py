@@ -13,13 +13,16 @@ counterpart is easy to find. It imports ``torch`` and never ``jax`` or
   the corrected field ``g``, fix-loop iteration counts and every payload
   byte. Kernels: ``kernels.extrema``, ``kernels.fixpass``,
   ``kernels.lorenzo`` and ``kernels.pack``.
-* LM serving of the dense family (``models``, ``serve``): the prefill
-  (``serve.make_prefill``, the full forward) and greedy decode
-  (``serve.make_serve_step``) of smollm-135m, granite-8b and
-  deepseek-coder-33b shaped configs. The prefill's attention is the
-  ``kernels.flash`` kernel; the port meets a stated tolerance against
-  the reference there, since the reference's Pallas kernel and its jnp
-  oracle differ in bf16.
+* LM serving of every family of ``configs`` (``models``, ``serve``):
+  the prefill (``serve.make_prefill``, the full forward) and greedy
+  decode (``serve.make_serve_step``). Plain causal or full attention is
+  the ``kernels.flash`` kernel; the port meets a stated tolerance
+  against the reference there, since the reference's Pallas kernel and
+  its jnp oracle differ in bf16.
+* LM training (``train``, ``launch.train``): autograd through the same
+  forward (the kernel's output takes the oracle's gradient), AdamW, the
+  compressed gradient sync (``distributed.compression``) and
+  checkpoints in the reference's format (``checkpoint``).
 
 Each kernel is hand-written CUDA C++ with a plain PyTorch version beside
 it that CPU tensors reach. Entry points take ``device=None``, meaning

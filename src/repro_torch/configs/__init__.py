@@ -1,9 +1,8 @@
 """Assigned-architecture registry: ``get_config(arch_id)``.
 
 The port's own copy of ``repro.configs``: the same ten configs and smoke
-configs, as pure data. The model serves every transformer family
-(dense, gemma2, MoE, llava, whisper); xLSTM and hymba raise
-``NotImplementedError`` in ``models.model``."""
+configs, as pure data. The model serves and trains every one of them
+(dense, gemma2, MoE, llava, whisper, xLSTM, hymba)."""
 from __future__ import annotations
 
 import importlib

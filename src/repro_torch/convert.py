@@ -14,7 +14,9 @@ package imports the other:
 The LM's state is its parameter dict; ``params_from_numpy`` and
 ``params_to_numpy`` carry it across as float32 numpy arrays (the
 reference's bf16 weights widen to f32 and narrow back losslessly), with
-no dependency on ``ml_dtypes``.
+no dependency on ``ml_dtypes``. A training state crosses with
+``train_state_from_numpy`` / ``train_state_to_numpy``: its params so,
+the AdamW moments ``m`` and ``v`` as float32 and ``step`` as int32.
 """
 from __future__ import annotations
 
@@ -26,8 +28,10 @@ import torch
 
 from .compress.preserve import CompressedArtifact
 from .core.fixes import FieldTopo
+from . import tree
 from .device import DeviceLike, _d2h, _h2d, resolve_device
 from .models.config import ArchConfig
+from .train import AdamWState, TrainState
 
 
 def topo_from_numpy(arrays: Mapping[str, np.ndarray],
@@ -90,5 +94,40 @@ def params_to_numpy(params: Mapping) -> dict:
             else _d2h(v.float()) for k, v in params.items()}
 
 
+def train_state_from_numpy(state, cfg: ArchConfig,
+                           device: DeviceLike = None) -> TrainState:
+    """The port's ``TrainState`` from one given as numpy arrays with the
+    reference's structure (``.params``, ``.opt.step``, ``.opt.m``,
+    ``.opt.v``; e.g. the reference's ``TrainState`` after
+    ``jax.tree.map`` to numpy, params and moments in float32): params as
+    ``params_from_numpy`` makes them, m and v float32, step int32, all
+    on ``device``."""
+    dev = resolve_device(device)
+
+    def f32(a):
+        a = np.asarray(a)
+        if a.dtype != np.float32:
+            raise TypeError(f"train_state_from_numpy: float32 moments, got "
+                            f"{a.dtype}")
+        return _h2d(a, dev)
+    opt = state.opt
+    return TrainState(
+        params=params_from_numpy(state.params, cfg, dev),
+        opt=AdamWState(step=_h2d(np.asarray(opt.step, np.int32), dev),
+                       m=tree.tree_map(f32, opt.m),
+                       v=tree.tree_map(f32, opt.v)))
+
+
+def train_state_to_numpy(state: TrainState) -> TrainState:
+    """The inverse of ``train_state_from_numpy``: a ``TrainState`` of
+    numpy arrays (params and moments float32, step int32)."""
+    return TrainState(
+        params=params_to_numpy(state.params),
+        opt=AdamWState(step=_d2h(state.opt.step).astype(np.int32),
+                       m=tree.tree_map(_d2h, state.opt.m),
+                       v=tree.tree_map(_d2h, state.opt.v)))
+
+
 __all__ = ["topo_from_numpy", "artifact_to_dict", "artifact_from_dict",
-           "params_from_numpy", "params_to_numpy"]
+           "params_from_numpy", "params_to_numpy", "train_state_from_numpy",
+           "train_state_to_numpy"]

@@ -16,6 +16,9 @@ reference's emulated host devices) or all lie on the CPU
 ``with mesh:`` makes a mesh the active one of the calling context (a
 ``contextvars`` stack), which ``backend="auto"`` consults as the
 reference consults its ``with mesh:`` context.
+
+``make_host_mesh`` is the reference's degenerate 1 x 1 ``("data",
+"model")`` mesh on one device, which the train launcher runs on.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ import numpy as np
 import torch
 
 __all__ = ["BLOCK_AXIS_ORDER", "DeviceMesh", "active_mesh",
-           "factor_block_shape", "make_block_mesh", "make_data_mesh"]
+           "factor_block_shape", "make_block_mesh", "make_data_mesh",
+           "make_host_mesh"]
 
 #: mesh axis names for block meshes, outermost first; the LAST k of these
 #: name a k-axis mesh, so the slab axis (data_z, field axis 0) is always
@@ -143,6 +147,15 @@ def make_data_mesh(n_devices: Optional[int] = None, *,
         n_devices = len(devices) if devices is not None else len(_visible())
     return DeviceMesh(_object_array(_place(int(n_devices), devices,
                                            "data mesh")), ("data",))
+
+
+def make_host_mesh(device: Optional[DeviceSpec] = None) -> DeviceMesh:
+    """The degenerate 1 x 1 ``("data", "model")`` mesh on one device
+    (``cuda`` unless ``device`` names another; ``resolve_device``'s
+    rule), so the launchers' mesh code runs unchanged on one card."""
+    from ..device import resolve_device
+    return DeviceMesh(_object_array([resolve_device(device)]).reshape(1, 1),
+                      ("data", "model"))
 
 
 def factor_block_shape(n_devices: int, ndim: int = 2) -> Tuple[int, ...]:

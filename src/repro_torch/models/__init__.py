@@ -5,7 +5,9 @@ the reference's parameter dicts (blocks stacked on a leading layer axis),
 activations (B, S, H, Dh), KV cache (L, B, T, Hk, Dh) and recurrent
 states. Plain causal or full attention runs the hand-written flash kernel
 (``kernels.flash``) on CUDA tensors; the recurrent scans are plain torch,
-as the reference's are plain jnp. Sharding is not ported: on one GPU the
+as the reference's are plain jnp. ``forward`` is differentiable for
+every family (``forward(..., remat=True)`` recomputes each layer in the
+backward), which ``train`` builds on. Sharding is not ported: on one GPU the
 reference's ``constrain_*`` calls are the identity, and ``moe_ffn_ep``
 falls back to ``moe_ffn`` there."""
 from . import recurrent

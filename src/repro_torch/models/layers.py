@@ -10,13 +10,15 @@ parameter dicts in, tensors out), with the reference's conventions:
     reference's are plain jnp: no kernel.
 
 ``flash_attention`` keeps the reference's chunked online softmax (its
-non-Pallas path, the jnp oracle) in plain torch, and routes the plain
-causal or full case to the hand-written kernel (``kernels.flash``): when
-``window`` masks nothing (None, or at least T), there is no logit
-softcap and no query offset. Unlike the reference it imposes no
-``S % 128`` condition: the kernel masks ragged tails. The kernel computes
-the Pallas kernel's numbers, which differ from the oracle's in bf16
-(ROADMAP Queue 3).
+non-Pallas path, the jnp oracle: ``oracle_attention``) in plain torch,
+and routes the plain causal or full case to the hand-written kernel
+(``kernels.flash``): when ``window`` masks nothing (None, or at least
+T), there is no logit softcap and no query offset. Under autograd the
+kernel's output takes the oracle's gradient (``_KernelAttention``), the
+gradient ``jax.grad`` takes in the reference. Unlike the reference it
+imposes no ``S % 128`` condition: the kernel masks ragged tails. The
+kernel computes the Pallas kernel's numbers, which differ from the
+oracle's in bf16 (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -92,54 +94,143 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, S, H, D); k/v: (B, T, Hk, D). Returns (B, S, H, D).
     ``window``: only attend to keys with q_pos - k_pos < window (local
     attention), a Python int. The plain causal/full case goes to
-    ``kernels.flash.flash_attention``; the rest runs the reference's
-    chunked oracle in plain torch."""
+    ``kernels.flash.flash_attention`` (through ``_KernelAttention`` when a
+    gradient is wanted); the rest runs the reference's chunked oracle in
+    plain torch, which autograd differentiates as it is."""
     T = k.shape[1]
     if ((window is None or window >= T) and logit_softcap is None
             and q_offset == 0):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _KernelAttention.apply(q, k, v, causal, q_chunk, k_chunk)
         return kflash.flash_attention(q, k, v, causal=causal)
+    return oracle_attention(q, k, v, causal=causal, window=window,
+                            logit_softcap=logit_softcap, q_offset=q_offset,
+                            q_chunk=q_chunk, k_chunk=k_chunk)
+
+
+def oracle_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = True,
+                     window: Optional[int] = None,
+                     logit_softcap: Optional[float] = None,
+                     q_offset: int = 0,
+                     q_chunk: int = 512, k_chunk: int = 1024
+                     ) -> torch.Tensor:
+    """The reference's chunked online-softmax oracle
+    (``repro.models.layers.flash_attention`` off its Pallas branch) in
+    plain torch: query chunks of ``_pick_chunk(S, q_chunk)``, each against
+    every key chunk of ``_pick_chunk(T, k_chunk)``, masked, never the
+    whole S x T. Arguments as ``flash_attention``'s."""
+    T = k.shape[1]
     B, S, H, D = q.shape
     Hk = k.shape[2]
     G = H // Hk
     qc = _pick_chunk(S, q_chunk)
     kc = _pick_chunk(T, k_chunk)
-    scale = kflash.softmax_scale(D)
-    dev = q.device
     # (B, Hk, G, S, D) and (B, Hk, 1, T, D): head h = hk * G + g
     qr = q.float().reshape(B, S, Hk, G, D).permute(0, 2, 3, 1, 4)
     kr = k.float().permute(0, 2, 1, 3)[:, :, None]
     vr = v.permute(0, 2, 1, 3)[:, :, None]
-    out = torch.empty((B, Hk, G, S, D), dtype=torch.float32, device=dev)
-    neg_inf = float("-inf")
+    out = torch.empty((B, Hk, G, S, D), dtype=torch.float32, device=q.device)
     for i0 in range(0, S, qc):
-        qb = qr[:, :, :, i0:i0 + qc]
-        q_pos = q_offset + i0 + torch.arange(qc, device=dev)
-        m = torch.full((B, Hk, G, qc), neg_inf, device=dev)
-        l = torch.zeros((B, Hk, G, qc), device=dev)
-        acc = torch.zeros((B, Hk, G, qc, D), device=dev)
-        for j0 in range(0, T, kc):
-            s = torch.matmul(qb, kr[..., j0:j0 + kc, :].transpose(-1, -2))
-            s = softcap(s * scale, logit_softcap)
-            k_pos = j0 + torch.arange(kc, device=dev)
-            mask = torch.ones((qc, kc), dtype=torch.bool, device=dev)
-            if causal:
-                mask &= q_pos[:, None] >= k_pos[None, :]
-            if window is not None:
-                mask &= (q_pos[:, None] - k_pos[None, :]) < window
-            s = s.masked_fill(~mask, neg_inf)
-            m2 = torch.maximum(m, s.amax(-1))
-            # guard fully-masked rows (m2 = -inf)
-            m_safe = torch.where(torch.isfinite(m2), m2, 0.0)
-            p = torch.exp(s - m_safe[..., None])
-            p = p.masked_fill(~mask, 0.0)
-            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-            l = l * corr + p.sum(-1)
-            pv = torch.matmul(p.to(v.dtype).float(),
-                              vr[..., j0:j0 + kc, :].float())
-            acc = acc * corr[..., None] + pv
-            m = m2
-        out[:, :, :, i0:i0 + qc] = acc / torch.clamp_min(l, 1e-37)[..., None]
+        out[:, :, :, i0:i0 + qc] = _attend_rows(
+            qr[:, :, :, i0:i0 + qc], kr, vr, v.dtype, q_offset + i0, kc,
+            causal, window, logit_softcap)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+def _attend_rows(qb: torch.Tensor, kr: torch.Tensor, vr: torch.Tensor,
+                 v_dtype: torch.dtype, q0: int, kc: int, causal: bool,
+                 window: Optional[int],
+                 logit_softcap: Optional[float]) -> torch.Tensor:
+    """One query chunk of the oracle: qb (B, Hk, G, qc, D) f32 at query
+    positions q0.., against every key chunk of kr (B, Hk, 1, T, D) f32 and
+    vr (its dtype or f32; p is rounded to ``v_dtype`` before p . v, as
+    the reference's einsum takes it). Returns (B, Hk, G, qc, D) f32."""
+    B, Hk, G, qc, D = qb.shape
+    T = kr.shape[3]
+    dev = qb.device
+    scale = kflash.softmax_scale(D)
+    q_pos = q0 + torch.arange(qc, device=dev)
+    m = torch.full((B, Hk, G, qc), float("-inf"), device=dev)
+    l = torch.zeros((B, Hk, G, qc), device=dev)
+    acc = torch.zeros((B, Hk, G, qc, D), device=dev)
+    for j0 in range(0, T, kc):
+        s = torch.matmul(qb, kr[..., j0:j0 + kc, :].transpose(-1, -2))
+        s = softcap(s * scale, logit_softcap)
+        k_pos = j0 + torch.arange(kc, device=dev)
+        mask = torch.ones((qc, kc), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window is not None:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        s = s.masked_fill(~mask, float("-inf"))
+        m2 = torch.maximum(m, s.amax(-1))
+        # guard fully-masked rows (m2 = -inf)
+        m_safe = torch.where(torch.isfinite(m2), m2, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        p = p.masked_fill(~mask, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * corr + p.sum(-1)
+        pv = torch.matmul(p.to(v_dtype).float(),
+                          vr[..., j0:j0 + kc, :].float())
+        acc = acc * corr[..., None] + pv
+        m = m2
+    return acc / torch.clamp_min(l, 1e-37)[..., None]
+
+
+class _KernelAttention(torch.autograd.Function):
+    """The flash kernel's forward with the oracle's gradient.
+
+    Forward: ``kernels.flash.flash_attention`` as it is (on a CUDA tensor
+    the kernel, on a CPU tensor its plain version), which saves q, k, v.
+    Backward: the gradient of the reference's chunked oracle (the
+    function ``jax.grad`` differentiates there: its Pallas kernel has no
+    VJP and is off on the training path), recomputed from q, k and v one
+    query chunk at a time with ``torch.autograd.grad``, so no more than
+    (q_chunk x T) scores a head are held at once. dk and dv sum over the
+    chunks in f32 and are cast to k's and v's dtype once, as autograd
+    through the whole oracle casts them. No backward kernel: the
+    reference has none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_chunk: int, k_chunk: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.q_chunk, ctx.k_chunk = causal, q_chunk, k_chunk
+        return kflash.flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        B, S, H, D = q.shape
+        T, Hk = k.shape[1], k.shape[2]
+        G = H // Hk
+        qc = _pick_chunk(S, ctx.q_chunk)
+        kc = _pick_chunk(T, ctx.k_chunk)
+        qr = q.detach().float().reshape(B, S, Hk, G, D).permute(0, 2, 3, 1, 4)
+        dor = dout.float().reshape(B, S, Hk, G, D).permute(0, 2, 3, 1, 4)
+        kr = k.detach().float().permute(0, 2, 1, 3)[:, :, None] \
+            .requires_grad_(True)
+        vr = v.detach().float().permute(0, 2, 1, 3)[:, :, None] \
+            .requires_grad_(True)
+        dq = torch.empty_like(qr)
+        dk = torch.zeros_like(kr)
+        dv = torch.zeros_like(vr)
+        for i0 in range(0, S, qc):
+            qb = qr[:, :, :, i0:i0 + qc].detach().requires_grad_(True)
+            with torch.enable_grad():
+                o = _attend_rows(qb, kr, vr, v.dtype, i0, kc, ctx.causal,
+                                 None, None)
+                gq, gk, gv = torch.autograd.grad(
+                    o, (qb, kr, vr), dor[:, :, :, i0:i0 + qc])
+            dq[:, :, :, i0:i0 + qc] = gq
+            dk += gk
+            dv += gv
+        dq = dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+        dk = dk[:, :, 0].permute(0, 2, 1, 3).to(k.dtype)
+        dv = dv[:, :, 0].permute(0, 2, 1, 3).to(v.dtype)
+        return dq, dk, dv, None, None, None
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -299,9 +390,13 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         li = log_i[:, s0:s0 + L].float()
         LF = torch.cumsum(log_f[:, s0:s0 + L].float(), dim=1)  # (B, L, H)
         tot = LF[:, -1]                                   # (B, H)
-        # w[t, s] = exp(LF_t - LF_s + li_s), s <= t      (B, L, M, H)
-        w = torch.where(tri, torch.exp(LF[:, :, None] - LF[:, None]
-                                       + li[:, None]), 0.0)
+        # w[t, s] = exp(LF_t - LF_s + li_s), s <= t      (B, L, M, H); the
+        # exponent is masked to -inf before the exp, not the exp after it
+        # (the reference's order): the same values, but above the
+        # diagonal the exponent overflows, and exp's gradient there is
+        # 0 * inf = nan
+        w = torch.exp((LF[:, :, None] - LF[:, None] + li[:, None])
+                      .masked_fill(~tri, float("-inf")))
         dec = torch.exp(LF)                               # (B, L, H)
         h_inter = torch.einsum("bhde,blhe->blhd", C, qc) * dec[..., None]
         n_inter = dec[..., None] * n[:, None]             # (B, L, H, D)
@@ -399,7 +494,10 @@ def ssm_scan(x: torch.Tensor, delta: torch.Tensor, Bmat: torch.Tensor,
     (H, N) (A = -exp(A_log)). h_t = exp(delta_t A) h_{t-1} + delta_t B_t
     x_t^T; y_t = C_t . h_t. The intra-chunk weights (B, L, M, H, N) are
     formed once a chunk, as the reference forms them, and reduced in
-    place. Returns (B, S, H, D) in x's dtype."""
+    place (0.84 GB a chunk at hymba's 8 x 2048), or out of place when
+    autograd records the scan: it saves the tensors the in-place form
+    overwrites. Both forms give the same bits. Returns (B, S, H, D) in
+    x's dtype."""
     B, S, H, D = x.shape
     L = _pick_chunk(S, chunk)
     dev = x.device
@@ -411,6 +509,8 @@ def ssm_scan(x: torch.Tensor, delta: torch.Tensor, Bmat: torch.Tensor,
     h = torch.zeros((B, H, Bmat.shape[-1], D), dtype=torch.float32,
                     device=dev)
     out = torch.empty((B, S, H, D), dtype=x.dtype, device=dev)
+    recorded = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, delta, Bmat, Cmat, A_log))
     for s0 in range(0, S, L):
         xc = x[:, s0:s0 + L].float()
         bc = xB[:, s0:s0 + L]
@@ -418,10 +518,17 @@ def ssm_scan(x: torch.Tensor, delta: torch.Tensor, Bmat: torch.Tensor,
         LG = torch.cumsum(lg[:, s0:s0 + L], dim=1)        # (B, L, H, N)
         tot = LG[:, -1]                                   # (B, H, N)
         y = torch.einsum("blhn,bhnd->blhd", cc * torch.exp(LG), h)
-        # y_intra[t] = sum_s C_t . (w[t, s] B_s) x_s, w = exp(LG_t - LG_s)
-        w = (LG[:, :, None] - LG[:, None]).exp_().masked_fill_(above, 0.0)
-        cb = w.mul_(cc[:, :, None]).mul_(bc[:, None]).sum(-1)  # (B, L, M, H)
-        del w
+        # y_intra[t] = sum_s C_t . (w[t, s] B_s) x_s, w = exp(LG_t - LG_s),
+        # the exponent masked before the exp (as in mlstm_scan)
+        if recorded:
+            w = torch.exp((LG[:, :, None] - LG[:, None])
+                          .masked_fill(above, float("-inf")))
+            cb = (w * cc[:, :, None] * bc[:, None]).sum(-1)
+        else:
+            w = (LG[:, :, None] - LG[:, None]).masked_fill_(
+                above, float("-inf")).exp_()
+            cb = w.mul_(cc[:, :, None]).mul_(bc[:, None]).sum(-1)
+        del w                                             # (B, L, M, H)
         y += torch.einsum("blmh,bmhd->blhd", cb, xc)
         out[:, s0:s0 + L] = y
         wk = torch.exp(tot[:, None] - LG)                 # (B, L, H, N)

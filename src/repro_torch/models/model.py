@@ -13,10 +13,12 @@ an SSM in parallel in every layer, a ring-buffered KV cache and an SSM
 state a layer)."""
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+import functools
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
 from . import blocks, layers, recurrent
@@ -186,6 +188,35 @@ def _layer(stack: Params, i) -> Params:
     return {k: v[i] for k, v in stack.items()}
 
 
+def _layers(stack: Params) -> List[Params]:
+    """Every layer's parameters along the stack's leading axis, views
+    taken by one ``unbind`` a weight: under autograd its backward stacks
+    the layers' gradients once, where a view a layer would add a
+    stack-sized gradient a layer."""
+    cols = {k: v.unbind(0) for k, v in stack.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def _run(remat: bool, fn, *args):
+    """``fn(*args)``, under ``remat`` (and grad mode) through
+    ``torch.utils.checkpoint`` (non-reentrant): the layer keeps only its
+    inputs and runs again in the backward, the same ops on the same
+    values, so the numbers are bitwise those without it."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def _dense_layer(cfg: ArchConfig, lp: Params, x, positions, window: int,
+                 q_offset: int):
+    a = blocks.attention_block(cfg, lp, x, positions, window=window,
+                               q_offset=q_offset)
+    x, aux = blocks.ffn_block(cfg, lp, a.y)
+    return x, aux, a.k, a.v
+
+
 # ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
@@ -202,9 +233,13 @@ def _embed_tokens(cfg: ArchConfig, params: Params,
                   tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings in ``cfg.dtype``; gemma scales them by
     sqrt(d_model) rounded to that dtype first, as the reference's
-    ``x * asarray(d_model ** 0.5, dt)`` does."""
+    ``x * asarray(d_model ** 0.5, dt)`` does. The lookup is
+    ``F.embedding``: the gather of ``embed[tokens]``, with a backward
+    that sums each row's gradients in a fixed order (indexing's
+    backward accumulates with atomics on the CPU, and its bits change
+    from run to run)."""
     dt = _dtype(cfg)
-    x = params["embed"][tokens.long()].to(dt)
+    x = torch.nn.functional.embedding(tokens.long(), params["embed"]).to(dt)
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
     return x
@@ -223,28 +258,37 @@ def _unembed(cfg: ArchConfig, params: Params, x: torch.Tensor
              ) -> torch.Tensor:
     """f32 logits of hidden states, as the reference's einsum with
     ``preferred_element_type=float32`` gives them (products of bf16
-    values are exact in f32), then ``final_softcap``, applied in place
-    (gemma2's 2 x 8192 x 256000 logits are 16.8 GB in f32)."""
+    values are exact in f32), then ``final_softcap``: in place unless
+    autograd records it (gemma2's 2 x 8192 x 256000 logits are 16.8 GB
+    in f32), out of place when it does (``tanh`` saves its output for
+    the backward); both forms give the same bits."""
     unemb = params.get("unembed")
     if unemb is None:
         unemb = params["embed"].T
     logits = x.float() @ unemb.float()
     cap = cfg.final_softcap
     if cap is not None:
-        logits.div_(cap).tanh_().mul_(cap)
+        if logits.requires_grad:
+            logits = torch.tanh(logits / cap) * cap
+        else:
+            logits.div_(cap).tanh_().mul_(cap)
     return logits
 
 
 def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
             *, return_cache: bool = False, q_offset: int = 0,
-            logits_mode: str = "all") -> ForwardOut:
+            logits_mode: str = "all", remat: bool = False) -> ForwardOut:
     """Full-sequence forward. batch: tokens (B, S) int; llava adds
     image_embeds (B, Ni, d); whisper adds frames (B, Te, d).
 
     logits_mode: 'all' (every position, f32), 'last' (unembed only the
     final position), 'hidden' (the final hidden states in ``.logits``).
     xLSTM returns no cache (its recurrent states are not threaded out,
-    as in the reference); hymba's is every layer's k and v."""
+    as in the reference); hymba's is every layer's k and v. ``remat``
+    recomputes each layer (each block of whisper's encoder and decoder,
+    of xLSTM's groups) in the backward (``_run``); the training path's
+    counterpart of the reference's ``jax.checkpoint``. Differentiable
+    throughout: the flash kernel's output takes the oracle's gradient."""
     check_served(cfg)
     x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
@@ -256,37 +300,34 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     if cfg.enc_dec:
         enc = batch["frames"].to(x.dtype)
         enc = enc + params["enc_pos"][None, :enc.shape[1]].to(x.dtype)
-        for i in range(cfg.n_enc_layers):
-            enc = blocks.whisper_encoder_block(
-                cfg, _layer(params["enc_blocks"], i), enc)
+        for lp in _layers(params["enc_blocks"]):
+            enc = _run(remat, blocks.whisper_encoder_block, cfg, lp, enc)
         enc = layers.rms_norm(enc, params["enc_norm"], cfg.norm_eps)
-        for i in range(cfg.n_layers):
-            x, k, v = blocks.whisper_decoder_block(
-                cfg, _layer(params["blocks"], i), x, enc, positions)
+        for lp in _layers(params["blocks"]):
+            x, k, v = _run(remat, blocks.whisper_decoder_block, cfg, lp, x,
+                           enc, positions)
             if return_cache:
                 ks.append(k)
                 vs.append(v)
         extra["enc_out"] = enc
     elif cfg.family == "ssm":
-        x = _xlstm_stack(cfg, params, x)
+        x = _xlstm_stack(cfg, params, x, remat)
     elif cfg.family == "hybrid":
-        for i, w in enumerate(window_schedule(cfg)):
-            x, k, v = recurrent.hymba_block(
-                cfg, _layer(params["blocks"], i), x, positions,
-                window=int(w), q_offset=q_offset)
+        for lp, w in zip(_layers(params["blocks"]), window_schedule(cfg)):
+            x, k, v = _run(remat, functools.partial(
+                recurrent.hymba_block, window=int(w), q_offset=q_offset),
+                cfg, lp, x, positions)
             if return_cache:
                 ks.append(k)
                 vs.append(v)
     else:
-        for i, w in enumerate(window_schedule(cfg)):
-            lp = _layer(params["blocks"], i)
-            a = blocks.attention_block(cfg, lp, x, positions, window=int(w),
-                                       q_offset=q_offset)
-            x, aux = blocks.ffn_block(cfg, lp, a.y)
+        for lp, w in zip(_layers(params["blocks"]), window_schedule(cfg)):
+            x, aux, k, v = _run(remat, _dense_layer, cfg, lp, x, positions,
+                                int(w), q_offset)
             aux_total = aux_total + aux
             if return_cache:
-                ks.append(a.k)
-                vs.append(a.v)
+                ks.append(k)
+                vs.append(v)
     cache = {"kv": (torch.stack(ks), torch.stack(vs)), **extra} \
         if return_cache and ks else None
     del ks, vs                    # the stack holds copies: free before
@@ -300,14 +341,12 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     return ForwardOut(_unembed(cfg, params, x), aux_total, cache)
 
 
-def _xlstm_stack(cfg: ArchConfig, params: Params, x: torch.Tensor
-                 ) -> torch.Tensor:
-    G, per = _xlstm_groups(cfg)
-    for g in range(G):
-        for j in range(per - 1):
-            x = recurrent.mlstm_block(cfg, _layer(params["mlstm"], (g, j)),
-                                      x)
-        x = recurrent.slstm_block(cfg, _layer(params["slstm"], g), x)
+def _xlstm_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
+                 remat: bool = False) -> torch.Tensor:
+    for group, sp in zip(_layers(params["mlstm"]), _layers(params["slstm"])):
+        for mp in _layers(group):
+            x = _run(remat, recurrent.mlstm_block, cfg, mp, x)
+        x = _run(remat, recurrent.slstm_block, cfg, sp, x)
     return x
 
 

@@ -364,3 +364,266 @@ def test_flash_entry_makes_its_device_current():
                    .replace("\\", " ").split())
     assert "int causal, int device, float scale, void* stream" in sig
     assert entry.index("cudaSetDevice(device)") < entry.index("launch<BF16>")
+
+
+# --- the kernel path's gradient ---------------------------------------------
+
+class _OnCardWhileForward(torch.Tensor):
+    """A CPU tensor that reports ``cuda:0`` while ``ON`` is set: the
+    forward then takes the wrapper's launch path (the C entry replaced),
+    and the backward, with ``ON`` cleared, runs on the CPU."""
+    ON = False
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0) if _OnCardWhileForward.ON \
+            else torch.device("cpu")
+
+
+def _fake_launch(monkeypatch, calls):
+    """Replace the flash C entry (and the CUDA device and stream calls
+    around it) by one that writes the plain version's output into ``o``
+    at its pointer, as the kernel would."""
+    import contextlib
+    import ctypes
+
+    class Stream:
+        cuda_stream = 0
+
+    def entry(dtype):
+        def launch(qp, kp, vp, op, B, S, T, H, Hk, Dh, causal, dev, scale,
+                   stream):
+            def view(ptr, shape):
+                n = int(np.prod(shape))
+                buf = (ctypes.c_byte * (n * torch.finfo(dtype).bits // 8)
+                       ).from_address(ptr)
+                t = torch.frombuffer(buf, dtype=dtype)
+                return t.view(shape)
+            q, k, v = (view(qp, (B, S, H, Dh)), view(kp, (B, T, Hk, Dh)),
+                       view(vp, (B, T, Hk, Dh)))
+            o = view(op, (B, S, H, Dh))
+            o.copy_(tflash.flash_attention_plain(q, k, v,
+                                                 causal=bool(causal)))
+            calls.append((B, S, T, H, Hk, Dh, causal))
+            return 0
+        return launch
+    monkeypatch.setattr(tflash, "_entry", entry)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: Stream)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_path_carries_the_oracles_gradient(monkeypatch, dtype,
+                                                  causal):
+    """Through the wrapper's CUDA branch (the kernel's output written
+    through its pointer, as the launch writes it), attention has a
+    gradient: q, k and v each get one, non-zero, equal to autograd
+    through the chunked oracle itself (several query and key chunks).
+    f32: 1e-6 (dk and dv sum over the query chunks in another order).
+    bf16: 2^-6 of the largest |g|, two bf16 ulps at its scale: autograd
+    through the oracle rounds each chunk's bf16 partial of dk and dv and
+    sums them in bf16, the Function sums in f32 and rounds once. Without
+    the autograd Function around the launch the output has no
+    ``grad_fn`` and this fails."""
+    calls = []
+    _fake_launch(monkeypatch, calls)
+    B, S, H, Hk, Dh = 2, 64, 6, 2, 16
+    arrs = [torch.from_numpy(a).to(dtype)
+            for a in _qkv(21, B, S, S, H, Hk, Dh)]
+    dout = torch.from_numpy(np.random.default_rng(22).normal(
+        size=(B, S, H, Dh)).astype(np.float32)).to(dtype)
+    q, k, v = (torch.Tensor._make_subclass(_OnCardWhileForward, a, True)
+               for a in arrs)
+    monkeypatch.setattr(_OnCardWhileForward, "ON", True)
+    before = tflash.launches
+    out = tlayers.flash_attention(q, k, v, causal=causal, q_chunk=16,
+                                  k_chunk=32)
+    assert tflash.launches == before + 1 and len(calls) == 1
+    assert out.grad_fn is not None
+    monkeypatch.setattr(_OnCardWhileForward, "ON", False)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    ref_in = [a.clone().requires_grad_(True) for a in arrs]
+    ref_out = tlayers.oracle_attention(*ref_in, causal=causal, q_chunk=16,
+                                       k_chunk=32)
+    want = torch.autograd.grad(ref_out, ref_in, dout)
+    for name, g, w in zip("qkv", got, want):
+        assert g is not None and g.dtype == dtype, name
+        assert g.float().abs().max() > 0, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+        else:
+            err = (g.float() - w.float()).abs().max()
+            assert err <= 2.0 ** -6 * w.float().abs().max(), (name, err)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_path_gradient_matches_jax_grad_of_the_oracle(causal):
+    """On the CPU (the plain version forward), the q, k, v gradients
+    against ``jax.grad`` of the reference's oracle, f32, 1e-5."""
+    import jax
+    B, S, H, Hk, Dh = 2, 48, 4, 2, 16
+    arrs = _qkv(23, B, S, S, H, Hk, Dh)
+    w = np.random.default_rng(24).normal(size=(B, S, H, Dh)).astype(
+        np.float32)
+
+    def ref(q, k, v):
+        return jnp.sum(jlayers.flash_attention(q, k, v, causal=causal,
+                                               q_chunk=16, k_chunk=16) * w)
+    want = jax.grad(ref, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in arrs))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    out = tlayers.flash_attention(*ts, causal=causal, q_chunk=16,
+                                  k_chunk=16)
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(), ts)
+    for g, wg in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wg), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_kernel_attention_adds_nothing_without_a_gradient(monkeypatch):
+    """With no input requiring a gradient, and under inference mode, the
+    wrapper is called as before: one call, no autograd node."""
+    calls = []
+    real = tflash.flash_attention
+
+    def spy(q, k, v, *, causal=True):
+        calls.append(1)
+        return real(q, k, v, causal=causal)
+    monkeypatch.setattr(tflash, "flash_attention", spy)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(25, 1, 32, 32, 4, 2, 16))
+    assert tlayers.flash_attention(q, k, v).grad_fn is None
+    with torch.inference_mode():
+        qr = q.clone().requires_grad_(False)
+        assert tlayers.flash_attention(qr, k, v).grad_fn is None
+    q.requires_grad_(True)
+    with torch.no_grad():
+        assert tlayers.flash_attention(q, k, v).grad_fn is None
+    assert len(calls) == 3
+
+
+# --- the in-place repairs: gradients flow, serving bits unchanged -----------
+
+def _smoke(arch: str, dtype: str = "float32"):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+def test_final_softcap_backpropagates():
+    """gemma2's ``final_softcap`` under autograd: the gradient of a
+    weighted sum of the logits reaches the embedding, finite, and equals
+    the one through ``cap * tanh(x / cap)`` written out."""
+    from repro_torch.models import forward
+    cfg, p = _smoke("gemma2-9b")
+    assert cfg.final_softcap
+    emb = p["embed"].clone().requires_grad_(True)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 12)).astype(np.int32))
+    w = torch.randn((2, 12, cfg.vocab), generator=torch.Generator()
+                    .manual_seed(1))
+    out = forward(cfg, {**p, "embed": emb}, {"tokens": toks}).logits
+    (g,) = torch.autograd.grad((out * w).sum(), emb)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+    hidden = forward(cfg, {**p, "embed": emb}, {"tokens": toks},
+                     logits_mode="hidden").logits
+    unemb = p["unembed"] if "unembed" in p else emb.T
+    raw = hidden.float() @ unemb.float()
+    capped = cfg.final_softcap * torch.tanh(raw / cfg.final_softcap)
+    (g2,) = torch.autograd.grad((capped * w).sum(), emb)
+    torch.testing.assert_close(g, g2, rtol=1e-5, atol=1e-6)
+
+
+def test_ssm_scan_backpropagates_as_the_reference():
+    """hymba's SSM scan under autograd (two chunks), every input's
+    gradient against ``jax.grad`` of the reference's scan, f32, 1e-4 of
+    its largest value."""
+    import jax
+    rng = np.random.default_rng(26)
+    B, S, H, D, N = 2, 16, 3, 8, 4
+    arrs = [rng.normal(size=s).astype(np.float32) * sc for s, sc in (
+        ((B, S, H, D), 1.0), ((B, S, H), 0.5), ((B, S, H, N), 1.0),
+        ((B, S, H, N), 1.0), ((H, N), 0.3))]
+    w = rng.normal(size=(B, S, H, D)).astype(np.float32)
+
+    def ref(*xs):
+        return jnp.sum(jlayers.ssm_scan(*xs, chunk=8) * w)
+    want = jax.grad(ref, argnums=tuple(range(5)))(
+        *(jnp.asarray(a) for a in arrs))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    got = torch.autograd.grad(
+        (tlayers.ssm_scan(*ts, chunk=8) * torch.from_numpy(w)).sum(), ts)
+    for g, wg in zip(got, want):
+        wg = np.asarray(wg)
+        assert np.isfinite(wg).all()
+        assert np.abs(g.numpy() - wg).max() <= 1e-4 * np.abs(wg).max()
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "hymba-1.5b", "smollm-135m",
+                                  "xlstm-1.3b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serving_logits_are_unchanged_by_the_gradient_repairs(arch, dtype):
+    """The serving prefill (inference mode, or grad mode with no input
+    requiring a gradient: the in-place softcap and SSM weights, the
+    kernel without its autograd Function) and the forward with the
+    parameters requiring gradients (the out-of-place forms, the
+    Function, remat) give the same logits, bit for bit."""
+    from repro_torch.models import forward
+    from repro_torch.serve import make_prefill
+    cfg, p = _smoke(arch, dtype)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 24)).astype(np.int32))
+    with torch.inference_mode():
+        _, served = make_prefill(cfg, max_len=24)(p, {"tokens": toks})
+        full = forward(cfg, p, {"tokens": toks}).logits
+    # grad mode with nothing requiring a gradient: the serving entry
+    # points as callers run them, the in-place forms
+    assert torch.equal(forward(cfg, p, {"tokens": toks}).logits, full)
+    grads_on = {k: v.detach().requires_grad_(True) if isinstance(
+        v, torch.Tensor) else {kk: vv.detach().requires_grad_(True)
+                               for kk, vv in v.items()}
+        for k, v in p.items()}
+    for remat in (False, True):
+        out = forward(cfg, grads_on, {"tokens": toks}, remat=remat).logits
+        assert out.grad_fn is not None
+        assert torch.equal(out.detach(), full)
+    assert torch.equal(served[:, -1], full[:, -1])
+
+
+def test_serving_keeps_the_in_place_forms(monkeypatch):
+    """Where autograd records nothing (grad mode on, as the serving entry
+    points run, but no input requires a gradient), the softcap and the
+    SSM weights stay in place (gemma2's f32 logits, hymba's (B, L, M, H,
+    N) weights: no second buffer); only a recorded forward takes the
+    out-of-place forms."""
+    from repro_torch.models import forward
+    calls = {"tanh": 0, "exp_": 0}
+    tanh, exp_ = torch.tanh, torch.Tensor.exp_
+
+    def count_tanh(*a, **kw):
+        calls["tanh"] += 1
+        return tanh(*a, **kw)
+
+    def count_exp_(self):
+        calls["exp_"] += 1
+        return exp_(self)
+    monkeypatch.setattr(torch, "tanh", count_tanh)
+    monkeypatch.setattr(torch.Tensor, "exp_", count_exp_)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (2, 16)).astype(np.int32))
+    cfg, p = _smoke("gemma2-9b")
+    forward(cfg, p, {"tokens": toks}, logits_mode="hidden")
+    hidden_tanh = calls["tanh"]            # the attention softcaps
+    forward(cfg, p, {"tokens": toks})
+    assert calls["tanh"] == 2 * hidden_tanh
+    emb = p["embed"].clone().requires_grad_(True)
+    forward(cfg, {**p, "embed": emb}, {"tokens": toks})
+    assert calls["tanh"] == 3 * hidden_tanh + 1
+    cfg, p = _smoke("hymba-1.5b")
+    forward(cfg, p, {"tokens": toks})
+    assert calls["exp_"] == cfg.n_layers          # one chunk a layer
+    forward(cfg, {**p, "embed": p["embed"].clone().requires_grad_(True)},
+            {"tokens": toks})
+    assert calls["exp_"] == cfg.n_layers
