@@ -188,6 +188,24 @@ Phases, each asserting (any failure exits non-zero):
    hymba), card against CPU within the same tolerances, flash launches
    exactly two per plain attention a step.
 
+10. the sharded LM layer. (10a) ``layers.moe_ffn_ep`` in f32 at d 512,
+   128 experts top-8 and expert ff 256, 4 x 2048 tokens, capacity 1.25,
+   on (1, 4) and (2, 4) ``("data", "model")`` meshes with every shard on
+   cuda:0, against the CPU meshes of the same shapes on the same inputs
+   (tokens and router on a dyadic grid, so both sides route alike), and
+   at 2 experts top-2 (virtual experts): y within 1e-5 of max|y|, aux
+   within 1e-6 relative, a second card run bitwise the first, no kernel
+   launch. (10b) qwen3-moe-235b-a22b at phase 7's cut (8 of 94 layers),
+   bf16, seeded weights, 4 x 2048 prompts through ``make_prefill`` in
+   turns: dense, twice under ``MOE_EP_MODE`` on a (1, 4) mesh with its
+   model shards on cuda:0, dense again; launches counted from 0 around
+   each EP prefill: flash exactly 8, logits finite, the two EP prefills
+   bitwise equal; seconds and peak bytes beside the dense prefills',
+   layer 0's dropped share beside dense's. (10c) ``launch.dryrun.run_cell`` on smollm-135m train_4k
+   (one pod) and qwen3-moe decode_32k (two pods) on meta tensors, each
+   "ok", with their seconds; ``make_production_mesh()`` raises on one
+   card.
+
 Phases 3e-3i run after phase 4. Stdout carries JSON records, then the
 script's total seconds; the line before the last is the per-kernel
 summary, and the last line is ``{"ok": true, "device": {...}}``. Without a
@@ -2980,6 +2998,273 @@ def phase_train_families(seed: int, batch: int = 2, seq: int = 16) -> int:
     return total
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the sharded LM layer (EP MoE, the meta-device dry-run)
+# ---------------------------------------------------------------------------
+
+#: 10a's MoE layer: d, experts, top-k, expert ff, tokens (B, S), capacity
+EP_LAYER = (512, 128, 8, 256, (4, 2048), 1.25)
+#: 10a's meshes ("data", "model"), each against the CPU mesh of its shape
+EP_MESHES = ((1, 4), (2, 4))
+#: 10b: qwen3-moe at phase 7's cut, under MOE_EP_MODE on a (1, 4) mesh
+EP_MODEL = ("qwen3-moe-235b-a22b", 8, 4, 2048)
+#: 10c's dry-run cells: (arch, shape, multi_pod)
+DRYRUN_CELLS = (("smollm_135m", "train_4k", False),
+                ("qwen3_moe_235b_a22b", "decode_32k", True))
+
+
+def ep_mesh(shape, devices):
+    """A ("data", "model") ``DeviceMesh`` of ``shape``, model shard j of
+    every data row on ``devices[j % len(devices)]``."""
+    import torch
+    from repro_torch.launch.mesh import DeviceMesh
+    arr = np.empty(shape, dtype=object)
+    for idx in np.ndindex(*shape):
+        arr[idx] = torch.device(devices[idx[-1] % len(devices)])
+    return DeviceMesh(arr, ("data", "model"))
+
+
+def ep_inputs(E: int, d: int, ff: int, tokens, seed: int):
+    """10a's f32 inputs: the tokens and the router on a dyadic grid (x in
+    quarters, the router in 64ths), so the router's logits are exact on
+    the card and on the CPU and both route every token alike (equal
+    logits pick the lower expert on both); the expert weights normal."""
+    import torch
+    rng = np.random.default_rng(seed)
+    x = np.clip(np.round(rng.standard_normal(tokens + (d,)) * 4) / 4, -2, 2)
+    router = np.round(rng.standard_normal((d, E)) * d ** -0.5 * 64) / 64
+    p = {"router": router}
+    for k, shape, fan in (("w_gate", (E, d, ff), d), ("w_up", (E, d, ff), d),
+                          ("w_down", (E, ff, d), ff)):
+        p[k] = rng.standard_normal(shape) * fan ** -0.5
+    return (torch.from_numpy(x.astype(np.float32)),
+            {k: torch.from_numpy(v.astype(np.float32)) for k, v in p.items()})
+
+
+def ep_dropped_share(x, router, E: int, K: int, mesh_shape,
+                     capacity_factor: float) -> float:
+    """The share of a ``moe_ffn_ep`` call's N*K*m assignments that model
+    shard 0's combine gets no expert output for, recounted from the
+    router's top-k: dropped past ``cap_send`` at the first dispatch, or
+    past ``cap_loc`` at an expert of the second (shard 0's copies arrive
+    first at every shard); ``moe_ffn_ep`` itself runs unchanged."""
+    import math
+    import torch
+    from repro_torch.models import layers
+    dp, tp = mesh_shape
+    N = x.shape[0] * x.shape[1]
+    m = tp // math.gcd(E, tp)
+    N_loc, K_eff, E_loc = N // dp, K * m, E * m // tp
+    cap_send = max(int(np.ceil(N_loc * K_eff / tp * capacity_factor / 8))
+                   * 8, 8)
+    cap_loc = max(int(np.ceil(tp * cap_send / E_loc * capacity_factor / 8))
+                  * 8, 8)
+    probs = torch.softmax(x.reshape(N, -1).float() @ router.float(), dim=-1)
+    ids = layers._top_k(probs, K)[1]
+    dropped = 0
+    for r in range(dp):
+        flat = (ids[r * N_loc:(r + 1) * N_loc, :, None] * m
+                + torch.arange(m, device=ids.device)).reshape(-1)
+        dest = flat // E_loc
+        order = torch.argsort(dest, stable=True)
+        count = torch.bincount(dest, minlength=tp)
+        start = torch.cumsum(count, 0) - count
+        pos = torch.arange(flat.numel(), device=flat.device) \
+            - start[dest[order]]
+        keep = pos < cap_send
+        kept = flat[order][keep]
+        per_expert = torch.bincount(kept, minlength=E * m)
+        dropped += int((~keep).sum()) + int((per_expert - cap_loc)
+                                            .clamp_min(0).sum())
+    return dropped / (N * K_eff)
+
+
+def phase_moe_ep_layer(seed: int) -> None:
+    """10a: ``moe_ffn_ep`` in f32 on each mesh of ``EP_MESHES`` with every
+    shard on cuda:0, against the CPU mesh of the same shape on the same
+    inputs (``ep_inputs``), at E 128 / top-8 and at E 2 / top-2 (two
+    ff-sliced virtual experts an expert): y within 1e-5 of max|y|, aux
+    within 1e-6 relative, a second card run bitwise the first, no kernel
+    launch."""
+    import torch
+    from repro_torch.models import layers
+    d, E0, K0, ff, tokens, cf = EP_LAYER
+    for E, K in ((E0, K0), (2, 2)):
+        x, p = ep_inputs(E, d, ff, tokens, seed + E)
+        xg, pg = x.cuda(), {k: v.cuda() for k, v in p.items()}
+        for shape in EP_MESHES:
+            t0 = time.perf_counter()
+            with ep_mesh(shape, ["cpu"]):
+                want = layers.moe_ffn_ep(x, p, E, K, cf)
+            cpu_s = time.perf_counter() - t0
+            reset_launches()
+            runs, card_s = [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with ep_mesh(shape, [MESH_DEVICE]):
+                    runs.append(layers.moe_ffn_ep(xg, pg, E, K, cf))
+                torch.cuda.synchronize()
+                card_s.append(time.perf_counter() - t0)
+            launches = read_launches()
+            got = runs[0]
+            label = f"moe_ep 10a E {E} mesh {shape}"
+            if any(launches.values()):
+                raise AssertionError(f"{label}: launches {launches}")
+            err = max_abs_diff([got.y.cpu()], [want.y])
+            scale = float(want.y.abs().max())
+            aux_err = abs(float(got.aux_loss) - float(want.aux_loss)) \
+                / abs(float(want.aux_loss))
+            if not err <= 1e-5 * scale or not aux_err <= 1e-6:
+                raise AssertionError(f"{label}: y differs by {err} (max|y| "
+                                     f"{scale}), aux by {aux_err} relative")
+            bitwise = bool(torch.equal(runs[0].y, runs[1].y)
+                           and torch.equal(runs[0].aux_loss,
+                                           runs[1].aux_loss))
+            if not bitwise:
+                raise AssertionError(f"{label}: two card runs differ")
+            emit({"phase": "moe_ep", "leg": "10a", "mesh": list(shape),
+                  "shard_devices": MESH_DEVICE, "experts": E, "top_k": K,
+                  "d_model": d, "expert_ff": ff, "tokens": list(tokens),
+                  "capacity_factor": cf, "dtype": "float32",
+                  "y_max_abs_err": err, "y_max_abs": scale, "y_tol": 1e-5,
+                  "aux_card": float(got.aux_loss),
+                  "aux_cpu": float(want.aux_loss), "aux_rel_err": aux_err,
+                  "dropped_share": ep_dropped_share(x, p["router"], E, K,
+                                                    shape, cf),
+                  "repeat_bitwise": bitwise, "card_s": card_s,
+                  "cpu_s": cpu_s})
+            del runs, got, want
+        del xg, pg
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def recording_ep_load(mesh_shape):
+    """For each ``layers.moe_ffn_ep`` call inside the block, the dropped
+    share (``ep_dropped_share``); the call itself runs unchanged."""
+    from repro_torch.models import layers
+    shares = []
+    real = layers.moe_ffn_ep
+
+    def record(x, p, n_experts, top_k, capacity_factor=1.25):
+        shares.append(ep_dropped_share(x, p["router"], n_experts, top_k,
+                                       mesh_shape, capacity_factor))
+        return real(x, p, n_experts, top_k, capacity_factor)
+    layers.moe_ffn_ep = record
+    try:
+        yield shares
+    finally:
+        layers.moe_ffn_ep = real
+
+
+def phase_moe_ep_model(seed: int) -> int:
+    """10b: qwen3-moe at its published widths, phase 7's depth cut, bf16,
+    seeded weights, through ``make_prefill`` of 4 x 2048 prompts (8,192
+    tokens: EP engages), in turns: dense, twice under ``MOE_EP_MODE`` on a
+    (1, 4) mesh with its four model shards on cuda:0, dense again. Launch
+    counts set to 0 just before each EP prefill and read just after:
+    flash exactly once a layer. Logits finite, the two EP prefills bitwise
+    equal, seconds and peak bytes of each, layer 0's dropped share under
+    EP beside dense's. Returns the EP prefills' flash launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, layers
+    from repro_torch.serve import make_prefill
+    arch, n_layers, batch, prompt_len = EP_MODEL
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                         "cuda")
+    prompt, _ = family_inputs(cfg, batch, prompt_len, seed)
+    prefill = make_prefill(cfg, prompt_len)
+    shape = (1, 4)
+
+    def timed_prefill():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cache, last = prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        return (cache, last, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated())
+
+    with recording_moe_load() as dense_loads:
+        _, dense_last, dense_s, dense_peak = timed_prefill()
+    runs, total = [], 0
+    layers.MOE_EP_MODE = True
+    try:
+        for _ in range(2):
+            reset_launches()
+            with ep_mesh(shape, [MESH_DEVICE]), \
+                    recording_ep_load(shape) as ep_loads:
+                runs.append(timed_prefill())
+            launches = read_launches()
+            want = dict.fromkeys(COUNTERS, 0)
+            want["flash"] = cfg.n_layers
+            if launches != want or len(ep_loads) != cfg.n_layers:
+                raise AssertionError(f"moe_ep 10b: launches {launches}, "
+                                     f"{len(ep_loads)} EP calls")
+            total += launches["flash"]
+    finally:
+        layers.MOE_EP_MODE = False
+    _, _, dense_s2, _ = timed_prefill()
+    (c1, l1, s1, peak1), (c2, l2, s2, peak2) = runs
+    finite = bool(torch.isfinite(l1).all())
+    bitwise = bool(torch.equal(l1, l2) and torch.equal(c1["k"], c2["k"])
+                   and torch.equal(c1["v"], c2["v"]))
+    if not finite or not bitwise:
+        raise AssertionError(f"moe_ep 10b: logits finite {finite}, repeat "
+                             f"bitwise {bitwise}")
+    emit({"phase": "moe_ep", "leg": "10b", "model": cfg.name,
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": batch,
+          "prompt_len": prompt_len, "mesh": list(shape),
+          "shard_devices": MESH_DEVICE, "flash_launches": cfg.n_layers,
+          "dense_prefill_s": [dense_s, dense_s2], "ep_prefill_s": [s1, s2],
+          "dense_peak_device_bytes": dense_peak,
+          "ep_peak_device_bytes": [peak1, peak2], "logits_finite": finite,
+          "repeat_bitwise": bitwise,
+          "layer0_dropped_share_ep": ep_loads[0],
+          "layer0_dropped_share_dense": dense_loads[0]["dropped_share"],
+          "ep_vs_dense_last_logits_max_abs_diff":
+              max_abs_diff([l1.float()], [dense_last.float()])})
+    del params, runs, c1, c2, l1, l2, dense_last
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_dryrun() -> None:
+    """10c: ``launch.dryrun.run_cell`` on ``DRYRUN_CELLS`` (meta tensors
+    on the production meshes: no launch), each status "ok"; and
+    ``make_production_mesh()`` without ``devices=`` raises on fewer than
+    256 cards."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    import torch
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        reset_launches()
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi_pod)
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        if rec["status"] != "ok" or any(launches.values()):
+            raise AssertionError(f"dryrun 10c {arch} {shape}: "
+                                 f"{rec.get('error')} launches {launches}")
+        emit({"phase": "dryrun", "leg": "10c", "seconds": secs,
+              **{k: v for k, v in rec.items()
+                 if k not in ("collectives_reason",)}})
+    try:
+        make_production_mesh()
+    except ValueError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("dryrun 10c: make_production_mesh() did not "
+                             f"raise on {torch.cuda.device_count()} card(s)")
+    emit({"phase": "dryrun", "leg": "10c production mesh",
+          "cards": torch.cuda.device_count(), "raised": raised})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nyx", type=int, default=512,
@@ -3142,6 +3427,12 @@ def main(argv=None) -> int:
     launches["flash"] += phase_train_families(seed=8)
     emit({"phase": "train_total", "seconds": time.perf_counter() - t0})
 
+    t0 = time.perf_counter()
+    phase_moe_ep_layer(seed=9)
+    launches["flash"] += phase_moe_ep_model(seed=2)
+    phase_dryrun()
+    emit({"phase": "sharded_lm_total", "seconds": time.perf_counter() - t0})
+
     # each kernel's row: its times at its main-path shape (nyx for the
     # MSS kernels, the 8 x 2048 prefill for flash), its largest error
     # over every main-path shape it was timed at
@@ -3160,7 +3451,8 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms")})
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "card": smi})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -166,3 +166,9 @@ def dir_to_pointer(code: torch.Tensor) -> torch.Tensor:
     """Direction codes -> flattened next-vertex pointers (self at extrema)."""
     lin = linear_index(code.shape, code.device)
     return gather_dir(lin, code).reshape(-1)
+
+
+def is_extremum(code: torch.Tensor) -> torch.Tensor:
+    """Where ``code`` is the self code: a vertex with no steeper neighbour
+    (a minimum of the descending codes, a maximum of the ascending)."""
+    return code == self_code(code.ndim)

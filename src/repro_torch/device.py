@@ -3,7 +3,9 @@
 Entry points take ``device=None``, which means ``cuda``. When CUDA is
 absent and the caller did not ask for the CPU, they raise: there is no
 silent CPU fallback, so a run that was meant for the GPU never
-measures the CPU by accident. Tests pass ``device="cpu"``.
+measures the CPU by accident. Tests pass ``device="cpu"``; the dry-run
+(``launch.dryrun``) passes ``device="meta"``: tensors with shapes and
+dtypes and no storage.
 """
 from __future__ import annotations
 
@@ -18,15 +20,17 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The ``torch.device`` an entry point runs on: ``None`` means
-    ``cuda``; a CUDA device without a GPU raises ``RuntimeError``."""
+    ``cuda``; a CUDA device without a GPU raises ``RuntimeError``;
+    ``cpu`` and ``meta`` are taken as named."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA GPU is available: repro_torch runs on the GPU by "
             "default; pass device='cpu' to run the plain PyTorch versions "
             "on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda', 'cpu' or "
+                         "'meta'")
     return dev
 
 

@@ -11,11 +11,19 @@ sum fits the narrow type: the reduce moves 2x (int16) or 4x (int8) fewer
 bytes than f32, with a hard per-element error bound.
 
 The reference runs this inside ``shard_map`` over the ``pod`` axis. The
-port runs it in one process: ``compressed_psum_tree`` takes every pod's
-gradient tree (each on its pod's device), moves the int codes to one
-device and sums them there. Rounding is ``torch.round`` (half to even,
-as ``jnp.round``), and the step divides the gradient (no reciprocal),
-so codes, steps and sums are bitwise the reference's.
+port runs it in one process or across processes. ``compressed_psum_tree``
+takes every pod's gradient tree (each on its pod's device), moves the int
+codes to one device and sums them there. ``compressed_all_reduce_tree``
+is the process-group form, a process a pod: a MAX all-reduce of the
+tensors' ``amax`` (the ``pmax``), the same steps and codes, an exact sum
+of the codes over the ranks, dequantized; both forms give the same bits.
+Neither NCCL nor gloo reduces int16, so int16 codes cross as their bytes
+in an all-gather and each rank sums the world's codes in rank order, in
+int16: (world - 1) x the codes' bytes received a rank, where an f32 ring
+all-reduce moves 2 (world - 1) / world x 4 bytes an element; int8 codes
+are all-reduced. Rounding is ``torch.round`` (half to even, as
+``jnp.round``), and the step divides the gradient (no reciprocal), so
+codes, steps and sums are bitwise the reference's.
 """
 from __future__ import annotations
 
@@ -101,16 +109,69 @@ def compressed_psum_tree(pod_grads: Sequence[Any], rel_bound: float = 1e-3,
     return tree.tree_map(q, *pod_grads)
 
 
+def _sum_codes(codes: torch.Tensor, group) -> torch.Tensor:
+    """The exact sum over the group's ranks of each rank's ``codes`` (1-D,
+    int8 or int16), in that dtype: an all-reduce for int8; for int16,
+    which neither NCCL nor gloo reduces, an all-gather of the codes'
+    bytes and a sum in rank order."""
+    import torch.distributed as dist
+    if codes.dtype == torch.int8:
+        dist.all_reduce(codes, op=dist.ReduceOp.SUM, group=group)
+        return codes
+    raw = codes.view(torch.uint8)
+    parts = [torch.empty_like(raw)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, raw, group=group)
+    summed = parts[0].view(codes.dtype)
+    for part in parts[1:]:
+        summed = summed + part.view(codes.dtype)
+    return summed
+
+
+def compressed_all_reduce_tree(grads: Any, rel_bound: float = 1e-3,
+                               bits: int = 16,
+                               n_shards: Optional[int] = None, group=None):
+    """The sum over the ranks of ``group`` (default: the world) of each
+    rank's gradient tree ``grads``, with error-bounded quantized
+    payloads: ``compressed_psum_tree`` with a process a pod, the same
+    bits on every rank. One MAX all-reduce carries every tensor's
+    ``amax``; one collective carries every tensor's codes (``_sum_codes``).
+    ``n_shards`` defaults to the group's size."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group) if n_shards is None else n_shards
+    # mszlint: disable=transfer-discipline -- bits is a python int
+    qmax = float(2 ** (bits - 1) - 1) / n       # headroom for the sum
+    leaves = tree.leaves(grads)
+    gfs = [g.float() for g in leaves]
+    amax = torch.stack([torch.max(torch.abs(gf)) for gf in gfs])
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    steps = _step(amax, rel_bound, qmax)
+    codes = torch.cat([_codes(gf, steps[i], qmax, bits).reshape(-1)
+                       for i, gf in enumerate(gfs)])
+    summed = _sum_codes(codes, group).split([g.numel() for g in leaves])
+    return tree.unflatten(grads, [
+        (c.reshape(g.shape).float() * steps[i]).to(g.dtype)
+        for i, (c, g) in enumerate(zip(summed, leaves))])
+
+
 def make_grad_sync(rel_bound: float = 1e-3, bits: int = 16,
-                   n_pods: int = 2, device=None) -> Callable:
-    """Returns ``grad_sync(pod_grads)``: the compressed sum over the pods'
-    gradient trees divided by ``n_pods`` (the mean), on ``device``."""
-    def sync(pod_grads):
-        summed = compressed_psum_tree(pod_grads, rel_bound, bits,
-                                      n_shards=n_pods, device=device)
+                   n_pods: int = 2, device=None, group=None) -> Callable:
+    """Returns ``grad_sync(grads)``: the compressed sum over the pods
+    divided by ``n_pods`` (the mean). In one process ``grads`` is the
+    list of the pods' gradient trees, summed on ``device``; with a
+    process ``group`` (a process a pod) it is this rank's tree, summed
+    over the group (``compressed_all_reduce_tree``)."""
+    def sync(grads):
+        if group is None:
+            summed = compressed_psum_tree(grads, rel_bound, bits,
+                                          n_shards=n_pods, device=device)
+        else:
+            summed = compressed_all_reduce_tree(grads, rel_bound, bits,
+                                                n_shards=n_pods,
+                                                group=group)
         return tree.tree_map(lambda g: g / n_pods, summed)
     return sync
 
 
 __all__ = ["quantize_tree", "dequantize_tree", "compressed_psum_tree",
-           "make_grad_sync"]
+           "compressed_all_reduce_tree", "make_grad_sync"]

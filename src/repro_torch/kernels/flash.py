@@ -22,7 +22,9 @@ note at the head of ``csrc/flash.cu`` for the design and its numbers.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel on that tensor's card (the C entry takes the device
-and makes it current) or raises.
+and makes it current) or raises. A ``meta`` tensor (the dry-run,
+``launch.dryrun``) takes the plain version too, which then only
+propagates shapes; any other device raises.
 """
 from __future__ import annotations
 
@@ -125,6 +127,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
+    if q.device.type == "meta":
+        # the dry-run: shapes only. Tiles of S / 8 (at least 256) keep
+        # the plain version's Python loop to at most 36 tiles
+        tile = max(256, -(-q.shape[1] // 8))
+        return flash_attention_plain(q, k, v, causal=causal, q_block=tile,
+                                     k_block=tile)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     dev = q.device

@@ -18,20 +18,29 @@ reference's emulated host devices) or all lie on the CPU
 reference consults its ``with mesh:`` context.
 
 ``make_host_mesh`` is the reference's degenerate 1 x 1 ``("data",
-"model")`` mesh on one device, which the train launcher runs on.
+"model")`` mesh on one device, which the train launcher runs on;
+``make_production_mesh`` the reference's (16, 16) ``("data", "model")``
+pod or (2, 16, 16) ``("pod", "data", "model")`` pair of pods, on 256 or
+512 visible cards or on the placements ``devices=`` names
+(``["meta"] * 256`` is the dry-run's: shapes only, nothing allocated).
+
+``init_distributed`` joins this process to a ``torch.distributed``
+process group (one process a pod for the compressed gradient all-reduce
+of ``distributed.compression``); a mesh itself stays in one process.
 """
 from __future__ import annotations
 
 import contextvars
 import math
+import os
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 __all__ = ["BLOCK_AXIS_ORDER", "DeviceMesh", "active_mesh",
-           "factor_block_shape", "make_block_mesh", "make_data_mesh",
-           "make_host_mesh"]
+           "factor_block_shape", "init_distributed", "make_block_mesh",
+           "make_data_mesh", "make_host_mesh", "make_production_mesh"]
 
 #: mesh axis names for block meshes, outermost first; the LAST k of these
 #: name a k-axis mesh, so the slab axis (data_z, field axis 0) is always
@@ -127,8 +136,9 @@ def _place(n: int, devices: Optional[Sequence[DeviceSpec]], what: str
                                  f"{torch.cuda.device_count()} CUDA "
                                  "device(s) are visible")
             d = torch.device("cuda", idx)
-        elif d.type != "cpu":
-            raise ValueError(f"unsupported mesh device {d}; use cuda or cpu")
+        elif d.type not in ("cpu", "meta"):
+            raise ValueError(f"unsupported mesh device {d}; use cuda, cpu "
+                             "or meta")
         out.append(d)
     if len({d.type for d in out}) > 1:
         raise ValueError(f"a mesh's blocks lie on one device type, got "
@@ -147,6 +157,62 @@ def make_data_mesh(n_devices: Optional[int] = None, *,
         n_devices = len(devices) if devices is not None else len(_visible())
     return DeviceMesh(_object_array(_place(int(n_devices), devices,
                                            "data mesh")), ("data",))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence[DeviceSpec]] = None
+                         ) -> DeviceMesh:
+    """16 x 16 = 256 devices a pod; ``multi_pod`` stacks 2 pods = 512.
+    Axes: ``("data", "model")`` single-pod, ``("pod", "data", "model")``
+    multi-pod. By default a visible card a device, raising with fewer
+    than 256 (512) cards, as ``jax.make_mesh`` raises with too few
+    devices; ``devices=["meta"] * 256`` places the dry-run's mesh."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    devs = _place(math.prod(shape), devices, f"{shape} production mesh")
+    return DeviceMesh(_object_array(devs).reshape(shape), axes)
+
+
+def init_distributed(*, coordinator_address: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None,
+                     backend: Optional[str] = None) -> bool:
+    """Join this process to a ``torch.distributed`` process group.
+
+    The arguments default to torchrun's environment: ``MASTER_ADDR`` /
+    ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``. ``coordinator_address``
+    is ``host:port`` (a TCP rendezvous) or an ``init_method`` URL
+    (``tcp://...``, ``file://...``). Returns False without touching
+    ``torch.distributed`` when neither arguments nor environment request
+    a multi-process run (one process), True once the group is up.
+    Idempotent: a process already in a group returns True. The backend is
+    ``nccl`` (each process then takes the card ``LOCAL_RANK``, or its
+    rank, modulo the visible cards) unless ``backend`` names another
+    (``gloo`` for the CPU)."""
+    import torch.distributed as dist
+    env = os.environ
+    addr = coordinator_address
+    if addr is None and "MASTER_ADDR" in env:
+        addr = f"{env['MASTER_ADDR']}:{env.get('MASTER_PORT', '29500')}"
+    nproc = num_processes if num_processes is not None else (
+        int(env["WORLD_SIZE"]) if "WORLD_SIZE" in env else None)
+    if addr is None or nproc is None or nproc <= 1:
+        return False
+    if dist.is_initialized():
+        return True
+    pid = process_id if process_id is not None else (
+        int(env["RANK"]) if "RANK" in env else None)
+    if pid is None:
+        raise ValueError("init_distributed: a multi-process run needs this "
+                         "process's rank (process_id= or RANK)")
+    backend = backend or "nccl"
+    if backend == "nccl":
+        torch.cuda.set_device(int(env.get("LOCAL_RANK", pid))
+                              % torch.cuda.device_count())
+    url = addr if "://" in addr else f"tcp://{addr}"
+    dist.init_process_group(backend, init_method=url, world_size=nproc,
+                            rank=pid)
+    return True
 
 
 def make_host_mesh(device: Optional[DeviceSpec] = None) -> DeviceMesh:

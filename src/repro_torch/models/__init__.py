@@ -7,9 +7,10 @@ states. Plain causal or full attention runs the hand-written flash kernel
 (``kernels.flash``) on CUDA tensors; the recurrent scans are plain torch,
 as the reference's are plain jnp. ``forward`` is differentiable for
 every family (``forward(..., remat=True)`` recomputes each layer in the
-backward), which ``train`` builds on. Sharding is not ported: on one GPU the
-reference's ``constrain_*`` calls are the identity, and ``moe_ffn_ep``
-falls back to ``moe_ffn`` there."""
+backward), which ``train`` builds on. ``sharding`` holds the reference's
+mesh axes and parameter sharding rules; its ``constrain_*`` hints are the
+identity (no SPMD partitioner), and ``layers.moe_ffn_ep`` runs the
+expert-parallel MoE a shard at a time over the ambient mesh."""
 from . import recurrent
 from .config import ArchConfig, MoEConfig, ShapeConfig, SHAPES, shape_by_name
 from .model import (init_params, forward, decode_step, init_decode_cache,

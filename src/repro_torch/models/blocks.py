@@ -72,12 +72,13 @@ def attention_decode(cfg: ArchConfig, p, x, k_cache, v_cache, t: int, *,
 
 def ffn_block(cfg: ArchConfig, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense SwiGLU or MoE, with gemma2's post-norm where the layer has
-    one; returns (residual, aux_loss). The MoE is ``layers.moe_ffn``
-    (the reference's expert-parallel ``moe_ffn_ep`` needs a sharded mesh
-    and is not ported)."""
+    one; returns (residual, aux_loss). The MoE is ``layers.moe_ffn``, or
+    under ``layers.MOE_EP_MODE`` the expert-parallel ``moe_ffn_ep`` (which
+    falls back to ``moe_ffn`` where the reference's does)."""
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
-        out = layers.moe_ffn(
+        moe_impl = layers.moe_ffn_ep if layers.MOE_EP_MODE else layers.moe_ffn
+        out = moe_impl(
             h, {"router": p["router"], "w_gate": p["moe_w_gate"],
                 "w_up": p["moe_w_up"], "w_down": p["moe_w_down"]},
             cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.capacity_factor)

@@ -22,6 +22,7 @@ oracle's in bf16 (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -75,6 +76,12 @@ def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
 # flash-style chunked attention (prefill)
 # ---------------------------------------------------------------------------
 
+def _meta_chunk(n: int, target: int, device: torch.device) -> int:
+    """``target``, or on ``meta`` (the dry-run: shapes only) at least
+    n / 8, so the chunk loops stay short at 32k positions."""
+    return max(target, -(-n // 8)) if device.type == "meta" else target
+
+
 def _pick_chunk(n: int, target: int) -> int:
     """Largest divisor of n that is <= target (n assumed power-of-two-ish)."""
     c = min(n, target)
@@ -125,8 +132,8 @@ def oracle_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, H, D = q.shape
     Hk = k.shape[2]
     G = H // Hk
-    qc = _pick_chunk(S, q_chunk)
-    kc = _pick_chunk(T, k_chunk)
+    qc = _pick_chunk(S, _meta_chunk(S, q_chunk, q.device))
+    kc = _pick_chunk(T, _meta_chunk(T, k_chunk, q.device))
     # (B, Hk, G, S, D) and (B, Hk, 1, T, D): head h = hk * G + g
     qr = q.float().reshape(B, S, Hk, G, D).permute(0, 2, 3, 1, 4)
     kr = k.float().permute(0, 2, 1, 3)[:, :, None]
@@ -206,8 +213,8 @@ class _KernelAttention(torch.autograd.Function):
         B, S, H, D = q.shape
         T, Hk = k.shape[1], k.shape[2]
         G = H // Hk
-        qc = _pick_chunk(S, ctx.q_chunk)
-        kc = _pick_chunk(T, ctx.k_chunk)
+        qc = _pick_chunk(S, _meta_chunk(S, ctx.q_chunk, q.device))
+        kc = _pick_chunk(T, _meta_chunk(T, ctx.k_chunk, q.device))
         qr = q.detach().float().reshape(B, S, Hk, G, D).permute(0, 2, 3, 1, 4)
         dor = dout.float().reshape(B, S, Hk, G, D).permute(0, 2, 3, 1, 4)
         kr = k.detach().float().permute(0, 2, 1, 3)[:, :, None] \
@@ -284,6 +291,45 @@ def _mean0_f32(x: torch.Tensor) -> torch.Tensor:
     return x.sum(0) * float(recip)
 
 
+def _route(xf: torch.Tensor, router: torch.Tensor, E: int, K: int):
+    """The router of N tokens xf (N, d): f32 logits and softmax, the top
+    ``K`` (``_top_k``) renormalized, and the Switch load-balancing loss
+    E * sum_e f_e * P_e. Returns (gate_vals (N, K) f32, expert_ids (N, K)
+    int64, aux 0-d f32)."""
+    N = xf.shape[0]
+    dev = xf.device
+    logits = xf.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = _top_k(probs, K)                   # (N, K)
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(-1, keepdim=True), 1e-9)
+    me = _mean0_f32(probs)
+    ce = _mean0_f32(torch.zeros((N, E), dtype=torch.float32, device=dev)
+                    .scatter_add_(1, expert_ids,
+                                  torch.ones((N, K), device=dev)))
+    return gate_vals, expert_ids, float(E) * torch.sum(me * ce)
+
+
+def _experts(h_in: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """The grouped expert SwiGLU (``torch.bmm``): h_in (E, cap, d) ->
+    (E * cap, d) in h_in's dtype, silu in f32."""
+    g = torch.bmm(h_in, w_gate)
+    u = torch.bmm(h_in, w_up)
+    h = torch.nn.functional.silu(g.float()).to(h_in.dtype) * u
+    return torch.bmm(h, w_down).reshape(-1, h_in.shape[-1])
+
+
+def _unsort_sum(weighted: torch.Tensor, order: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """Each token's ``k`` rows of ``weighted`` (f32, in the order of the
+    sort ``order``) summed in a fixed order: un-sorted by the inverse
+    permutation, then a sum over k. The reference scatter-adds them; an
+    atomic ``index_add_`` would change its bits from run to run."""
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    return weighted[inv].reshape(-1, k, weighted.shape[-1]).sum(1)
+
+
 def moe_ffn(x: torch.Tensor, p, n_experts: int, top_k: int,
             capacity_factor: float = 1.25) -> MoEOut:
     """Top-k MoE with the reference's sort-based dispatch.
@@ -301,18 +347,7 @@ def moe_ffn(x: torch.Tensor, p, n_experts: int, top_k: int,
     E, K = n_experts, top_k
     dev = x.device
     xf = x.reshape(N, d)
-    logits = xf.float() @ p["router"].float()
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_ids = _top_k(probs, K)                   # (N, K)
-    gate_vals = gate_vals / torch.clamp_min(
-        gate_vals.sum(-1, keepdim=True), 1e-9)
-
-    # load-balance loss (Switch): E * sum_e f_e * P_e
-    me = _mean0_f32(probs)
-    ce = _mean0_f32(torch.zeros((N, E), dtype=torch.float32, device=dev)
-                    .scatter_add_(1, expert_ids,
-                                  torch.ones((N, K), device=dev)))
-    aux = float(E) * torch.sum(me * ce)
+    gate_vals, expert_ids, aux = _route(xf, p["router"], E, K)
 
     cap = int(np.ceil(N * K / E * capacity_factor / 8)) * 8
 
@@ -329,19 +364,229 @@ def moe_ffn(x: torch.Tensor, p, n_experts: int, top_k: int,
     # row E * cap takes every dropped assignment and is never read back
     buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=dev)
     buf[slot] = xf[tok]
-    h_in = buf[:E * cap].reshape(E, cap, d)
-    g = torch.bmm(h_in, p["w_gate"])
-    u = torch.bmm(h_in, p["w_up"])
-    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    out_e = torch.bmm(h, p["w_down"]).reshape(E * cap, d)
+    out_e = _experts(buf[:E * cap].reshape(E, cap, d), p["w_gate"],
+                     p["w_up"], p["w_down"])
     out_e = torch.cat([out_e, out_e.new_zeros((1, d))], 0)
 
     w = (gate_vals.reshape(-1)[order] * keep).float()
     weighted = out_e[slot].float() * w[:, None]               # sorted order
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(N * K, device=dev)
-    y = weighted[inv].reshape(N, K, d).sum(1)
+    y = _unsort_sum(weighted, order, K)
     return MoEOut(y.reshape(B, S, d).to(x.dtype), aux)
+
+
+# --- expert-parallel MoE: the reference's shard_map body, a shard at a time --
+# The reference's launchers turn it on with REPRO_MOE_EP=1. Its token
+# movement is two all_to_all ops over the model axis; here, on a
+# single-process mesh, they are copies of the (tp, cap_send, d) blocks
+# between the model shards of one data row (peer copies between cards).
+
+#: route ``blocks.ffn_block``'s MoE through ``moe_ffn_ep``
+MOE_EP_MODE = False
+
+
+class _Dispatch(NamedTuple):
+    """One shard's first dispatch: its send blocks and what its combine
+    needs back."""
+    send: torch.Tensor       # (tp, cap_send, d): rows for each model shard
+    send_eid: torch.Tensor   # (tp, cap_send) int32: local expert, -1 pads
+    slot: torch.Tensor       # (N_loc * K_eff,): row of each sorted entry
+    tok: torch.Tensor        # (N_loc * K_eff,): its token
+    order: torch.Tensor      # the stable sort by destination shard
+    w: torch.Tensor          # (N_loc * K_eff,) f32: gate weight x keep
+    aux: torch.Tensor        # 0-d f32: this shard's load-balancing loss
+
+
+def _ep_dispatch(xf: torch.Tensor, router: torch.Tensor, *, E: int, K: int,
+                 m: int, tp: int, cap_send: int) -> _Dispatch:
+    """The body up to the first all_to_all: route the N_loc local tokens,
+    copy each (token, virtual expert e*m + j) to its model shard's block
+    (e*m + j) // E_loc, first come first served up to ``cap_send`` rows a
+    shard (the stable sort by destination, the left searchsorted
+    starts); row tp * cap_send takes the dropped ones."""
+    N_loc, d = xf.shape
+    dev = xf.device
+    E_loc = E * m // tp
+    K_eff = K * m
+    gate_vals, expert_ids, aux = _route(xf, router, E, K)
+    # virtualize: assignment (token, expert e) -> m copies (e*m + j)
+    virt = expert_ids[..., None] * m + torch.arange(m, device=dev)
+    flat_e = virt.reshape(-1)                                  # (N*K*m,)
+    gate_rep = gate_vals[..., None].expand(virt.shape).reshape(-1)
+    dest = flat_e // E_loc                                     # model shard
+    order = torch.argsort(dest, stable=True)
+    sorted_dest = dest[order]
+    start = torch.searchsorted(sorted_dest,
+                               torch.arange(tp, dtype=dest.dtype, device=dev))
+    pos = torch.arange(N_loc * K_eff, device=dev) - start[sorted_dest]
+    keep = pos < cap_send
+    slot = torch.where(keep, sorted_dest * cap_send + pos, tp * cap_send)
+    tok = order // K_eff
+    send = torch.zeros((tp * cap_send + 1, d), dtype=xf.dtype, device=dev)
+    send[slot] = xf[tok]
+    send_eid = torch.full((tp * cap_send + 1,), -1, dtype=torch.int32,
+                          device=dev)
+    send_eid[slot] = (flat_e % E_loc)[order].to(torch.int32)
+    return _Dispatch(send[:-1].reshape(tp, cap_send, d),
+                     send_eid[:-1].reshape(tp, cap_send), slot, tok, order,
+                     (gate_rep[order] * keep).float(), aux)
+
+
+def _ep_experts(recv: torch.Tensor, recv_eid: torch.Tensor, w_gate, w_up,
+                w_down, *, cap_loc: int) -> torch.Tensor:
+    """The body between the all_to_alls on one model shard: recv (tp,
+    cap_send, d) from every shard of its data row, grouped by local
+    expert (the stable sort on the pad-corrected key, pads last), first
+    come first served up to ``cap_loc`` rows an expert, the expert FFN,
+    un-grouped into the received layout. Returns back (tp, cap_send, d),
+    zero where a row was a pad or dropped."""
+    tp, cap_send, d = recv.shape
+    E_loc = w_gate.shape[0]
+    dev = recv.device
+    rx = recv.reshape(tp * cap_send, d)
+    re = recv_eid.reshape(tp * cap_send).long()
+    key2 = torch.where(re < 0, E_loc, re)
+    order2 = torch.argsort(key2, stable=True)
+    sorted_key2 = key2[order2]
+    sorted_e2 = re[order2]
+    start2 = torch.searchsorted(
+        sorted_key2, torch.arange(E_loc, dtype=key2.dtype, device=dev))
+    pos2 = (torch.arange(tp * cap_send, device=dev)
+            - start2[torch.clamp(sorted_e2, 0, E_loc - 1)])
+    keep2 = (pos2 < cap_loc) & (sorted_e2 >= 0)
+    slot2 = torch.where(keep2, sorted_e2 * cap_loc + pos2, E_loc * cap_loc)
+    buf = torch.zeros((E_loc * cap_loc + 1, d), dtype=recv.dtype,
+                      device=dev)
+    buf[slot2] = rx[order2]
+    out_e = _experts(buf[:-1].reshape(E_loc, cap_loc, d), w_gate, w_up,
+                     w_down)
+    del buf
+    out_e = torch.cat([out_e, out_e.new_zeros((1, d))], 0)
+    back = torch.zeros((tp * cap_send, d), dtype=recv.dtype, device=dev)
+    back[order2] = out_e[slot2] * keep2[:, None]
+    return back.reshape(tp, cap_send, d)
+
+
+def _moe_ep_body(xf: torch.Tensor, router, w_gate, w_up, w_down, devices,
+                 *, E: int, K: int, m: int, tp: int, cap_send: int,
+                 cap_loc: int):
+    """One data row of the reference's shard_map body: xf (N_loc, d) its
+    tokens, ``devices`` its tp model shards' devices, w_* the (E * m, d,
+    ff / m) virtual-expert weights (shard j holds rows j * E_loc..).
+    Returns (y (N_loc, d) in xf's dtype on devices[0], aux).
+
+    As in the reference, every model shard of the row routes the same
+    tokens and sends its blocks (the first all_to_all: shard j receives
+    block j of every shard, in shard order), runs its E_loc experts on
+    what it received, and sends each shard its rows back (the second).
+    The reference's ``out_specs`` declare y replicated over ``model``
+    (unchecked) and read back model shard 0's; where the second dispatch
+    drops the later copies of a hot expert the shards' y differ, so the
+    combine runs for model shard 0 alone. aux is the mean over the model
+    shards of each shard's loss (its ``pmean``). Each shard's expert
+    buffers are freed before the next shard runs."""
+    E_loc = E * m // tp
+    disp = [_ep_dispatch(xf.to(dev), router.to(dev), E=E, K=K, m=m, tp=tp,
+                         cap_send=cap_send) for dev in devices]
+    backs = []
+    for j, dev in enumerate(devices):
+        recv = torch.stack([dp.send[j].to(dev) for dp in disp])
+        recv_eid = torch.stack([dp.send_eid[j].to(dev) for dp in disp])
+        ws = (w[j * E_loc:(j + 1) * E_loc].to(dev)
+              for w in (w_gate, w_up, w_down))
+        backs.append(_ep_experts(recv, recv_eid, *ws, cap_loc=cap_loc))
+        del recv, recv_eid
+    home = devices[0]
+    aux = sum(dp.aux.to(home) for dp in disp) / tp
+    slot, order, w = disp[0].slot, disp[0].order, disp[0].w
+    del disp
+    flat_back = torch.cat([b[0].to(home) for b in backs]
+                          + [backs[0].new_zeros((1, xf.shape[1]))], 0)
+    del backs
+    weighted = flat_back[slot].float() * w[:, None]
+    y = _unsort_sum(weighted, order, K * m)
+    return y.to(xf.dtype), aux
+
+
+def _ep_devices(mesh, ax) -> np.ndarray:
+    """``mesh``'s devices as (dp, tp): the batch axes flattened in
+    ``ax.batch`` order (the data rows), the model axis last."""
+    names = list(mesh.axis_names)
+    order = [names.index(a) for a in ax.batch] + [names.index(ax.model)]
+    if len(order) != len(names):
+        raise ValueError(f"moe_ffn_ep: mesh axes {mesh.axis_names} beyond "
+                         f"{ax.batch + (ax.model,)}")
+    devs = np.transpose(mesh.devices, order)
+    return devs.reshape(-1, devs.shape[-1])
+
+
+def moe_ffn_ep(x: torch.Tensor, p, n_experts: int, top_k: int,
+               capacity_factor: float = 1.25) -> MoEOut:
+    """Expert-parallel MoE over the ambient ``(data, model)`` or ``(pod,
+    data, model)`` mesh (``with mesh:``): tokens split over the batch
+    axes, experts over ``model`` (``_moe_ep_body`` a data row, each model
+    shard on its device). E < tp is handled by ff-sliced virtual experts
+    (m = tp / gcd(E, tp) slices an expert, each computing a partial
+    down-projection that the combine sums). Falls back to the dense
+    ``moe_ffn`` without an ambient mesh, when ff % m, (E * m) % tp or
+    (B * S) % dp is non-zero, and for B * S <= 4096 tokens, where the
+    reference does. y is on x's device; aux is the mean of the per-shard
+    losses over ``model``, then over each batch axis in turn."""
+    from ..launch.mesh import active_mesh
+    from .sharding import ambient_axes
+    ax = ambient_axes()
+    if ax is None:
+        return moe_ffn(x, p, n_experts, top_k, capacity_factor)
+    sizes = active_mesh().shape
+    tp = sizes.get("model", 1)
+    dp = math.prod(sizes.get(a, 1) for a in ax.batch)
+
+    B, S, d = x.shape
+    E, K = n_experts, top_k
+    ff = p["w_gate"].shape[-1]
+    m = tp // math.gcd(E, tp)
+    if ff % m or (E * m) % tp or (B * S) % dp:
+        return moe_ffn(x, p, n_experts, top_k, capacity_factor)
+    if B * S <= 4096:
+        # decode-shaped calls: too few tokens to amortize the exchange;
+        # the dense dispatch is cheap at this size (the reference's rule)
+        return moe_ffn(x, p, n_experts, top_k, capacity_factor)
+
+    def virt3(w):                       # (E, d, ff) -> (E*m, d, ff/m)
+        Ew, dw, fw = w.shape
+        return (w.reshape(Ew, dw, m, fw // m).permute(0, 2, 1, 3)
+                .reshape(Ew * m, dw, fw // m))
+
+    def virt_down(w):                   # (E, ff, d) -> (E*m, ff/m, d)
+        Ew, fw, dw = w.shape
+        return w.reshape(Ew * m, fw // m, dw)
+
+    wg, wu, wd = virt3(p["w_gate"]), virt3(p["w_up"]), virt_down(p["w_down"])
+    N = B * S
+    N_loc = N // dp
+    K_eff = K * m
+    cap_send = max(int(np.ceil(N_loc * K_eff / tp * capacity_factor / 8))
+                   * 8, 8)
+    # a shard receives <= tp*cap_send rows spread over its E_loc experts
+    E_loc = E * m // tp
+    cap_loc = max(int(np.ceil(tp * cap_send / E_loc
+                              * capacity_factor / 8)) * 8, 8)
+
+    devs = _ep_devices(active_mesh(), ax)
+    xf = x.reshape(N, d)
+    ys, auxs = [], []
+    for r in range(dp):
+        y, aux = _moe_ep_body(xf[r * N_loc:(r + 1) * N_loc], p["router"],
+                              wg, wu, wd, [torch.device(v) for v in devs[r]],
+                              E=E, K=K, m=m, tp=tp, cap_send=cap_send,
+                              cap_loc=cap_loc)
+        ys.append(y.to(x.device))
+        auxs.append(aux.to(x.device))
+    # the reference's pmean over each batch axis in turn (pod, then data)
+    aux_t = torch.stack(auxs).reshape(
+        [sizes[a] for a in ax.batch])
+    for _ in ax.batch:
+        aux_t = aux_t.sum(0) / aux_t.shape[0]
+    return MoEOut(torch.cat(ys, 0).reshape(B, S, d), aux_t)
 
 
 # ---------------------------------------------------------------------------

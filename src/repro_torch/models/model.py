@@ -112,12 +112,16 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     and ``slstm`` stacked (G,) (``_xlstm_groups``); hymba's ``A_log`` is
     log(1..N) in float32 whatever ``cfg.dtype`` is. The numbers differ
     from ``jax.random``'s; tests carry the reference's weights across with
-    ``convert.params_from_numpy`` instead."""
+    ``convert.params_from_numpy`` instead. On ``device="meta"`` nothing is
+    drawn (``generator`` may be None): the tensors have the shapes and
+    dtypes and no storage, the dry-run's ``param_structs``."""
     check_served(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
 
     def draw_into(out: torch.Tensor, scale: float) -> torch.Tensor:
+        if dev.type == "meta":
+            return out
         x = torch.randn(out.shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
         return out.copy_(x.mul_(scale))
@@ -137,7 +141,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                 out[name] = torch.zeros(stack + shp, dtype=dt, device=dev)
                 continue
             t = torch.empty(stack + shp, dtype=dt, device=dev)
-            for i in np.ndindex(*stack):
+            for i in np.ndindex(*stack) if dev.type != "meta" else ():
                 draw_into(t[i], shp[0] ** -0.5)
             out[name] = t
         return out

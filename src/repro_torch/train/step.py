@@ -13,9 +13,13 @@ around each one, where the reference wraps the whole loss in
 and ``n_pods`` > 1, the batch splits into ``n_pods`` shards, each pod
 takes its shard's gradients, and ``distributed.compression`` sums them
 (one shared step a tensor, int codes summed exactly) and divides by
-``n_pods``: the reference's ``shard_map`` over ``pod``, run in one
-process. Pod i runs on the i-th device of a mesh's ``pod`` axis, or on
-the parameters' device without a mesh.
+``n_pods``: the reference's ``shard_map`` over ``pod``. In one process
+pod i runs on the i-th device of a mesh's ``pod`` axis, or on the
+parameters' device without a mesh. When a ``torch.distributed`` process
+group of ``n_pods`` ranks is up (``launch.mesh.init_distributed``), pod
+i is rank i: each rank takes shard i of the batch it is given and the
+codes are summed over the group (``compressed_all_reduce_tree``), so
+every rank gets the one-process step's bits.
 
 The step updates the state in place (``adamw_update(inplace=True)``):
 the state passed in is consumed, as the reference's launcher donates it.
@@ -173,6 +177,8 @@ def make_grad_fn(cfg: ArchConfig, tcfg: TrainStepConfig,
         return compute_grads
 
     n = tcfg.n_pods
+    if _pod_group_spans(n):
+        return _rank_pod_grads(compute_grads, tcfg)
 
     def pod_grads(params, batch):
         home = tree.leaves(params)[0].device
@@ -191,6 +197,40 @@ def make_grad_fn(cfg: ArchConfig, tcfg: TrainStepConfig,
             auxs.append(a)
         aux = {k: sum(a[k].to(home) for a in auxs) / n for k in auxs[0]}
         return sync(grads), aux
+    return pod_grads
+
+
+def _pod_group_spans(n_pods: int) -> bool:
+    """Whether a ``torch.distributed`` process group of ``n_pods`` ranks
+    is up: a process a pod."""
+    import torch.distributed as dist
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() == n_pods)
+
+
+def _rank_pod_grads(compute_grads: Callable, tcfg: TrainStepConfig
+                    ) -> Callable:
+    """The pod path across processes: this rank's pod's gradients (shard
+    ``rank`` of the batch), synced over the world; the aux metrics summed
+    over the ranks in rank order and divided by the pod count, as the
+    one-process path sums them."""
+    import torch.distributed as dist
+    n = tcfg.n_pods
+    sync = make_grad_sync(tcfg.grad_compress_bound, tcfg.grad_compress_bits,
+                          n_pods=n, group=dist.group.WORLD)
+
+    def pod_grads(params, batch):
+        i = dist.get_rank()
+        shard = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+                 for k, v in batch.items()}
+        g, a = compute_grads(params, shard)
+        keys = list(a)
+        mine = torch.stack([a[k].float() for k in keys])
+        every = [torch.empty_like(mine) for _ in range(n)]
+        dist.all_gather(every, mine)
+        aux = {k: sum(e[j].to(a[k].dtype) for e in every) / n
+               for j, k in enumerate(keys)}
+        return sync(g), aux
     return pod_grads
 
 

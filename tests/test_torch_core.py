@@ -77,6 +77,16 @@ def test_gather_dir_shift_and_pointers_match(shape):
                               want)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_is_extremum_matches(shape):
+    f = make_field(shape, "noise", np.float32, seed=3)
+    for codes in jgrid.steepest_dirs(jnp.asarray(f)):
+        got = tgrid.is_extremum(torch.from_numpy(np.asarray(codes))).numpy()
+        want = np.asarray(jgrid.is_extremum(codes))
+        assert got.dtype == np.bool_ and np.array_equal(got, want)
+        assert 0 < got.sum() < got.size
+
+
 @pytest.mark.parametrize("max_iters", [None, 0, 1, 2, 3])
 def test_pointer_jump_bound_and_early_exit(max_iters):
     # one integral line snaking through every vertex: needs log2(V) sweeps

@@ -202,6 +202,31 @@ def test_wrapper_on_cpu_runs_plain_and_launches_nothing():
     assert torch.equal(got, tflash.flash_attention_plain(q, k, v))
 
 
+def test_wrapper_on_meta_runs_plain_and_launches_nothing(monkeypatch):
+    """The dry-run's meta tensors take the plain version (shapes only, in
+    tiles of S / 8) and never the C entry; ``layers.flash_attention``
+    routes them there as it routes a CUDA tensor to the kernel (the CUDA
+    branch is held by ``test_wrapper_passes_its_tensors_card_to_the_entry``)."""
+    calls = []
+    plain = tflash.flash_attention_plain
+    monkeypatch.setattr(tflash, "flash_attention_plain", lambda *a, **k: (
+        calls.append(k) or plain(*a, **k)))
+    monkeypatch.setattr(tflash, "_entry",
+                        lambda dt: pytest.fail("the C entry was reached"))
+    q = torch.empty((2, 4096, 8, 64), dtype=torch.bfloat16, device="meta")
+    k = v = torch.empty((2, 4096, 2, 64), dtype=torch.bfloat16,
+                        device="meta")
+    before = tflash.launches
+    out = tflash.flash_attention(q, k, v, causal=True)
+    assert (out.device.type, out.shape, out.dtype) == ("meta", q.shape,
+                                                       q.dtype)
+    out = tlayers.flash_attention(q, k, v, causal=False)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert tflash.launches == before
+    assert calls == [dict(causal=True, q_block=512, k_block=512),
+                     dict(causal=False, q_block=512, k_block=512)]
+
+
 @pytest.mark.parametrize("shapes", [
     ((1, 8, 4, 16), (1, 8, 3, 16), (1, 8, 3, 16)),     # 4 heads over 3
     ((1, 8, 4, 16), (2, 8, 2, 16), (2, 8, 2, 16)),     # batch differs

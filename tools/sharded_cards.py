@@ -27,11 +27,28 @@ cards synchronized on both sides) and the peak bytes of every card are
 recorded. A climate round trip through the spread (2, 2) mesh must give
 the solo call's bytes. JSON records on stdout; the last line is
 ``{"ok": true, ...}``; any disagreement raises.
+
+    python3 tools/sharded_cards.py --ep --ranks 4
+
+``--ep`` and ``--ranks N`` run their legs alone (either or both). ``--ep``:
+``layers.moe_ffn_ep`` at chip_smoke's phase-10a shapes (``EP_LAYER``, on
+its ``EP_MESHES`` (1, 4) and (2, 4), E 128 top-8 and E 2 top-2), once
+with every shard on cuda:0 and once with model shard j of every data row
+on cuda:j (the exchanges between shards are peer copies): y and aux
+bitwise equal. ``--ranks N``: N processes, a card each, one NCCL group
+(``launch.mesh.init_distributed`` on a free localhost port); each rank
+draws the same N pods' gradient trees (smollm-135m's parameter shapes,
+f32, seeded on its card), all-reduces its own pod's with
+``compressed_all_reduce_tree`` (int16 and int8 codes) and must get
+``compressed_psum_tree`` over the N trees in one process, bit for bit;
+the seconds of each and of an f32 NCCL all-reduce of the same elements,
+and the bytes each rank moves.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -122,19 +139,162 @@ def flash_leg(cards: int) -> None:
         del gpu, cache, last
 
 
+def ep_leg(cards: int) -> None:
+    """``moe_ffn_ep`` with model shard j on cuda:j against every shard on
+    cuda:0: bitwise."""
+    import torch
+    from chip_smoke import (EP_LAYER, EP_MESHES, emit, ep_inputs, ep_mesh)
+    from repro_torch.models import layers
+    d, E0, K0, ff, tokens, cf = EP_LAYER
+    spread = [f"cuda:{j}" for j in range(min(cards, 4))]
+    for E, K in ((E0, K0), (2, 2)):
+        x, p = ep_inputs(E, d, ff, tokens, 9 + E)
+        x, p = x.cuda(), {k: v.cuda() for k, v in p.items()}
+        for shape in EP_MESHES:
+            outs, secs, peaks = {}, {}, {}
+            for where, devs in (("one_card", ["cuda:0"]), ("spread", spread)):
+                for i in range(cards):
+                    torch.cuda.reset_peak_memory_stats(i)
+                with ep_mesh(shape, devs):
+                    outs[where], secs[where] = _timed(
+                        lambda: layers.moe_ffn_ep(x, p, E, K, cf))
+                peaks[where] = [torch.cuda.max_memory_allocated(i)
+                                for i in range(cards)]
+            a, b = outs["one_card"], outs["spread"]
+            bitwise = bool(torch.equal(a.y, b.y)
+                           and torch.equal(a.aux_loss, b.aux_loss))
+            if not bitwise:
+                raise AssertionError(f"moe_ep E {E} mesh {shape}: cards "
+                                     "disagree with one card")
+            emit({"phase": "moe_ep_cards", "mesh": list(shape),
+                  "experts": E, "top_k": K, "tokens": list(tokens),
+                  "capacity_factor": cf, "spread": spread,
+                  "bitwise": bitwise, "seconds": secs, "peak_bytes": peaks})
+
+
+def rank_worker(rank: int, world: int, addr: str) -> int:
+    """One rank of ``--ranks``: prints its JSON record."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compression import (
+        compressed_all_reduce_tree, compressed_psum_tree)
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.launch.specs import param_structs
+    if not init_distributed(coordinator_address=addr, num_processes=world,
+                            process_id=rank, backend="nccl"):
+        raise RuntimeError("init_distributed did not start a group")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shapes = [tuple(t.shape) for t in
+              tree.leaves(param_structs(get_config("smollm-135m")))]
+
+    def note(what):
+        print(f"rank {rank}: {what}", file=sys.stderr, flush=True)
+
+    note(f"in the group on {dev}")
+
+    def pod_tree(pod):
+        gen = torch.Generator(device=dev).manual_seed(100 + pod)
+        return [torch.randn(sh, generator=gen, device=dev) * 1e-2
+                for sh in shapes]
+    pods = [pod_tree(p) for p in range(world)]
+    n = sum(t.numel() for t in pods[0])
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    rec = {"rank": rank, "device": str(dev), "elements": n}
+    for bits in (16, 8):
+        note(f"int{bits}")
+        compressed_all_reduce_tree(pods[rank], bits=bits)       # warm up
+        got, secs = timed(lambda: compressed_all_reduce_tree(pods[rank],
+                                                             bits=bits))
+        want = compressed_psum_tree(pods, bits=bits, device=dev)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        wire = n * bits // 8
+        rec[f"int{bits}"] = {
+            "bitwise": same, "seconds": secs,
+            "collective": "all_gather" if bits == 16 else "all_reduce",
+            "bytes_received_per_rank": (world - 1) * wire if bits == 16
+            else 2 * (world - 1) * wire // world}
+    note("f32")
+    flat = torch.cat([t.reshape(-1) for t in pods[rank]])
+    dist.all_reduce(flat.clone())
+    _, secs = timed(lambda: dist.all_reduce(flat))
+    rec["f32_all_reduce"] = {"seconds": secs, "bytes_received_per_rank":
+                             2 * (world - 1) * 4 * n // world}
+    print(json.dumps(rec), flush=True)
+    dist.destroy_process_group()
+    return 0 if rec["int16"]["bitwise"] and rec["int8"]["bitwise"] else 1
+
+
+def ranks_leg(world: int) -> None:
+    """``--ranks``: ``world`` worker processes, one NCCL group."""
+    import socket
+    import torch
+    from chip_smoke import emit
+    if torch.cuda.device_count() < world:
+        raise AssertionError(f"--ranks {world} needs {world} cards")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, NCCL_DEBUG="WARN")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--ranks",
+         str(world), "--rank", str(r), "--rendezvous", f"localhost:{port}"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for r in range(world)]
+    deadline = time.monotonic() + 300
+    outs = []
+    for r, p in enumerate(procs):
+        try:
+            out, err = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, err = p.communicate()
+            raise AssertionError(f"rank {r} did not finish in 300 s; its "
+                                 f"stderr: {err[-3000:]}") from None
+        outs.append((p.returncode, out, err))
+    recs = []
+    for r, (rc, out, err) in enumerate(outs):
+        if rc != 0:
+            raise AssertionError(f"rank {r} exited {rc}: {err[-3000:]}")
+        recs.append(json.loads(out.strip().splitlines()[-1]))
+    emit({"phase": "compressed_all_reduce_ranks", "world": world,
+          "backend": "nccl", "ranks": recs})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nyx", type=int, default=512)
     ap.add_argument("--climate", default="1800x3600")
     ap.add_argument("--flash-only", action="store_true",
                     help="run the flash leg alone")
+    ap.add_argument("--ep", action="store_true",
+                    help="run the expert-parallel MoE leg")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="run the compressed all-reduce over this many "
+                         "processes, a card each")
+    ap.add_argument("--rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rendezvous", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    if args.rank is not None:
+        return rank_worker(args.rank, args.ranks, args.rendezvous)
     if torch.cuda.device_count() < 2:
         print("sharded_cards: needs two or more CUDA cards", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    sys.path.insert(0, str(ROOT))
     from chip_smoke import (COUNTERS, SHARDED_LEGS, emit, read_launches,
                             reset_launches, same_artifact,
                             sharded_launch_bound)
@@ -153,6 +313,16 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip().splitlines()
     print(smi[0], flush=True)
     cards = torch.cuda.device_count()
+    if args.ep or args.ranks:
+        emit({"phase": "cards", "count": cards, "smi": smi})
+        if args.ep:
+            ep_leg(cards)
+        if args.ranks:
+            ranks_leg(args.ranks)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": cards}}), flush=True)
+        return 0
     emit({"phase": "cards", "count": cards, "smi": smi,
           "build_s": _build.build_all(("extrema", "fixpass", "lorenzo",
                                        "pack", "flash"))})
