@@ -205,6 +205,23 @@ Phases, each asserting (any failure exits non-zero):
    (one pod) and qwen3-moe decode_32k (two pods) on meta tensors, each
    "ok", with their seconds; ``make_production_mesh()`` raises on one
    card.
+11. the launchers' sharded execution, the launch counts set to 0 just
+   before each leg and read just after. (11a) ``launch.train.main`` on
+   smollm-135m at full width and depth (bf16, seeded weights, ``--steps
+   4 --batch 8 --seq 2048``) on a (2, 2) ``("data", "model")`` mesh
+   with every position on cuda:0, then on the 1 x 1 host mesh with the
+   same seed: step seconds, tokens/s, peak bytes, each position's
+   resident bytes equal to ``specs.shard_bytes``, flash exactly 60 x dp
+   a step (120 on (2, 2): each data row's forward and remat recompute;
+   the model axis adds none), the losses within 1e-2 relative. (11b)
+   smollm at full width with 2 layers in f32: 3 sharded steps on the
+   (2, 2) card mesh against the one-device CPU step on the same weights
+   (9b's tolerances), flash 24; the mesh's checkpoint restored on 1 x 1
+   bitwise (sha1). (11c) ``launch.serve_lm.main`` on smollm at full
+   width, 8 requests, on the (2, 2) mesh against the 1 x 1 host mesh:
+   equal tokens at 2 layers in f32; both runs' seconds at full depth in
+   bf16. (11d) with two or more cards, 11b and 11c with the positions
+   spread over them; otherwise a record that it did not run.
 
 Phases 3e-3i run after phase 4. Stdout carries JSON records, then the
 script's total seconds; the line before the last is the per-kernel
@@ -2662,14 +2679,15 @@ def checkpoint_sha1s(path: Path) -> dict:
         for k, m in tensors.items()}
 
 
-def run_launcher(argv):
-    """``launch.train.main(argv)`` with its printed lines kept out of
-    this script's output; returns its ``TrainRun`` and closing JSON."""
+def run_launcher(argv, **kw):
+    """``launch.train.main(argv, **kw)`` with its printed lines kept out
+    of this script's output; returns its ``TrainRun`` and closing
+    JSON."""
     import io
     from repro_torch.launch import train as launcher
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        run = launcher.main(argv)
+        run = launcher.main(argv, **kw)
     return run, json.loads(out.getvalue().strip().splitlines()[-1])
 
 
@@ -3265,6 +3283,271 @@ def phase_dryrun() -> None:
           "cards": torch.cuda.device_count(), "raised": raised})
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the launchers' sharded execution over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+#: 11a's launcher run: smollm-135m at full width and depth
+SHARDED_TRAIN = dict(steps=4, batch=8, seq=2048)
+#: 11b's comparison: 2 layers in f32, 3 steps of 4 x 128 tokens
+SHARDED_PARITY = dict(batch=4, seq=128, steps=3)
+#: 11c's serving run
+SHARDED_SERVE = ["--batch", "8", "--prompt-len", "16", "--new-tokens", "32"]
+
+
+def lm_mesh(devices, shape=(2, 2)):
+    """A single-process ``("data", "model")`` mesh on ``devices``."""
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, ("data", "model"), devices=devices)
+
+
+def state_shard_bytes(cfg, mesh) -> int:
+    """``specs.shard_bytes`` of the launcher's train state on ``mesh``:
+    params by ``param_spec``, moments by ZeRO-1 past one position."""
+    from repro_torch.launch import specs
+    from repro_torch.train import TrainState
+    return specs.shard_bytes(
+        TrainState(specs.param_structs(cfg), specs.opt_state_structs(cfg)),
+        TrainState(specs.param_shardings(cfg, mesh),
+                   specs.opt_state_shardings(cfg, mesh,
+                                             zero1=mesh.size > 1)))
+
+
+def phase_sharded_train_full(seed: int) -> int:
+    """11a: ``launch.train.main`` on smollm-135m at full width and depth
+    (bf16, seeded weights) on a (2, 2) mesh with every position on
+    cuda:0, then on the 1 x 1 host mesh, the same seed: flash exactly
+    ``train_flash_per_step`` x dp a step, each position's resident bytes
+    ``specs.shard_bytes``, the losses within 1e-2 relative. Returns the
+    flash launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_config("smollm-135m")
+    k = SHARDED_TRAIN
+    argv = ["--arch", "smollm-135m", "--steps", str(k["steps"]), "--batch",
+            str(k["batch"]), "--seq", str(k["seq"]), "--seed", str(seed),
+            "--log-every", "1"]
+    per_step = train_flash_per_step(cfg, k["seq"], remat=True)
+    legs, total = {}, 0
+    for name, mesh in (("2x2", lm_mesh([MESH_DEVICE] * 4)),
+                       ("1x1", make_host_mesh(MESH_DEVICE))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reset_launches()
+        run, closing = run_launcher(argv, mesh=mesh)
+        launches = read_launches()
+        seconds = time.perf_counter() - t0
+        dp = mesh.shape["data"]
+        want = dict.fromkeys(COUNTERS, 0)
+        want["flash"] = per_step * dp * k["steps"]
+        if launches != want:
+            raise AssertionError(f"sharded 11a {name}: launches {launches} "
+                                 f"!= {want}")
+        shard = state_shard_bytes(cfg, mesh)
+        if sorted(run.resident_bytes.values()) != [shard] * mesh.size:
+            raise AssertionError(f"sharded 11a {name}: resident bytes "
+                                 f"{run.resident_bytes}, specs {shard}")
+        if not all(np.isfinite(run.losses)) or \
+                len(run.losses) != k["steps"]:
+            raise AssertionError(f"sharded 11a {name}: losses {run.losses}")
+        median = statistics.median(run.step_seconds[1:])
+        legs[name] = {
+            "mesh": mesh.shape, "losses": run.losses,
+            "improved": closing["improved"],
+            "step_seconds": run.step_seconds,
+            "step_s_median_after_first": median,
+            "tokens_per_s": k["batch"] * k["seq"] / median,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "resident_bytes_per_position": run.resident_bytes,
+            "specs_shard_bytes": shard,
+            "flash_launches_per_step": per_step * dp,
+            "launches": launches, "seconds": seconds}
+        total += launches["flash"]
+        del run
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(legs["2x2"]["losses"], legs["1x1"]["losses"])]
+    if max(rel) > 1e-2:
+        raise AssertionError(f"sharded 11a: losses {legs['2x2']['losses']} "
+                             f"against {legs['1x1']['losses']}")
+    emit({"phase": "sharded_train", "leg": "11a full width",
+          "model": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+          **k, "remat": True, "legs": legs, "max_rel_loss_diff": max(rel)})
+    return total
+
+
+def sharded_parity(seed: int, devices, label: str) -> dict:
+    """3 steps of ``make_train_step(mesh=)`` on a (2, 2) mesh on
+    ``devices`` against the one-device CPU step on the same weights
+    (smollm-135m at full width, 2 layers, f32): losses within
+    ``TRAIN_TOL["loss"]``, params within ``TRAIN_TOL["param"]`` but for
+    ``param_share``; then the mesh's state saved and restored on the 1
+    x 1 host mesh, bitwise (sha1). Returns the record."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import placement
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import (AdamWConfig, TrainState, TrainStepConfig,
+                                   adamw_init, make_train_step)
+    cfg = dataclasses.replace(get_config("smollm-135m"), n_layers=2,
+                              dtype="float32")
+    k = SHARDED_PARITY
+    cpu, gpu = _weights_both(cfg, seed)
+    mesh = lm_mesh(devices)
+
+    def shardings(m):
+        return TrainState(specs.param_shardings(cfg, m),
+                          specs.opt_state_shardings(cfg, m,
+                                                    zero1=m.size > 1))
+    sc = TrainState(cpu, adamw_init(cpu))
+    sg = placement.place_tree(TrainState(gpu, adamw_init(gpu)),
+                              shardings(mesh))
+    del gpu
+    opt = AdamWConfig(**TRAIN_OPT)
+    one = make_train_step(cfg, TrainStepConfig(), opt)
+    sharded = make_train_step(cfg, TrainStepConfig(), opt, mesh=mesh)
+    losses, secs, launches = [], [], 0
+    for i in range(k["steps"]):
+        b = _train_inputs(cfg, k["batch"], k["seq"], i, seed)
+        sc, mc = one(sc, _on(b, "cpu"))
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        sg, mg = sharded(sg, _on(b, "cuda"))
+        lg = float(mg["loss"])
+        secs.append(time.perf_counter() - t0)
+        launches += read_launches()["flash"]
+        lc = float(mc["loss"])
+        losses.append((lc, lg))
+        if not abs(lg - lc) <= TRAIN_TOL["loss"] * abs(lc):
+            raise AssertionError(f"{label}: loss {lg} on the mesh, {lc} on "
+                                 "the CPU")
+    want = train_flash_per_step(cfg, k["seq"], True) * 2 * k["steps"]
+    if launches != want:
+        raise AssertionError(f"{label}: {launches} flash launches, {want} "
+                             "expected")
+    whole = placement.gather_tree(sg)
+    over, total, err = 0, 0, 0.0
+    for a, b in zip(_leaves(sc.params), _leaves(whole.params)):
+        d = (b.cpu() - a).abs()
+        over += int((d > TRAIN_TOL["param"]).sum())
+        total += d.numel()
+        err = max(err, float(d.max()))
+    if over > TRAIN_TOL["param_share"] * total or \
+            err > 2 * TRAIN_OPT["lr_peak"] * k["steps"]:
+        raise AssertionError(f"{label}: {over} of {total} params differ by "
+                             f"more than {TRAIN_TOL['param']}, the most by "
+                             f"{err}")
+    work = ROOT / "build" / "sharded_ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    mgr = CheckpointManager(work, save_every=1)
+    t0 = time.perf_counter()
+    path = mgr.maybe_save(k["steps"], sg)
+    save_s = time.perf_counter() - t0
+    host = make_host_mesh(MESH_DEVICE)
+    restored, at = mgr.restore_latest(sg, shardings=shardings(host))
+    saved = checkpoint_sha1s(path)
+    bitwise = (at == k["steps"] and saved == tensor_sha1s(whole)
+               and tensor_sha1s(placement.gather_tree(restored)) == saved)
+    shutil.rmtree(work, ignore_errors=True)
+    if not bitwise:
+        raise AssertionError(f"{label}: the 1 x 1 restore is not the "
+                             "(2, 2) state")
+    return {"model": cfg.name, "n_layers": cfg.n_layers, "d_model":
+            cfg.d_model, "dtype": cfg.dtype, "devices": list(devices), **k,
+            "losses_cpu_mesh": losses, "loss_tol": TRAIN_TOL["loss"],
+            "param_max_abs_err": err, "params_over_tol": over,
+            "params": total, "param_tol": TRAIN_TOL["param"],
+            "step_seconds": secs, "flash_launches": launches,
+            "checkpoint_save_s": save_s, "restored_1x1_bitwise": bitwise}
+
+
+def phase_sharded_train_parity(seed: int) -> int:
+    """11b: ``sharded_parity`` with every position on cuda:0. Returns
+    the flash launches."""
+    rec = sharded_parity(seed, [MESH_DEVICE] * 4, "sharded 11b")
+    emit({"phase": "sharded_train", "leg": "11b mesh vs CPU", **rec})
+    return rec["flash_launches"]
+
+
+def run_serve(argv, cfg, mesh):
+    """``launch.serve_lm.main`` for ``cfg`` on ``mesh`` (its printed lines
+    kept out of this script's output): (tokens, seconds, launches)."""
+    import io
+    import torch
+    from repro_torch.launch import serve_lm
+    real = serve_lm.get_config
+    serve_lm.get_config = lambda arch: cfg
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            toks = serve_lm.main(argv, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        return toks, time.perf_counter() - t0, read_launches()
+    finally:
+        serve_lm.get_config = real
+
+
+def phase_sharded_serve(seed: int, devices=None) -> dict:
+    """11c: ``launch.serve_lm.main`` on smollm-135m at full width, 8
+    requests, on a (2, 2) mesh (every position on cuda:0) against the
+    1 x 1 host mesh: at 2 layers in f32 the tokens must be equal; at
+    full depth in bf16 the seconds of both (and whether the tokens
+    agree). No kernel launches (decode steps run plain torch)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    devices = devices or [MESH_DEVICE] * 4
+    argv = ["--arch", "smollm-135m", "--seed", str(seed)] + SHARDED_SERVE
+    full = get_config("smollm-135m")
+    rec = {"phase": "sharded_serve", "argv": argv, "devices": devices}
+    for label, cfg in (("f32_2_layers", dataclasses.replace(
+            full, n_layers=2, dtype="float32")), ("bf16_full", full)):
+        runs = {}
+        for name, mesh in (("1x1", make_host_mesh(MESH_DEVICE)),
+                           ("2x2", lm_mesh(devices))):
+            toks, secs, launches = run_serve(argv, cfg, mesh)
+            if any(launches.values()):
+                raise AssertionError(f"sharded 11c {label} {name}: "
+                                     f"launches {launches}")
+            runs[name] = (toks.cpu(), secs)
+        same = bool((runs["1x1"][0] == runs["2x2"][0]).all())
+        if label.startswith("f32") and not same:
+            raise AssertionError("sharded 11c: the (2, 2) tokens are not "
+                                 "the 1 x 1 run's")
+        rec[label] = {"seconds_1x1": runs["1x1"][1],
+                      "seconds_2x2": runs["2x2"][1], "tokens_equal": same,
+                      "tokens": list(runs["2x2"][0].shape)}
+    emit(rec)
+    return rec
+
+
+def phase_sharded_cards(seed: int) -> int:
+    """11d: with two or more cards, 11b and 11c with the (2, 2) mesh's
+    positions spread round robin over them; otherwise a record that it
+    did not run. Returns the flash launches."""
+    import torch
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"phase": "sharded_train", "leg": "11d spread", "ran": False,
+              "cards": cards, "reason": f"{cards} visible card"})
+        return 0
+    spread = [f"cuda:{i % cards}" for i in range(4)]
+    rec = sharded_parity(seed, spread, "sharded 11d")
+    emit({"phase": "sharded_train", "leg": "11d spread", "ran": True,
+          "cards": cards, **rec})
+    phase_sharded_serve(seed, spread)
+    return rec["flash_launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nyx", type=int, default=512,
@@ -3432,6 +3715,14 @@ def main(argv=None) -> int:
     launches["flash"] += phase_moe_ep_model(seed=2)
     phase_dryrun()
     emit({"phase": "sharded_lm_total", "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    launches["flash"] += phase_sharded_train_full(seed=10)
+    launches["flash"] += phase_sharded_train_parity(seed=11)
+    phase_sharded_serve(seed=12)
+    launches["flash"] += phase_sharded_cards(seed=11)
+    emit({"phase": "sharded_launch_total",
+          "seconds": time.perf_counter() - t0})
 
     # each kernel's row: its times at its main-path shape (nyx for the
     # MSS kernels, the 8 x 2048 prefill for flash), its largest error

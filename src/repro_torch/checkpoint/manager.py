@@ -16,6 +16,13 @@ Guarantees, as the reference's:
     the reference's) for 2-D and 3-D float tensors, exact zlib for the
     rest.
 
+A state placed on a mesh (``distributed.placement``) saves its gathered
+tensors, the same bytes as the one-device state's; across processes
+every rank gathers, rank 0 writes and the others wait at a barrier.
+``shardings=`` re-places the restored tensors on the current mesh, as
+the reference's elastic restore does: a checkpoint written on one mesh
+restores on any other.
+
 The tensors are encoded (and on restore decoded) on a pool of threads,
 one tensor a task (zlib and the codec release the GIL): a file's bytes
 depend on its tensor alone, so they are the same as one thread's.
@@ -50,6 +57,7 @@ import torch
 
 from .. import tree
 from ..compress.szlike import sz_compress, sz_decompress
+from ..distributed import placement
 from ..device import DeviceLike, _d2h, _h2d
 
 _FORMAT_VERSION = 3
@@ -120,11 +128,35 @@ def save_checkpoint(directory: str | Path, step: int, tree_: Any,
                     compress: str = "zlib", lossy_rel_bound: float = 1e-5,
                     lossy_filter: Optional[Callable[[str], bool]] = None
                     ) -> Path:
-    """Atomically write ``tree_`` (a tree of tensors or arrays) under
-    directory/step_<N>."""
+    """Atomically write ``tree_`` (a tree of tensors or arrays, or one
+    placed on a mesh) under directory/step_<N>."""
     directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:010d}"
+    mesh = _placed_mesh(tree_)
+    if mesh is not None:
+        tree_ = placement.gather_tree(tree_)
+        if not mesh.is_rank0():
+            placement.barrier(mesh)
+            return final
+    try:
+        return _save(directory, final, step, tree_, compress,
+                     lossy_rel_bound, lossy_filter)
+    finally:
+        if mesh is not None:
+            placement.barrier(mesh)
+
+
+def _placed_mesh(tree_):
+    """The mesh of a placed tree, None for a plain one."""
+    leaves = tree.leaves(tree_)
+    return leaves[0].mesh if leaves and isinstance(
+        leaves[0], placement.Sharded) else None
+
+
+def _save(directory: Path, final: Path, step: int, tree_: Any,
+          compress: str, lossy_rel_bound: float,
+          lossy_filter: Optional[Callable[[str], bool]]) -> Path:
+    directory.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_"))
     manifest: Dict[str, Any] = {"format": _FORMAT_VERSION, "step": step,
                                 "time": time.time(), "tensors": {}}
@@ -169,12 +201,18 @@ def _valid_ckpts(directory: Path):
 
 def restore_checkpoint(directory: str | Path, like: Any,
                        step: Optional[int] = None,
-                       device: DeviceLike = None) -> tuple[Any, int]:
+                       device: DeviceLike = None,
+                       shardings: Any = None) -> tuple[Any, int]:
     """Restore the newest valid checkpoint (or a specific ``step``) into
     the structure of ``like``: (tree, step). Each tensor keeps its stored
     dtype and takes its ``like`` leaf's shape; it lands on ``device``,
     or without one on the device of its ``like`` leaf (the CPU where
-    that leaf is not a tensor)."""
+    that leaf is not a tensor or is placed). With ``shardings`` (a tree
+    of ``NamedSharding``) it is placed on their mesh
+    (``placement.place_tree``): the elastic restore."""
+    if shardings is not None:
+        got, at = restore_checkpoint(directory, like, step, device)
+        return placement.place_tree(got, shardings), at
     directory = Path(directory)
     cands = _valid_ckpts(directory)
     if step is not None:
@@ -220,11 +258,14 @@ class CheckpointManager:
 
     def maybe_save(self, step: int, tree_: Any) -> Optional[Path]:
         """Save ``tree_`` when ``step`` hits the save cadence; returns the
-        checkpoint path (None when this step is skipped)."""
+        checkpoint path (None when this step is skipped). Of a placed
+        tree across processes, rank 0 alone writes and collects."""
         if step % self.save_every:
             return None
         p = save_checkpoint(self.directory, step, tree_, self.compress)
-        self._gc()
+        mesh = _placed_mesh(tree_)
+        if mesh is None or mesh.is_rank0():
+            self._gc()
         return p
 
     def _gc(self):
@@ -235,11 +276,13 @@ class CheckpointManager:
         for tmp in Path(self.directory).glob(".tmp_ckpt_*"):
             shutil.rmtree(tmp, ignore_errors=True)
 
-    def restore_latest(self, like: Any, device: DeviceLike = None):
+    def restore_latest(self, like: Any, device: DeviceLike = None,
+                       shardings: Any = None):
         """Restore the newest checkpoint in the directory into the
-        structure of ``like`` (onto ``device``, see
-        ``restore_checkpoint``)."""
-        return restore_checkpoint(self.directory, like, device=device)
+        structure of ``like`` (onto ``device``, or placed by
+        ``shardings``; see ``restore_checkpoint``)."""
+        return restore_checkpoint(self.directory, like, device=device,
+                                  shardings=shardings)
 
 
 __all__ = ["CheckpointManager", "save_checkpoint", "restore_checkpoint"]

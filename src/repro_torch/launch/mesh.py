@@ -25,12 +25,21 @@ pod or (2, 16, 16) ``("pod", "data", "model")`` pair of pods, on 256 or
 (``["meta"] * 256`` is the dry-run's: shapes only, nothing allocated).
 
 ``init_distributed`` joins this process to a ``torch.distributed``
-process group (one process a pod for the compressed gradient all-reduce
-of ``distributed.compression``); a mesh itself stays in one process.
+process group. A mesh then spans processes: ``make_mesh`` and
+``make_production_mesh`` called under a group place rank r at position
+r (row-major) on its card (``cuda:LOCAL_RANK`` under NCCL, the CPU under
+gloo), as ``jax.make_mesh`` lays the devices of every process out. Such
+a mesh knows the rank that owns each position (``ranks``), which
+positions are this process's (``local_positions``: one), and the
+process group of every set of its axes (``group``), built with
+``dist.new_group`` on every rank in the same order when the mesh is
+made. A mesh made without a group (or with ``devices=``) holds every
+position in this process.
 """
 from __future__ import annotations
 
 import contextvars
+import itertools
 import math
 import os
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -40,7 +49,8 @@ import torch
 
 __all__ = ["BLOCK_AXIS_ORDER", "DeviceMesh", "active_mesh",
            "factor_block_shape", "init_distributed", "make_block_mesh",
-           "make_data_mesh", "make_host_mesh", "make_production_mesh"]
+           "launcher_mesh", "make_data_mesh", "make_host_mesh", "make_mesh",
+           "make_production_mesh"]
 
 #: mesh axis names for block meshes, outermost first; the LAST k of these
 #: name a k-axis mesh, so the slab axis (data_z, field axis 0) is always
@@ -57,9 +67,16 @@ class DeviceMesh:
     """Named axes over an object array of ``torch.device``s, one per
     block. ``shape`` maps each axis name to its size, as the reference's
     ``Mesh.shape`` does, so the reference's ``plan_blocks`` and
-    ``halo_plan`` accept this object as they are."""
+    ``halo_plan`` accept this object as they are.
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    ``ranks`` (an int array of the devices' shape) names the process
+    that owns each position; None: every position is this process's.
+    A multi-process mesh holds one position a rank, and builds the
+    process group of every non-empty set of its axes at once, on every
+    rank in the same order (``dist.new_group`` needs that)."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 ranks: Optional[np.ndarray] = None):
         devices = np.asarray(devices, dtype=object)
         axis_names = tuple(axis_names)
         if devices.ndim != len(axis_names):
@@ -67,12 +84,101 @@ class DeviceMesh:
                              f"{devices.ndim} axis names, got {axis_names}")
         self.devices = devices
         self.axis_names = axis_names
+        self.ranks = None if ranks is None else np.asarray(
+            ranks, dtype=np.int64).reshape(devices.shape)
         self._tokens: List[contextvars.Token] = []
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        if self.ranks is not None:
+            if len(set(self.ranks.reshape(-1).tolist())) != self.ranks.size:
+                raise ValueError("a multi-process mesh holds one position "
+                                 "a rank")
+            self._build_groups()
 
     @property
     def shape(self) -> Dict[str, int]:
         """Axis name -> size."""
         return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def multi_process(self) -> bool:
+        return self.ranks is not None
+
+    def is_rank0(self) -> bool:
+        """Whether this process speaks for the mesh: rank 0 across
+        processes, always in one."""
+        if self.ranks is None:
+            return True
+        import torch.distributed as dist
+        return dist.get_rank() == 0
+
+    def local_positions(self) -> List[int]:
+        """The flat (row-major) positions this process holds: every one,
+        or on a multi-process mesh this rank's one."""
+        if self.ranks is None:
+            return list(range(self.size))
+        import torch.distributed as dist
+        me = dist.get_rank()
+        return [int(i) for i in np.flatnonzero(self.ranks.reshape(-1) == me)]
+
+    def device_at(self, pos: int) -> torch.device:
+        return torch.device(self.devices.reshape(-1)[pos])
+
+    def coords(self, pos: int) -> Dict[str, int]:
+        """Axis name -> index of flat position ``pos``."""
+        return {a: int(i) for a, i in zip(
+            self.axis_names, np.unravel_index(pos, self.devices.shape))}
+
+    def members(self, pos: int, axes: Sequence[str]) -> List[int]:
+        """The flat positions that differ from ``pos`` only along
+        ``axes``, row-major (the first axis of the mesh's order
+        outermost): the group ``pos`` meets in a collective over
+        ``axes``."""
+        c = self.coords(pos)
+        ranges = [range(n) if a in axes else (c[a],)
+                  for a, n in zip(self.axis_names, self.devices.shape)]
+        return [int(np.ravel_multi_index(ix, self.devices.shape))
+                for ix in itertools.product(*ranges)]
+
+    def _axes_key(self, axes: Sequence[str]) -> Tuple[str, ...]:
+        unknown = set(axes) - set(self.axis_names)
+        if unknown:
+            raise ValueError(f"mesh axes {self.axis_names} lack "
+                             f"{sorted(unknown)}")
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def _build_groups(self) -> None:
+        import torch.distributed as dist
+        if not dist.is_initialized():
+            raise RuntimeError("a multi-process mesh needs a process group "
+                               "(launch.mesh.init_distributed)")
+        if dist.get_world_size() < self.size:
+            raise ValueError(f"a mesh of {self.size} positions over "
+                             f"{dist.get_world_size()} ranks")
+        me = dist.get_rank()
+        flat = self.ranks.reshape(-1)
+        for k in range(1, len(self.axis_names) + 1):
+            for axes in itertools.combinations(self.axis_names, k):
+                seen = set()
+                for pos in range(self.size):
+                    ms = tuple(self.members(pos, axes))
+                    if ms in seen:
+                        continue
+                    seen.add(ms)
+                    ranks = [int(flat[q]) for q in ms]
+                    g = dist.new_group(ranks)
+                    if me in ranks:
+                        self._groups[axes] = g
+
+    def group(self, axes: Sequence[str]):
+        """This rank's process group over ``axes`` (a multi-process mesh's
+        own; its members in position order, which is rank order)."""
+        if self.ranks is None:
+            raise ValueError("a single-process mesh has no process groups")
+        return self._groups[self._axes_key(axes)]
 
     def __enter__(self) -> "DeviceMesh":
         self._tokens.append(_ACTIVE.set(_ACTIVE.get() + (self,)))
@@ -83,7 +189,8 @@ class DeviceMesh:
 
     def __repr__(self) -> str:
         places = ", ".join(str(d) for d in self.devices.reshape(-1))
-        return f"DeviceMesh({self.shape}, devices=[{places}])"
+        where = "" if self.ranks is None else ", multi-process"
+        return f"DeviceMesh({self.shape}, devices=[{places}]{where})"
 
 
 def active_mesh() -> Optional[DeviceMesh]:
@@ -159,16 +266,63 @@ def make_data_mesh(n_devices: Optional[int] = None, *,
                                            "data mesh")), ("data",))
 
 
+def _group_up() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def _rank_device() -> torch.device:
+    """This rank's device in a process group: its current card under
+    NCCL, the CPU under gloo."""
+    import torch.distributed as dist
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
+              devices: Optional[Sequence[DeviceSpec]] = None
+              ) -> DeviceMesh:
+    """A mesh of ``shape`` over ``axis_names``, ``jax.make_mesh``'s
+    counterpart. Under a process group (and without ``devices=``) it
+    spans the processes: rank r at position r, row-major, on its own
+    device; the group must have exactly as many ranks as the mesh has
+    positions. Otherwise every position lies in this process, on
+    ``devices`` (one each) or a visible card each."""
+    shape_t = tuple(int(s) for s in shape)
+    n = math.prod(shape_t)
+    if devices is None and _group_up():
+        import torch.distributed as dist
+        world = dist.get_world_size()
+        if world != n:
+            raise ValueError(f"requested a {shape_t} mesh of {n} positions "
+                             f"but the process group has {world} ranks")
+        dev = _rank_device()
+        # every rank sees one device a rank: its own is the only one it
+        # touches; the others' entries name where those ranks run
+        devs = [dev if r == dist.get_rank() else
+                (torch.device("cuda", r % max(torch.cuda.device_count(), 1))
+                 if dev.type == "cuda" else dev) for r in range(n)]
+        return DeviceMesh(_object_array(devs).reshape(shape_t), axis_names,
+                          ranks=np.arange(n).reshape(shape_t))
+    devs = _place(n, devices, f"{shape_t} mesh")
+    return DeviceMesh(_object_array(devs).reshape(shape_t), axis_names)
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          devices: Optional[Sequence[DeviceSpec]] = None
                          ) -> DeviceMesh:
     """16 x 16 = 256 devices a pod; ``multi_pod`` stacks 2 pods = 512.
     Axes: ``("data", "model")`` single-pod, ``("pod", "data", "model")``
-    multi-pod. By default a visible card a device, raising with fewer
-    than 256 (512) cards, as ``jax.make_mesh`` raises with too few
-    devices; ``devices=["meta"] * 256`` places the dry-run's mesh."""
+    multi-pod. Under a process group a rank a position (``make_mesh``),
+    raising unless the group has 256 (512) ranks; otherwise a visible
+    card a device, raising with fewer than 256 (512) cards, as
+    ``jax.make_mesh`` raises with too few devices;
+    ``devices=["meta"] * 256`` places the dry-run's mesh."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if devices is None and _group_up():
+        return make_mesh(shape, axes)
     devs = _place(math.prod(shape), devices, f"{shape} production mesh")
     return DeviceMesh(_object_array(devs).reshape(shape), axes)
 
@@ -222,6 +376,22 @@ def make_host_mesh(device: Optional[DeviceSpec] = None) -> DeviceMesh:
     from ..device import resolve_device
     return DeviceMesh(_object_array([resolve_device(device)]).reshape(1, 1),
                       ("data", "model"))
+
+
+def launcher_mesh(device: Optional[DeviceSpec] = None) -> DeviceMesh:
+    """The LM launchers' mesh, the reference's choice
+    (``repro/launch/train.py:52-53``): the 1 x 1 host mesh on one device,
+    otherwise ``make_production_mesh()``, over the process group that
+    ``init_distributed`` joins (torchrun's environment) or over the
+    visible cards of this process."""
+    from ..device import resolve_device
+    dev = resolve_device(device)
+    if init_distributed():
+        import torch.distributed as dist
+        n_dev = dist.get_world_size()
+    else:
+        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    return make_host_mesh(dev) if n_dev == 1 else make_production_mesh()
 
 
 def factor_block_shape(n_devices: int, ndim: int = 2) -> Tuple[int, ...]:

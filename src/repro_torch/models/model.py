@@ -186,6 +186,13 @@ def window_schedule(cfg: ArchConfig) -> np.ndarray:
     return w
 
 
+def _full(x):
+    """A weight as a tensor: a model-sharded leaf of the sharded train
+    step (``distributed.placement.ModelShards``) gathered over
+    ``model``; a tensor as it is."""
+    return x if isinstance(x, torch.Tensor) else x.full()
+
+
 def _layer(stack: Params, i) -> Params:
     """Layer ``i``'s parameters (an int, or a tuple into xLSTM's
     (G, per - 1) mLSTM stack): views into a stacked group."""
@@ -196,7 +203,8 @@ def _layers(stack: Params) -> List[Params]:
     """Every layer's parameters along the stack's leading axis, views
     taken by one ``unbind`` a weight: under autograd its backward stacks
     the layers' gradients once, where a view a layer would add a
-    stack-sized gradient a layer."""
+    stack-sized gradient a layer. A model-sharded weight unbinds its
+    shards the same way; ``_run`` gathers its layer."""
     cols = {k: v.unbind(0) for k, v in stack.items()}
     n = len(next(iter(cols.values())))
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
@@ -206,11 +214,17 @@ def _run(remat: bool, fn, *args):
     """``fn(*args)``, under ``remat`` (and grad mode) through
     ``torch.utils.checkpoint`` (non-reentrant): the layer keeps only its
     inputs and runs again in the backward, the same ops on the same
-    values, so the numbers are bitwise those without it."""
+    values, so the numbers are bitwise those without it. Model-sharded
+    weights in a layer's dict are gathered inside the call, so under
+    remat the gather runs again in the backward and a layer's whole
+    weights live only while it runs."""
+    def call(*a):
+        return fn(*({k: _full(v) for k, v in x.items()}
+                    if isinstance(x, dict) else x for x in a))
     if remat and torch.is_grad_enabled():
         return torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, preserve_rng_state=False)
-    return fn(*args)
+            call, *args, use_reentrant=False, preserve_rng_state=False)
+    return call(*args)
 
 
 def _dense_layer(cfg: ArchConfig, lp: Params, x, positions, window: int,
@@ -243,7 +257,8 @@ def _embed_tokens(cfg: ArchConfig, params: Params,
     backward accumulates with atomics on the CPU, and its bits change
     from run to run)."""
     dt = _dtype(cfg)
-    x = torch.nn.functional.embedding(tokens.long(), params["embed"]).to(dt)
+    x = torch.nn.functional.embedding(tokens.long(),
+                                      _full(params["embed"])).to(dt)
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
     return x
@@ -267,8 +282,7 @@ def _unembed(cfg: ArchConfig, params: Params, x: torch.Tensor
     in f32), out of place when it does (``tanh`` saves its output for
     the backward); both forms give the same bits."""
     unemb = params.get("unembed")
-    if unemb is None:
-        unemb = params["embed"].T
+    unemb = _full(params["embed"]).T if unemb is None else _full(unemb)
     logits = x.float() @ unemb.float()
     cap = cfg.final_softcap
     if cap is not None:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -72,12 +72,16 @@ def global_norm(grads: Any) -> torch.Tensor:
 
 
 def adamw_update(cfg: AdamWConfig, state: AdamWState, params: Any,
-                 grads: Any, *, inplace: bool = False
+                 grads: Any, *, inplace: bool = False,
+                 gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, AdamWState, dict]:
     """Returns (new_params, new_state, metrics) with metrics ``grad_norm``
     and ``lr``. ``inplace`` updates ``state.m``, ``state.v`` and
-    ``params`` in place and returns them."""
-    gnorm = global_norm(grads)
+    ``params`` in place and returns them. ``gnorm`` is the norm to clip
+    by, where ``grads`` are a slice of the whole (the sharded step's
+    ZeRO-1 slices); by default ``global_norm(grads)``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                             1.0)
     step = state.step + 1

@@ -35,6 +35,7 @@ import torch
 from .. import tree
 from ..device import DeviceLike
 from ..distributed.compression import make_grad_sync
+from ..distributed.placement import is_placed
 from ..models import forward as model_forward
 from ..models import init_params
 from ..models import layers as _L
@@ -177,7 +178,7 @@ def make_grad_fn(cfg: ArchConfig, tcfg: TrainStepConfig,
         return compute_grads
 
     n = tcfg.n_pods
-    if _pod_group_spans(n):
+    if _pod_group_spans(n, mesh):
         return _rank_pod_grads(compute_grads, tcfg)
 
     def pod_grads(params, batch):
@@ -200,12 +201,25 @@ def make_grad_fn(cfg: ArchConfig, tcfg: TrainStepConfig,
     return pod_grads
 
 
-def _pod_group_spans(n_pods: int) -> bool:
-    """Whether a ``torch.distributed`` process group of ``n_pods`` ranks
-    is up: a process a pod."""
+def _pod_group_spans(n_pods: int, mesh=None) -> bool:
+    """Whether the pods are the ranks of the ``torch.distributed`` process
+    group: one is up and has ``n_pods`` ranks. A group of another size,
+    or a mesh over processes, raises: there the pods are subgroups of a
+    ``(pod, data, model)`` mesh, which the sharded step
+    (``make_train_step(mesh=)``) syncs, each position over its own pod
+    subgroup."""
     import torch.distributed as dist
-    return (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() == n_pods)
+    if not (dist.is_available() and dist.is_initialized()):
+        return False
+    world = dist.get_world_size()
+    if (mesh is not None and getattr(mesh, "multi_process", False)) \
+            or world != n_pods:
+        raise ValueError(
+            f"grad_compress over {n_pods} pods in a process group of "
+            f"{world} ranks: pass the (pod, data, model) mesh and a state "
+            "placed on it to make_train_step(mesh=), whose pods sync over "
+            "each position's pod subgroup")
+    return True
 
 
 def _rank_pod_grads(compute_grads: Callable, tcfg: TrainStepConfig
@@ -238,12 +252,23 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainStepConfig,
                     opt_cfg: AdamWConfig, *, mesh=None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``, metrics
     ``loss``, ``aux_loss``, ``tokens``, ``grad_norm`` and ``lr`` (0-d
-    tensors). The state is updated in place and returned. ``mesh``
-    places the pods of the compressed sync (``make_grad_fn``)."""
-    grad_fn = make_grad_fn(cfg, tcfg, mesh)
+    tensors). The state is updated in place and returned. A state placed
+    on ``mesh`` (``distributed.placement.place_tree``; a ``(data,
+    model)`` or ``(pod, data, model)`` mesh) runs the sharded step
+    (``train.sharded``); a plain state the one-device step, ``mesh``
+    placing the pods of its compressed sync (``make_grad_fn``)."""
+    built: Dict[str, Callable] = {}     # each path made at its first use
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        grads, aux = grad_fn(state.params, batch)
+        if is_placed(state.params):
+            if "sharded" not in built:
+                from .sharded import make_sharded_train_step
+                built["sharded"] = make_sharded_train_step(cfg, tcfg,
+                                                           opt_cfg, mesh)
+            return built["sharded"](state, batch)
+        if "grad" not in built:
+            built["grad"] = make_grad_fn(cfg, tcfg, mesh)
+        grads, aux = built["grad"](state.params, batch)
         params, opt, om = adamw_update(opt_cfg, state.opt, state.params,
                                        grads, inplace=True)
         return TrainState(params, opt), {**aux, **om}

@@ -43,6 +43,16 @@ f32, seeded on its card), all-reduces its own pod's with
 ``compressed_psum_tree`` over the N trees in one process, bit for bit;
 the seconds of each and of an f32 NCCL all-reduce of the same elements,
 and the bytes each rank moves.
+
+    python3 tools/sharded_cards.py --train --ranks 4
+
+``--train --ranks N``: chip_smoke's 11b model (smollm-135m at full width,
+2 layers, f32, seeded) trained 3 steps by ``make_train_step(mesh=)`` on a
+(2, N / 2) ``("data", "model")`` mesh twice: in this process with
+position i on cuda:i, then over N processes, a card and a position each,
+one NCCL group. Every rank's losses and gathered params go beside the
+one-process run's, with the largest difference and whether they are
+bitwise equal, and each rank's step seconds.
 """
 from __future__ import annotations
 
@@ -234,22 +244,90 @@ def rank_worker(rank: int, world: int, addr: str) -> int:
     return 0 if rec["int16"]["bitwise"] and rec["int8"]["bitwise"] else 1
 
 
-def ranks_leg(world: int) -> None:
-    """``--ranks``: ``world`` worker processes, one NCCL group."""
-    import socket
+#: the seed of 11b's weights and batches
+TRAIN_SEED = 11
+
+
+def _train_setup(seed: int):
+    """chip_smoke's 11b model, its seeded CPU weights, and its batches."""
+    import dataclasses
     import torch
-    from chip_smoke import emit
-    if torch.cuda.device_count() < world:
-        raise AssertionError(f"--ranks {world} needs {world} cards")
+    from chip_smoke import SHARDED_PARITY, _train_inputs
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config("smollm-135m"), n_layers=2,
+                              dtype="float32")
+    k = SHARDED_PARITY
+    params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    batches = [_train_inputs(cfg, k["batch"], k["seq"], i, seed)
+               for i in range(k["steps"])]
+    return cfg, params, batches
+
+
+def train_on_mesh(mesh, dev, seed: int) -> dict:
+    """3 steps of ``make_train_step(mesh=)`` from 11b's weights: the
+    losses, each step's seconds and the gathered params (on the CPU)."""
+    import torch
+    from chip_smoke import TRAIN_OPT
+    from repro_torch import tree
+    from repro_torch.distributed import placement
+    from repro_torch.launch import specs
+    from repro_torch.train import (AdamWConfig, TrainState, TrainStepConfig,
+                                   adamw_init, make_train_step)
+    cfg, params, batches = _train_setup(seed)
+    params = tree.tree_map(lambda t: t.to(dev), params)
+    state = placement.place_tree(
+        TrainState(params, adamw_init(params)),
+        TrainState(specs.param_shardings(cfg, mesh),
+                   specs.opt_state_shardings(cfg, mesh, zero1=True)))
+    del params
+    step = make_train_step(cfg, TrainStepConfig(), AdamWConfig(**TRAIN_OPT),
+                           mesh=mesh)
+    sync = (lambda: torch.cuda.synchronize(dev)) if mesh.multi_process \
+        else _sync_all
+    losses, secs = [], []
+    for b in batches:
+        b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        sync()
+        secs.append(time.perf_counter() - t0)
+    whole = placement.gather_tree(state.params)
+    return {"losses": losses, "step_seconds": secs,
+            "params": {k: v.cpu() for k, v in tree.flatten_with_path(whole)}}
+
+
+def train_rank_worker(rank: int, world: int, addr: str, out: str) -> int:
+    """One rank of ``--train --ranks``: saves its run to ``out``."""
+    import torch
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    if not init_distributed(coordinator_address=addr, num_processes=world,
+                            process_id=rank, backend="nccl"):
+        raise RuntimeError("init_distributed did not start a group")
+    mesh = make_mesh((2, world // 2), ("data", "model"))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rec = train_on_mesh(mesh, dev, TRAIN_SEED)
+    rec.update(rank=rank, device=str(dev))
+    torch.save(rec, out)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _spawn(world: int, extra) -> list:
+    """``world`` worker processes of this script on a free localhost
+    port; returns each one's (exit code, stdout, stderr)."""
+    import socket
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     env = dict(os.environ, NCCL_DEBUG="WARN")
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--ranks",
-         str(world), "--rank", str(r), "--rendezvous", f"localhost:{port}"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for r in range(world)]
+         str(world), "--rank", str(r), "--rendezvous", f"localhost:{port}"]
+        + extra(r), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env) for r in range(world)]
     deadline = time.monotonic() + 300
     outs = []
     for r, p in enumerate(procs):
@@ -263,11 +341,58 @@ def ranks_leg(world: int) -> None:
             raise AssertionError(f"rank {r} did not finish in 300 s; its "
                                  f"stderr: {err[-3000:]}") from None
         outs.append((p.returncode, out, err))
-    recs = []
-    for r, (rc, out, err) in enumerate(outs):
+    for r, (rc, _, err) in enumerate(outs):
         if rc != 0:
             raise AssertionError(f"rank {r} exited {rc}: {err[-3000:]}")
-        recs.append(json.loads(out.strip().splitlines()[-1]))
+    return outs
+
+
+def ranks_train_leg(world: int) -> None:
+    """``--train --ranks``: the one-process card mesh, then ``world``
+    NCCL ranks, a position each."""
+    import torch
+    from chip_smoke import emit
+    from repro_torch.launch.mesh import make_mesh
+    if torch.cuda.device_count() < world or world % 2:
+        raise AssertionError(f"--train --ranks {world} needs {world} cards "
+                             "and an even count")
+    mesh = make_mesh((2, world // 2), ("data", "model"),
+                     devices=[f"cuda:{i}" for i in range(world)])
+    want = train_on_mesh(mesh, torch.device("cuda", 0), TRAIN_SEED)
+    work = ROOT / "build" / "train_ranks"
+    work.mkdir(parents=True, exist_ok=True)
+    _spawn(world, lambda r: ["--train", "--out", str(work / f"r{r}.pt")])
+    ranks = []
+    for r in range(world):
+        got = torch.load(work / f"r{r}.pt", weights_only=False)
+        err = max(float((got["params"][k] - v).abs().max())
+                  for k, v in want["params"].items())
+        same = all(torch.equal(got["params"][k], v)
+                   for k, v in want["params"].items())
+        ranks.append({"rank": r, "device": got["device"],
+                      "losses": got["losses"],
+                      "max_rel_loss_diff": max(
+                          abs(a - b) / abs(b) for a, b in
+                          zip(got["losses"], want["losses"])),
+                      "param_max_abs_diff": err, "params_bitwise": same,
+                      "step_seconds": got["step_seconds"]})
+    emit({"phase": "sharded_train_ranks", "world": world,
+          "mesh": mesh.shape, "backend": "nccl",
+          "one_process": {"losses": want["losses"],
+                          "step_seconds": want["step_seconds"]},
+          "ranks": ranks,
+          "param_max_abs_diff": max(r["param_max_abs_diff"] for r in ranks),
+          "all_bitwise": all(r["params_bitwise"] for r in ranks)})
+
+
+def ranks_leg(world: int) -> None:
+    """``--ranks``: ``world`` worker processes, one NCCL group."""
+    import torch
+    from chip_smoke import emit
+    if torch.cuda.device_count() < world:
+        raise AssertionError(f"--ranks {world} needs {world} cards")
+    outs = _spawn(world, lambda r: [])
+    recs = [json.loads(out.strip().splitlines()[-1]) for _, out, _ in outs]
     emit({"phase": "compressed_all_reduce_ranks", "world": world,
           "backend": "nccl", "ranks": recs})
 
@@ -283,14 +408,21 @@ def main(argv=None) -> int:
     ap.add_argument("--ranks", type=int, default=0,
                     help="run the compressed all-reduce over this many "
                          "processes, a card each")
+    ap.add_argument("--train", action="store_true",
+                    help="with --ranks: the sharded train step over the "
+                         "ranks' (2, N / 2) mesh instead")
     ap.add_argument("--rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--rendezvous", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     if args.rank is not None:
+        if args.train:
+            return train_rank_worker(args.rank, args.ranks, args.rendezvous,
+                                     args.out)
         return rank_worker(args.rank, args.ranks, args.rendezvous)
     if torch.cuda.device_count() < 2:
         print("sharded_cards: needs two or more CUDA cards", file=sys.stderr)
@@ -318,7 +450,7 @@ def main(argv=None) -> int:
         if args.ep:
             ep_leg(cards)
         if args.ranks:
-            ranks_leg(args.ranks)
+            (ranks_train_leg if args.train else ranks_leg)(args.ranks)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": cards}}), flush=True)
