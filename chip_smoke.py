@@ -221,7 +221,21 @@ Phases, each asserting (any failure exits non-zero):
    width, 8 requests, on the (2, 2) mesh against the 1 x 1 host mesh:
    equal tokens at 2 layers in f32; both runs' seconds at full depth in
    bf16. (11d) with two or more cards, 11b and 11c with the positions
-   spread over them; otherwise a record that it did not run.
+   spread over them; otherwise a record that it did not run. (11e) the
+   tensor-parallel step: granite-8b at its published widths (d 4096,
+   32/8 heads of 128, d_ff 14336, vocab 49152, bf16, seeded weights)
+   cut to 8 of 36 layers, 3 steps of 4 x 2048 tokens on a (1, 4) mesh
+   with every position on cuda:0, then on 1 x 1: step seconds, tokens/s,
+   peak bytes, flash exactly 64 a step on (1, 4) (each of the 4 shards'
+   8/2 heads, forward and remat) against 16, the process's matmul FLOPs
+   of the first step (``FlopCounterMode``) equal to
+   ``train.sharded.step_matmul_flops`` and each position's reckoned
+   beside 1 x 1's, the losses within 1e-2 relative; then granite's
+   widths at 2 layers in f32, 3 steps of 2 x 128 on a (1, 2) card mesh
+   against the CPU's one-device step (9b's tolerances), flash 24. The
+   ``sharded_train`` records carry ``tp_split``, the split and the
+   gathered leaves. Phase 2b checks and times flash at the shard shape
+   (4, 2048, 8, 2, 128).
 
 Phases 3e-3i run after phase 4. Stdout carries JSON records, then the
 script's total seconds; the line before the last is the per-kernel
@@ -1866,6 +1880,10 @@ FLASH_WIDE = ((2, 4096, 32, 8, 128), (4, 2048, 64, 4, 128),
 #: 64 (G 5), timed beside the others
 FLASH_HYMBA = ((8, 2048, 25, 5, 64),)
 
+#: one model shard's heads of phase 11e's granite-8b step on a (1, 4)
+#: mesh: 32/8 heads of 128 split four ways over 4 x 2048 tokens
+FLASH_TP = ((4, 2048, 8, 2, 128),)
+
 
 def _dtype_name(dt) -> str:
     return str(dt).split(".")[-1]
@@ -1975,17 +1993,24 @@ def flash_bound(B, S, T, H, Hk, Dh, itemsize: int) -> tuple:
 
 
 def phase_flash_main(reps: int, seed: int) -> dict:
-    """The kernel at the prefill shapes, ``FLASH_WIDE`` and
-    ``FLASH_HYMBA``, bf16 causal: checked against the plain version, then
-    timed beside it and beside one ``scaled_dot_product_attention`` call
-    (the yardstick)."""
+    """The kernel at the prefill shapes, ``FLASH_WIDE``, ``FLASH_HYMBA``
+    and ``FLASH_TP``, bf16 causal: checked against the plain version
+    (a ``kernels_vs_plain`` record for ``FLASH_TP``), then timed beside
+    it and beside one ``scaled_dot_product_attention`` call (the
+    yardstick)."""
     import torch
     from repro_torch.kernels import flash as kfl
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = {}
-    for B, S, H, Hk, Dh in FLASH_MAIN + FLASH_WIDE + FLASH_HYMBA:
+    for B, S, H, Hk, Dh in FLASH_MAIN + FLASH_WIDE + FLASH_HYMBA + FLASH_TP:
         q, k, v = flash_inputs(B, S, S, H, Hk, Dh, torch.bfloat16, gen)
         err, want = check_flash(f"main {(B, S, H, Hk, Dh)}", q, k, v, True)
+        if (B, S, H, Hk, Dh) in FLASH_TP:
+            emit({"phase": "kernels_vs_plain",
+                  "case": f"flash tp shard {(B, S, S, H, Hk, Dh)} causal=True",
+                  "model": "granite-8b", "shape": [B, S, S, H, Hk, Dh],
+                  "causal": True, "dtype": "bfloat16", "max_abs_err": err,
+                  "rtol_atol": FLASH_TOL["bfloat16"]})
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -3323,6 +3348,7 @@ def phase_sharded_train_full(seed: int) -> int:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.sharding import tp_split
     cfg = get_config("smollm-135m")
     k = SHARDED_TRAIN
     argv = ["--arch", "smollm-135m", "--steps", str(k["steps"]), "--batch",
@@ -3363,6 +3389,7 @@ def phase_sharded_train_full(seed: int) -> int:
             "resident_bytes_per_position": run.resident_bytes,
             "specs_shard_bytes": shard,
             "flash_launches_per_step": per_step * dp,
+            "tp_split": tp_split(cfg, mesh.shape),
             "launches": launches, "seconds": seconds}
         total += launches["flash"]
         del run
@@ -3378,13 +3405,16 @@ def phase_sharded_train_full(seed: int) -> int:
     return total
 
 
-def sharded_parity(seed: int, devices, label: str) -> dict:
-    """3 steps of ``make_train_step(mesh=)`` on a (2, 2) mesh on
+def sharded_parity(seed: int, devices, label: str, arch="smollm-135m",
+                   shape=(2, 2), k=None, checkpoint: bool = True) -> dict:
+    """3 steps of ``make_train_step(mesh=)`` on a ``shape`` mesh on
     ``devices`` against the one-device CPU step on the same weights
-    (smollm-135m at full width, 2 layers, f32): losses within
+    (``arch`` at full width, 2 layers, f32): losses within
     ``TRAIN_TOL["loss"]``, params within ``TRAIN_TOL["param"]`` but for
-    ``param_share``; then the mesh's state saved and restored on the 1
-    x 1 host mesh, bitwise (sha1). Returns the record."""
+    ``param_share``, flash launches as the split says (each model
+    shard's where the heads split); then, with ``checkpoint``, the
+    mesh's state saved and restored on the 1 x 1 host mesh, bitwise
+    (sha1). Returns the record."""
     import dataclasses
     import shutil
     import torch
@@ -3393,13 +3423,14 @@ def sharded_parity(seed: int, devices, label: str) -> dict:
     from repro_torch.distributed import placement
     from repro_torch.launch import specs
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.sharding import heads_split, tp_split
     from repro_torch.train import (AdamWConfig, TrainState, TrainStepConfig,
                                    adamw_init, make_train_step)
-    cfg = dataclasses.replace(get_config("smollm-135m"), n_layers=2,
-                              dtype="float32")
-    k = SHARDED_PARITY
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    k = k or SHARDED_PARITY
     cpu, gpu = _weights_both(cfg, seed)
-    mesh = lm_mesh(devices)
+    mesh = lm_mesh(devices, shape)
+    dp, tp = mesh.shape["data"], mesh.shape["model"]
 
     def shardings(m):
         return TrainState(specs.param_shardings(cfg, m),
@@ -3428,7 +3459,8 @@ def sharded_parity(seed: int, devices, label: str) -> dict:
         if not abs(lg - lc) <= TRAIN_TOL["loss"] * abs(lc):
             raise AssertionError(f"{label}: loss {lg} on the mesh, {lc} on "
                                  "the CPU")
-    want = train_flash_per_step(cfg, k["seq"], True) * 2 * k["steps"]
+    want = (train_flash_per_step(cfg, k["seq"], True) * dp
+            * (tp if heads_split(cfg, tp) else 1) * k["steps"])
     if launches != want:
         raise AssertionError(f"{label}: {launches} flash launches, {want} "
                              "expected")
@@ -3444,6 +3476,15 @@ def sharded_parity(seed: int, devices, label: str) -> dict:
         raise AssertionError(f"{label}: {over} of {total} params differ by "
                              f"more than {TRAIN_TOL['param']}, the most by "
                              f"{err}")
+    rec = {"model": cfg.name, "n_layers": cfg.n_layers, "d_model":
+           cfg.d_model, "dtype": cfg.dtype, "devices": list(devices),
+           "mesh": mesh.shape, **k, "tp_split": tp_split(cfg, mesh.shape),
+           "losses_cpu_mesh": losses, "loss_tol": TRAIN_TOL["loss"],
+           "param_max_abs_err": err, "params_over_tol": over,
+           "params": total, "param_tol": TRAIN_TOL["param"],
+           "step_seconds": secs, "flash_launches": launches}
+    if not checkpoint:
+        return rec
     work = ROOT / "build" / "sharded_ckpt"
     shutil.rmtree(work, ignore_errors=True)
     mgr = CheckpointManager(work, save_every=1)
@@ -3458,14 +3499,9 @@ def sharded_parity(seed: int, devices, label: str) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     if not bitwise:
         raise AssertionError(f"{label}: the 1 x 1 restore is not the "
-                             "(2, 2) state")
-    return {"model": cfg.name, "n_layers": cfg.n_layers, "d_model":
-            cfg.d_model, "dtype": cfg.dtype, "devices": list(devices), **k,
-            "losses_cpu_mesh": losses, "loss_tol": TRAIN_TOL["loss"],
-            "param_max_abs_err": err, "params_over_tol": over,
-            "params": total, "param_tol": TRAIN_TOL["param"],
-            "step_seconds": secs, "flash_launches": launches,
-            "checkpoint_save_s": save_s, "restored_1x1_bitwise": bitwise}
+                             f"{shape} state")
+    return {**rec, "checkpoint_save_s": save_s,
+            "restored_1x1_bitwise": bitwise}
 
 
 def phase_sharded_train_parity(seed: int) -> int:
@@ -3546,6 +3582,133 @@ def phase_sharded_cards(seed: int) -> int:
           "cards": cards, **rec})
     phase_sharded_serve(seed, spread)
     return rec["flash_launches"]
+
+
+#: 11e: granite-8b at its published widths, cut to 8 of 36 layers (bf16,
+#: ~2.15 B parameters, ~35 GB with AdamW on one card), 4 x 2048 tokens a
+#: step, on a (1, 4) mesh with every position on cuda:0 beside 1 x 1
+TP_TRAIN = dict(arch="granite-8b", n_layers=8, batch=4, seq=2048, steps=3,
+                shape=(1, 4))
+#: 11e's f32 leg: granite's widths at 2 layers, 2 x 128 tokens, 3 steps on
+#: a (1, 2) card mesh against the CPU's one-device step
+TP_PARITY = dict(batch=2, seq=128, steps=3)
+
+
+def tp_cell(cfg, mesh, seed: int, k: dict) -> dict:
+    """``k["steps"]`` sharded train steps of ``cfg`` (seeded weights drawn
+    on cuda:0, placed on ``mesh``) from seeded token batches: losses,
+    each step's seconds and flash launches, the peak bytes, and the
+    matmul FLOPs ``FlopCounterMode`` counts in the first step (which
+    the median leaves out)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.distributed import placement
+    from repro_torch.launch import specs
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, TrainState, TrainStepConfig,
+                                   adamw_init, make_train_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=MESH_DEVICE)
+                         .manual_seed(seed), MESH_DEVICE)
+    state = placement.place_tree(
+        TrainState(params, adamw_init(params)),
+        TrainState(specs.param_shardings(cfg, mesh),
+                   specs.opt_state_shardings(cfg, mesh,
+                                             zero1=mesh.size > 1)))
+    del params
+    step = make_train_step(cfg, TrainStepConfig(), AdamWConfig(**TRAIN_OPT),
+                           mesh=mesh)
+    losses, secs, flash, flops = [], [], [], None
+    for i in range(k["steps"]):
+        b = _on(_train_inputs(cfg, k["batch"], k["seq"], i, seed),
+                MESH_DEVICE)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        if i == 0:
+            with FlopCounterMode(display=False) as fc:
+                state, m = step(state, b)
+            flops = fc.get_total_flops()
+        else:
+            state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = read_launches()
+        if any(v for name, v in launches.items() if name != "flash"):
+            raise AssertionError(f"11e: launches {launches}")
+        flash.append(launches["flash"])
+    del state
+    torch.cuda.empty_cache()
+    median = statistics.median(secs[1:])
+    return {"mesh": mesh.shape, "losses": losses, "step_seconds": secs,
+            "step_s_median_after_first": median,
+            "tokens_per_s": k["batch"] * k["seq"] / median,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "flash_launches_per_step": flash,
+            "matmul_flops_step_process": flops}
+
+
+def phase_tp_train(seed: int) -> int:
+    """11e, the tensor-parallel step: granite-8b (``TP_TRAIN``) on a
+    (1, 4) mesh with every position on cuda:0, then on the 1 x 1 host
+    mesh, the same seed: 64 flash launches a step on (1, 4) (8 layers x
+    forward and remat x 4 shards' heads) against 16, the losses within
+    1e-2 relative, the process's matmul FLOPs equal to
+    ``step_matmul_flops`` (every shard of the row; the forward's kernel
+    uncounted), each position's reckoned beside 1 x 1's. Then the f32
+    leg (``TP_PARITY``): granite's widths at 2 layers on a (1, 2) card
+    mesh against the CPU's step within ``TRAIN_TOL``. Returns the flash
+    launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.sharding import heads_split, tp_split
+    from repro_torch.train.sharded import step_matmul_flops
+    k = TP_TRAIN
+    cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
+    tp = k["shape"][1]
+    if not heads_split(cfg, tp):
+        raise AssertionError(f"11e: {cfg.name}'s heads do not split {tp} "
+                             "ways")
+    legs, total = {}, 0
+    for name, mesh in (("1x4", lm_mesh([MESH_DEVICE] * tp, k["shape"])),
+                       ("1x1", make_host_mesh(MESH_DEVICE))):
+        n = mesh.shape["model"]
+        leg = tp_cell(cfg, mesh, seed, k)
+        want = train_flash_per_step(cfg, k["seq"], True) * n
+        if leg["flash_launches_per_step"] != [want] * k["steps"]:
+            raise AssertionError(f"11e {name}: flash launches "
+                                 f"{leg['flash_launches_per_step']}, {want} "
+                                 "a step expected")
+        reckoned = step_matmul_flops(cfg, k["batch"], k["seq"], n, local=n,
+                                     device="cuda")
+        counted = leg["matmul_flops_step_process"]
+        if counted != reckoned:
+            raise AssertionError(f"11e {name}: {counted} matmul FLOPs, "
+                                 f"{reckoned} reckoned")
+        leg["matmul_flops_step_position"] = step_matmul_flops(
+            cfg, k["batch"], k["seq"], n, device="cuda")
+        leg["tp_split"] = tp_split(cfg, mesh.shape)
+        legs[name] = leg
+        total += sum(leg["flash_launches_per_step"])
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(legs["1x4"]["losses"], legs["1x1"]["losses"])]
+    if not all(np.isfinite(legs["1x4"]["losses"])) or max(rel) > 1e-2:
+        raise AssertionError(f"11e: losses {legs['1x4']['losses']} against "
+                             f"{legs['1x1']['losses']}")
+    emit({"phase": "sharded_train", "leg": "11e tensor parallel",
+          "model": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab, **k, "remat": True,
+          "legs": legs, "max_rel_loss_diff": max(rel),
+          "position_flops_over_1x1": legs["1x4"]["matmul_flops_step_position"]
+          / legs["1x1"]["matmul_flops_step_position"]})
+    rec = sharded_parity(seed, [MESH_DEVICE] * 2, "11e f32", arch=k["arch"],
+                         shape=(1, 2), k=TP_PARITY, checkpoint=False)
+    emit({"phase": "sharded_train", "leg": "11e f32 mesh vs CPU", **rec})
+    return total + rec["flash_launches"]
 
 
 def main(argv=None) -> int:
@@ -3721,6 +3884,7 @@ def main(argv=None) -> int:
     launches["flash"] += phase_sharded_train_parity(seed=11)
     phase_sharded_serve(seed=12)
     launches["flash"] += phase_sharded_cards(seed=11)
+    launches["flash"] += phase_tp_train(seed=13)
     emit({"phase": "sharded_launch_total",
           "seconds": time.perf_counter() - t0})
 

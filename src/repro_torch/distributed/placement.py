@@ -23,19 +23,28 @@ position order (``axis_sum``), so a one-process and a multi-process run
 give the same bits; a native reduce-scatter would move fewer bytes.
 
 ``ModelShards`` is one data row's view of a model-sharded leaf: the
-shards of the row's positions this process holds. ``full()`` gathers
-the whole leaf over ``model`` through an autograd Function whose
-backward hands each shard its slice of the gradient. Every model shard
-of a row computes the same forward on the same rows (in one process the
-row runs once for all of them), so the reduce-scatter of their equal
-gradients over ``model``, divided by their number, is that slice.
-``unbind(0)`` splits a stacked leaf a layer at a time, so
-``models.model`` gathers layer i inside the layer's own (checkpointed)
-call: a layer's whole weights live only while it runs.
+shards of the row's positions this process holds, each on its
+position's device, and the row (``ModelRow``: the mesh, a position of
+the row, the device its replicated activations live on). A layer that
+splits over ``model`` computes each local shard's part from that shard
+alone, Megatron's layout: ``to_model`` hands a replicated activation to
+every local shard (the identity across processes; its backward sums the
+shards' gradients over ``model``), ``sum_model`` adds the shards'
+partial outputs (its backward hands each shard the gradient), and
+``split_model``/``cat_model`` are the pair that slices a replicated
+tensor over the shards and concatenates their outputs (no sum). Both
+sums follow ``axis_sum``'s rule, an all-gather and an f32 sum in model
+order (f64 for f64) cast back to the activation's dtype, so a multi-process run gives
+the one-process run's bits. ``full()`` gathers a layer that runs whole
+(``cat_model`` over the shards, whose backward hands each shard its
+slice of the gradient); ``unbind(0)`` splits a stacked leaf a layer at
+a time, so ``models.model`` takes layer i's shards inside the layer's
+own (checkpointed) call.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -44,7 +53,8 @@ from .. import tree
 __all__ = ["Sharded", "ModelShards", "place", "place_tree", "gather",
            "gather_tree", "is_placed", "resident_bytes", "shard_slices",
            "spec_axes", "model_dim", "mixed_radix", "all_gather",
-           "axis_sum", "barrier"]
+           "axis_sum", "barrier", "ModelRow", "to_model", "sum_model",
+           "split_model", "cat_model", "max_model"]
 
 
 class Sharded:
@@ -204,54 +214,197 @@ def barrier(mesh) -> None:
         dist.barrier()
 
 
-class _GatherModel(torch.autograd.Function):
-    """Across processes: this rank's shard gathered over ``model``; the
-    backward hands back this rank's slice of the gradient."""
+class ModelRow(NamedTuple):
+    """One data row's model positions held by this process: every
+    position of the row in one process (in model order), ``pos`` alone
+    across processes. ``home`` is the device of the row's replicated
+    activations (the first position's)."""
+    mesh: Any
+    pos: int
+    home: torch.device
+
+    @property
+    def tp(self) -> int:
+        return self.mesh.shape.get("model", 1)
+
+    @property
+    def positions(self) -> List[int]:
+        if self.mesh.multi_process:
+            return [self.pos]
+        return self.mesh.members(self.pos, ("model",))
+
+    @property
+    def devices(self) -> List[torch.device]:
+        return [self.mesh.device_at(q) for q in self.positions]
+
+    @property
+    def indices(self) -> List[int]:
+        """The model coordinate of each local shard."""
+        return [self.mesh.coords(q)["model"] for q in self.positions]
+
+
+def _model_sum(parts: List[torch.Tensor], dtype: torch.dtype
+               ) -> torch.Tensor:
+    """``axis_sum``'s arithmetic: a sum in model order in f32 (in f64 for
+    f64 parts), cast to ``dtype``."""
+    wide = torch.promote_types(dtype, torch.float32)
+    acc = parts[0].to(wide)
+    for t in parts[1:]:
+        acc = acc + t.to(wide)
+    return acc.to(dtype)
+
+
+def _gather_model(row: ModelRow, parts: List[torch.Tensor],
+                  at: torch.device) -> List[torch.Tensor]:
+    """Every shard's tensor of the row, in model order, on ``at``: the
+    local ones moved there in one process, an all-gather over ``model``
+    across processes (one local part)."""
+    if not row.mesh.multi_process:
+        return [p.to(at) for p in parts]
+    (p,) = parts
+    return all_gather(row.mesh, {row.pos: p}, ("model",))[row.pos]
+
+
+class _ToModel(torch.autograd.Function):
+    """A replicated activation handed to each local shard; the backward
+    sums the shards' gradients over ``model`` (f32, model order)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, pos: int, dim: int):
-        parts = all_gather(mesh, {pos: x}, ("model",))[pos]
-        ctx.dim, ctx.size = dim, x.shape[dim]
-        ctx.index = mesh.coords(pos)["model"]
-        return torch.cat(parts, dim)
+    def forward(ctx, x, row: ModelRow):
+        ctx.row, ctx.like = row, (x.shape, x.dtype, x.device)
+        return tuple(x.to(d) for d in row.devices)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gs):
+        shape, dtype, device = ctx.like
+        gs = [torch.zeros(shape, dtype=dtype, device=d) if g is None
+              else g for g, d in zip(gs, ctx.row.devices)]
+        return _model_sum(_gather_model(ctx.row, gs, device), dtype), None
+
+
+class _SumModel(torch.autograd.Function):
+    """The local shards' partial outputs summed over ``model`` (f32,
+    model order) on the row's home device; the backward hands each
+    shard the gradient."""
+
+    @staticmethod
+    def forward(ctx, row: ModelRow, *parts):
+        ctx.row = row
+        return _model_sum(_gather_model(row, list(parts), row.home),
+                          parts[0].dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        return (g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size),
-                None, None, None)
+        return (None,) + tuple(g.to(d) for d in ctx.row.devices)
+
+
+class _SplitModel(torch.autograd.Function):
+    """Each local shard's block of a replicated tensor along ``dim``;
+    the backward concatenates the shards' gradients over ``model``."""
+
+    @staticmethod
+    def forward(ctx, x, row: ModelRow, dim: int):
+        n = x.shape[dim] // row.tp
+        ctx.row, ctx.dim, ctx.device = row, dim, x.device
+        return tuple(x.narrow(dim, i * n, n).to(d).contiguous()
+                     for i, d in zip(row.indices, row.devices))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gs):
+        return (torch.cat(_gather_model(ctx.row, [g.contiguous() for g in gs],
+                                        ctx.device), ctx.dim), None, None)
+
+
+class _CatModel(torch.autograd.Function):
+    """The local shards' blocks concatenated along ``dim`` over
+    ``model`` on the row's home device (no sum); the backward hands
+    each shard its block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, row: ModelRow, dim: int, *parts):
+        ctx.row, ctx.dim, ctx.size = row, dim, parts[0].shape[dim]
+        return torch.cat(_gather_model(row, [p.contiguous() for p in parts],
+                                       row.home), dim)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        n = ctx.size
+        return (None, None) + tuple(
+            g.narrow(ctx.dim, i * n, n).to(d)
+            for i, d in zip(ctx.row.indices, ctx.row.devices))
+
+
+def to_model(x: torch.Tensor, row: ModelRow) -> List[torch.Tensor]:
+    """``x`` (replicated over the row) for each local shard, on its
+    device; the gradients sum over ``model``."""
+    return list(_ToModel.apply(x, row))
+
+
+def sum_model(parts: Sequence[torch.Tensor], row: ModelRow
+              ) -> torch.Tensor:
+    """The sum over ``model`` of the local shards' ``parts`` (one a
+    local shard, in ``row.positions`` order) on ``row.home``."""
+    return _SumModel.apply(row, *parts)
+
+
+def split_model(x: torch.Tensor, row: ModelRow, dim: int
+                ) -> List[torch.Tensor]:
+    """Each local shard's block of ``x`` along ``dim`` (the model
+    coordinate's), on its device."""
+    return list(_SplitModel.apply(x, row, dim))
+
+
+def cat_model(parts: Sequence[torch.Tensor], row: ModelRow, dim: int
+              ) -> torch.Tensor:
+    """The local shards' ``parts`` and every other shard's concatenated
+    along ``dim`` in model order, on ``row.home``."""
+    return _CatModel.apply(row, dim, *parts)
+
+
+def max_model(parts: Sequence[torch.Tensor], row: ModelRow
+              ) -> torch.Tensor:
+    """The elementwise max over ``model`` of the local shards' ``parts``
+    on ``row.home``, without a gradient."""
+    got = _gather_model(row, [p.detach() for p in parts], row.home)
+    out = got[0]
+    for t in got[1:]:
+        out = torch.maximum(out, t)
+    return out
 
 
 class ModelShards:
     """One data row's model shards of a leaf split along ``dim`` (see
     the module's docstring): ``parts`` every shard of the row in one
-    process (gathered by a ``torch.cat`` on ``home``, whose backward is
-    the slice), or this rank's one across processes."""
+    process, in model order, each on its position's device; this rank's
+    one across processes. ``row`` is the ``ModelRow`` of ``pos`` with
+    its replicated activations on ``home``."""
 
-    __slots__ = ("parts", "dim", "mesh", "pos", "home")
+    __slots__ = ("parts", "dim", "row")
 
     def __init__(self, parts: List[torch.Tensor], dim: int, mesh, pos: int,
                  home: torch.device):
         self.parts = parts
         self.dim = dim
-        self.mesh = mesh
-        self.pos = pos
-        self.home = home
+        self.row = ModelRow(mesh, pos, home)
 
     def unbind(self, dim: int = 0) -> List["ModelShards"]:
         if dim != 0 or self.dim == 0:
             raise ValueError("ModelShards unbinds a leading stack axis")
         cols = [p.unbind(0) for p in self.parts]
-        return [ModelShards([c[i] for c in cols], self.dim - 1, self.mesh,
-                            self.pos, self.home)
+        row = self.row
+        return [ModelShards([c[i] for c in cols], self.dim - 1, row.mesh,
+                            row.pos, row.home)
                 for i in range(len(cols[0]))]
 
     def full(self) -> torch.Tensor:
-        if self.mesh.multi_process and self.mesh.shape.get("model", 1) > 1:
-            return _GatherModel.apply(self.parts[0], self.mesh, self.pos,
-                                      self.dim)
-        if len(self.parts) == 1:
-            return self.parts[0].to(self.home)
-        return torch.cat([p.to(self.home) for p in self.parts], self.dim)
+        """The whole leaf on ``home``, gathered over ``model``."""
+        if self.row.tp == 1:
+            return self.parts[0].to(self.row.home)
+        return cat_model(self.parts, self.row, self.dim)
 
 
 def model_dim(spec) -> Optional[int]:

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..distributed import placement as PL
 from ..kernels import flash as kflash
 
 
@@ -63,6 +64,31 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], -1)
     return out.to(x.dtype)
+
+
+def whole(w) -> torch.Tensor:
+    """A weight as one tensor: a model-sharded weight of the sharded
+    train step (``placement.ModelShards``) gathered over ``model``."""
+    return w if isinstance(w, torch.Tensor) else w.full()
+
+
+def model_parallel(fn, x: torch.Tensor, *ws) -> torch.Tensor:
+    """``fn(x, *ws)``, a block whose first weights are split by columns
+    and whose last by rows (SwiGLU, GELU MLP, an expert's ff): on
+    tensors as it is; on model shards (``placement.ModelShards``, more
+    than one) each local shard's ``fn`` on its own weights, the partial
+    outputs summed over ``model`` (``placement.sum_model``). Weights
+    some of which are model-sharded and some not raise."""
+    if all(isinstance(w, torch.Tensor) for w in ws):
+        return fn(x, *ws)
+    if any(isinstance(w, torch.Tensor) for w in ws):
+        raise ValueError("model_parallel: some weights are model-sharded "
+                         "and some are not")
+    row = ws[0].row
+    if row.tp == 1:
+        return fn(x, *(w.full() for w in ws))
+    return PL.sum_model([fn(xj, *(w.parts[j] for w in ws)) for j, xj in
+                         enumerate(PL.to_model(x, row))], row)
 
 
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
@@ -319,6 +345,22 @@ def _experts(h_in: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     return torch.bmm(h, w_down).reshape(-1, h_in.shape[-1])
 
 
+def _experts_split(h_in: torch.Tensor, w_gate, w_up,
+                   w_down) -> torch.Tensor:
+    """``_experts`` on tensors, or over the model shards: split by
+    expert (each shard's experts run its rows of ``h_in``, the outputs
+    concatenated over ``model``, each expert's its own) or, where the
+    experts do not divide, each expert's ff split by columns and rows
+    (``model_parallel``)."""
+    if (isinstance(w_gate, torch.Tensor) or w_gate.dim != 0
+            or w_gate.row.tp == 1):
+        return model_parallel(_experts, h_in, w_gate, w_up, w_down)
+    row = w_gate.row
+    outs = [_experts(hj, w_gate.parts[j], w_up.parts[j], w_down.parts[j])
+            for j, hj in enumerate(PL.split_model(h_in, row, 0))]
+    return PL.cat_model(outs, row, 0)
+
+
 def _unsort_sum(weighted: torch.Tensor, order: torch.Tensor,
                 k: int) -> torch.Tensor:
     """Each token's ``k`` rows of ``weighted`` (f32, in the order of the
@@ -338,10 +380,13 @@ def moe_ffn(x: torch.Tensor, p, n_experts: int, top_k: int,
     (E, ff, d). Assignments beyond an expert's static capacity are
     dropped exactly where the reference drops them (the same stable sort,
     left search and capacity); aux_loss is the Switch load-balancing loss.
-    The grouped expert GEMMs are ``torch.bmm``. The combine un-sorts the
-    N*K weighted rows with the inverse permutation of the sort and sums
-    each token's K rows in f32, where the reference scatter-adds them:
-    no atomics, so the result is the same from run to run."""
+    The grouped expert GEMMs are ``torch.bmm``; with model-sharded
+    expert weights the router, the sort and the dispatch buffer stay
+    replicated and the experts split (``_experts_split``). The combine
+    un-sorts the N*K weighted rows with the inverse permutation of the
+    sort and sums each token's K rows in f32, where the reference
+    scatter-adds them: no atomics, so the result is the same from run
+    to run."""
     B, S, d = x.shape
     N = B * S
     E, K = n_experts, top_k
@@ -364,8 +409,8 @@ def moe_ffn(x: torch.Tensor, p, n_experts: int, top_k: int,
     # row E * cap takes every dropped assignment and is never read back
     buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=dev)
     buf[slot] = xf[tok]
-    out_e = _experts(buf[:E * cap].reshape(E, cap, d), p["w_gate"],
-                     p["w_up"], p["w_down"])
+    out_e = _experts_split(buf[:E * cap].reshape(E, cap, d), p["w_gate"],
+                           p["w_up"], p["w_down"])
     out_e = torch.cat([out_e, out_e.new_zeros((1, d))], 0)
 
     w = (gate_vals.reshape(-1)[order] * keep).float()

@@ -21,6 +21,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..distributed import placement as PL
 from . import blocks, layers, recurrent
 from .blocks import GLOBAL_WINDOW
 from .config import ArchConfig
@@ -186,13 +187,6 @@ def window_schedule(cfg: ArchConfig) -> np.ndarray:
     return w
 
 
-def _full(x):
-    """A weight as a tensor: a model-sharded leaf of the sharded train
-    step (``distributed.placement.ModelShards``) gathered over
-    ``model``; a tensor as it is."""
-    return x if isinstance(x, torch.Tensor) else x.full()
-
-
 def _layer(stack: Params, i) -> Params:
     """Layer ``i``'s parameters (an int, or a tuple into xLSTM's
     (G, per - 1) mLSTM stack): views into a stacked group."""
@@ -204,23 +198,77 @@ def _layers(stack: Params) -> List[Params]:
     taken by one ``unbind`` a weight: under autograd its backward stacks
     the layers' gradients once, where a view a layer would add a
     stack-sized gradient a layer. A model-sharded weight unbinds its
-    shards the same way; ``_run`` gathers its layer."""
+    shards the same way."""
     cols = {k: v.unbind(0) for k, v in stack.items()}
     n = len(next(iter(cols.values())))
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
-def _run(remat: bool, fn, *args):
+class _FrameGate(torch.autograd.Function):
+    """The identity on a checkpointed layer's outputs that saves one of
+    them, so the layer's backward starts here: its first unpack runs the
+    recompute, on this node's thread, before any other node of the
+    layer runs. A layer whose shards sit on several cards has backward
+    nodes on several of autograd's device threads, and two of them
+    unpacking the frame at once would both recompute it (the
+    checkpoint's frame takes no lock)."""
+
+    @staticmethod
+    def forward(ctx, *ts):
+        ctx.save_for_backward(ts[0])
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gs):
+        ctx.saved_tensors            # the recompute, if it has not run
+        return gs
+
+
+def _spans_devices(args) -> bool:
+    """Whether a layer's model shards lie on more than one device."""
+    devs = {p.device for a in args if isinstance(a, dict)
+            for v in a.values() if isinstance(v, PL.ModelShards)
+            for p in v.parts}
+    return len(devs) > 1
+
+
+def _gate(out):
+    """``out`` (a tensor or a tuple) through one ``_FrameGate`` on its
+    tensors that want a gradient."""
+    outs = out if isinstance(out, tuple) else (out,)
+    idx = [i for i, t in enumerate(outs)
+           if isinstance(t, torch.Tensor) and t.requires_grad]
+    if not idx:
+        return out
+    gated = _FrameGate.apply(*(outs[i] for i in idx))
+    outs = list(outs)
+    for i, t in zip(idx, gated):
+        outs[i] = t
+    return tuple(outs) if isinstance(out, tuple) else outs[0]
+
+
+def _run(remat: bool, fn, *args, whole: bool = False):
     """``fn(*args)``, under ``remat`` (and grad mode) through
     ``torch.utils.checkpoint`` (non-reentrant): the layer keeps only its
     inputs and runs again in the backward, the same ops on the same
-    values, so the numbers are bitwise those without it. Model-sharded
-    weights in a layer's dict are gathered inside the call, so under
-    remat the gather runs again in the backward and a layer's whole
-    weights live only while it runs."""
+    values, so the numbers are bitwise those without it. A layer's
+    model-sharded weights (``placement.ModelShards``) reach ``fn``,
+    whose blocks split over ``model`` (``blocks``); with ``whole`` (the
+    recurrent families) they are gathered inside the call instead, so
+    under remat the gather runs again in the backward and a layer's
+    whole weights live only while it runs. Either way the recompute
+    issues the layer's collectives again, in the forward's order. A
+    layer whose shards span several devices goes through ``_FrameGate``,
+    so one thread recomputes it."""
+    gate = remat and _spans_devices(args)
+
     def call(*a):
-        return fn(*({k: _full(v) for k, v in x.items()}
-                    if isinstance(x, dict) else x for x in a))
+        if whole:
+            a = tuple({k: layers.whole(v) for k, v in x.items()}
+                      if isinstance(x, dict) else x for x in a)
+        out = fn(*a)
+        return _gate(out) if gate else out
     if remat and torch.is_grad_enabled():
         return torch.utils.checkpoint.checkpoint(
             call, *args, use_reentrant=False, preserve_rng_state=False)
@@ -247,6 +295,14 @@ class ForwardOut(NamedTuple):
                                   # None for xLSTM
 
 
+def _vocab_local(ids: torch.Tensor, index: int, n: int):
+    """(ids into a vocab shard of ``n`` rows at model coordinate
+    ``index``, 0 outside it; whether each is inside)."""
+    t = ids.long() - index * n
+    inside = (t >= 0) & (t < n)
+    return torch.where(inside, t, 0), inside
+
+
 def _embed_tokens(cfg: ArchConfig, params: Params,
                   tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings in ``cfg.dtype``; gemma scales them by
@@ -255,10 +311,23 @@ def _embed_tokens(cfg: ArchConfig, params: Params,
     ``F.embedding``: the gather of ``embed[tokens]``, with a backward
     that sums each row's gradients in a fixed order (indexing's
     backward accumulates with atomics on the CPU, and its bits change
-    from run to run)."""
+    from run to run). A vocab-sharded embedding (``ModelShards``): each
+    shard looks up the tokens of its rows and gives zeros elsewhere, and
+    ``sum_model`` adds them, one nonzero term a token, so the result is
+    the whole lookup's bits."""
     dt = _dtype(cfg)
-    x = torch.nn.functional.embedding(tokens.long(),
-                                      _full(params["embed"])).to(dt)
+    emb = params["embed"]
+    if isinstance(emb, torch.Tensor) or emb.row.tp == 1:
+        x = torch.nn.functional.embedding(tokens.long(),
+                                          layers.whole(emb)).to(dt)
+    else:
+        row = emb.row
+        parts = []
+        for i, e in zip(row.indices, emb.parts):
+            t, inside = _vocab_local(tokens.to(e.device), i, e.shape[0])
+            xe = torch.nn.functional.embedding(t, e)
+            parts.append(torch.where(inside[..., None], xe, 0.0))
+        x = PL.sum_model(parts, row).to(dt)
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
     return x
@@ -280,9 +349,37 @@ def _unembed(cfg: ArchConfig, params: Params, x: torch.Tensor
     values are exact in f32), then ``final_softcap``: in place unless
     autograd records it (gemma2's 2 x 8192 x 256000 logits are 16.8 GB
     in f32), out of place when it does (``tanh`` saves its output for
-    the backward); both forms give the same bits."""
+    the backward); both forms give the same bits. A vocab-sharded
+    unembedding gives vocab shards: ``unembed_shards``."""
     unemb = params.get("unembed")
-    unemb = _full(params["embed"]).T if unemb is None else _full(unemb)
+    tied = unemb is None
+    unemb = params["embed"] if tied else unemb
+    if not isinstance(unemb, torch.Tensor):
+        if unemb.row.tp > 1:
+            raise TypeError("a vocab-sharded unembedding gives each shard's "
+                            "logits: call unembed_shards")
+        unemb = unemb.full()
+    return _logits(cfg, x, unemb.T if tied else unemb)
+
+
+def unembed_shards(cfg: ArchConfig, params: Params, x: torch.Tensor):
+    """The logits of hidden states ``x`` as vocab shards: ([each local
+    shard's (..., V / tp) f32 logits], the ``ModelRow``) for a
+    vocab-sharded unembedding (tied: the embedding's rows), ([the whole
+    logits], None) otherwise. ``final_softcap`` applies per element, as
+    in ``_unembed``; the whole (..., V) logits are never formed."""
+    unemb = params.get("unembed")
+    tied = unemb is None
+    unemb = params["embed"] if tied else unemb
+    if isinstance(unemb, torch.Tensor) or unemb.row.tp == 1:
+        return [_unembed(cfg, params, x)], None
+    row = unemb.row
+    return [_logits(cfg, xj, w.T if tied else w) for xj, w in
+            zip(PL.to_model(x, row), unemb.parts)], row
+
+
+def _logits(cfg: ArchConfig, x: torch.Tensor, unemb: torch.Tensor
+            ) -> torch.Tensor:
     logits = x.float() @ unemb.float()
     cap = cfg.final_softcap
     if cap is not None:
@@ -334,7 +431,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
         for lp, w in zip(_layers(params["blocks"]), window_schedule(cfg)):
             x, k, v = _run(remat, functools.partial(
                 recurrent.hymba_block, window=int(w), q_offset=q_offset),
-                cfg, lp, x, positions)
+                cfg, lp, x, positions, whole=True)
             if return_cache:
                 ks.append(k)
                 vs.append(v)
@@ -363,8 +460,8 @@ def _xlstm_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
                  remat: bool = False) -> torch.Tensor:
     for group, sp in zip(_layers(params["mlstm"]), _layers(params["slstm"])):
         for mp in _layers(group):
-            x = _run(remat, recurrent.mlstm_block, cfg, mp, x)
-        x = _run(remat, recurrent.slstm_block, cfg, sp, x)
+            x = _run(remat, recurrent.mlstm_block, cfg, mp, x, whole=True)
+        x = _run(remat, recurrent.slstm_block, cfg, sp, x, whole=True)
     return x
 
 

@@ -184,6 +184,93 @@ def param_spec(path: str, shape: Tuple[int, ...], ax: MeshAxes,
     return P(*base)
 
 
+#: the layer kinds of ``tp_layout``, by parameter name
+_KIND = {"embed": "embed", "unembed": "unembed",
+         "wq": "attention", "wk": "attention", "wv": "attention",
+         "wo": "attention", "wq_x": "cross_attention",
+         "wk_x": "cross_attention", "wv_x": "cross_attention",
+         "wo_x": "cross_attention", "w_gate": "mlp", "w_up": "mlp",
+         "w_down": "mlp", "w1": "mlp", "w2": "mlp",
+         "moe_w_gate": "experts", "moe_w_up": "experts",
+         "moe_w_down": "experts"}
+
+#: the families whose layers run whole on a model-sharded mesh: their
+#: model-sharded weights are gathered a layer at a time
+RECURRENT = ("ssm", "hybrid")
+
+
+def heads_split(cfg, tp: int) -> bool:
+    """Whether attention splits over a model axis of ``tp``: whole
+    query and KV heads a shard (``param_spec``'s contiguous column split
+    of wq/wk/wv then gives shard j the q heads [j H/tp, (j+1) H/tp) and
+    the KV heads [j Hk/tp, (j+1) Hk/tp), and the GQA map h -> h // G
+    stays inside the shard)."""
+    return (tp > 1 and cfg.family not in RECURRENT
+            and cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0)
+
+
+def tp_layout(cfg, tp: int) -> dict:
+    """How the sharded train step runs each kind of layer of ``cfg`` on
+    a model axis of ``tp`` positions: "split" (each shard computes its
+    part from its own weights), "expert" (the MoE's experts split over
+    the shards), "gather" (its model-sharded weights gathered whole, the
+    layer run whole) or "whole" (no weight of it model-sharded). The
+    recurrent families' layers gather (``RECURRENT``); attention splits
+    where ``heads_split``; the MLPs, the experts and the vocabulary
+    split wherever ``param_spec`` split their weights."""
+    ax = MeshAxes()
+    ms = {"data": 1, "model": tp}
+    d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def sharded(name, shape):
+        return tp > 1 and "model" in param_spec(name, shape, ax, ms)
+
+    out = {"embed": "split" if sharded("embed", (V, d)) else "whole",
+           "unembed": "split" if sharded("embed", (V, d)) else "whole"}
+    if cfg.family == "ssm":
+        return {**out, "recurrent": "gather" if tp > 1 else "whole"}
+    attn = any(sharded(n, s) for n, s in (("wq", (d, H * Dh)),
+                                           ("wk", (d, Hk * Dh))))
+    out["attention"] = ("split" if heads_split(cfg, tp) else
+                        "gather" if attn else "whole")
+    if cfg.enc_dec:
+        out["cross_attention"] = out["attention"]
+    if cfg.moe is not None:
+        E = cfg.moe.n_experts
+        spec = param_spec("moe_w_gate", (E, d, ff), ax, ms)
+        out["experts"] = ("whole" if tp == 1 or "model" not in spec else
+                          "expert" if spec[0] == "model" else "split")
+    else:
+        out["mlp"] = "split" if sharded("w_up", (d, ff)) else "whole"
+    if cfg.family in RECURRENT:
+        out = {k: ("gather" if v != "whole" and k not in
+                   ("embed", "unembed") else v) for k, v in out.items()}
+        out["recurrent"] = "gather" if tp > 1 else "whole"
+    return out
+
+
+def tp_split(cfg, mesh_shape: dict) -> dict:
+    """The model-sharded leaves of ``cfg``'s params on a mesh of
+    ``mesh_shape``, by how the sharded train step uses them:
+    ``{"split": [...], "gathered": [...]}`` (``/``-joined paths, in the
+    params' order); ``tp_layout``'s rule."""
+    from ..launch.specs import param_structs
+    tp = mesh_shape.get("model", 1)
+    layout = tp_layout(cfg, tp)
+    out = {"split": [], "gathered": []}
+    for name, leaf in tree.flatten_with_path(param_structs(cfg)):
+        if "model" not in param_spec(name, tuple(leaf.shape), MeshAxes(),
+                                     {"data": 1, "model": tp}) or tp == 1:
+            continue
+        kind = _KIND.get(name.split("/")[-1], "recurrent")
+        if cfg.family in RECURRENT and kind not in ("embed", "unembed"):
+            kind = "recurrent"
+        how = layout.get(kind, "gather")
+        out["gathered" if how == "gather" else "split"].append(name)
+    return out
+
+
 def tree_param_specs(params_shape, ax: MeshAxes, mesh_shape: dict,
                      zero1: bool = False):
     """A ``P`` tree matching a params (shape) tree: each leaf's spec from
@@ -201,4 +288,5 @@ def mesh_shape_dict(mesh: _mesh.DeviceMesh) -> dict:
 
 __all__ = ["P", "MeshAxes", "use_mesh", "axes_for_mesh", "constrain",
            "ambient_axes", "constrain_model_dim", "constrain_batch",
-           "param_spec", "tree_param_specs", "mesh_shape_dict"]
+           "param_spec", "tree_param_specs", "mesh_shape_dict",
+           "heads_split", "tp_layout", "tp_split", "RECURRENT"]

@@ -6,16 +6,26 @@ in one process or across processes (``launch.mesh.make_mesh``).
 The state is placed (``distributed.placement.place_tree``) by the
 reference's specs: params by ``param_spec`` (model-sharded), AdamW's
 moments by ``param_spec(zero1=True)`` (also split over the batch axes).
-The compute is data-parallel, each layer's weights gathered over
-``model``:
+The batch splits over the data rows and the model axis splits the
+layers, the reference's partitioned step:
 
 * each data row (a position of the batch axes) computes its rows of the
   batch (``specs.batch_shardings``' split, the whole batch on every row
-  where it does not divide); in one process a row runs once for all its
-  model shards, across processes every model shard of the row runs it;
-* a model-sharded weight enters the model as ``ModelShards``: layer i is
-  gathered over ``model`` inside its (checkpointed) call, and its
-  gradient comes back as each shard's slice;
+  where it does not divide); in one process a row runs once, its split
+  layers running each model shard's part on that shard's device;
+  across processes every model shard of the row runs its own part;
+* a model-sharded weight enters the model as ``ModelShards`` and the
+  layers split where ``models.sharding.tp_layout`` says: attention by
+  heads (``heads_split``), the MLPs by ff, MoE experts by expert (or
+  each expert's ff), the embedding and the unembedding by vocabulary,
+  Megatron's layout through ``placement.to_model``/``sum_model``; the
+  logits stay vocab shards and the masked loss is the vocab-parallel
+  one (``step._masked_nll_model``); an attention whose heads do not
+  divide and the recurrent families' layers gather their weights over
+  ``model`` inside their (checkpointed) call and run whole; remat
+  recomputes a layer's collectives in the backward, in the forward's
+  order on every rank; a replicated weight is used only outside a split
+  region, so each rank's gradient of it is the whole one;
 * the loss is the global mean: each row's masked sum over the global
   count of labels >= 0, so the rows' gradients sum to the one-device
   gradient; microbatches split the batch first, as the reference's scan
@@ -52,10 +62,11 @@ from ..distributed import placement as PL
 from ..distributed.compression import _codes, _step
 from ..models import forward as model_forward
 from ..models import layers as _L
-from ..models.model import _unembed
-from ..models.sharding import axes_for_mesh
+from ..models.model import unembed_shards
+from ..models.sharding import axes_for_mesh, tp_layout
 from .optimizer import AdamWConfig, AdamWState, adamw_update
-from .step import TrainState, TrainStepConfig, _masked_nll
+from .step import (TrainState, TrainStepConfig, _masked_nll,
+                   _masked_nll_model)
 
 
 def _rel(outer, inner) -> tuple:
@@ -130,10 +141,14 @@ def make_sharded_train_step(cfg, tcfg: TrainStepConfig,
         h = out.logits
         if coupled and (lo, hi) != (0, h.shape[0]):
             h = h[lo:hi]
-        logits = _unembed(cfg, params, h)
+        parts, vrow = unembed_shards(cfg, params, h)
         if cfg.n_img_tokens and "image_embeds" in own:
-            logits = logits[:, cfg.n_img_tokens:]
-        loss_sum, _ = _masked_nll(logits, own["labels"], tcfg.z_loss)
+            parts = [p[:, cfg.n_img_tokens:] for p in parts]
+        if vrow is None:
+            loss_sum, _ = _masked_nll(parts[0], own["labels"], tcfg.z_loss)
+        else:
+            loss_sum, _ = _masked_nll_model(parts, own["labels"],
+                                            tcfg.z_loss, vrow)
         loss = loss_sum / n_tok
         if shared and nd > 1:
             loss = loss / nd
@@ -317,4 +332,54 @@ def make_sharded_train_step(cfg, tcfg: TrainStepConfig,
     return train_step
 
 
-__all__ = ["make_sharded_train_step"]
+def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
+                      local: int = 1, remat: bool = True,
+                      device: str = "cpu") -> int:
+    """The matmul FLOPs of one train step of a data row's ``local``
+    model shards (1: one position, as a rank computes; ``tp``: the
+    whole row, as one process does), reckoned from the shapes: the
+    count ``torch.utils.flop_counter`` gives for a row computing
+    ``rows`` sequences of ``seq`` tokens (over all its microbatches) on
+    a model axis of ``tp``, where a split layer (``models.sharding.
+    tp_layout``) does 1 / tp of its work on each shard and the rest all
+    of it once. A dense config without softcap or window. Each
+    projection is 2 N a b FLOPs forward, again under ``remat``, and
+    twice in the backward (input and weight), but the recompute skips
+    the layer's last product (the checkpoint stops once it has every
+    tensor the backward saved: the last local shard's w_down; a row
+    spread over several cards of one process recomputes it, through
+    ``models.model._FrameGate``, and is not reckoned here); attention's
+    core runs ``kernels.flash``'s plain version forward (on the CPU: its
+    256-row tiles, those above the diagonal skipped; on CUDA the kernel,
+    which no counter sees) and the chunked oracle's recompute and
+    gradient (6 products of 2 B H S T Dh) backward; the unembedding is
+    outside remat."""
+    if (cfg.family != "dense" or cfg.attn_softcap or cfg.final_softcap
+            or cfg.local_global_period):
+        raise NotImplementedError(f"{cfg.name}: the reckoning covers the "
+                                  "plain dense family")
+    layout = tp_layout(cfg, tp)
+    d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    N = rows * seq
+    passes = 4 if remat else 3
+
+    def share(kind):
+        """(divisor of the work, times it runs)"""
+        return (tp, local) if layout[kind] == "split" else (1, 1)
+    (a_div, a_n), (m_div, m_n), (v_div, v_n) = (
+        share("attention"), share("mlp"), share("unembed"))
+    proj = 2 * N * d * (2 * H * Dh + 2 * Hk * Dh) // a_div
+    fwd = 0
+    if device == "cpu":
+        for i0 in range(0, seq, 256):
+            i1 = min(i0 + 256, seq)
+            fwd += 2 * 2 * rows * (H // a_div) * (i1 - i0) * i1 * Dh
+    core = (passes - 2) * fwd + 6 * 2 * rows * (H // a_div) * seq * seq * Dh
+    ffn = 2 * N * d * ff // m_div          # each of w_gate, w_up, w_down
+    layer = (a_n * (passes * proj + core) + m_n * passes * 3 * ffn
+             - (passes - 3) * ffn)
+    return cfg.n_layers * layer + v_n * 3 * 2 * N * d * V // v_div
+
+
+__all__ = ["make_sharded_train_step", "step_matmul_flops"]

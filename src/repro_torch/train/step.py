@@ -72,6 +72,33 @@ def _masked_nll(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
     return loss, torch.sum(mask)
 
 
+def _masked_nll_model(parts, labels: torch.Tensor, z_loss: float, row):
+    """``_masked_nll`` of vocab-sharded logits: ``parts`` each local
+    shard's (B, S, V / tp) f32 logits (``models.model.unembed_shards``),
+    ``row`` their ``placement.ModelRow``. The log-sum-exp takes the max
+    over ``model`` (no gradient) and the sum of exps over ``model``
+    (``sum_model``: f32, model order); the label's logit comes from the
+    shard that holds it (zeros elsewhere, a masked label none), so the
+    whole (B, S, V) logits are never formed. The z-loss is on the global
+    log-sum-exp. Returns (summed loss, summed mask) on ``row.home``."""
+    from ..distributed import placement as PL
+    from ..models.model import _vocab_local
+    mask = (labels >= 0).float()
+    m = PL.max_model([p.amax(-1) for p in parts], row)
+    sums = [torch.exp(p - m.to(p.device)[..., None]).sum(-1) for p in parts]
+    lse = torch.log(PL.sum_model(sums, row)) + m
+    picked = []
+    for i, p in zip(row.indices, parts):
+        t, inside = _vocab_local(labels.to(p.device), i, p.shape[-1])
+        got = torch.gather(p, -1, t[..., None])[..., 0]
+        picked.append(torch.where(inside, got, 0.0))
+    ll = PL.sum_model(picked, row)
+    loss = torch.sum((lse - ll) * mask)
+    if z_loss:
+        loss = loss + z_loss * torch.sum(torch.square(lse) * mask)
+    return loss, torch.sum(mask)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 0.0):
     """logits (B, S, V) f32, labels (B, S) int; label -1 masks the

@@ -62,10 +62,11 @@ from repro_torch.models.config import MoEConfig
 from repro_torch.train import (AdamWConfig, TrainState, TrainStepConfig,
                                make_train_step)
 from repro_torch.train.optimizer import adamw_init
+from repro_torch.train.sharded import step_matmul_flops
 from repro_torch.train.step import make_loss_fn, value_and_grad
 
 ROOT = Path(__file__).resolve().parent.parent
-FAMILIES = ("smollm-135m", "gemma2-9b", "qwen3-moe-235b-a22b",
+FAMILIES = ("smollm-135m", "granite-8b", "gemma2-9b", "qwen3-moe-235b-a22b",
             "llava-next-34b", "whisper-base", "xlstm-1.3b", "hymba-1.5b")
 MESHES = {"2x2": ((2, 2), ("data", "model")),
           "1x4": ((1, 4), ("data", "model")),
@@ -201,10 +202,14 @@ def test_place_then_gather_is_bitwise(arch, mesh_name):
 
 @pytest.mark.parametrize("mesh_name", ["1x4", "2x2"])
 def test_the_gathers_gradient_is_the_full_gradients_slice(mesh_name):
-    """A row's model shards through ``ModelShards``: the loss and every
-    shard's gradient equal the one-device loss and the slice of its full
-    gradient, bit for bit (one contribution reduce-scattered)."""
-    cfg = f32("smollm-135m")
+    """A row's model shards through ``ModelShards``, on hymba (whose
+    layers gather their weights whole over ``model``): the loss and
+    every shard's gradient equal the one-device loss and the slice of
+    its full gradient, bit for bit (one contribution reduce-scattered).
+    The embedding goes in as shards too (the vocab-parallel lookup is
+    the whole lookup's bits); the unembedding whole (its vocab-sharded
+    logits would need the step's vocab-parallel loss)."""
+    cfg = f32("hymba-1.5b")
     mesh = cpu_mesh(mesh_name)
     params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
     batch = make_batch(cfg, 4, B=2)
@@ -213,11 +218,13 @@ def test_the_gathers_gradient_is_the_full_gradients_slice(mesh_name):
     placed = PL.place_tree(params, S.param_shardings(cfg, mesh))
     qs = mesh.members(0, ("model",))
     view, flat = [], []
-    for s in tree.leaves(placed):
+    for (name, s), whole in zip(tree.flatten_with_path(placed),
+                                tree.leaves(params)):
         k = PL.model_dim(s.sharding.spec)
-        if k is None:
-            view.append(s.local[0].detach().requires_grad_(True))
-            flat.append((view[-1], s, 0))
+        if k is None or name == "unembed":
+            t = (whole if k is not None else s.local[0]).detach()
+            view.append(t.requires_grad_(True))
+            flat.append((view[-1], s, None))
             continue
         parts = [s.local[q].detach().requires_grad_(True) for q in qs]
         view.append(PL.ModelShards(parts, k, mesh, 0, torch.device("cpu")))
@@ -229,9 +236,11 @@ def test_the_gathers_gradient_is_the_full_gradients_slice(mesh_name):
                                         tree.leaves(full))}
     n_split = 0
     for (t, s, q), g in zip(flat, grads):
-        want_g = full_of[id(s)][PL.shard_slices(s.sharding, s.shape, q)]
+        want_g = full_of[id(s)]
+        if q is not None:
+            want_g = want_g[PL.shard_slices(s.sharding, s.shape, q)]
+            n_split += 1
         assert torch.equal(g, want_g)
-        n_split += PL.model_dim(s.sharding.spec) is not None
     assert n_split > len(qs)          # wq, wk, wv, ... and the embedding
 
 
@@ -317,9 +326,18 @@ def test_a_batch_that_does_not_divide_is_replicated():
 def test_grad_compress_on_a_pod_mesh_matches_the_pod_loop():
     """(2, 1, 2) with ``grad_compress``: the pods' compressed sync over
     each position's pod subgroup, against the one-device pod loop (the
-    same pods, one quantization step a tensor)."""
+    same pods, one quantization step a tensor). The model axis splits
+    the MLPs and the vocabulary, whose sums then round in another order
+    than the one device's: a gradient at a rounding edge of the
+    quantizer takes the next code, one step. At the default bound
+    (1e-3: a step of 2e-3 of the tensor's largest |g|) one step is more
+    than MOMENT_RTOL, which is made for f32 noise; at 1e-4 the step is
+    still the bound's (above the 16-bit codes' amax / qmax) and one step
+    is within it. The default bound is held bitwise across processes
+    (``GLOO_CASES``' pod case)."""
     cfg = f32("smollm-135m")
-    tcfg = TrainStepConfig(grad_compress=True, n_pods=2)
+    tcfg = TrainStepConfig(grad_compress=True, n_pods=2,
+                           grad_compress_bound=1e-4)
     want, wm = run_steps(cfg, None, fresh_state(cfg), tcfg=tcfg)
     mesh = make_mesh((2, 1, 2), ("pod", "data", "model"),
                      devices=["cpu"] * 4)
@@ -362,7 +380,7 @@ _REF_CHILD = textwrap.dedent(r"""
     # own step (ShardingTypeError), so the partitioner places it
     mesh = jax.make_mesh((2, 2), ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
-    for arch in ("smollm-135m", "qwen3-moe-235b-a22b"):
+    for arch in ("smollm-135m", "qwen3-moe-235b-a22b", "granite-8b"):
         cfg = dataclasses.replace(configs.get_smoke_config(arch),
                                   dtype="float32")
         with mesh:
@@ -408,7 +426,8 @@ def reference_2x2(tmp_path_factory):
     return dict(np.load(out))
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-235b-a22b",
+                                  "granite-8b"])
 def test_sharded_step_matches_the_references_jitted_2x2_step(arch,
                                                               reference_2x2):
     ref = reference_2x2
@@ -446,20 +465,51 @@ def test_sharded_step_matches_the_references_jitted_2x2_step(arch,
 # --- four gloo processes ----------------------------------------------------
 
 GLOO_CASES = {
-    "2x2": (((2, 2), ("data", "model")), {}),
-    "1x4 mb2": (((1, 4), ("data", "model")), dict(n_microbatches=2)),
-    "pods 2x1x2": (((2, 1, 2), ("pod", "data", "model")),
+    "2x2": ("smollm-135m", ((2, 2), ("data", "model")), {}),
+    "1x4 mb2": ("smollm-135m", ((1, 4), ("data", "model")),
+                dict(n_microbatches=2)),
+    "pods 2x1x2": ("smollm-135m", ((2, 1, 2), ("pod", "data", "model")),
                    dict(grad_compress=True, n_pods=2)),
+    "granite 2x2": ("granite-8b", ((2, 2), ("data", "model")), {}),
 }
 
 
 def gloo_case(name: str, devices=None):
-    """The case's 3 steps (smollm smoke, f32) on its mesh: (state,
+    """The case's 3 steps (its smoke config, f32) on its mesh: (state,
     gathered; metrics)."""
-    (shape, axes), kw = GLOO_CASES[name]
-    cfg = f32("smollm-135m")
+    arch, (shape, axes), kw = GLOO_CASES[name]
+    cfg = f32(arch)
     mesh = make_mesh(shape, axes, devices=devices)
     return run_steps(cfg, mesh, fresh_state(cfg), tcfg=TrainStepConfig(**kw))
+
+
+def gloo_flops(name: str) -> int:
+    """The matmul FLOPs ``FlopCounterMode`` counts in this process over
+    one step of the case (a rank's: its position's share)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    arch, (shape, axes), kw = GLOO_CASES[name]
+    cfg = f32(arch)
+    mesh = make_mesh(shape, axes)
+    fn = make_train_step(cfg, TrainStepConfig(**kw), AdamWConfig(**OPT),
+                         mesh=mesh)
+    state = PL.place_tree(fresh_state(cfg), shardings(cfg, mesh))
+    with FlopCounterMode(display=False) as fc:
+        fn(state, make_batch(cfg, 10))
+    return fc.get_total_flops()
+
+
+def reckoned_flops(name: str, tp=None) -> int:
+    """``step_matmul_flops`` of one position of the case (on a model
+    axis of ``tp``, default the case's): its data row's rows of the
+    batch of 8 (each pod's half, split over ``data``)."""
+    arch, (shape, axes), kw = GLOO_CASES[name]
+    sizes = dict(zip(axes, shape))
+    tcfg = TrainStepConfig(**kw)
+    m = 8 // sizes.get("pod", 1) // tcfg.n_microbatches
+    nd = sizes["data"]
+    rows = (m if m % nd or m < nd else m // nd) * tcfg.n_microbatches
+    return step_matmul_flops(f32(arch), rows, 16, tp or sizes["model"],
+                             remat=tcfg.remat)
 
 
 _GLOO_WORKER = textwrap.dedent('''
@@ -478,6 +528,7 @@ _GLOO_WORKER = textwrap.dedent('''
     init_distributed(coordinator_address="file://" + rdv,
                      num_processes=T.WORLD, process_id=rank, backend="gloo")
     out = {name: T.gloo_case(name) for name in T.GLOO_CASES}
+    out["flops"] = {name: T.gloo_flops(name) for name in T.GLOO_CASES}
     mesh = make_mesh((2, 2), ("data", "model"))
     out["local"] = mesh.local_positions()
     cfg = T.f32("smollm-135m")
@@ -530,6 +581,18 @@ def test_gloo_ranks_are_the_one_process_run(gloo_ranks, name):
         state, metrics = got[name]
         assert equal_trees(state, want), (name, r)
         assert metrics == wm, (name, r)
+
+
+@pytest.mark.parametrize("name", list(GLOO_CASES))
+def test_gloo_ranks_compute_their_share(gloo_ranks, name):
+    """Each rank's matmul FLOPs of one step (``FlopCounterMode``) are the
+    count reckoned from the shapes for one position: the layers split
+    over ``model`` (``tp_layout``) at 1 / tp of their work, the rest
+    whole: fewer than the same rows take unsplit."""
+    want = reckoned_flops(name)
+    for r, got in enumerate(gloo_ranks[1]):
+        assert got["flops"][name] == want, (name, r)
+    assert want < reckoned_flops(name, tp=1)
 
 
 def test_gloo_ranks_hold_one_position_each(gloo_ranks):

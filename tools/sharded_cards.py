@@ -52,7 +52,15 @@ and the bytes each rank moves.
 position i on cuda:i, then over N processes, a card and a position each,
 one NCCL group. Every rank's losses and gathered params go beside the
 one-process run's, with the largest difference and whether they are
-bitwise equal, and each rank's step seconds.
+bitwise equal, and each rank's step seconds. Then chip_smoke's 11e cell
+(granite-8b at full width, 8 layers, bf16, 4 x 2048 tokens a step, 3
+steps; ``chip_smoke.TP_TRAIN``) on a (1, N) mesh, the tensor-parallel
+step: in this process with position i on cuda:i, over N ranks, and on
+the 1 x 1 mesh of one card. Each rank's losses and the sha1 of each of
+its param shards must equal the one-process run's position's; each
+rank's matmul FLOPs of its first step (``FlopCounterMode``) must equal
+``train.sharded.step_matmul_flops`` for one position; the step seconds
+of all three runs go in the record.
 """
 from __future__ import annotations
 
@@ -299,16 +307,86 @@ def train_on_mesh(mesh, dev, seed: int) -> dict:
             "params": {k: v.cpu() for k, v in tree.flatten_with_path(whole)}}
 
 
-def train_rank_worker(rank: int, world: int, addr: str, out: str) -> int:
-    """One rank of ``--train --ranks``: saves its run to ``out``."""
+#: the seed of the tensor-parallel cell's weights and batches (11e's)
+TP_SEED = 13
+
+
+def tp_on_mesh(mesh, dev, seed: int) -> dict:
+    """``chip_smoke.TP_TRAIN``'s steps on ``mesh`` from weights drawn on
+    ``dev``: the losses, each step's seconds, the matmul FLOPs counted
+    in this process over the first step, and the sha1 of every param
+    shard this process holds, by position."""
+    import dataclasses
+    import hashlib
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from chip_smoke import TP_TRAIN, TRAIN_OPT, _train_inputs
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import placement
+    from repro_torch.launch import specs
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, TrainState, TrainStepConfig,
+                                   adamw_init, make_train_step)
+    k = TP_TRAIN
+    cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    state = placement.place_tree(
+        TrainState(params, adamw_init(params)),
+        TrainState(specs.param_shardings(cfg, mesh),
+                   specs.opt_state_shardings(cfg, mesh,
+                                             zero1=mesh.size > 1)))
+    del params
+    step = make_train_step(cfg, TrainStepConfig(), AdamWConfig(**TRAIN_OPT),
+                           mesh=mesh)
+    sync = (lambda: torch.cuda.synchronize(dev)) if mesh.multi_process \
+        else _sync_all
+    losses, secs, flops = [], [], None
+    for i in range(k["steps"]):
+        b = {n: torch.from_numpy(v).to(dev) for n, v in
+             _train_inputs(cfg, k["batch"], k["seq"], i, seed).items()}
+        sync()
+        t0 = time.perf_counter()
+        if i == 0:
+            with FlopCounterMode(display=False) as fc:
+                state, m = step(state, b)
+            flops = fc.get_total_flops()
+        else:
+            state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        sync()
+        secs.append(time.perf_counter() - t0)
+    sha = {}
+    for s in tree.leaves(state.params):
+        for q, t in s.local.items():
+            t = t.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            sha.setdefault(q, []).append(
+                hashlib.sha1(t.numpy().tobytes()).hexdigest())
+    del state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_seconds": secs, "matmul_flops": flops,
+            "shard_sha1": sha}
+
+
+def train_rank_worker(rank: int, world: int, addr: str, out: str,
+                      cell: str) -> int:
+    """One rank of ``--train --ranks``: saves its run of ``cell``
+    ("smollm" on (2, N / 2), "tp" on (1, N)) to ``out``."""
     import torch
     from repro_torch.launch.mesh import init_distributed, make_mesh
     if not init_distributed(coordinator_address=addr, num_processes=world,
                             process_id=rank, backend="nccl"):
         raise RuntimeError("init_distributed did not start a group")
-    mesh = make_mesh((2, world // 2), ("data", "model"))
     dev = torch.device("cuda", torch.cuda.current_device())
-    rec = train_on_mesh(mesh, dev, TRAIN_SEED)
+    if cell == "tp":
+        rec = tp_on_mesh(make_mesh((1, world), ("data", "model")), dev,
+                         TP_SEED)
+    else:
+        rec = train_on_mesh(make_mesh((2, world // 2), ("data", "model")),
+                            dev, TRAIN_SEED)
     rec.update(rank=rank, device=str(dev))
     torch.save(rec, out)
     torch.distributed.destroy_process_group()
@@ -328,7 +406,7 @@ def _spawn(world: int, extra) -> list:
          str(world), "--rank", str(r), "--rendezvous", f"localhost:{port}"]
         + extra(r), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, env=env) for r in range(world)]
-    deadline = time.monotonic() + 300
+    deadline = time.monotonic() + 600
     outs = []
     for r, p in enumerate(procs):
         try:
@@ -338,7 +416,7 @@ def _spawn(world: int, extra) -> list:
             for q in procs:
                 q.kill()
             out, err = p.communicate()
-            raise AssertionError(f"rank {r} did not finish in 300 s; its "
+            raise AssertionError(f"rank {r} did not finish in 600 s; its "
                                  f"stderr: {err[-3000:]}") from None
         outs.append((p.returncode, out, err))
     for r, (rc, _, err) in enumerate(outs):
@@ -361,7 +439,8 @@ def ranks_train_leg(world: int) -> None:
     want = train_on_mesh(mesh, torch.device("cuda", 0), TRAIN_SEED)
     work = ROOT / "build" / "train_ranks"
     work.mkdir(parents=True, exist_ok=True)
-    _spawn(world, lambda r: ["--train", "--out", str(work / f"r{r}.pt")])
+    _spawn(world, lambda r: ["--train", "--cell", "smollm", "--out",
+                             str(work / f"r{r}.pt")])
     ranks = []
     for r in range(world):
         got = torch.load(work / f"r{r}.pt", weights_only=False)
@@ -383,6 +462,60 @@ def ranks_train_leg(world: int) -> None:
           "ranks": ranks,
           "param_max_abs_diff": max(r["param_max_abs_diff"] for r in ranks),
           "all_bitwise": all(r["params_bitwise"] for r in ranks)})
+    tp_ranks_leg(world, work)
+
+
+def tp_ranks_leg(world: int, work: Path) -> None:
+    """The tensor-parallel cell (``tp_on_mesh``) on a (1, ``world``) mesh
+    with position i on cuda:i in this process, over ``world`` NCCL
+    ranks, and on the 1 x 1 mesh of cuda:0: the ranks bitwise the
+    one-process run (losses and every shard's sha1), each rank's FLOPs
+    the reckoned count of one position."""
+    import dataclasses
+    import torch
+    from chip_smoke import TP_TRAIN, emit
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models.sharding import tp_split
+    from repro_torch.train.sharded import step_matmul_flops
+    k = TP_TRAIN
+    cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
+    mesh = make_mesh((1, world), ("data", "model"),
+                     devices=[f"cuda:{i}" for i in range(world)])
+    one = tp_on_mesh(mesh, torch.device("cuda", 0), TP_SEED)
+    _spawn(world, lambda r: ["--train", "--cell", "tp", "--out",
+                             str(work / f"tp{r}.pt")])
+    per_position = step_matmul_flops(cfg, k["batch"], k["seq"], world,
+                                     device="cuda")
+    ranks = []
+    for r in range(world):
+        got = torch.load(work / f"tp{r}.pt", weights_only=False)
+        same = (got["losses"] == one["losses"]
+                and got["shard_sha1"][r] == one["shard_sha1"][r])
+        ranks.append({"rank": r, "device": got["device"],
+                      "losses": got["losses"], "bitwise": same,
+                      "matmul_flops": got["matmul_flops"],
+                      "step_seconds": got["step_seconds"]})
+    host = tp_on_mesh(make_host_mesh("cuda:0"), torch.device("cuda", 0),
+                      TP_SEED)
+    emit({"phase": "sharded_train_tp_ranks", "world": world,
+          "model": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+          **k, "mesh": mesh.shape, "backend": "nccl",
+          "tp_split": tp_split(cfg, mesh.shape),
+          "one_process": {"losses": one["losses"],
+                          "step_seconds": one["step_seconds"],
+                          "matmul_flops": one["matmul_flops"]},
+          "ranks": ranks, "one_card_1x1": {
+              "losses": host["losses"], "step_seconds": host["step_seconds"],
+              "matmul_flops": host["matmul_flops"]},
+          "matmul_flops_reckoned_per_position": per_position,
+          "all_bitwise": all(r["bitwise"] for r in ranks)})
+    if not all(r["bitwise"] for r in ranks):
+        raise AssertionError("the ranks' tensor-parallel steps are not the "
+                             "one-process mesh's")
+    if any(r["matmul_flops"] != per_position for r in ranks):
+        raise AssertionError(f"rank FLOPs {[r['matmul_flops'] for r in ranks]}"
+                             f", {per_position} reckoned a position")
 
 
 def ranks_leg(world: int) -> None:
@@ -415,6 +548,7 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--rendezvous", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--cell", default="smollm", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     sys.path.insert(0, str(ROOT / "src"))
@@ -422,7 +556,7 @@ def main(argv=None) -> int:
     if args.rank is not None:
         if args.train:
             return train_rank_worker(args.rank, args.ranks, args.rendezvous,
-                                     args.out)
+                                     args.out, args.cell)
         return rank_worker(args.rank, args.ranks, args.rendezvous)
     if torch.cuda.device_count() < 2:
         print("sharded_cards: needs two or more CUDA cards", file=sys.stderr)
