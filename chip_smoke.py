@@ -232,10 +232,24 @@ Phases, each asserting (any failure exits non-zero):
    ``train.sharded.step_matmul_flops`` and each position's reckoned
    beside 1 x 1's, the losses within 1e-2 relative; then granite's
    widths at 2 layers in f32, 3 steps of 2 x 128 on a (1, 2) card mesh
-   against the CPU's one-device step (9b's tolerances), flash 24. The
-   ``sharded_train`` records carry ``tp_split``, the split and the
-   gathered leaves. Phase 2b checks and times flash at the shard shape
-   (4, 2048, 8, 2, 128).
+   against the CPU's one-device step (9b's tolerances), flash 24. (11f)
+   the recurrent families split over ``model``, each at its published
+   widths in bf16 on a (1, 4) mesh with every position on cuda:0, then
+   on 1 x 1, as 11e: xlstm-1.3b (d 2048, 4 heads of 512, vocab 50304)
+   cut to 8 of 48 layers (7 mLSTM blocks and 1 sLSTM block), 3 steps of
+   2 x 1024 tokens, flash exactly 0; hymba-1.5b (d 1600, 25/5 heads of
+   64, SSM state 16, d_ff 5504, vocab 32001, window 1024) cut to 4 of 32
+   layers (0, 2 and 3 global), 3 steps of 2 x 2048 tokens, flash exactly
+   6 a step on both meshes (3 global layers, forward and remat; its
+   attention runs whole once a row); then xLSTM's widths at 2 layers
+   (``slstm_every`` 2) and hymba's at 4 layers with window 64, f32, 3
+   steps of 2 x 128 on a (1, 2) card mesh against the CPU's one-device
+   step (9b's tolerances; each hymba card step from the CPU's state:
+   its chained losses repeat only to ~1e-5 under another order of
+   sums, on one device too). The ``sharded_train`` records carry
+   ``tp_split``, the split and the gathered leaves, and each position's
+   resident bytes (``specs.shard_bytes``). Phase 2b checks and times
+   flash at the shard shape (4, 2048, 8, 2, 128).
 
 Phases 3e-3i run after phase 4. Stdout carries JSON records, then the
 script's total seconds; the line before the last is the per-kernel
@@ -3406,10 +3420,14 @@ def phase_sharded_train_full(seed: int) -> int:
 
 
 def sharded_parity(seed: int, devices, label: str, arch="smollm-135m",
-                   shape=(2, 2), k=None, checkpoint: bool = True) -> dict:
+                   shape=(2, 2), k=None, checkpoint: bool = True,
+                   cfg=None, restart: bool = False) -> dict:
     """3 steps of ``make_train_step(mesh=)`` on a ``shape`` mesh on
     ``devices`` against the one-device CPU step on the same weights
-    (``arch`` at full width, 2 layers, f32): losses within
+    (``cfg``, by default ``arch`` at full width, 2 layers, f32; with
+    ``restart`` each mesh step from the CPU's state before that step,
+    placed anew, so the steps' rounding does not compound): losses
+    within
     ``TRAIN_TOL["loss"]``, params within ``TRAIN_TOL["param"]`` but for
     ``param_share``, flash launches as the split says (each model
     shard's where the heads split); then, with ``checkpoint``, the
@@ -3426,7 +3444,8 @@ def sharded_parity(seed: int, devices, label: str, arch="smollm-135m",
     from repro_torch.models.sharding import heads_split, tp_split
     from repro_torch.train import (AdamWConfig, TrainState, TrainStepConfig,
                                    adamw_init, make_train_step)
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    cfg = cfg or dataclasses.replace(get_config(arch), n_layers=2,
+                                     dtype="float32")
     k = k or SHARDED_PARITY
     cpu, gpu = _weights_both(cfg, seed)
     mesh = lm_mesh(devices, shape)
@@ -3446,6 +3465,8 @@ def sharded_parity(seed: int, devices, label: str, arch="smollm-135m",
     losses, secs, launches = [], [], 0
     for i in range(k["steps"]):
         b = _train_inputs(cfg, k["batch"], k["seq"], i, seed)
+        if restart:
+            sg = placement.place_tree(sc, shardings(mesh))
         sc, mc = one(sc, _on(b, "cpu"))
         torch.cuda.synchronize()
         reset_launches()
@@ -3482,7 +3503,8 @@ def sharded_parity(seed: int, devices, label: str, arch="smollm-135m",
            "losses_cpu_mesh": losses, "loss_tol": TRAIN_TOL["loss"],
            "param_max_abs_err": err, "params_over_tol": over,
            "params": total, "param_tol": TRAIN_TOL["param"],
-           "step_seconds": secs, "flash_launches": launches}
+           "step_seconds": secs, "flash_launches": launches,
+           "each_step_from_the_cpu_state": restart}
     if not checkpoint:
         return rec
     work = ROOT / "build" / "sharded_ckpt"
@@ -3594,11 +3616,12 @@ TP_TRAIN = dict(arch="granite-8b", n_layers=8, batch=4, seq=2048, steps=3,
 TP_PARITY = dict(batch=2, seq=128, steps=3)
 
 
-def tp_cell(cfg, mesh, seed: int, k: dict) -> dict:
+def tp_cell(cfg, mesh, seed: int, k: dict, label: str) -> dict:
     """``k["steps"]`` sharded train steps of ``cfg`` (seeded weights drawn
     on cuda:0, placed on ``mesh``) from seeded token batches: losses,
-    each step's seconds and flash launches, the peak bytes, and the
-    matmul FLOPs ``FlopCounterMode`` counts in the first step (which
+    each step's seconds and flash launches, the peak bytes, each
+    position's resident bytes (which must be ``specs.shard_bytes``) and
+    the matmul FLOPs ``FlopCounterMode`` counts in the first step (which
     the median leaves out)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
@@ -3617,6 +3640,11 @@ def tp_cell(cfg, mesh, seed: int, k: dict) -> dict:
                    specs.opt_state_shardings(cfg, mesh,
                                              zero1=mesh.size > 1)))
     del params
+    resident = placement.resident_bytes(state)
+    shard = state_shard_bytes(cfg, mesh)
+    if sorted(resident.values()) != [shard] * mesh.size:
+        raise AssertionError(f"{label}: resident bytes {resident}, specs "
+                             f"{shard}")
     step = make_train_step(cfg, TrainStepConfig(), AdamWConfig(**TRAIN_OPT),
                            mesh=mesh)
     losses, secs, flash, flops = [], [], [], None
@@ -3637,7 +3665,7 @@ def tp_cell(cfg, mesh, seed: int, k: dict) -> dict:
         secs.append(time.perf_counter() - t0)
         launches = read_launches()
         if any(v for name, v in launches.items() if name != "flash"):
-            raise AssertionError(f"11e: launches {launches}")
+            raise AssertionError(f"{label}: launches {launches}")
         flash.append(launches["flash"])
     del state
     torch.cuda.empty_cache()
@@ -3646,69 +3674,150 @@ def tp_cell(cfg, mesh, seed: int, k: dict) -> dict:
             "step_s_median_after_first": median,
             "tokens_per_s": k["batch"] * k["seq"] / median,
             "peak_device_bytes": torch.cuda.max_memory_allocated(),
-            "flash_launches_per_step": flash,
+            "resident_bytes_per_position": resident,
+            "specs_shard_bytes": shard, "flash_launches_per_step": flash,
             "matmul_flops_step_process": flops}
 
 
-def phase_tp_train(seed: int) -> int:
-    """11e, the tensor-parallel step: granite-8b (``TP_TRAIN``) on a
-    (1, 4) mesh with every position on cuda:0, then on the 1 x 1 host
-    mesh, the same seed: 64 flash launches a step on (1, 4) (8 layers x
-    forward and remat x 4 shards' heads) against 16, the losses within
-    1e-2 relative, the process's matmul FLOPs equal to
-    ``step_matmul_flops`` (every shard of the row; the forward's kernel
-    uncounted), each position's reckoned beside 1 x 1's. Then the f32
-    leg (``TP_PARITY``): granite's widths at 2 layers on a (1, 2) card
-    mesh against the CPU's step within ``TRAIN_TOL``. Returns the flash
-    launches."""
-    import dataclasses
-    from repro_torch.configs import get_config
+def tp_legs(label: str, cfg, k: dict, seed: int) -> dict:
+    """``tp_cell`` of ``cfg`` on a ``k["shape"]`` mesh with every position
+    on cuda:0, then on the 1 x 1 host mesh, the same seed: flash exactly
+    ``train_flash_per_step`` a step (x the model axis where the heads
+    split), the process's matmul FLOPs equal to ``step_matmul_flops``
+    (every shard of the row; the forward's kernel uncounted), each
+    position's reckoned beside 1 x 1's, the losses within 1e-2 relative.
+    Returns the record."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.sharding import heads_split, tp_split
     from repro_torch.train.sharded import step_matmul_flops
-    k = TP_TRAIN
-    cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
     tp = k["shape"][1]
-    if not heads_split(cfg, tp):
-        raise AssertionError(f"11e: {cfg.name}'s heads do not split {tp} "
-                             "ways")
-    legs, total = {}, 0
-    for name, mesh in (("1x4", lm_mesh([MESH_DEVICE] * tp, k["shape"])),
+    wide = f"1x{tp}"
+    legs = {}
+    for name, mesh in ((wide, lm_mesh([MESH_DEVICE] * tp, k["shape"])),
                        ("1x1", make_host_mesh(MESH_DEVICE))):
         n = mesh.shape["model"]
-        leg = tp_cell(cfg, mesh, seed, k)
-        want = train_flash_per_step(cfg, k["seq"], True) * n
+        leg = tp_cell(cfg, mesh, seed, k, f"{label} {name}")
+        want = train_flash_per_step(cfg, k["seq"], True) * (
+            n if heads_split(cfg, n) else 1)
         if leg["flash_launches_per_step"] != [want] * k["steps"]:
-            raise AssertionError(f"11e {name}: flash launches "
+            raise AssertionError(f"{label} {name}: flash launches "
                                  f"{leg['flash_launches_per_step']}, {want} "
                                  "a step expected")
         reckoned = step_matmul_flops(cfg, k["batch"], k["seq"], n, local=n,
                                      device="cuda")
         counted = leg["matmul_flops_step_process"]
         if counted != reckoned:
-            raise AssertionError(f"11e {name}: {counted} matmul FLOPs, "
+            raise AssertionError(f"{label} {name}: {counted} matmul FLOPs, "
                                  f"{reckoned} reckoned")
         leg["matmul_flops_step_position"] = step_matmul_flops(
             cfg, k["batch"], k["seq"], n, device="cuda")
         leg["tp_split"] = tp_split(cfg, mesh.shape)
         legs[name] = leg
-        total += sum(leg["flash_launches_per_step"])
     rel = [abs(a - b) / abs(b) for a, b in
-           zip(legs["1x4"]["losses"], legs["1x1"]["losses"])]
-    if not all(np.isfinite(legs["1x4"]["losses"])) or max(rel) > 1e-2:
-        raise AssertionError(f"11e: losses {legs['1x4']['losses']} against "
-                             f"{legs['1x1']['losses']}")
-    emit({"phase": "sharded_train", "leg": "11e tensor parallel",
-          "model": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
-          "d_ff": cfg.d_ff, "vocab": cfg.vocab, **k, "remat": True,
-          "legs": legs, "max_rel_loss_diff": max(rel),
-          "position_flops_over_1x1": legs["1x4"]["matmul_flops_step_position"]
-          / legs["1x1"]["matmul_flops_step_position"]})
+           zip(legs[wide]["losses"], legs["1x1"]["losses"])]
+    if not all(np.isfinite(legs[wide]["losses"])) or max(rel) > 1e-2:
+        raise AssertionError(f"{label}: losses {legs[wide]['losses']} "
+                             f"against {legs['1x1']['losses']}")
+    return {"model": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab, **k, "remat": True,
+            "legs": legs, "max_rel_loss_diff": max(rel),
+            "position_flops_over_1x1":
+                legs[wide]["matmul_flops_step_position"]
+                / legs["1x1"]["matmul_flops_step_position"]}
+
+
+def phase_tp_train(seed: int) -> int:
+    """11e, the tensor-parallel step: granite-8b (``TP_TRAIN``) through
+    ``tp_legs`` on a (1, 4) mesh: 64 flash launches a step (8 layers x
+    forward and remat x 4 shards' heads) against 16 on 1 x 1. Then the
+    f32 leg (``TP_PARITY``): granite's widths at 2 layers on a (1, 2)
+    card mesh against the CPU's step within ``TRAIN_TOL``. Returns the
+    flash launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.sharding import heads_split
+    k = TP_TRAIN
+    cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
+    if not heads_split(cfg, k["shape"][1]):
+        raise AssertionError(f"11e: {cfg.name}'s heads do not split "
+                             f"{k['shape'][1]} ways")
+    rec = tp_legs("11e", cfg, k, seed)
+    emit({"phase": "sharded_train", "leg": "11e tensor parallel", **rec})
+    total = sum(sum(leg["flash_launches_per_step"])
+                for leg in rec["legs"].values())
     rec = sharded_parity(seed, [MESH_DEVICE] * 2, "11e f32", arch=k["arch"],
                          shape=(1, 2), k=TP_PARITY, checkpoint=False)
     emit({"phase": "sharded_train", "leg": "11e f32 mesh vs CPU", **rec})
     return total + rec["flash_launches"]
+
+
+#: 11f: the recurrent families at their published widths in bf16 on a
+#: (1, 4) mesh beside 1 x 1. xlstm-1.3b cut to 8 of 48 layers (one group:
+#: 7 mLSTM blocks, 1 sLSTM block); hymba-1.5b cut to 4 of 32 layers
+#: (``window_schedule``: 0, 2 and 3 global, 1 sliding), 2048 tokens a
+#: sequence, past its 1024-token window
+RECURRENT_TP = {
+    "xlstm": dict(arch="xlstm-1.3b", n_layers=8, batch=2, seq=1024,
+                  steps=3, shape=(1, 4)),
+    "hymba": dict(arch="hymba-1.5b", n_layers=4, batch=2, seq=2048,
+                  steps=3, shape=(1, 4))}
+#: 11f's f32 legs against the CPU: 2 x 128 tokens, 3 steps on (1, 2)
+RECURRENT_PARITY = dict(batch=2, seq=128, steps=3)
+
+
+def recurrent_parity_configs() -> dict:
+    """11f's f32 configs: xLSTM's widths at 2 layers (one mLSTM, one
+    sLSTM block) and hymba's at 4 layers with window 64, as phase 8's
+    ``family_parity`` cuts them."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return {"xlstm": dataclasses.replace(
+                get_config("xlstm-1.3b"), n_layers=2, slstm_every=2,
+                dtype="float32"),
+            "hymba": dataclasses.replace(
+                get_config("hymba-1.5b"), n_layers=4, sliding_window=64,
+                dtype="float32")}
+
+
+def phase_recurrent_tp(seed: int) -> int:
+    """11f: each ``RECURRENT_TP`` cell through ``tp_legs`` (xLSTM: no
+    flash launch; hymba: 6 a step on both meshes, its attention whole
+    once a row), then each ``recurrent_parity_configs`` config on a
+    (1, 2) card mesh against the CPU's one-device step within
+    ``TRAIN_TOL``, each hymba card step from the CPU's state
+    (``sharded_parity(restart=True)``). Returns the flash launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.sharding import tp_layout
+    total = 0
+    t0 = time.perf_counter()
+    for name, k in RECURRENT_TP.items():
+        cfg = dataclasses.replace(get_config(k["arch"]),
+                                  n_layers=k["n_layers"])
+        if tp_layout(cfg, k["shape"][1])["recurrent"] != "split":
+            raise AssertionError(f"11f: {cfg.name}'s recurrent layers do "
+                                 "not split")
+        rec = tp_legs(f"11f {name}", cfg, k, seed)
+        emit({"phase": "sharded_train", "leg": f"11f {name} split", **rec})
+        total += sum(sum(leg["flash_launches_per_step"])
+                     for leg in rec["legs"].values())
+    for name, cfg in recurrent_parity_configs().items():
+        # hymba's three chained f32 steps repeat only to ~1e-5 of the
+        # loss under any other order of sums (an H100 against the CPU,
+        # no mesh: 1.1e-5 at the third step; the CPU at 3 threads
+        # against 8: 6.3e-6), so its card steps each start from the
+        # CPU's state
+        rec = sharded_parity(seed, [MESH_DEVICE] * 2, f"11f {name} f32",
+                             shape=(1, 2), k=RECURRENT_PARITY,
+                             checkpoint=False, cfg=cfg,
+                             restart=name == "hymba")
+        emit({"phase": "sharded_train", "leg": f"11f {name} f32 mesh vs "
+              "CPU", **rec})
+        total += rec["flash_launches"]
+    emit({"phase": "sharded_train", "leg": "11f total",
+          "seconds": time.perf_counter() - t0})
+    return total
 
 
 def main(argv=None) -> int:
@@ -3885,6 +3994,7 @@ def main(argv=None) -> int:
     phase_sharded_serve(seed=12)
     launches["flash"] += phase_sharded_cards(seed=11)
     launches["flash"] += phase_tp_train(seed=13)
+    launches["flash"] += phase_recurrent_tp(seed=14)
     emit({"phase": "sharded_launch_total",
           "seconds": time.perf_counter() - t0})
 

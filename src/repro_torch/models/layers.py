@@ -44,6 +44,20 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     return out.to(x.dtype)
 
 
+def rms_norm_model(xs, ws, row, width: int,
+                   eps: float = 1e-6) -> list:
+    """``rms_norm`` over a width split by columns over ``model``: ``xs``
+    each local shard's columns of x, ``ws`` its columns of the weight,
+    ``width`` the whole width. Each shard's sum of squares in f32, added
+    over ``model`` (``placement.sum_model``) and handed back to every
+    shard (``to_model``), divided by the whole width. Returns each
+    shard's normalized columns in x's dtype."""
+    sq = [(x.float() * x.float()).sum(-1, keepdim=True) for x in xs]
+    total = PL.to_model(PL.sum_model(sq, row), row)
+    return [(x.float() * torch.rsqrt(t / width + eps) * (1.0 + w.float()))
+            .to(x.dtype) for x, w, t in zip(xs, ws, total)]
+
+
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
@@ -658,21 +672,25 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                chunk: int = 256) -> torch.Tensor:
     """Chunkwise-parallel mLSTM (matrix memory), the reference's
     ``mlstm_scan``: a Python loop over chunks of ``_pick_chunk(S, chunk)``
-    carrying C (B, H, D, D) and n (B, H, D) in f32.
+    carrying C (B, H, Dv, D) and n (B, H, D) in f32.
 
-    q/k/v: (B, S, H, D); log_f/log_i: (B, S, H). Returns (B, S, H, D) in
-    q's dtype. C_t = f_t C_{t-1} + i_t v_t k_t^T; n_t = f_t n_{t-1} + i_t
-    k_t; h_t = C_t q_t / max(|n_t . q_t|, 1). The reference's
+    q/k: (B, S, H, D); v: (B, S, H, Dv), all of v's columns or a model
+    shard's (each output column reads only its own column of v, C's row
+    of it, and q, k and the gates); log_f/log_i: (B, S, H). Returns
+    (B, S, H, Dv) in q's dtype, C being (B, H, Dv, D). C_t = f_t C_{t-1}
+    + i_t v_t k_t^T; n_t = f_t n_{t-1} + i_t k_t; h_t = C_t q_t /
+    max(|n_t . q_t|, 1), q scaled by D ** -0.5. The reference's
     three-operand einsums are contracted two at a time (C . q, then the
     decay; v scaled by the weights, then one product with k), so nothing
-    of (B, L, H, D, D) is formed."""
+    of (B, L, H, Dv, D) is formed."""
     B, S, H, D = q.shape
+    Dv = v.shape[-1]
     L = _pick_chunk(S, chunk)
     dev = q.device
     tri = _tril(L, dev)[None, :, :, None]                 # (1, L, M, 1)
-    C = torch.zeros((B, H, D, D), dtype=torch.float32, device=dev)
+    C = torch.zeros((B, H, Dv, D), dtype=torch.float32, device=dev)
     n = torch.zeros((B, H, D), dtype=torch.float32, device=dev)
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=dev)
     for s0 in range(0, S, L):
         qc = q[:, s0:s0 + L].float() * (D ** -0.5)
         kc = k[:, s0:s0 + L].float()

@@ -248,25 +248,22 @@ def _gate(out):
     return tuple(outs) if isinstance(out, tuple) else outs[0]
 
 
-def _run(remat: bool, fn, *args, whole: bool = False):
+def _run(remat: bool, fn, *args):
     """``fn(*args)``, under ``remat`` (and grad mode) through
     ``torch.utils.checkpoint`` (non-reentrant): the layer keeps only its
     inputs and runs again in the backward, the same ops on the same
     values, so the numbers are bitwise those without it. A layer's
     model-sharded weights (``placement.ModelShards``) reach ``fn``,
-    whose blocks split over ``model`` (``blocks``); with ``whole`` (the
-    recurrent families) they are gathered inside the call instead, so
-    under remat the gather runs again in the backward and a layer's
-    whole weights live only while it runs. Either way the recompute
-    issues the layer's collectives again, in the forward's order. A
-    layer whose shards span several devices goes through ``_FrameGate``,
-    so one thread recomputes it."""
+    whose blocks split over ``model`` (``blocks``, ``recurrent``) or
+    gather the weights of a part that runs whole inside the call, so
+    under remat the gather runs again in the backward and those whole
+    weights live only while the layer runs. The recompute issues the
+    layer's collectives again, in the forward's order. A layer whose
+    shards span several devices goes through ``_FrameGate``, so one
+    thread recomputes it."""
     gate = remat and _spans_devices(args)
 
     def call(*a):
-        if whole:
-            a = tuple({k: layers.whole(v) for k, v in x.items()}
-                      if isinstance(x, dict) else x for x in a)
         out = fn(*a)
         return _gate(out) if gate else out
     if remat and torch.is_grad_enabled():
@@ -431,7 +428,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
         for lp, w in zip(_layers(params["blocks"]), window_schedule(cfg)):
             x, k, v = _run(remat, functools.partial(
                 recurrent.hymba_block, window=int(w), q_offset=q_offset),
-                cfg, lp, x, positions, whole=True)
+                cfg, lp, x, positions)
             if return_cache:
                 ks.append(k)
                 vs.append(v)
@@ -460,8 +457,8 @@ def _xlstm_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
                  remat: bool = False) -> torch.Tensor:
     for group, sp in zip(_layers(params["mlstm"]), _layers(params["slstm"])):
         for mp in _layers(group):
-            x = _run(remat, recurrent.mlstm_block, cfg, mp, x, whole=True)
-        x = _run(remat, recurrent.slstm_block, cfg, sp, x, whole=True)
+            x = _run(remat, recurrent.mlstm_block, cfg, mp, x)
+        x = _run(remat, recurrent.slstm_block, cfg, sp, x)
     return x
 
 

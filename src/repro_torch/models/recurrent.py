@@ -8,11 +8,24 @@ The mLSTM weights keep the reference's Dh-major layout: wq3/wk3/wv3/w_z3
 it as one (d, Dh * H) matmul whose output is unflattened to (Dh, H) and
 transposed, exactly as the einsum indexes it. The scans are the plain
 torch ones of ``layers``; hymba's global layers reach the flash kernel
-through ``layers.flash_attention``."""
+through ``layers.flash_attention``.
+
+In the sharded train step the blocks split over ``model`` where their
+weights arrive as ``placement.ModelShards`` (the reference's layout,
+``sharding.param_spec``): the mLSTM by Dh (each shard's columns of v, z
+and the matrix memory, from the replicated q, k and gates), the sLSTM by
+columns (its scan is elementwise: no hidden-to-hidden matrix), hymba's
+SSM, fused projection and MLP by columns (each shard scans the heads its
+columns span, zeros in the spanned columns not its own). Each layer's
+one collective a split part is ``sum_model`` of its row products; the
+replicated inputs reach the shards through ``to_model``, whose backward
+sums their gradients. hymba's attention runs whole (``blocks._attn_row``
+gathers wq/wk/wv: its heads do not split)."""
 from __future__ import annotations
 
 import torch
 
+from ..distributed import placement as PL
 from . import blocks, layers
 from .config import ArchConfig
 
@@ -34,29 +47,72 @@ def _down3(y: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
         w3.reshape(Dh * H, d)
 
 
+def _shard_row(p, names):
+    """The ``ModelRow`` when ``p``'s weights ``names`` are model shards
+    of more than one position, else None; on a model axis of one they
+    go into ``p`` whole. Some of them sharded and some not raises."""
+    ws = [p[n] for n in names]
+    if all(isinstance(w, torch.Tensor) for w in ws):
+        return None
+    if any(isinstance(w, torch.Tensor) for w in ws):
+        raise ValueError(f"{names}: some weights are model-sharded and "
+                         "some are not")
+    row = ws[0].row
+    if row.tp > 1:
+        return row
+    for n in names:
+        p[n] = p[n].full()
+    return None
+
+
 # --- xLSTM: mLSTM block -----------------------------------------------------
 
-def _mlstm_qkvzg(cfg: ArchConfig, p, h):
-    q, k, v, z = (_heads(h, p[name]) for name in ("wq3", "wk3", "wv3",
-                                                   "w_z3"))
+_MLSTM_SPLIT = ("wv3", "w_z3", "w_down3")
+
+
+def _mlstm_gates(cfg: ArchConfig, p, h):
     gates = h @ p["w_if"]                                  # (B, S, 2H)
     H = cfg.n_heads
     log_i = layers.softcap(gates[..., :H].float(), _GATE_CAP)
     log_f = layers._log_sigmoid(gates[..., H:].float())
-    return q, k, v, z, log_i, log_f
+    return log_i, log_f
 
 
-def _mlstm_out(x, p, y, z):
-    y = y * torch.nn.functional.silu(z.float()).to(x.dtype)
-    return x + _down3(y, p["w_down3"])
+def _mlstm_qkvzg(cfg: ArchConfig, p, h):
+    q, k, v, z = (_heads(h, p[name]) for name in ("wq3", "wk3", "wv3",
+                                                   "w_z3"))
+    return (q, k, v, z) + _mlstm_gates(cfg, p, h)
+
+
+def _mlstm_down(y, z, w_down3):
+    """The gated readout through the down-projection (all of Dh, or a
+    model shard's rows)."""
+    y = y * torch.nn.functional.silu(z.float()).to(y.dtype)
+    return _down3(y, w_down3)
 
 
 def mlstm_block(cfg: ArchConfig, p, x):
     """Pre-norm mLSTM block (no causal conv; gates and projections from
-    the normed stream, as in the reference)."""
+    the normed stream, as in the reference). On model shards of wv3,
+    w_z3 and w_down3 (split along Dh) each shard runs the scan on its
+    Dh / tp columns of v and z with the whole q, k and gates, and
+    ``sum_model`` adds its down-projections."""
+    p = dict(p)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v, z, log_i, log_f = _mlstm_qkvzg(cfg, p, h)
-    return _mlstm_out(x, p, layers.mlstm_scan(q, k, v, log_f, log_i), z)
+    row = _shard_row(p, _MLSTM_SPLIT)
+    if row is None:
+        q, k, v, z, log_i, log_f = _mlstm_qkvzg(cfg, p, h)
+        return x + _mlstm_down(layers.mlstm_scan(q, k, v, log_f, log_i), z,
+                               p["w_down3"])
+    q, k = _heads(h, p["wq3"]), _heads(h, p["wk3"])
+    log_i, log_f = _mlstm_gates(cfg, p, h)
+    outs = []
+    for j, (hj, qj, kj, ij, fj) in enumerate(zip(*(
+            PL.to_model(t, row) for t in (h, q, k, log_i, log_f)))):
+        wv, wz, wd = (p[n].parts[j] for n in _MLSTM_SPLIT)
+        y = layers.mlstm_scan(qj, kj, _heads(hj, wv), fj, ij)
+        outs.append(_mlstm_down(y, _heads(hj, wz), wd))
+    return x + PL.sum_model(outs, row)
 
 
 def mlstm_block_step(cfg: ArchConfig, p, x, state):
@@ -64,22 +120,55 @@ def mlstm_block_step(cfg: ArchConfig, p, x, state):
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v, z, log_i, log_f = _mlstm_qkvzg(cfg, p, h)
     state, y = layers.mlstm_step(state, q, k, v, log_f, log_i)
-    return _mlstm_out(x, p, y, z), state
+    return x + _mlstm_down(y, z, p["w_down3"]), state
 
 
 # --- xLSTM: sLSTM block -----------------------------------------------------
+
+_SLSTM = ("w_zi", "w_zf", "w_zz", "w_zo", "w_down")
+
 
 def _slstm_preact(cfg: ArchConfig, p, h):
     B, S, _ = h.shape
     H, Dh = cfg.n_heads, cfg.d_model // cfg.n_heads
     return tuple((h @ p[name]).reshape(B, S, H, Dh)
-                 for name in ("w_zi", "w_zf", "w_zz", "w_zo"))
+                 for name in _SLSTM[:4])
+
+
+def _slstm_split(p, h, row) -> list:
+    """Each local shard's sLSTM output (B, S, cols) from its columns of
+    w_zi/w_zf/w_zz/w_zo. The shards on one device run one scan, their
+    columns stacked as more batch rows: the scan is elementwise, so each
+    shard's values are its own, and a row on one card loops over S once
+    rather than once a shard."""
+    B, S, _ = h.shape
+    pre = [[(hj @ p[n].parts[j]).reshape(B, S, 1, -1) for n in _SLSTM[:4]]
+           for j, hj in enumerate(PL.to_model(h, row))]
+    by_device: dict = {}
+    for j, zs in enumerate(pre):
+        by_device.setdefault(zs[0].device, []).append(j)
+    out = [None] * len(pre)
+    for js in by_device.values():
+        y = layers.slstm_scan(*(torch.cat([pre[j][g] for j in js])
+                                for g in range(4)))
+        for j, yj in zip(js, y.split(B)):
+            out[j] = yj.reshape(B, S, -1)
+    return out
 
 
 def slstm_block(cfg: ArchConfig, p, x):
+    """Pre-norm sLSTM block. On model shards of its weights (split by
+    columns, which may cut a head) each shard projects its columns, scans
+    them (``_slstm_split``) and multiplies by its rows of w_down, and
+    ``sum_model`` adds the products."""
+    p = dict(p)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    y = layers.slstm_scan(*_slstm_preact(cfg, p, h))
-    return x + y.reshape(*x.shape[:2], -1) @ p["w_down"]
+    row = _shard_row(p, _SLSTM)
+    if row is None:
+        y = layers.slstm_scan(*_slstm_preact(cfg, p, h))
+        return x + y.reshape(*x.shape[:2], -1) @ p["w_down"]
+    return x + PL.sum_model([y @ p["w_down"].parts[j] for j, y in
+                             enumerate(_slstm_split(p, h, row))], row)
 
 
 def slstm_block_step(cfg: ArchConfig, p, x, state):
@@ -101,14 +190,46 @@ def _hymba_ssm_in(cfg: ArchConfig, p, h):
             (h @ p["ssm_C"]).reshape(B, S, H, N))
 
 
+def _hymba_ffn(cfg: ArchConfig, p, x):
+    """The dense SwiGLU FFN, split by ff where its weights are model
+    shards (``layers.model_parallel``)."""
+    h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + layers.model_parallel(layers.swiglu, h2, p["w_gate"],
+                                     p["w_up"], p["w_down"])
+
+
 def _hymba_fuse_ffn(cfg: ArchConfig, p, x, ya, ys):
     """The average of the per-branch RMS-normalized outputs through the
     shared output projection, then the dense SwiGLU FFN."""
     fused = 0.5 * (layers.rms_norm(ya, p["attn_norm"], cfg.norm_eps)
                    + layers.rms_norm(ys, p["ssm_norm"], cfg.norm_eps))
-    x = x + fused @ p["wo"]
-    h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + layers.swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])
+    return _hymba_ffn(cfg, p, x + fused @ p["wo"])
+
+
+def _hymba_ssm_split(cfg: ArchConfig, p, h, row):
+    """Each local shard's columns [c0, c1) of the SSM branch's output
+    (B, S, c1 - c0), from its columns of ``ssm_in``: the scan runs on the
+    heads [c0 // Dh, ceil(c1 / Dh)) those columns span, with the whole
+    delta, B and C of those heads and zeros in the spanned columns that
+    are not the shard's (each output column reads only its own)."""
+    B, S, _ = h.shape
+    H, Dh, N = cfg.n_heads, cfg.head_dim, cfg.ssm_state
+    n = H * Dh // row.tp
+    dt = h @ p["ssm_dt"]
+    Bm = (h @ p["ssm_B"]).reshape(B, S, H, N)
+    Cm = (h @ p["ssm_C"]).reshape(B, S, H, N)
+    outs = []
+    for i, w, hj, dj, bj, cj, aj in zip(
+            row.indices, p["ssm_in"].parts,
+            *(PL.to_model(t, row) for t in (h, dt, Bm, Cm, p["A_log"]))):
+        c0 = i * n
+        a, b = c0 // Dh, -(-(c0 + n) // Dh)
+        off = c0 - a * Dh
+        xs = torch.nn.functional.pad(hj @ w, (off, b * Dh - c0 - n))
+        ys = layers.ssm_scan(xs.reshape(B, S, b - a, Dh), dj[..., a:b],
+                             bj[:, :, a:b], cj[:, :, a:b], aj[a:b])
+        outs.append(ys.reshape(B, S, -1)[..., off:off + n])
+    return outs
 
 
 def hymba_block(cfg: ArchConfig, p, x, positions, *, window: int,
@@ -116,14 +237,31 @@ def hymba_block(cfg: ArchConfig, p, x, positions, *, window: int,
     """Attention and the Mamba-style SSM on the same normed input, fused
     (meta-tokens omitted, as in the reference). ``window`` is the layer's
     Python int (``GLOBAL_WINDOW`` for the global layers). Returns
-    (x, k after rope, v)."""
+    (x, k after rope, v). On model shards of ``ssm_in`` and ``wo`` the
+    SSM branch, the fusion and the output projection split by columns
+    (``_hymba_ssm_split``; the SSM branch's norm over the whole width,
+    ``layers.rms_norm_model``; the attention's normalized output sliced
+    to each shard's columns) and ``sum_model`` adds the shards'
+    products; the attention runs whole."""
     B, S, _ = x.shape
+    p = dict(p)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    blocks._attn_row(cfg, p, ("wq", "wk", "wv"))      # gathered: whole heads
     q, k, v = blocks._qkv(cfg, p, h, positions)
     ya = layers.flash_attention(q, k, v, causal=True, window=window,
                                 q_offset=q_offset).reshape(B, S, -1)
-    ys = layers.ssm_scan(*_hymba_ssm_in(cfg, p, h), p["A_log"])
-    return _hymba_fuse_ffn(cfg, p, x, ya, ys.reshape(B, S, -1)), k, v
+    row = _shard_row(p, ("ssm_in", "wo"))
+    if row is None:
+        ys = layers.ssm_scan(*_hymba_ssm_in(cfg, p, h), p["A_log"])
+        return _hymba_fuse_ffn(cfg, p, x, ya, ys.reshape(B, S, -1)), k, v
+    eps = cfg.norm_eps
+    ys = layers.rms_norm_model(_hymba_ssm_split(cfg, p, h, row),
+                               PL.split_model(p["ssm_norm"], row, 0), row,
+                               ya.shape[-1], eps)
+    ya = PL.split_model(layers.rms_norm(ya, p["attn_norm"], eps), row, -1)
+    y = PL.sum_model([(0.5 * (a + s)) @ w for a, s, w in
+                      zip(ya, ys, p["wo"].parts)], row)
+    return _hymba_ffn(cfg, p, x + y), k, v
 
 
 def hymba_block_step(cfg: ArchConfig, p, x, k_cache, v_cache, ssm_state,

@@ -194,18 +194,14 @@ _KIND = {"embed": "embed", "unembed": "unembed",
          "moe_w_gate": "experts", "moe_w_up": "experts",
          "moe_w_down": "experts"}
 
-#: the families whose layers run whole on a model-sharded mesh: their
-#: model-sharded weights are gathered a layer at a time
-RECURRENT = ("ssm", "hybrid")
-
-
 def heads_split(cfg, tp: int) -> bool:
     """Whether attention splits over a model axis of ``tp``: whole
     query and KV heads a shard (``param_spec``'s contiguous column split
     of wq/wk/wv then gives shard j the q heads [j H/tp, (j+1) H/tp) and
     the KV heads [j Hk/tp, (j+1) Hk/tp), and the GQA map h -> h // G
-    stays inside the shard)."""
-    return (tp > 1 and cfg.family not in RECURRENT
+    stays inside the shard). Never for xLSTM (no attention) nor hymba,
+    whose attention runs whole beside its split SSM."""
+    return (tp > 1 and cfg.family not in ("ssm", "hybrid")
             and cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0)
 
 
@@ -214,10 +210,11 @@ def tp_layout(cfg, tp: int) -> dict:
     a model axis of ``tp`` positions: "split" (each shard computes its
     part from its own weights), "expert" (the MoE's experts split over
     the shards), "gather" (its model-sharded weights gathered whole, the
-    layer run whole) or "whole" (no weight of it model-sharded). The
-    recurrent families' layers gather (``RECURRENT``); attention splits
-    where ``heads_split``; the MLPs, the experts and the vocabulary
-    split wherever ``param_spec`` split their weights."""
+    layer run whole) or "whole" (no weight of it model-sharded).
+    Attention splits where ``heads_split``; the MLPs, the experts, the
+    vocabulary and the recurrent layers (xLSTM's mLSTM and sLSTM,
+    hymba's SSM with its fused output projection) split wherever
+    ``param_spec`` split their weights."""
     ax = MeshAxes()
     ms = {"data": 1, "model": tp}
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab
@@ -226,10 +223,14 @@ def tp_layout(cfg, tp: int) -> dict:
     def sharded(name, shape):
         return tp > 1 and "model" in param_spec(name, shape, ax, ms)
 
-    out = {"embed": "split" if sharded("embed", (V, d)) else "whole",
-           "unembed": "split" if sharded("embed", (V, d)) else "whole"}
+    def split(*leaves):
+        return "split" if any(sharded(*x) for x in leaves) else "whole"
+
+    out = {"embed": split(("embed", (V, d))),
+           "unembed": split(("embed", (V, d)))}
     if cfg.family == "ssm":
-        return {**out, "recurrent": "gather" if tp > 1 else "whole"}
+        return {**out, "recurrent": split(("wv3", (d, d // H, H)),
+                                          ("w_zi", (d, d)))}
     attn = any(sharded(n, s) for n, s in (("wq", (d, H * Dh)),
                                            ("wk", (d, Hk * Dh))))
     out["attention"] = ("split" if heads_split(cfg, tp) else
@@ -242,12 +243,20 @@ def tp_layout(cfg, tp: int) -> dict:
         out["experts"] = ("whole" if tp == 1 or "model" not in spec else
                           "expert" if spec[0] == "model" else "split")
     else:
-        out["mlp"] = "split" if sharded("w_up", (d, ff)) else "whole"
-    if cfg.family in RECURRENT:
-        out = {k: ("gather" if v != "whole" and k not in
-                   ("embed", "unembed") else v) for k, v in out.items()}
-        out["recurrent"] = "gather" if tp > 1 else "whole"
+        out["mlp"] = split(("w_up", (d, ff)))
+    if cfg.family == "hybrid":
+        out["recurrent"] = split(("ssm_in", (d, H * Dh)))
     return out
+
+
+def _kind(cfg, name: str) -> str:
+    """The ``tp_layout`` kind of a leaf named ``name`` of ``cfg``: every
+    xLSTM weight but the vocabulary's is recurrent, and hymba's ``wo``
+    projects the fused attention and SSM output."""
+    if (cfg.family == "ssm" and name not in ("embed", "unembed")
+            or cfg.family == "hybrid" and name == "wo"):
+        return "recurrent"
+    return _KIND.get(name, "recurrent")
 
 
 def tp_split(cfg, mesh_shape: dict) -> dict:
@@ -263,10 +272,7 @@ def tp_split(cfg, mesh_shape: dict) -> dict:
         if "model" not in param_spec(name, tuple(leaf.shape), MeshAxes(),
                                      {"data": 1, "model": tp}) or tp == 1:
             continue
-        kind = _KIND.get(name.split("/")[-1], "recurrent")
-        if cfg.family in RECURRENT and kind not in ("embed", "unembed"):
-            kind = "recurrent"
-        how = layout.get(kind, "gather")
+        how = layout.get(_kind(cfg, name.split("/")[-1]), "gather")
         out["gathered" if how == "gather" else "split"].append(name)
     return out
 
@@ -289,4 +295,4 @@ def mesh_shape_dict(mesh: _mesh.DeviceMesh) -> dict:
 __all__ = ["P", "MeshAxes", "use_mesh", "axes_for_mesh", "constrain",
            "ambient_axes", "constrain_model_dim", "constrain_batch",
            "param_spec", "tree_param_specs", "mesh_shape_dict",
-           "heads_split", "tp_layout", "tp_split", "RECURRENT"]
+           "heads_split", "tp_layout", "tp_split"]

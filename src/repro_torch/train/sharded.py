@@ -18,11 +18,13 @@ layers, the reference's partitioned step:
   layers split where ``models.sharding.tp_layout`` says: attention by
   heads (``heads_split``), the MLPs by ff, MoE experts by expert (or
   each expert's ff), the embedding and the unembedding by vocabulary,
-  Megatron's layout through ``placement.to_model``/``sum_model``; the
-  logits stay vocab shards and the masked loss is the vocab-parallel
-  one (``step._masked_nll_model``); an attention whose heads do not
-  divide and the recurrent families' layers gather their weights over
-  ``model`` inside their (checkpointed) call and run whole; remat
+  xLSTM's and hymba's recurrent layers by their columns
+  (``models.recurrent``), Megatron's layout through
+  ``placement.to_model``/``sum_model``; the logits stay vocab shards
+  and the masked loss is the vocab-parallel one
+  (``step._masked_nll_model``); an attention whose heads do not divide
+  gathers its weights over ``model`` inside its layer's (checkpointed)
+  call and runs whole; remat
   recomputes a layer's collectives in the backward, in the forward's
   order on every rank; a replicated weight is used only outside a split
   region, so each rank's gradient of it is the whole one;
@@ -332,6 +334,21 @@ def make_sharded_train_step(cfg, tcfg: TrainStepConfig,
     return train_step
 
 
+def _scan_flops(passes: int, chunks: int, inter: int, intra: int,
+                carry: int) -> int:
+    """The matmul FLOPs of a chunkwise scan (``layers.mlstm_scan``,
+    ``layers.ssm_scan``) over ``chunks`` chunks, run forward ``passes -
+    2`` times and differentiated once, from one chunk's products:
+    ``inter`` the readout of the carried state (no gradient to the zero
+    state of the first chunk), ``intra`` the chunk's own products (each
+    differentiated in both operands) and ``carry`` the state's update
+    (nothing of the last chunk's reaches the loss)."""
+    fwd = chunks * (inter + intra + carry)
+    bwd = ((2 * chunks - 1) * inter + 2 * chunks * intra
+           + 2 * (chunks - 1) * carry)
+    return (passes - 2) * fwd + bwd
+
+
 def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
                       local: int = 1, remat: bool = True,
                       device: str = "cpu") -> int:
@@ -342,22 +359,29 @@ def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
     ``rows`` sequences of ``seq`` tokens (over all its microbatches) on
     a model axis of ``tp``, where a split layer (``models.sharding.
     tp_layout``) does 1 / tp of its work on each shard and the rest all
-    of it once. A dense config without softcap or window. Each
-    projection is 2 N a b FLOPs forward, again under ``remat``, and
-    twice in the backward (input and weight), but the recompute skips
-    the layer's last product (the checkpoint stops once it has every
-    tensor the backward saved: the last local shard's w_down; a row
-    spread over several cards of one process recomputes it, through
-    ``models.model._FrameGate``, and is not reckoned here); attention's
-    core runs ``kernels.flash``'s plain version forward (on the CPU: its
-    256-row tiles, those above the diagonal skipped; on CUDA the kernel,
-    which no counter sees) and the chunked oracle's recompute and
-    gradient (6 products of 2 B H S T Dh) backward; the unembedding is
-    outside remat."""
-    if (cfg.family != "dense" or cfg.attn_softcap or cfg.final_softcap
-            or cfg.local_global_period):
+    of it once. A dense config without softcap or window, xLSTM or
+    hymba. Each projection is 2 N a b FLOPs forward, again under
+    ``remat``, and twice in the backward (input and weight), but the
+    recompute skips the layer's last product (the checkpoint stops once
+    it has every tensor the backward saved: the last local shard's
+    w_down; a row spread over several cards of one process recomputes
+    it, through ``models.model._FrameGate``, and is not reckoned here).
+    Attention's core runs ``kernels.flash``'s plain version forward (on
+    the CPU: its 256-row tiles, those above the diagonal skipped; on
+    CUDA the kernel, which no counter sees) and the chunked oracle's
+    recompute and gradient (6 products of 2 B H S T Dh) backward; a
+    window shorter than ``seq`` runs the chunked oracle throughout (2
+    such products a forward, 4 backward). The recurrent scans count
+    their chunks' products (``_scan_flops``): the mLSTM's per shard over
+    its Dh / tp columns of v beside the whole q k^T, hymba's SSM per
+    shard over the heads its columns span. Replicated projections (q,
+    k and the gates of the mLSTM, hymba's attention and dt/B/C) run
+    once a row. The unembedding is outside remat."""
+    fam = cfg.family
+    if (fam not in ("dense", "ssm", "hybrid") or cfg.attn_softcap
+            or cfg.final_softcap or cfg.local_global_period):
         raise NotImplementedError(f"{cfg.name}: the reckoning covers the "
-                                  "plain dense family")
+                                  "plain dense family, xLSTM and hymba")
     layout = tp_layout(cfg, tp)
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab
     H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -367,19 +391,78 @@ def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
     def share(kind):
         """(divisor of the work, times it runs)"""
         return (tp, local) if layout[kind] == "split" else (1, 1)
-    (a_div, a_n), (m_div, m_n), (v_div, v_n) = (
-        share("attention"), share("mlp"), share("unembed"))
+    v_div, v_n = share("unembed")
+    unembed = v_n * 3 * 2 * N * d * V // v_div
+    if fam == "ssm":
+        return _xlstm_flops(cfg, rows, seq, passes, *share("recurrent")) \
+            + unembed
+
+    def attention(heads: int, window: int) -> int:
+        if window < seq:                  # the chunked oracle
+            return passes * 2 * 2 * rows * heads * seq * seq * Dh
+        fwd = 0
+        if device == "cpu":
+            for i0 in range(0, seq, 256):
+                i1 = min(i0 + 256, seq)
+                fwd += 2 * 2 * rows * heads * (i1 - i0) * i1 * Dh
+        return (passes - 2) * fwd + 6 * 2 * rows * heads * seq * seq * Dh
+    (a_div, a_n), (m_div, m_n) = share("attention"), share("mlp")
     proj = 2 * N * d * (2 * H * Dh + 2 * Hk * Dh) // a_div
-    fwd = 0
-    if device == "cpu":
-        for i0 in range(0, seq, 256):
-            i1 = min(i0 + 256, seq)
-            fwd += 2 * 2 * rows * (H // a_div) * (i1 - i0) * i1 * Dh
-    core = (passes - 2) * fwd + 6 * 2 * rows * (H // a_div) * seq * seq * Dh
     ffn = 2 * N * d * ff // m_div          # each of w_gate, w_up, w_down
-    layer = (a_n * (passes * proj + core) + m_n * passes * 3 * ffn
-             - (passes - 3) * ffn)
-    return cfg.n_layers * layer + v_n * 3 * 2 * N * d * V // v_div
+    mlp = m_n * passes * 3 * ffn - (passes - 3) * ffn
+    if fam == "dense":
+        return cfg.n_layers * (a_n * (passes * proj + attention(
+            H // a_div, seq)) + mlp) + unembed
+    from ..models.model import window_schedule
+    r_div, r_n = share("recurrent")
+    qkv = 2 * N * d * (H * Dh + 2 * Hk * Dh) + 2 * N * d * (H + 2 * H
+                                                            * cfg.ssm_state)
+    own = 2 * 2 * N * d * (H * Dh // r_div)          # ssm_in and wo
+    n = H * Dh // r_div
+    spans = [-(-(c0 + n) // Dh) - c0 // Dh for c0 in range(0, H * Dh, n)]
+    if r_n == r_div:
+        heads = sum(spans)
+    elif len(set(spans)) == 1:
+        heads = spans[0] * r_n
+    else:
+        raise ValueError(f"{cfg.name}: its shards span unequal heads")
+    L = _chunk(seq)
+    NS, c = cfg.ssm_state, seq // L
+    scan = _scan_flops(passes, c, 2 * rows * L * heads * NS * Dh,
+                       2 * rows * L * L * heads * Dh,
+                       2 * rows * L * heads * NS * Dh)
+    return sum(passes * (qkv + r_n * own) + attention(H, int(w)) + scan
+               + mlp for w in window_schedule(cfg)) + unembed
+
+
+def _chunk(seq: int) -> int:
+    """The recurrent scans' chunk at ``seq`` positions."""
+    from ..models.layers import _pick_chunk
+    return _pick_chunk(seq, 256)
+
+
+def _xlstm_flops(cfg, rows: int, seq: int, passes: int, div: int,
+                 n: int) -> int:
+    """``step_matmul_flops``' layers of xLSTM: each mLSTM's q, k and
+    gate projections once, its v, z and down projections and its scan
+    on each of ``n`` shards of Dh / ``div`` columns, each sLSTM's
+    projections on ``n`` shards of d / ``div`` columns; the recompute
+    skips each layer's last down-projection."""
+    from ..models.model import _xlstm_groups
+    d, H = cfg.d_model, cfg.n_heads
+    D, N = d // H, rows * seq
+    G, per = _xlstm_groups(cfg)
+    down = 2 * N * d * d // div
+    L = _chunk(seq)
+    c = seq // L
+    Dv = D // div
+    scan = _scan_flops(passes, c, 2 * rows * L * H * Dv * D,
+                       2 * rows * L * L * H * (Dv + D),
+                       2 * rows * L * H * (Dv + 1) * D)
+    mlstm = (passes * (2 * 2 * N * d * d + 2 * N * d * 2 * H + n * 3 * down)
+             + n * scan - (passes - 3) * down)
+    slstm = passes * n * 5 * down - (passes - 3) * down
+    return G * ((per - 1) * mlstm + slstm)
 
 
 __all__ = ["make_sharded_train_step", "step_matmul_flops"]

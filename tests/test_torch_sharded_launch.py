@@ -17,9 +17,16 @@ placement (``distributed.placement``), the sharded train step
 * the reference's own step under ``jax.jit(..., in_shardings=...)`` on a
   (2, 2) mesh of four emulated host devices (a child process), against
   the port's (2, 2) step on the same numpy weights;
+  (smollm, qwen3-moe, granite and xLSTM; the reference's own hymba step
+  takes a NaN gradient norm at the third step, on one device too);
+* the compressed pod sync at the default bound, on (2, 1, 2) and
+  (2, 2, 1) pod meshes, within a quantization step of the one-device
+  pod loop's gradients;
 * four gloo processes on (2, 2), (1, 4) with microbatches and a
-  ``(2, 1, 2)`` pod mesh with ``grad_compress``: every rank bitwise the
-  one-process run; a checkpoint rank 0 writes; ``make_production_mesh``
+  ``(2, 1, 2)`` pod mesh with ``grad_compress``, and xLSTM on (1, 4)
+  and hymba on (2, 2) with their recurrent layers split: every rank
+  bitwise the one-process run and its matmul FLOPs those reckoned for
+  one position; a checkpoint rank 0 writes; ``make_production_mesh``
   and the pod path of ``make_grad_fn`` raise under a group of 4;
 * checkpoints written on (2, 2) restore bitwise on 1 x 1 and the other
   way round, in the one-device format's bytes;
@@ -202,13 +209,15 @@ def test_place_then_gather_is_bitwise(arch, mesh_name):
 
 @pytest.mark.parametrize("mesh_name", ["1x4", "2x2"])
 def test_the_gathers_gradient_is_the_full_gradients_slice(mesh_name):
-    """A row's model shards through ``ModelShards``, on hymba (whose
-    layers gather their weights whole over ``model``): the loss and
-    every shard's gradient equal the one-device loss and the slice of
-    its full gradient, bit for bit (one contribution reduce-scattered).
-    The embedding goes in as shards too (the vocab-parallel lookup is
-    the whole lookup's bits); the unembedding whole (its vocab-sharded
-    logits would need the step's vocab-parallel loss)."""
+    """A row's model shards through ``ModelShards``, on hymba's
+    attention (whose wq/wk/wv gather whole over ``model``: its heads do
+    not split): the loss and every shard's gradient equal the one-device
+    loss and the slice of its full gradient, bit for bit (one
+    contribution reduce-scattered). The embedding goes in as shards too
+    (the vocab-parallel lookup is the whole lookup's bits); the other
+    model-sharded weights whole (the SSM, the fused projection and the
+    MLP split, and the unembedding's vocab-sharded logits would need
+    the step's vocab-parallel loss: their sums round in another order)."""
     cfg = f32("hymba-1.5b")
     mesh = cpu_mesh(mesh_name)
     params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
@@ -221,7 +230,8 @@ def test_the_gathers_gradient_is_the_full_gradients_slice(mesh_name):
     for (name, s), whole in zip(tree.flatten_with_path(placed),
                                 tree.leaves(params)):
         k = PL.model_dim(s.sharding.spec)
-        if k is None or name == "unembed":
+        if k is None or name.split("/")[-1] not in ("embed", "wq", "wk",
+                                                     "wv"):
             t = (whole if k is not None else s.local[0]).detach()
             view.append(t.requires_grad_(True))
             flat.append((view[-1], s, None))
@@ -350,6 +360,60 @@ def test_grad_compress_on_a_pod_mesh_matches_the_pod_loop():
            make_batch(cfg, 0))
 
 
+#: the default-bound pod cases: (arch, mesh shape)
+POD_CASES = {"smollm 2x1x2": ("smollm-135m", (2, 1, 2)),
+             "smollm 2x2x1": ("smollm-135m", (2, 2, 1)),
+             "xlstm 2x1x2": ("xlstm-1.3b", (2, 1, 2))}
+
+
+@pytest.mark.parametrize("case", list(POD_CASES))
+def test_pod_sync_at_the_default_bound_is_within_a_step_of_the_pod_loop(
+        case, monkeypatch):
+    """At the default ``grad_compress_bound`` (1e-3) the synced
+    gradients of one step, as each position hands them to AdamW (its
+    ZeRO-1 slice), against the one-device pod loop's (``make_grad_fn``):
+    each element within one quantization step of its tensor (the step
+    the position's sync quantized with), where the f32 sums of the model
+    shards or the data rows moved a gradient across a rounding edge of
+    the quantizer (one code of one pod: half a step); the others within
+    a thousandth of a step (the steps themselves differ in the last bits
+    of their amax)."""
+    import repro_torch.train.sharded as TS
+    from repro_torch.train.step import make_grad_fn
+    arch, shape = POD_CASES[case]
+    cfg = f32(arch)
+    tcfg = TrainStepConfig(grad_compress=True, n_pods=2)
+    batch = make_batch(cfg, 10)
+    want, _ = make_grad_fn(cfg, tcfg)(fresh_state(cfg).params, batch)
+    seen, steps = [], []
+    real_update, real_step = TS.adamw_update, TS._step
+
+    def update(opt_cfg, st, params, grads, **kw):
+        seen.append([g.clone() for g in grads])
+        return real_update(opt_cfg, st, params, grads, **kw)
+
+    def step(*a):
+        steps.append(real_step(*a))
+        return steps[-1]
+    monkeypatch.setattr(TS, "adamw_update", update)
+    monkeypatch.setattr(TS, "_step", step)
+    mesh = make_mesh(shape, ("pod", "data", "model"), devices=["cpu"] * 4)
+    sh = shardings(cfg, mesh)
+    fn = make_train_step(cfg, tcfg, AdamWConfig(**OPT), mesh=mesh)
+    fn(PL.place_tree(fresh_state(cfg), sh), batch)
+    assert len(seen) == len(steps) == mesh.size
+    moved, total = 0, 0
+    for q, (gs, st) in enumerate(zip(seen, steps)):
+        for i, (g, w, msh) in enumerate(zip(gs, tree.leaves(want),
+                                            tree.leaves(sh.opt.m))):
+            w = w[PL.shard_slices(msh, w.shape, q)]
+            d = (g - w).abs()
+            assert float(d.max()) <= float(st[i]), (case, q, i)
+            moved += int((d > 1e-3 * st[i]).sum())
+            total += d.numel()
+    assert moved <= 1e-3 * total, (moved, total)
+
+
 def test_the_state_chooses_the_step():
     """With ``mesh=``, a plain state runs the one-device step (the
     dry-run's meta state does); a state placed on another mesh raises."""
@@ -380,7 +444,8 @@ _REF_CHILD = textwrap.dedent(r"""
     # own step (ShardingTypeError), so the partitioner places it
     mesh = jax.make_mesh((2, 2), ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
-    for arch in ("smollm-135m", "qwen3-moe-235b-a22b", "granite-8b"):
+    for arch in ("smollm-135m", "qwen3-moe-235b-a22b", "granite-8b",
+                 "xlstm-1.3b"):
         cfg = dataclasses.replace(configs.get_smoke_config(arch),
                                   dtype="float32")
         with mesh:
@@ -426,8 +491,11 @@ def reference_2x2(tmp_path_factory):
     return dict(np.load(out))
 
 
+# not hymba: the reference's own step (on one device too) takes a NaN
+# gradient norm at the third of these steps (its ssm_scan exponentiates
+# above the diagonal before it masks: 0 * inf in the gradient)
 @pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-235b-a22b",
-                                  "granite-8b"])
+                                  "granite-8b", "xlstm-1.3b"])
 def test_sharded_step_matches_the_references_jitted_2x2_step(arch,
                                                               reference_2x2):
     ref = reference_2x2
@@ -471,6 +539,8 @@ GLOO_CASES = {
     "pods 2x1x2": ("smollm-135m", ((2, 1, 2), ("pod", "data", "model")),
                    dict(grad_compress=True, n_pods=2)),
     "granite 2x2": ("granite-8b", ((2, 2), ("data", "model")), {}),
+    "xlstm 1x4": ("xlstm-1.3b", ((1, 4), ("data", "model")), {}),
+    "hymba 2x2": ("hymba-1.5b", ((2, 2), ("data", "model")), {}),
 }
 
 

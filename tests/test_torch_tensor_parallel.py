@@ -18,7 +18,8 @@ port's tensor-parallel layers against the unsplit ones, on the CPU.
   (the attention calls are counted and their shapes checked), and a
   split whose weights are not all model-sharded raises;
 * ``sharding.tp_layout`` / ``tp_split`` for every config of ``configs``
-  at tp 2, 4 and 8 against the head rule and ``param_spec``.
+  at tp 2, 4 and 8 against the head rule and ``param_spec`` (the
+  recurrent families' splits: ``tests/test_torch_recurrent_tp.py``).
 """
 import dataclasses
 
@@ -417,13 +418,13 @@ def test_a_split_layer_without_every_weight_sharded_raises():
 
 def expected_layout(cfg, tp: int) -> dict:
     """The head rule and ``param_spec``, written out."""
-    recurrent = cfg.family in ("ssm", "hybrid")
     vocab = "split" if cfg.vocab % tp == 0 else "whole"
     out = {"embed": vocab, "unembed": vocab}
-    if cfg.family == "ssm":
-        return {**out, "recurrent": "gather"}
+    if cfg.family == "ssm":           # mLSTM by Dh, sLSTM by columns
+        rec = (cfg.d_model // cfg.n_heads) % tp == 0 or cfg.d_model % tp == 0
+        return {**out, "recurrent": "split" if rec else "whole"}
     H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if not recurrent and H % tp == 0 and Hk % tp == 0:
+    if cfg.family != "hybrid" and H % tp == 0 and Hk % tp == 0:
         attn = "split"
     elif (H * Dh) % tp == 0 or (Hk * Dh) % tp == 0:
         attn = "gather"
@@ -438,10 +439,8 @@ def expected_layout(cfg, tp: int) -> dict:
                           "split" if cfg.d_ff % tp == 0 else "whole")
     else:
         out["mlp"] = "split" if cfg.d_ff % tp == 0 else "whole"
-    if recurrent:
-        out = {k: ("gather" if v != "whole" and k not in
-                   ("embed", "unembed") else v) for k, v in out.items()}
-        out["recurrent"] = "gather"
+    if cfg.family == "hybrid":        # the SSM and the fused projection
+        out["recurrent"] = "split" if (H * Dh) % tp == 0 else "whole"
     return out
 
 
@@ -457,9 +456,12 @@ def test_which_layers_split(arch, tp):
         M.init_params(cfg, None, "meta"))
         if "model" in param_spec(name, tuple(leaf.shape), MeshAxes(), ms)]
     assert sorted(got["split"] + got["gathered"]) == sorted(sharded)
-    if layout.get("attention") == "gather" or cfg.family in ("ssm",
-                                                             "hybrid"):
-        assert not any(n.split("/")[-1] in ATTN for n in got["split"])
+    split_names = {n.split("/")[-1] for n in got["split"]}
+    if layout.get("attention") == "gather":
+        assert not split_names & {"wq", "wk", "wv"}
+        # hymba's wo projects the fused attention and SSM output
+        assert ("wo" in split_names) == (cfg.family == "hybrid" and
+                                         layout["recurrent"] == "split")
 
 
 @pytest.mark.parametrize("tp", [2, 4])
@@ -468,7 +470,16 @@ def test_the_named_examples(tp):
     assert smollm["attention"] == "gather" and smollm["mlp"] == "split"
     granite = tp_layout(get_config("granite-8b"), tp)
     assert granite["attention"] == "split" and granite["mlp"] == "split"
-    assert tp_layout(get_config("hymba-1.5b"), tp)["attention"] == "gather"
+    hymba = get_config("hymba-1.5b")
+    assert tp_layout(hymba, tp) == {
+        "embed": "whole", "unembed": "whole", "attention": "gather",
+        "mlp": "split", "recurrent": "split"}
+    assert tp_split(hymba, {"data": 1, "model": tp})["gathered"] == [
+        "blocks/wk", "blocks/wq", "blocks/wv"]
+    for n in (tp, 8):
+        xlstm = get_config("xlstm-1.3b")
+        assert tp_layout(xlstm, n)["recurrent"] == "split"
+        assert tp_split(xlstm, {"data": 1, "model": n})["gathered"] == []
     assert tp_layout(get_config("qwen3-moe-235b-a22b"), tp)["experts"] == \
         "expert"
     assert tp_layout(get_config("granite-8b"), 1) == {

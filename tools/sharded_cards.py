@@ -60,7 +60,10 @@ the 1 x 1 mesh of one card. Each rank's losses and the sha1 of each of
 its param shards must equal the one-process run's position's; each
 rank's matmul FLOPs of its first step (``FlopCounterMode``) must equal
 ``train.sharded.step_matmul_flops`` for one position; the step seconds
-of all three runs go in the record.
+of all three runs go in the record. Then the same three runs of
+chip_smoke's 11f xLSTM cell (xlstm-1.3b at full width, 8 layers, bf16,
+2 x 1024 tokens a step, 3 steps; ``chip_smoke.RECURRENT_TP["xlstm"]``),
+whose mLSTM and sLSTM blocks split over the ranks.
 """
 from __future__ import annotations
 
@@ -307,12 +310,21 @@ def train_on_mesh(mesh, dev, seed: int) -> dict:
             "params": {k: v.cpu() for k, v in tree.flatten_with_path(whole)}}
 
 
-#: the seed of the tensor-parallel cell's weights and batches (11e's)
-TP_SEED = 13
+#: the seed of each tensor-parallel cell's weights and batches (11e's,
+#: 11f's)
+TP_SEED = {"tp": 13, "xlstm": 14}
 
 
-def tp_on_mesh(mesh, dev, seed: int) -> dict:
-    """``chip_smoke.TP_TRAIN``'s steps on ``mesh`` from weights drawn on
+def tp_cell_of(cell: str) -> dict:
+    """The tensor-parallel cell ``cell``: "tp" (11e's granite,
+    ``chip_smoke.TP_TRAIN``) or "xlstm" (11f's,
+    ``chip_smoke.RECURRENT_TP``)."""
+    from chip_smoke import RECURRENT_TP, TP_TRAIN
+    return TP_TRAIN if cell == "tp" else RECURRENT_TP[cell]
+
+
+def tp_on_mesh(mesh, dev, cell: str) -> dict:
+    """``tp_cell_of(cell)``'s steps on ``mesh`` from weights drawn on
     ``dev``: the losses, each step's seconds, the matmul FLOPs counted
     in this process over the first step, and the sha1 of every param
     shard this process holds, by position."""
@@ -320,7 +332,7 @@ def tp_on_mesh(mesh, dev, seed: int) -> dict:
     import hashlib
     import torch
     from torch.utils.flop_counter import FlopCounterMode
-    from chip_smoke import TP_TRAIN, TRAIN_OPT, _train_inputs
+    from chip_smoke import TRAIN_OPT, _train_inputs
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.distributed import placement
@@ -328,7 +340,7 @@ def tp_on_mesh(mesh, dev, seed: int) -> dict:
     from repro_torch.models import init_params
     from repro_torch.train import (AdamWConfig, TrainState, TrainStepConfig,
                                    adamw_init, make_train_step)
-    k = TP_TRAIN
+    k, seed = tp_cell_of(cell), TP_SEED[cell]
     cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                          dev)
@@ -374,16 +386,16 @@ def tp_on_mesh(mesh, dev, seed: int) -> dict:
 def train_rank_worker(rank: int, world: int, addr: str, out: str,
                       cell: str) -> int:
     """One rank of ``--train --ranks``: saves its run of ``cell``
-    ("smollm" on (2, N / 2), "tp" on (1, N)) to ``out``."""
+    ("smollm" on (2, N / 2), "tp" or "xlstm" on (1, N)) to ``out``."""
     import torch
     from repro_torch.launch.mesh import init_distributed, make_mesh
     if not init_distributed(coordinator_address=addr, num_processes=world,
                             process_id=rank, backend="nccl"):
         raise RuntimeError("init_distributed did not start a group")
     dev = torch.device("cuda", torch.cuda.current_device())
-    if cell == "tp":
+    if cell != "smollm":
         rec = tp_on_mesh(make_mesh((1, world), ("data", "model")), dev,
-                         TP_SEED)
+                         cell)
     else:
         rec = train_on_mesh(make_mesh((2, world // 2), ("data", "model")),
                             dev, TRAIN_SEED)
@@ -462,34 +474,35 @@ def ranks_train_leg(world: int) -> None:
           "ranks": ranks,
           "param_max_abs_diff": max(r["param_max_abs_diff"] for r in ranks),
           "all_bitwise": all(r["params_bitwise"] for r in ranks)})
-    tp_ranks_leg(world, work)
+    for cell in ("tp", "xlstm"):
+        tp_ranks_leg(world, work, cell)
 
 
-def tp_ranks_leg(world: int, work: Path) -> None:
-    """The tensor-parallel cell (``tp_on_mesh``) on a (1, ``world``) mesh
+def tp_ranks_leg(world: int, work: Path, cell: str) -> None:
+    """A tensor-parallel cell (``tp_on_mesh``) on a (1, ``world``) mesh
     with position i on cuda:i in this process, over ``world`` NCCL
     ranks, and on the 1 x 1 mesh of cuda:0: the ranks bitwise the
     one-process run (losses and every shard's sha1), each rank's FLOPs
     the reckoned count of one position."""
     import dataclasses
     import torch
-    from chip_smoke import TP_TRAIN, emit
+    from chip_smoke import emit
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh, make_mesh
     from repro_torch.models.sharding import tp_split
     from repro_torch.train.sharded import step_matmul_flops
-    k = TP_TRAIN
+    k = tp_cell_of(cell)
     cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
     mesh = make_mesh((1, world), ("data", "model"),
                      devices=[f"cuda:{i}" for i in range(world)])
-    one = tp_on_mesh(mesh, torch.device("cuda", 0), TP_SEED)
-    _spawn(world, lambda r: ["--train", "--cell", "tp", "--out",
-                             str(work / f"tp{r}.pt")])
+    one = tp_on_mesh(mesh, torch.device("cuda", 0), cell)
+    _spawn(world, lambda r: ["--train", "--cell", cell, "--out",
+                             str(work / f"{cell}{r}.pt")])
     per_position = step_matmul_flops(cfg, k["batch"], k["seq"], world,
                                      device="cuda")
     ranks = []
     for r in range(world):
-        got = torch.load(work / f"tp{r}.pt", weights_only=False)
+        got = torch.load(work / f"{cell}{r}.pt", weights_only=False)
         same = (got["losses"] == one["losses"]
                 and got["shard_sha1"][r] == one["shard_sha1"][r])
         ranks.append({"rank": r, "device": got["device"],
@@ -497,8 +510,8 @@ def tp_ranks_leg(world: int, work: Path) -> None:
                       "matmul_flops": got["matmul_flops"],
                       "step_seconds": got["step_seconds"]})
     host = tp_on_mesh(make_host_mesh("cuda:0"), torch.device("cuda", 0),
-                      TP_SEED)
-    emit({"phase": "sharded_train_tp_ranks", "world": world,
+                      cell)
+    emit({"phase": "sharded_train_tp_ranks", "cell": cell, "world": world,
           "model": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
           **k, "mesh": mesh.shape, "backend": "nccl",
           "tp_split": tp_split(cfg, mesh.shape),
