@@ -50,8 +50,11 @@ Phases, each asserting (any failure exits non-zero):
    shapes.
 3. the main path at full size: ``compress_preserving_mss`` ->
    ``decompress_preserving_mss`` -> ``verify_preservation`` on the nyx
-   512^3 float32 field and the climate 1800x3600 field, once with
-   ``entropy="deflate"`` and once with ``entropy="device-pack"``, with
+   512^3 float32 field and the climate 1800x3600 field with
+   ``entropy="device-pack"``, and with ``entropy="deflate"`` on climate
+   and nyx 256^3 (cut from 512^3 for time: the host's DEFLATE of the
+   edits takes ~70 s there, and the device-pack run encodes the same
+   edits the same way), with
    the launch counts set to 0 just before each run and read just after.
    The fix loop takes the dirty-slab worklist there (>= 64 slabs): one
    extrema and one fix-pass launch a span of running slab groups, so
@@ -83,8 +86,8 @@ Phases, each asserting (any failure exits non-zero):
    ``--devices 4`` on the one card (blocks round robin); (f) with two or
    more cards, the (2, 2) mesh on distinct cards (otherwise a record
    that it did not run).
-3c. batches: ``compress_preserving_mss_batch`` of 8 climate timesteps
-   (seeds 3-10) under both codecs and of 4 nyx 128^3 members with one
+3c. batches: ``compress_preserving_mss_batch`` of 4 climate timesteps
+   (seeds 3-6, cut from 8 for time) under both codecs and of 4 nyx 128^3 members with one
    bound each (so they converge at different iterations); every artifact
    byte-identical to its solo call, ``decompress_artifact_batch``
    bitwise the solo decode, ``verify_preservation_batch`` preserved and
@@ -107,14 +110,15 @@ Phases, each asserting (any failure exits non-zero):
    "paper")`` gives the same g and iterations on the card and on the CPU
    at 32^3 and 60x70.
 3g. the service: one ``CompressionService(window=8, max_batch=4)`` takes
-   the 8 climate timesteps under deflate, then under device-pack, the 4
+   the 4 climate timesteps under deflate, then under device-pack, the 4
    nyx 128^3 members with their bounds and 2 zfplike climate requests,
    then decompresses every artifact; each artifact byte-identical to its
    solo call and each g to the solo decode; the stream's wall time
    beside the solo loop's, its stats, the calibration record and the
    launches of each kernel (each MSS kernel at least once).
 3h. the launcher: ``repro_torch.launch.serve.main(["--smoke"])`` and
-   ``["--fields", "16", "--shape", "128,128,128", "--verify"]``.
+   ``["--fields", "8", "--shape", "128,128,128", "--verify"]`` (8 fields,
+   cut from 16 for time).
 3i. the guards: a device-pack stream batch under ``MSZ_SANITIZERS=1``
    completes with the solo bytes; the pipelined device stage under
    ``no_transfers`` completes with its audited crossings counted; an
@@ -168,14 +172,14 @@ Phases, each asserting (any failure exits non-zero):
    ``greedy_generate`` with equal tokens.
 9. training, the launch counts set to 0 just before each leg and read
    just after. (9a) smollm-135m at full width and depth (bf16, seeded
-   weights) through ``repro_torch.launch.train.main`` with ``--steps 12
-   --batch 8 --seq 2048 --ckpt-every 6`` (remat, lr 3e-4 after its
+   weights) through ``repro_torch.launch.train.main`` with ``--steps 5
+   --batch 8 --seq 2048 --ckpt-every 3`` (cut from 12 steps for time; remat, lr 3e-4 after its
    warmup): each step's seconds, tokens/s, peak bytes, the first and
    last loss (``improved`` must be true), flash launches exactly 60 a
    step (30 layers: the forward and the remat recompute; the backward
    is the oracle's gradient, no kernel), each checkpoint's seconds and
-   bytes; then ``--resume`` from the step-6 checkpoint alone: the
-   restored tensors bitwise the saved ones (sha1), steps 7-12's losses
+   bytes; then ``--resume`` from the step-3 checkpoint alone: the
+   restored tensors bitwise the saved ones (sha1), steps 4-5's losses
    within 1e-2 relative of the first run's (a card's sums need not
    repeat bit for bit from run to run). (9b) smollm at full width with 2
    layers in f32, one set of weights on the card and the CPU: the first
@@ -208,20 +212,22 @@ Phases, each asserting (any failure exits non-zero):
 11. the launchers' sharded execution, the launch counts set to 0 just
    before each leg and read just after. (11a) ``launch.train.main`` on
    smollm-135m at full width and depth (bf16, seeded weights, ``--steps
-   4 --batch 8 --seq 2048``) on a (2, 2) ``("data", "model")`` mesh
+   3 --batch 8 --seq 2048``) on a (2, 2) ``("data", "model")`` mesh
    with every position on cuda:0, then on the 1 x 1 host mesh with the
    same seed: step seconds, tokens/s, peak bytes, each position's
    resident bytes equal to ``specs.shard_bytes``, flash exactly 60 x dp
-   a step (120 on (2, 2): each data row's forward and remat recompute;
-   the model axis adds none), the losses within 1e-2 relative. (11b)
-   smollm at full width with 2 layers in f32: 3 sharded steps on the
-   (2, 2) card mesh against the one-device CPU step on the same weights
-   (9b's tolerances), flash 24; the mesh's checkpoint restored on 1 x 1
-   bitwise (sha1). (11c) ``launch.serve_lm.main`` on smollm at full
+   x the row's head segments a step (480 on (2, 2): each data row's
+   forward and remat recompute on each shard's runs of heads, smollm's
+   9/3 falling 4 and 5 to the shards in two runs each; 60 on 1 x 1),
+   the losses within 1e-2 relative. (11b) smollm at full width with 2
+   layers in f32: 3 sharded steps on the (2, 2) card mesh against the
+   one-device CPU step on the same weights (9b's tolerances), flash 96;
+   the mesh's checkpoint restored on 1 x 1 bitwise (sha1). (11c) ``launch.serve_lm.main`` on smollm at full
    width, 8 requests, on the (2, 2) mesh against the 1 x 1 host mesh:
    equal tokens at 2 layers in f32; both runs' seconds at full depth in
-   bf16. (11d) with two or more cards, 11b and 11c with the positions
-   spread over them; otherwise a record that it did not run. (11e) the
+   bf16. (11d) with two or more cards, 11b (flash 96) and 11c with the
+   positions spread over them; otherwise a record that it did not run.
+   (11e) the
    tensor-parallel step: granite-8b at its published widths (d 4096,
    32/8 heads of 128, d_ff 14336, vocab 49152, bf16, seeded weights)
    cut to 8 of 36 layers, 3 steps of 4 x 2048 tokens on a (1, 4) mesh
@@ -231,8 +237,9 @@ Phases, each asserting (any failure exits non-zero):
    of the first step (``FlopCounterMode``) equal to
    ``train.sharded.step_matmul_flops`` and each position's reckoned
    beside 1 x 1's, the losses within 1e-2 relative; then granite's
-   widths at 2 layers in f32, 3 steps of 2 x 128 on a (1, 2) card mesh
-   against the CPU's one-device step (9b's tolerances), flash 24. (11f)
+   widths at 1 layer (cut from 2 for time) in f32, 3 steps of 2 x 128
+   on a (1, 2) card mesh against the CPU's one-device step (9b's
+   tolerances), flash 12. (11f)
    the recurrent families split over ``model``, each at its published
    widths in bf16 on a (1, 4) mesh with every position on cuda:0, then
    on 1 x 1, as 11e: xlstm-1.3b (d 2048, 4 heads of 512, vocab 50304)
@@ -240,16 +247,28 @@ Phases, each asserting (any failure exits non-zero):
    2 x 1024 tokens, flash exactly 0; hymba-1.5b (d 1600, 25/5 heads of
    64, SSM state 16, d_ff 5504, vocab 32001, window 1024) cut to 4 of 32
    layers (0, 2 and 3 global), 3 steps of 2 x 2048 tokens, flash exactly
-   6 a step on both meshes (3 global layers, forward and remat; its
-   attention runs whole once a row); then xLSTM's widths at 2 layers
+   48 a step on (1, 4) (3 global layers, forward and remat, on each
+   shard's 6 or 7 of the 25/5 heads in two runs) and 6 on 1 x 1; then
+   xLSTM's widths at 2 layers
    (``slstm_every`` 2) and hymba's at 4 layers with window 64, f32, 3
    steps of 2 x 128 on a (1, 2) card mesh against the CPU's one-device
    step (9b's tolerances; each hymba card step from the CPU's state:
    its chained losses repeat only to ~1e-5 under another order of
-   sums, on one device too). The ``sharded_train`` records carry
-   ``tp_split``, the split and the gathered leaves, and each position's
-   resident bytes (``specs.shard_bytes``). Phase 2b checks and times
-   flash at the shard shape (4, 2048, 8, 2, 128).
+   sums, on one device too; hymba's flash 72). (11g) the reference's
+   production model axis on one card: deepseek-coder-33b at its
+   published widths (d 7168, 56/8 heads of 128, d_ff 19200, vocab
+   32256, bf16, seeded weights) cut to 2 of 62 layers, 3 steps of 2 x
+   2048 tokens on a (1, 16) mesh with every position on cuda:0, then
+   on 1 x 1, through ``tp_legs``: each shard 3 or 4 heads of one KV
+   group two shards share, flash exactly 64 a step against 4, the
+   bytes each position fetches a layer; then smollm's widths at 2
+   layers in f32 on a (1, 2) card mesh against the CPU's one-device
+   step (9b's tolerances), flash 48. The ``sharded_train`` records
+   carry ``tp_split``, the split and the gathered leaves (none), and
+   each position's resident bytes (``specs.shard_bytes``) and matmul
+   FLOPs. Phase 2b checks and times flash at the shard shapes (4, 2048,
+   8, 2, 128) and (2, 2048, 4, 1, 128); phase 2d checks it at every
+   head-segment shape of the split legs (``tp_flash_shapes``).
 
 Phases 3e-3i run after phase 4. Stdout carries JSON records, then the
 script's total seconds; the line before the last is the per-kernel
@@ -323,8 +342,14 @@ def read_launches() -> dict:
             for name, (_, attr) in COUNTERS.items()}
 
 
+#: the script's start on the host's clock: every record carries the
+#: seconds since then as "at_s", so a phase's time is its records' span
+T_START = time.perf_counter()
+
+
 def emit(record: dict) -> None:
-    print(json.dumps(record), flush=True)
+    print(json.dumps({**record, "at_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1312,7 +1337,7 @@ def phase_sharded_paths(climate, steps, nyx_edge: int,
           "shard": st["shard"], "fix_modes": st["fix_modes"],
           "padded_members": st["padded_members"], "shard_timings": probe})
 
-    argv = ["--devices", "4", "--fields", "16", "--shape", launcher_shape,
+    argv = ["--devices", "4", "--fields", "8", "--shape", launcher_shape,
             "--verify"]
     reset_launches()
     buf = io.StringIO()
@@ -1712,7 +1737,7 @@ def phase_service(steps, members, member_xis, zfp_fields) -> dict:
 
 def phase_serve_launcher(shape: str) -> dict:
     """``repro_torch.launch.serve.main`` on the card: ``--smoke``, then
-    16 nyx fields of ``shape`` (128,128,128) with ``--verify``; its
+    8 nyx fields of ``shape`` (128,128,128) with ``--verify``; its
     printout kept in the record."""
     import contextlib
     import io
@@ -1720,7 +1745,7 @@ def phase_serve_launcher(shape: str) -> dict:
     totals = dict.fromkeys(COUNTERS, 0)
     runs = {}
     for argv in (["--smoke"],
-                 ["--fields", "16", "--shape", shape, "--verify"]):
+                 ["--fields", "8", "--shape", shape, "--verify"]):
         reset_launches()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -1895,8 +1920,10 @@ FLASH_WIDE = ((2, 4096, 32, 8, 128), (4, 2048, 64, 4, 128),
 FLASH_HYMBA = ((8, 2048, 25, 5, 64),)
 
 #: one model shard's heads of phase 11e's granite-8b step on a (1, 4)
-#: mesh: 32/8 heads of 128 split four ways over 4 x 2048 tokens
-FLASH_TP = ((4, 2048, 8, 2, 128),)
+#: mesh: 32/8 heads of 128 split four ways over 4 x 2048 tokens; and of
+#: 11g's deepseek-coder-33b step on (1, 16): 4 of its 56/8 heads of 128
+#: (one KV head) over 2 x 2048 tokens
+FLASH_TP = ((4, 2048, 8, 2, 128), (2, 2048, 4, 1, 128))
 
 
 def _dtype_name(dt) -> str:
@@ -1977,6 +2004,54 @@ def phase_flash_families(seed: int) -> None:
         torch.cuda.empty_cache()
 
 
+def tp_flash_shapes() -> dict:
+    """{dtype name: the (B, S, H, Hk, Dh) of every flash call phase 11's
+    split legs make}: each shard's head segments
+    (``sharding.shard_heads``) over each data row's sequences, for
+    11a's smollm-135m on (2, 2), 11f's hymba-1.5b on (1, 4) and 11g's
+    deepseek-coder-33b on (1, 16) in bf16, and the f32 legs on (2, 2)
+    and (1, 2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.sharding import shard_heads
+    legs = [("bfloat16", "smollm-135m", SHARDED_TRAIN, (2, 2)),
+            ("bfloat16", "hymba-1.5b", RECURRENT_TP["hymba"], (1, 4)),
+            ("bfloat16", "deepseek-coder-33b", TP_PRODUCTION, (1, 16)),
+            ("float32", "smollm-135m", SHARDED_PARITY, (2, 2)),
+            ("float32", "smollm-135m", TP_PARITY, (1, 2)),
+            ("float32", "hymba-1.5b", RECURRENT_PARITY, (1, 2))]
+    out: dict = {}
+    for dt, arch, k, (dp, tp) in legs:
+        cfg = get_config(arch)
+        G = cfg.n_heads // cfg.n_kv_heads
+        for sh in shard_heads(cfg.n_heads, cfg.n_kv_heads, tp):
+            for a, b in sh.segments:
+                out.setdefault(dt, set()).add(
+                    (k["batch"] // dp, k["seq"], b - a,
+                     (b - 1) // G - a // G + 1, cfg.head_dim))
+    return {dt: sorted(v) for dt, v in out.items()}
+
+
+def phase_flash_segments(seed: int) -> None:
+    """Phase 2d: the kernel against its plain version at every shape a
+    split leg of phase 11 gives it (``tp_flash_shapes``): each shard's
+    runs of whole KV groups and partial groups, causal."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for dt, shapes in tp_flash_shapes().items():
+        for B, S, H, Hk, Dh in shapes:
+            q, k, v = flash_inputs(B, S, S, H, Hk, Dh, getattr(torch, dt),
+                                   gen)
+            label = f"{(B, S, S, H, Hk, Dh)} causal=True"
+            err, _ = check_flash(f"segment {label}", q, k, v, True)
+            emit({"phase": "kernels_vs_plain",
+                  "case": f"flash head segment {label}",
+                  "shape": [B, S, S, H, Hk, Dh], "causal": True,
+                  "dtype": dt, "max_abs_err": err,
+                  "rtol_atol": FLASH_TOL[dt]})
+            del q, k, v
+    torch.cuda.empty_cache()
+
+
 def phase_sass() -> None:
     """The built flash library's SASS: each bf16 variant must issue
     tensor-core instructions (HMMA); the flash and stencil kernels'
@@ -2022,7 +2097,8 @@ def phase_flash_main(reps: int, seed: int) -> dict:
         if (B, S, H, Hk, Dh) in FLASH_TP:
             emit({"phase": "kernels_vs_plain",
                   "case": f"flash tp shard {(B, S, S, H, Hk, Dh)} causal=True",
-                  "model": "granite-8b", "shape": [B, S, S, H, Hk, Dh],
+                  "model": "granite-8b" if Hk > 1 else "deepseek-coder-33b",
+                  "shape": [B, S, S, H, Hk, Dh],
                   "causal": True, "dtype": "bfloat16", "max_abs_err": err,
                   "rtol_atol": FLASH_TOL["bfloat16"]})
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -2039,8 +2115,12 @@ def phase_flash_main(reps: int, seed: int) -> dict:
                                  "kernel's tolerance; the check is too weak")
         del lib, want
         ms = cuda_time_ms(lambda: kfl.flash_attention(q, k, v), reps)
+        # the plain version takes seconds a call at 1 x 32768: two timed
+        # calls there, its check call above the warm-up
+        long = S >= 16384
         plain_ms = cuda_time_ms(lambda: kfl.flash_attention_plain(q, k, v),
-                                max(reps // 2, 3), warmup=1)
+                                2 if long else max(reps // 2, 3),
+                                warmup=0 if long else 1)
         library_ms = cuda_time_ms(
             lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), reps)
         bound_ms, bound_by, flops, nbytes = flash_bound(B, S, S, H, Hk, Dh,
@@ -2777,8 +2857,8 @@ def train_step_parts(cfg, state, batch: dict) -> dict:
             attn[1], "adamw_s": t3 - t2, "step_s": t3 - t0}
 
 
-def phase_train_full(seed: int, steps: int = 12, batch: int = 8,
-                     seq: int = 2048, ckpt_every: int = 6) -> int:
+def phase_train_full(seed: int, steps: int = 5, batch: int = 8,
+                     seq: int = 2048, ckpt_every: int = 3) -> int:
     """9a: smollm-135m at full width and depth (bf16, seeded weights)
     through ``python -m repro_torch.launch.train`` (remat, lr 3e-4 with
     its warmup), a checkpoint every ``ckpt_every`` steps; then a
@@ -3327,7 +3407,11 @@ def phase_dryrun() -> None:
 # ---------------------------------------------------------------------------
 
 #: 11a's launcher run: smollm-135m at full width and depth
-SHARDED_TRAIN = dict(steps=4, batch=8, seq=2048)
+SHARDED_TRAIN = dict(steps=3, batch=8, seq=2048)
+#: 11a's flash launches a step: 30 layers x (forward, remat) x dp x the
+#: head segments of a row (smollm's 9/3 heads on 2 shards: [0, 4) in
+#: runs 0-2 and 3, [4, 9) in 4-5 and 6-8)
+SHARDED_FLASH = {"2x2": 30 * 2 * 2 * 4, "1x1": 30 * 2}
 #: 11b's comparison: 2 layers in f32, 3 steps of 4 x 128 tokens
 SHARDED_PARITY = dict(batch=4, seq=128, steps=3)
 #: 11c's serving run
@@ -3356,13 +3440,15 @@ def phase_sharded_train_full(seed: int) -> int:
     """11a: ``launch.train.main`` on smollm-135m at full width and depth
     (bf16, seeded weights) on a (2, 2) mesh with every position on
     cuda:0, then on the 1 x 1 host mesh, the same seed: flash exactly
-    ``train_flash_per_step`` x dp a step, each position's resident bytes
-    ``specs.shard_bytes``, the losses within 1e-2 relative. Returns the
-    flash launches."""
+    ``train_flash_per_step`` x dp x the layer's head segments a step
+    (``SHARDED_FLASH``: 480 on (2, 2), its 9/3 heads falling 4 and 5 to
+    the shards in two segments each; 60 on 1 x 1), each position's
+    resident bytes ``specs.shard_bytes``, the losses within 1e-2
+    relative. Returns the flash launches."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models.sharding import tp_split
+    from repro_torch.models.sharding import attention_calls, tp_split
     cfg = get_config("smollm-135m")
     k = SHARDED_TRAIN
     argv = ["--arch", "smollm-135m", "--steps", str(k["steps"]), "--batch",
@@ -3380,8 +3466,13 @@ def phase_sharded_train_full(seed: int) -> int:
         launches = read_launches()
         seconds = time.perf_counter() - t0
         dp = mesh.shape["data"]
+        flash = per_step * dp * attention_calls(cfg, mesh.shape["model"])
+        if flash != SHARDED_FLASH[name]:
+            raise AssertionError(f"sharded 11a {name}: {flash} flash calls "
+                                 f"a step reckoned, {SHARDED_FLASH[name]} "
+                                 "stated")
         want = dict.fromkeys(COUNTERS, 0)
-        want["flash"] = per_step * dp * k["steps"]
+        want["flash"] = flash * k["steps"]
         if launches != want:
             raise AssertionError(f"sharded 11a {name}: launches {launches} "
                                  f"!= {want}")
@@ -3402,7 +3493,7 @@ def phase_sharded_train_full(seed: int) -> int:
             "peak_device_bytes": torch.cuda.max_memory_allocated(),
             "resident_bytes_per_position": run.resident_bytes,
             "specs_shard_bytes": shard,
-            "flash_launches_per_step": per_step * dp,
+            "flash_launches_per_step": flash,
             "tp_split": tp_split(cfg, mesh.shape),
             "launches": launches, "seconds": seconds}
         total += launches["flash"]
@@ -3430,7 +3521,7 @@ def sharded_parity(seed: int, devices, label: str, arch="smollm-135m",
     within
     ``TRAIN_TOL["loss"]``, params within ``TRAIN_TOL["param"]`` but for
     ``param_share``, flash launches as the split says (each model
-    shard's where the heads split); then, with ``checkpoint``, the
+    shard's head segments); then, with ``checkpoint``, the
     mesh's state saved and restored on the 1 x 1 host mesh, bitwise
     (sha1). Returns the record."""
     import dataclasses
@@ -3441,7 +3532,7 @@ def sharded_parity(seed: int, devices, label: str, arch="smollm-135m",
     from repro_torch.distributed import placement
     from repro_torch.launch import specs
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models.sharding import heads_split, tp_split
+    from repro_torch.models.sharding import attention_calls, tp_split
     from repro_torch.train import (AdamWConfig, TrainState, TrainStepConfig,
                                    adamw_init, make_train_step)
     cfg = cfg or dataclasses.replace(get_config(arch), n_layers=2,
@@ -3481,7 +3572,7 @@ def sharded_parity(seed: int, devices, label: str, arch="smollm-135m",
             raise AssertionError(f"{label}: loss {lg} on the mesh, {lc} on "
                                  "the CPU")
     want = (train_flash_per_step(cfg, k["seq"], True) * dp
-            * (tp if heads_split(cfg, tp) else 1) * k["steps"])
+            * attention_calls(cfg, tp) * k["steps"])
     if launches != want:
         raise AssertionError(f"{label}: {launches} flash launches, {want} "
                              "expected")
@@ -3610,7 +3701,7 @@ def phase_sharded_cards(seed: int) -> int:
 #: ~2.15 B parameters, ~35 GB with AdamW on one card), 4 x 2048 tokens a
 #: step, on a (1, 4) mesh with every position on cuda:0 beside 1 x 1
 TP_TRAIN = dict(arch="granite-8b", n_layers=8, batch=4, seq=2048, steps=3,
-                shape=(1, 4))
+                shape=(1, 4), flash={"1x4": 64, "1x1": 16})
 #: 11e's f32 leg: granite's widths at 2 layers, 2 x 128 tokens, 3 steps on
 #: a (1, 2) card mesh against the CPU's one-device step
 TP_PARITY = dict(batch=2, seq=128, steps=3)
@@ -3682,13 +3773,14 @@ def tp_cell(cfg, mesh, seed: int, k: dict, label: str) -> dict:
 def tp_legs(label: str, cfg, k: dict, seed: int) -> dict:
     """``tp_cell`` of ``cfg`` on a ``k["shape"]`` mesh with every position
     on cuda:0, then on the 1 x 1 host mesh, the same seed: flash exactly
-    ``train_flash_per_step`` a step (x the model axis where the heads
-    split), the process's matmul FLOPs equal to ``step_matmul_flops``
-    (every shard of the row; the forward's kernel uncounted), each
-    position's reckoned beside 1 x 1's, the losses within 1e-2 relative.
+    ``train_flash_per_step`` a step x the head segments of the row
+    (``sharding.attention_calls``), each as ``k["flash"]`` states, the
+    process's matmul FLOPs equal to ``step_matmul_flops`` (every shard of
+    the row; the forward's kernel uncounted), each position's reckoned
+    (its own heads) beside 1 x 1's, the losses within 1e-2 relative.
     Returns the record."""
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models.sharding import heads_split, tp_split
+    from repro_torch.models.sharding import attention_calls, tp_split
     from repro_torch.train.sharded import step_matmul_flops
     tp = k["shape"][1]
     wide = f"1x{tp}"
@@ -3697,8 +3789,11 @@ def tp_legs(label: str, cfg, k: dict, seed: int) -> dict:
                        ("1x1", make_host_mesh(MESH_DEVICE))):
         n = mesh.shape["model"]
         leg = tp_cell(cfg, mesh, seed, k, f"{label} {name}")
-        want = train_flash_per_step(cfg, k["seq"], True) * (
-            n if heads_split(cfg, n) else 1)
+        want = train_flash_per_step(cfg, k["seq"], True) * \
+            attention_calls(cfg, n)
+        if want != k["flash"][name]:
+            raise AssertionError(f"{label} {name}: {want} flash calls a "
+                                 f"step reckoned, {k['flash'][name]} stated")
         if leg["flash_launches_per_step"] != [want] * k["steps"]:
             raise AssertionError(f"{label} {name}: flash launches "
                                  f"{leg['flash_launches_per_step']}, {want} "
@@ -3709,8 +3804,9 @@ def tp_legs(label: str, cfg, k: dict, seed: int) -> dict:
         if counted != reckoned:
             raise AssertionError(f"{label} {name}: {counted} matmul FLOPs, "
                                  f"{reckoned} reckoned")
-        leg["matmul_flops_step_position"] = step_matmul_flops(
-            cfg, k["batch"], k["seq"], n, device="cuda")
+        leg["matmul_flops_step_position"] = [step_matmul_flops(
+            cfg, k["batch"], k["seq"], n, position=j, device="cuda")
+            for j in range(n)]
         leg["tp_split"] = tp_split(cfg, mesh.shape)
         legs[name] = leg
     rel = [abs(a - b) / abs(b) for a, b in
@@ -3723,30 +3819,33 @@ def tp_legs(label: str, cfg, k: dict, seed: int) -> dict:
             "d_ff": cfg.d_ff, "vocab": cfg.vocab, **k, "remat": True,
             "legs": legs, "max_rel_loss_diff": max(rel),
             "position_flops_over_1x1":
-                legs[wide]["matmul_flops_step_position"]
-                / legs["1x1"]["matmul_flops_step_position"]}
+                max(legs[wide]["matmul_flops_step_position"])
+                / legs["1x1"]["matmul_flops_step_position"][0]}
 
 
 def phase_tp_train(seed: int) -> int:
     """11e, the tensor-parallel step: granite-8b (``TP_TRAIN``) through
     ``tp_legs`` on a (1, 4) mesh: 64 flash launches a step (8 layers x
     forward and remat x 4 shards' heads) against 16 on 1 x 1. Then the
-    f32 leg (``TP_PARITY``): granite's widths at 2 layers on a (1, 2)
-    card mesh against the CPU's step within ``TRAIN_TOL``. Returns the
-    flash launches."""
+    f32 leg (``TP_PARITY``): granite's widths at 1 layer (cut from 2 for
+    time: the CPU's step dominates the leg) on a (1, 2) card mesh
+    against the CPU's step within ``TRAIN_TOL``. Returns the flash
+    launches."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.models.sharding import heads_split
+    from repro_torch.models.sharding import attention_calls
     k = TP_TRAIN
     cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
-    if not heads_split(cfg, k["shape"][1]):
-        raise AssertionError(f"11e: {cfg.name}'s heads do not split "
-                             f"{k['shape'][1]} ways")
+    if attention_calls(cfg, k["shape"][1]) != k["shape"][1]:
+        raise AssertionError(f"11e: {cfg.name}'s heads and KV heads do not "
+                             f"split {k['shape'][1]} ways evenly")
     rec = tp_legs("11e", cfg, k, seed)
     emit({"phase": "sharded_train", "leg": "11e tensor parallel", **rec})
     total = sum(sum(leg["flash_launches_per_step"])
                 for leg in rec["legs"].values())
-    rec = sharded_parity(seed, [MESH_DEVICE] * 2, "11e f32", arch=k["arch"],
+    f32 = dataclasses.replace(get_config(k["arch"]), n_layers=1,
+                              dtype="float32")
+    rec = sharded_parity(seed, [MESH_DEVICE] * 2, "11e f32", cfg=f32,
                          shape=(1, 2), k=TP_PARITY, checkpoint=False)
     emit({"phase": "sharded_train", "leg": "11e f32 mesh vs CPU", **rec})
     return total + rec["flash_launches"]
@@ -3759,9 +3858,9 @@ def phase_tp_train(seed: int) -> int:
 #: sequence, past its 1024-token window
 RECURRENT_TP = {
     "xlstm": dict(arch="xlstm-1.3b", n_layers=8, batch=2, seq=1024,
-                  steps=3, shape=(1, 4)),
+                  steps=3, shape=(1, 4), flash={"1x4": 0, "1x1": 0}),
     "hymba": dict(arch="hymba-1.5b", n_layers=4, batch=2, seq=2048,
-                  steps=3, shape=(1, 4))}
+                  steps=3, shape=(1, 4), flash={"1x4": 48, "1x1": 6})}
 #: 11f's f32 legs against the CPU: 2 x 128 tokens, 3 steps on (1, 2)
 RECURRENT_PARITY = dict(batch=2, seq=128, steps=3)
 
@@ -3782,8 +3881,10 @@ def recurrent_parity_configs() -> dict:
 
 def phase_recurrent_tp(seed: int) -> int:
     """11f: each ``RECURRENT_TP`` cell through ``tp_legs`` (xLSTM: no
-    flash launch; hymba: 6 a step on both meshes, its attention whole
-    once a row), then each ``recurrent_parity_configs`` config on a
+    flash launch; hymba: 48 a step on (1, 4), its 3 global layers'
+    forward and remat on each shard's 6 or 7 of its 25/5 heads in 2
+    segments, against 6 on 1 x 1), then each ``recurrent_parity_configs``
+    config on a
     (1, 2) card mesh against the CPU's one-device step within
     ``TRAIN_TOL``, each hymba card step from the CPU's state
     (``sharded_parity(restart=True)``). Returns the flash launches."""
@@ -3820,12 +3921,81 @@ def phase_recurrent_tp(seed: int) -> int:
     return total
 
 
+#: 11g: the reference's production model axis (``make_production_mesh``:
+#: 16) on one card: deepseek-coder-33b at its published widths (d 7168,
+#: 56/8 heads of 128, d_ff 19200, vocab 32256), bf16, seeded, cut to 2
+#: of 62 layers (1.52 B parameters), 3 steps of 2 x 2048 tokens on
+#: (1, 16) with every position on cuda:0, beside 1 x 1. Each shard holds
+#: 3 or 4 of the 56 heads, in one run within a KV group of 7 that two
+#: shards share: 2 layers x (forward, remat) x 16 flash calls a step
+TP_PRODUCTION = dict(arch="deepseek-coder-33b", n_layers=2, batch=2,
+                     seq=2048, steps=3, shape=(1, 16),
+                     flash={"1x16": 64, "1x1": 4})
+
+
+def fetched_bytes(cfg, tp: int) -> list:
+    """The bytes each model position receives from other positions for
+    one attention layer's weights (``placement.take_plan`` of wq, wk, wv
+    and wo over ``sharding.shard_heads``' ranges), in ``cfg.dtype``."""
+    from repro_torch.distributed.placement import take_plan
+    from repro_torch.models.sharding import shard_heads
+    d, Dh = cfg.d_model, cfg.head_dim
+    size = 2 if cfg.dtype == "bfloat16" else 4
+    heads = shard_heads(cfg.n_heads, cfg.n_kv_heads, tp)
+    out = [0] * tp
+    for width, rg, times in (
+            (cfg.n_heads * Dh, [h.q for h in heads], 2),          # wq, wo
+            (cfg.n_kv_heads * Dh, [h.kv for h in heads], 2)):     # wk, wv
+        plan = take_plan(width, tp, [(a * Dh, b * Dh) for a, b in rg])
+        for j, pieces in enumerate(plan):
+            out[j] += times * d * size * sum(b - a for i, a, b in pieces
+                                             if i != j)
+    return out
+
+
+def phase_tp_production(seed: int) -> int:
+    """11g: ``TP_PRODUCTION`` through ``tp_legs`` (flash 64 a step on
+    (1, 16), 4 on 1 x 1; FLOPs as reckoned, each position's for its own
+    3 or 4 heads; resident bytes ``specs.shard_bytes``; losses within
+    1e-2 of 1 x 1), with each position's heads and the bytes it fetches
+    a layer; then smollm-135m's widths at 2 layers in f32 on a (1, 2)
+    card mesh (its 9/3 heads: 4 and 5 a shard, 2 segments each) against
+    the CPU's one-device step within ``TRAIN_TOL`` (flash 48). Returns
+    the flash launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.sharding import shard_heads
+    k = TP_PRODUCTION
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
+    tp = k["shape"][1]
+    heads = shard_heads(cfg.n_heads, cfg.n_kv_heads, tp)
+    rec = tp_legs("11g", cfg, k, seed)
+    emit({"phase": "sharded_train", "leg": "11g production model axis",
+          **rec, "shard_heads": [list(h.q) for h in heads],
+          "shard_kv_heads": [list(h.kv) for h in heads],
+          "fetched_bytes_per_layer": fetched_bytes(cfg, tp)})
+    total = sum(sum(leg["flash_launches_per_step"])
+                for leg in rec["legs"].values())
+    rec = sharded_parity(seed, [MESH_DEVICE] * 2, "11g f32",
+                         arch="smollm-135m", shape=(1, 2), k=TP_PARITY,
+                         checkpoint=False)
+    emit({"phase": "sharded_train", "leg": "11g f32 mesh vs CPU", **rec})
+    emit({"phase": "sharded_train", "leg": "11g total",
+          "seconds": time.perf_counter() - t0})
+    return total + rec["flash_launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nyx", type=int, default=512,
                     help="edge of the cubic nyx field of phase 3")
     ap.add_argument("--climate", type=str, default="1800x3600",
                     help="shape of the 2D climate field of phase 3")
+    ap.add_argument("--deflate-nyx", type=int, default=256,
+                    help="edge of the cubic nyx field of phase 3's deflate "
+                         "run (cut from 512 for time: the host's DEFLATE "
+                         "of its edits takes ~70 s at 512^3)")
     ap.add_argument("--parity", type=int, default=128,
                     help="edge of the cubic field of phase 4")
     ap.add_argument("--batch-nyx", type=int, default=128,
@@ -3881,6 +4051,7 @@ def main(argv=None) -> int:
     phase_pack_small(seed=7)
     phase_flash_small(seed=11)
     phase_flash_families(seed=17)
+    phase_flash_segments(seed=19)
     flash_timing = phase_flash_main(args.reps, seed=13)
 
     climate_shape = tuple(int(s) for s in args.climate.split("x"))
@@ -3893,11 +4064,15 @@ def main(argv=None) -> int:
         timing[label].update(phase_pack_main(f, xi, args.reps))
 
     launches = dict.fromkeys(COUNTERS, 0)
-    for entropy in ("deflate", "device-pack"):
-        for label, f in fields:
+    deflate_fields = [("nyx", synthetic_field(
+        "nyx", (args.deflate_nyx,) * 3)), fields[1]]
+    for entropy, runs in (("deflate", deflate_fields),
+                          ("device-pack", fields)):
+        for label, f in runs:
             xi = 1e-3 * float(np.ptp(f))
             for k, v in phase_main_path(label, f, xi, entropy).items():
                 launches[k] += v
+    del deflate_fields
 
     t_sharded = 0.0
     for label, f in fields:
@@ -3909,7 +4084,7 @@ def main(argv=None) -> int:
         del solo
         torch.cuda.empty_cache()
     steps = [synthetic_field("climate", climate_shape, seed=s)
-             for s in range(3, 11)]
+             for s in range(3, 7)]
     for entropy in ("deflate", "device-pack"):
         phase_batch("climate", steps, [1e-3 * float(np.ptp(f))
                                        for f in steps], entropy)
@@ -3995,6 +4170,7 @@ def main(argv=None) -> int:
     launches["flash"] += phase_sharded_cards(seed=11)
     launches["flash"] += phase_tp_train(seed=13)
     launches["flash"] += phase_recurrent_tp(seed=14)
+    launches["flash"] += phase_tp_production(seed=15)
     emit({"phase": "sharded_launch_total",
           "seconds": time.perf_counter() - t0})
 

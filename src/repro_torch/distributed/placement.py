@@ -39,7 +39,11 @@ the one-process run's bits. ``full()`` gathers a layer that runs whole
 (``cat_model`` over the shards, whose backward hands each shard its
 slice of the gradient); ``unbind(0)`` splits a stacked leaf a layer at
 a time, so ``models.model`` takes layer i's shards inside the layer's
-own (checkpointed) call.
+own (checkpointed) call. ``take_model`` hands each local shard ranges
+of several leaves that may straddle the shards' blocks (attention's
+head columns): in one process copies of the pieces, across processes
+an all-gather of the leaf narrowed; its backward adds the takers'
+gradients into the owners' in f32, in model order.
 """
 from __future__ import annotations
 
@@ -54,7 +58,8 @@ __all__ = ["Sharded", "ModelShards", "place", "place_tree", "gather",
            "gather_tree", "is_placed", "resident_bytes", "shard_slices",
            "spec_axes", "model_dim", "mixed_radix", "all_gather",
            "axis_sum", "barrier", "ModelRow", "to_model", "sum_model",
-           "split_model", "cat_model", "max_model"]
+           "split_model", "cat_model", "max_model", "take_model",
+           "take_plan"]
 
 
 class Sharded:
@@ -373,6 +378,148 @@ def max_model(parts: Sequence[torch.Tensor], row: ModelRow
     out = got[0]
     for t in got[1:]:
         out = torch.maximum(out, t)
+    return out
+
+
+def _pieces(lo: int, hi: int, n: int) -> List[Tuple[int, int, int]]:
+    """The pieces of the range [lo, hi) held by blocks of ``n``: (block,
+    first, last), global indices, in order."""
+    if hi <= lo:
+        return []
+    return [(i, max(lo, i * n), min(hi, (i + 1) * n))
+            for i in range(lo // n, -(-hi // n))]
+
+
+def take_plan(size: int, tp: int, ranges: Sequence[Tuple[int, int]]
+              ) -> List[List[Tuple[int, int, int]]]:
+    """For each model coordinate j, the pieces (owner, first, last) of
+    ``ranges[j]`` along a dimension of ``size`` split in ``tp`` blocks:
+    what ``take_model`` hands shard j (its own piece included)."""
+    return [_pieces(lo, hi, size // tp) for lo, hi in ranges]
+
+
+def _take(row: ModelRow, sharded: bool, dim: int, ranges, xs
+          ) -> List[torch.Tensor]:
+    """``_TakeModel``'s forward for one leaf: each local shard's range,
+    from the local parts (one process), the all-gathered parts (across
+    processes) or the replicated tensor."""
+    n = xs[0].shape[dim]
+    srcs = (_gather_model(row, [xs[0].contiguous()], xs[0].device)
+            if sharded and row.mesh.multi_process else xs)
+    outs = []
+    for j, dev in zip(row.indices, row.devices):
+        lo, hi = ranges[j]
+        pieces = [srcs[i].narrow(dim, a - i * n, b - a).to(dev)
+                  for i, a, b in _pieces(lo, hi, n)]
+        outs.append(torch.cat(pieces or [srcs[0].narrow(dim, 0, 0).to(dev)],
+                              dim))
+    return outs
+
+
+def _take_grads(row: ModelRow, sharded: bool, dim: int, ranges, like,
+                gs) -> List[torch.Tensor]:
+    """``_TakeModel``'s backward for one leaf: the gradient of each local
+    input, every shard's gradient of the range it took added in, in
+    model order, in f32 (f64 for f64) from zero."""
+    if row.mesh.multi_process:     # every taker's, padded to the widest
+        (g,) = gs
+        widths = [hi - lo for lo, hi in ranges]
+        pad = [0, 0] * (g.dim() - 1 - dim) + [0, max(widths) - g.shape[dim]]
+        got = _gather_model(row, [torch.nn.functional.pad(g, pad)
+                                  .contiguous()], g.device)
+        gs = [t.narrow(dim, 0, w) for t, w in zip(got, widths)]
+    starts = ([0] if not sharded else
+              [i * like[0][0][dim] for i in row.indices])
+    out = []
+    for (shape, dtype, device), start in zip(like, starts):
+        wide = torch.promote_types(dtype, torch.float32)
+        acc = torch.zeros(shape, dtype=wide, device=device)
+        for (lo, hi), g in zip(ranges, gs):
+            a, b = max(lo, start), min(hi, start + shape[dim])
+            if b > a:
+                acc.narrow(dim, a - start, b - a).add_(
+                    g.narrow(dim, a - lo, b - a).to(device, wide))
+        out.append(acc.to(dtype))
+    return out
+
+
+class _TakeModel(torch.autograd.Function):
+    """Each local shard's ranges of several leaves (``take_model``): one
+    Function for them all, so that its backward (and across processes
+    its collectives) runs on every rank once any of its outputs is used
+    (a shard with no query head uses only some)."""
+
+    @staticmethod
+    def forward(ctx, row: ModelRow, specs, *xs):
+        ctx.row, ctx.specs = row, specs
+        ctx.like = [(x.shape, x.dtype, x.device) for x in xs]
+        outs, i = [], 0
+        for sharded, dim, ranges, k in specs:
+            outs.extend(_take(row, sharded, dim, ranges, xs[i:i + k]))
+            i += k
+        return tuple(outs)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gs):
+        row, out = ctx.row, []
+        i = o = 0
+        m = len(row.indices)
+        for sharded, dim, ranges, k in ctx.specs:
+            out.extend(_take_grads(row, sharded, dim, ranges,
+                                   ctx.like[i:i + k], gs[o:o + m]))
+            i += k
+            o += m
+        return (None, None) + tuple(out)
+
+
+def take_model(ws: Sequence[Any], ranges: Sequence[Sequence[Tuple[int,
+                                                                  int]]],
+               dims: Sequence[int], row: Optional[ModelRow] = None
+               ) -> List[List[torch.Tensor]]:
+    """For each leaf ``ws[i]`` (a ``ModelShards`` split along
+    ``dims[i]``, or a replicated tensor), each local shard's range
+    ``ranges[i][j]`` (j its model coordinate, global indices along
+    ``dims[i]``), on the shard's device: ``out[i][k]`` for the k-th
+    local shard (``row.positions`` order). A range may straddle the
+    blocks: in one process each piece is copied from its owner (no leaf
+    gathered whole), across processes the leaf is all-gathered over
+    ``model`` and narrowed; a replicated tensor is narrowed. The
+    backward adds each shard's gradient of its range into the owners'
+    (the replicated tensor's whole) gradient, in model order in f32
+    (``_model_sum``'s arithmetic), so shards that took the same columns
+    (a KV head two shards read) sum into them; across processes the
+    gradients cross as one all-gather a leaf, padded to the widest
+    range. A leaf whose every range is its shard's own block is its
+    parts, untouched (no copy, no Function). ``row`` is that of the
+    ``ModelShards`` among ``ws``, given where there is none."""
+    row = row or next(w.row for w in ws if isinstance(w, ModelShards))
+    tp = row.tp
+    out: List[Any] = [None] * len(ws)
+    specs, xs, todo = [], [], []
+    for i, (w, rg, dim) in enumerate(zip(ws, ranges, dims)):
+        rg = [tuple(r) for r in rg]
+        if len(rg) != tp:
+            raise ValueError(f"take_model: {len(rg)} ranges for {tp} shards")
+        if isinstance(w, ModelShards):
+            if w.dim != dim:
+                raise ValueError(f"take_model: a leaf split along {w.dim} "
+                                 f"taken along {dim}")
+            n = w.parts[0].shape[dim]
+            if rg == [(j * n, (j + 1) * n) for j in range(tp)]:
+                out[i] = list(w.parts)
+                continue
+            specs.append((True, dim, rg, len(w.parts)))
+            xs.extend(w.parts)
+        else:
+            specs.append((False, dim, rg, 1))
+            xs.append(w)
+        todo.append(i)
+    if todo:
+        got = _TakeModel.apply(row, tuple(specs), *xs)
+        m = len(row.indices)
+        for k, i in enumerate(todo):
+            out[i] = list(got[k * m:(k + 1) * m])
     return out
 
 

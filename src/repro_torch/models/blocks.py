@@ -9,16 +9,24 @@ kernel when there is no softcap.
 
 In the sharded train step a model-sharded weight arrives as
 ``distributed.placement.ModelShards``. Attention splits over ``model``
-where whole heads fall to each shard (``sharding.heads_split``): each
-shard projects its q and KV heads from its columns of wq/wk/wv, runs
-rope and ``layers.flash_attention`` on them, and multiplies by its rows
-of wo, and ``sum_model`` adds the partial outputs (gemma2's
-``ln1_post`` after the sum). Where the heads do not divide (smollm's
-9/3 at 2 or 4 shards) the layer's attention weights are gathered whole
-instead: splitting them by columns would cut heads and gather each
-row's activations, and at smollm's widths a layer's wq/wk/wv/wo are 1.8
-MB in bf16 where one 4 x 2048-token row's q is 9.4 MB. The MLPs split
-by ``layers.model_parallel``; such a layer returns no k and v."""
+by whole query heads at every tp (``sharding.heads_split``): shard j
+runs the query heads ``sharding.shard_heads`` gives it, from the wq
+columns and wo rows of those heads and the wk/wv columns of the KV
+heads they read, which ``placement.take_model`` copies from their
+owners (``param_spec`` splits the columns evenly, so a shard's heads
+may straddle its neighbours' blocks); where the heads and KV heads
+divide tp these are exactly the shard's own blocks, untouched. Each
+shard projects its q and KV heads, runs rope and one
+``layers.flash_attention`` call a run of whole KV groups and one a
+partial group at either end (``ShardHeads.segments``: the kernel's
+h // G map holds in each), and multiplies by its rows of wo;
+``sum_model`` adds the partial outputs (gemma2's ``ln1_post`` after the
+sum); a shard with no head (H < tp) adds zeros. Whole heads a shard
+rather than the columns ``param_spec`` splits: a layer's weights are
+smaller than one row's activations (smollm: 1.8 MB of wq/wk/wv/wo in
+bf16 against 9.4 MB of one 4 x 2048-token row's q), so a shard fetches
+weight columns, never activations. The MLPs split by
+``layers.model_parallel``; such a layer returns no k and v."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
@@ -28,7 +36,7 @@ import torch
 from ..distributed import placement as PL
 from . import layers
 from .config import ArchConfig
-from .sharding import heads_split
+from .sharding import shard_heads
 
 GLOBAL_WINDOW = 1 << 30
 
@@ -52,26 +60,62 @@ def _qkv(cfg: ArchConfig, p, x, positions):
     return q, k, v
 
 
-def _attn_row(cfg: ArchConfig, p, names):
-    """The ``ModelRow`` when the attention weights ``names`` of ``p``
-    split over ``model`` (``heads_split``), else None: a model-sharded
-    one among them is then gathered whole into ``p``. Raises where the
-    heads split but a weight is not model-sharded."""
-    w = p[names[0]]
-    if isinstance(w, torch.Tensor):
+def _attn_split(cfg: ArchConfig, p, names):
+    """(row, each local shard's ``ShardHeads``, each local shard's
+    wq/wk/wv/wo of its heads) when the attention weights ``names`` of
+    ``p`` are model shards of more than one position, else None (model
+    shards of one position go into ``p`` whole). wq and wo must both be
+    model-sharded (``param_spec`` shards them together); wk/wv may be
+    replicated, and are then narrowed."""
+    ws = [p[n] for n in names]
+    sharded = [w for w in ws if not isinstance(w, torch.Tensor)]
+    if not sharded:
         return None
-    if not heads_split(cfg, w.row.tp):
+    if sharded[0].row.tp == 1:
         for n in names:
             p[n] = layers.whole(p[n])
         return None
-    if any(isinstance(p[n], torch.Tensor) for n in names):
-        raise ValueError(f"{names}: whole heads split over {w.row.tp} "
-                         f"shards, but not every weight is model-sharded")
-    return w.row
+    if isinstance(ws[0], torch.Tensor) or isinstance(ws[3], torch.Tensor):
+        raise ValueError(f"{names}: the heads split, but not every weight "
+                         "of the query heads is model-sharded")
+    row = ws[0].row
+    Dh = cfg.head_dim
+    heads = shard_heads(cfg.n_heads, cfg.n_kv_heads, row.tp)
+    q = [(a * Dh, b * Dh) for a, b in (h.q for h in heads)]
+    kv = [(a * Dh, b * Dh) for a, b in (h.kv for h in heads)]
+    taken = PL.take_model(ws, [q, kv, kv, q], [1, 1, 1, 0])
+    mine = [heads[j] for j in row.indices]
+    return row, mine, [dict(zip(names, t)) for t in zip(*taken)]
+
+
+def _by_segments(cfg: ArchConfig, heads, q, k, v, **kw) -> torch.Tensor:
+    """``layers.flash_attention`` over one shard's heads (q its query
+    heads, k/v their KV heads): one call a run of ``heads.segments``,
+    the outputs joined along the heads; one call where ``heads`` is
+    None (every head) or one run."""
+    if heads is None or len(heads.segments) == 1:
+        return layers.flash_attention(q, k, v, **kw)
+    G = cfg.n_heads // cfg.n_kv_heads
+    q0, k0 = heads.q[0], heads.kv[0]
+    ys = []
+    for a, b in heads.segments:
+        ka, kb = a // G - k0, (b - 1) // G + 1 - k0
+        ys.append(layers.flash_attention(
+            q[:, :, a - q0:b - q0].contiguous(),
+            k[:, :, ka:kb].contiguous(), v[:, :, ka:kb].contiguous(), **kw))
+    return torch.cat(ys, 2)
 
 
 def _project_out(y: torch.Tensor, wo) -> torch.Tensor:
     return y.reshape(y.shape[0], y.shape[1], -1) @ wo
+
+
+def _no_heads(h: torch.Tensor, wq, wo) -> torch.Tensor:
+    """A shard with no query head: its q (no columns) through its rows
+    of wo (none), zeros of the residual's shape whose graph reaches its
+    (empty) ranges of the weights, so their exchange runs on every
+    rank."""
+    return (h @ wq) @ wo
 
 
 def attention_block(cfg: ArchConfig, p, x, positions, *, window=None,
@@ -83,19 +127,21 @@ def attention_block(cfg: ArchConfig, p, x, positions, *, window=None,
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     kw = dict(causal=causal, window=window, logit_softcap=cfg.attn_softcap,
               q_offset=q_offset)
-    names = ("wq", "wk", "wv", "wo")
-    row = _attn_row(cfg, p, names)
-    if row is None:
+    split = _attn_split(cfg, p, ("wq", "wk", "wv", "wo"))
+    if split is None:
         q, k, v = _qkv(cfg, p, h, positions)
         y = _project_out(layers.flash_attention(q, k, v, **kw), p["wo"])
     else:
+        row, heads, ws = split
         k = v = None
         ys = []
-        for j, hj in enumerate(PL.to_model(h, row)):
-            pj = {n: p[n].parts[j] for n in names}
-            q, kj, vj = _qkv(cfg, pj, hj, positions.to(hj.device))
-            ys.append(_project_out(layers.flash_attention(q, kj, vj, **kw),
-                                   pj["wo"]))
+        for hd, hj, wj in zip(heads, PL.to_model(h, row), ws):
+            if not hd.segments:
+                ys.append(_no_heads(hj, wj["wq"], wj["wo"]))
+                continue
+            q, kj, vj = _qkv(cfg, wj, hj, positions.to(hj.device))
+            ys.append(_project_out(_by_segments(cfg, hd, q, kj, vj, **kw),
+                                   wj["wo"]))
         y = PL.sum_model(ys, row)
     if "ln1_post" in p:
         y = layers.rms_norm(y, p["ln1_post"], cfg.norm_eps)
@@ -180,21 +226,24 @@ def cross_attention(cfg: ArchConfig, p, x, enc_out):
     p = dict(p)
     h = layers.rms_norm(x, p["ln_x"], cfg.norm_eps)
     names = ("wq_x", "wk_x", "wv_x", "wo_x")
+    Dh = cfg.head_dim
 
-    def attend(h, enc, wq, wk, wv, wo):
+    def attend(h, enc, w, heads=None):
         B, S, _ = h.shape
-        Dh = cfg.head_dim
-        q = (h @ wq).reshape(B, S, -1, Dh)
-        k = (enc @ wk).reshape(B, enc.shape[1], -1, Dh)
-        v = (enc @ wv).reshape(B, enc.shape[1], -1, Dh)
-        return _project_out(layers.flash_attention(q, k, v, causal=False),
-                            wo)
+        q = (h @ w["wq_x"]).reshape(B, S, -1, Dh)
+        k = (enc @ w["wk_x"]).reshape(B, enc.shape[1], -1, Dh)
+        v = (enc @ w["wv_x"]).reshape(B, enc.shape[1], -1, Dh)
+        return _project_out(_by_segments(cfg, heads, q, k, v, causal=False),
+                            w["wo_x"])
 
-    row = _attn_row(cfg, p, names)
-    if row is None:
-        return x + attend(h, enc_out, *(p[n] for n in names))
-    ys = [attend(hj, ej, *(p[n].parts[j] for n in names)) for j, (hj, ej)
-          in enumerate(zip(PL.to_model(h, row), PL.to_model(enc_out, row)))]
+    split = _attn_split(cfg, p, names)
+    if split is None:
+        return x + attend(h, enc_out, p)
+    row, heads, ws = split
+    ys = [attend(hj, ej, wj, hd) if hd.segments else
+          _no_heads(hj, wj["wq_x"], wj["wo_x"])
+          for hd, hj, ej, wj in zip(heads, PL.to_model(h, row),
+                                    PL.to_model(enc_out, row), ws)]
     return x + PL.sum_model(ys, row)
 
 

@@ -16,11 +16,12 @@ weights arrive as ``placement.ModelShards`` (the reference's layout,
 and the matrix memory, from the replicated q, k and gates), the sLSTM by
 columns (its scan is elementwise: no hidden-to-hidden matrix), hymba's
 SSM, fused projection and MLP by columns (each shard scans the heads its
-columns span, zeros in the spanned columns not its own). Each layer's
-one collective a split part is ``sum_model`` of its row products; the
-replicated inputs reach the shards through ``to_model``, whose backward
-sums their gradients. hymba's attention runs whole (``blocks._attn_row``
-gathers wq/wk/wv: its heads do not split)."""
+columns span, zeros in the spanned columns not its own), and hymba's
+attention by whole query heads as ``blocks.attention_block``'s (each
+shard's heads from the weight columns ``placement.take_model`` fetches).
+Each layer's one collective a split part is ``sum_model`` of its row
+products; the replicated inputs reach the shards through ``to_model``,
+whose backward sums their gradients."""
 from __future__ import annotations
 
 import torch
@@ -28,6 +29,7 @@ import torch
 from ..distributed import placement as PL
 from . import blocks, layers
 from .config import ArchConfig
+from .sharding import shard_heads
 
 _GATE_CAP = 15.0  # softcap on log input gate pre-activations (stability)
 
@@ -237,31 +239,44 @@ def hymba_block(cfg: ArchConfig, p, x, positions, *, window: int,
     """Attention and the Mamba-style SSM on the same normed input, fused
     (meta-tokens omitted, as in the reference). ``window`` is the layer's
     Python int (``GLOBAL_WINDOW`` for the global layers). Returns
-    (x, k after rope, v). On model shards of ``ssm_in`` and ``wo`` the
-    SSM branch, the fusion and the output projection split by columns
-    (``_hymba_ssm_split``; the SSM branch's norm over the whole width,
-    ``layers.rms_norm_model``; the attention's normalized output sliced
-    to each shard's columns) and ``sum_model`` adds the shards'
-    products; the attention runs whole."""
+    (x, k after rope, v). On model shards the attention splits by whole
+    query heads (``blocks._attn_split``), the SSM branch, the fusion and
+    the output projection by columns (``_hymba_ssm_split``), each
+    branch's norm over its whole width (``layers.rms_norm_model``, the
+    attention's over each shard's head-aligned columns), and by
+    linearity ``sum_model`` adds each shard's 0.5 a_j @ wo[its heads'
+    rows] + 0.5 s_j @ wo[its own rows]; k and v are then None."""
     B, S, _ = x.shape
     p = dict(p)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    blocks._attn_row(cfg, p, ("wq", "wk", "wv"))      # gathered: whole heads
-    q, k, v = blocks._qkv(cfg, p, h, positions)
-    ya = layers.flash_attention(q, k, v, causal=True, window=window,
-                                q_offset=q_offset).reshape(B, S, -1)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
     row = _shard_row(p, ("ssm_in", "wo"))
+    split = blocks._attn_split(cfg, p, ("wq", "wk", "wv", "wo"))
     if row is None:
+        q, k, v = blocks._qkv(cfg, p, h, positions)
+        ya = layers.flash_attention(q, k, v, **kw).reshape(B, S, -1)
         ys = layers.ssm_scan(*_hymba_ssm_in(cfg, p, h), p["A_log"])
         return _hymba_fuse_ffn(cfg, p, x, ya, ys.reshape(B, S, -1)), k, v
-    eps = cfg.norm_eps
+    _, heads, ws = split
+    ya = []
+    for hd, hj, wj in zip(heads, PL.to_model(h, row), ws):
+        if not hd.segments:            # no head: (B, S, 0)
+            ya.append(hj @ wj["wq"])
+            continue
+        q, k, v = blocks._qkv(cfg, wj, hj, positions.to(hj.device))
+        ya.append(blocks._by_segments(cfg, hd, q, k, v, **kw)
+                  .reshape(B, S, -1))
+    eps, width, Dh = cfg.norm_eps, cfg.n_heads * cfg.head_dim, cfg.head_dim
+    (na,) = PL.take_model([p["attn_norm"]], [[
+        (a * Dh, b * Dh) for a, b in (hd.q for hd in shard_heads(
+            cfg.n_heads, cfg.n_kv_heads, row.tp))]], [0], row)
+    ya = layers.rms_norm_model(ya, na, row, width, eps)
     ys = layers.rms_norm_model(_hymba_ssm_split(cfg, p, h, row),
                                PL.split_model(p["ssm_norm"], row, 0), row,
-                               ya.shape[-1], eps)
-    ya = PL.split_model(layers.rms_norm(ya, p["attn_norm"], eps), row, -1)
-    y = PL.sum_model([(0.5 * (a + s)) @ w for a, s, w in
-                      zip(ya, ys, p["wo"].parts)], row)
-    return _hymba_ffn(cfg, p, x + y), k, v
+                               width, eps)
+    y = PL.sum_model([(0.5 * a) @ wj["wo"] + (0.5 * s) @ w for a, s, wj, w in
+                      zip(ya, ys, ws, p["wo"].parts)], row)
+    return _hymba_ffn(cfg, p, x + y), None, None
 
 
 def hymba_block_step(cfg: ArchConfig, p, x, k_cache, v_cache, ssm_state,

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 from .. import tree
 from ..launch import mesh as _mesh
@@ -195,26 +195,76 @@ _KIND = {"embed": "embed", "unembed": "unembed",
          "moe_w_down": "experts"}
 
 def heads_split(cfg, tp: int) -> bool:
-    """Whether attention splits over a model axis of ``tp``: whole
-    query and KV heads a shard (``param_spec``'s contiguous column split
-    of wq/wk/wv then gives shard j the q heads [j H/tp, (j+1) H/tp) and
-    the KV heads [j Hk/tp, (j+1) Hk/tp), and the GQA map h -> h // G
-    stays inside the shard). Never for xLSTM (no attention) nor hymba,
-    whose attention runs whole beside its split SSM."""
-    return (tp > 1 and cfg.family not in ("ssm", "hybrid")
-            and cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0)
+    """Whether attention splits over a model axis of ``tp``: wherever
+    ``param_spec`` model-shards its weights (wq and wo whenever H Dh
+    divides ``tp``; wk/wv too where Hk Dh does) and tp > 1. Each shard
+    then runs the query heads ``shard_heads`` gives it, whole, from the
+    weight columns (wo rows) of those heads and of the KV heads they
+    read (``placement.take_model``). Never for xLSTM (no attention)."""
+    return (tp > 1 and cfg.family != "ssm"
+            and _div(cfg.n_heads * cfg.head_dim, tp))
+
+
+class ShardHeads(NamedTuple):
+    """One model shard's attention: its query heads [q0, q1), the KV
+    heads [k0, k1) they read, and the runs of query heads one
+    ``flash_attention`` call each takes: every run of whole KV groups,
+    and each partial group at either end (so the kernel's h // G map
+    holds in every call)."""
+    q: Tuple[int, int]
+    kv: Tuple[int, int]
+    segments: Tuple[Tuple[int, int], ...]
+
+
+def _head_segments(q0: int, q1: int, G: int) -> Tuple[Tuple[int, int], ...]:
+    """The runs of query heads [q0, q1) that one attention call each
+    takes, with G query heads a KV head (see ``ShardHeads``)."""
+    out, a = [], q0
+    while a < q1:
+        if a % G:                           # the tail of a group
+            b = min(q1, (a // G + 1) * G)
+        else:                               # whole groups, else the
+            b = a + (q1 - a) // G * G       # head of the last one
+            b = b if b > a else q1
+        out.append((a, b))
+        a = b
+    return tuple(out)
+
+
+def shard_heads(n_heads: int, n_kv_heads: int, tp: int) -> List[ShardHeads]:
+    """Each model shard's heads on an axis of ``tp``: shard j the query
+    heads [floor(j H / tp), floor((j + 1) H / tp)) (none where H < tp and
+    the floors meet), the KV heads floor(q0 / G) .. floor((q1 - 1) / G)
+    they read (G = H / Hk), and its ``_head_segments``."""
+    G = n_heads // n_kv_heads
+    out = []
+    for j in range(tp):
+        q0, q1 = j * n_heads // tp, (j + 1) * n_heads // tp
+        kv = (q0 // G, (q1 - 1) // G + 1) if q1 > q0 else (0, 0)
+        out.append(ShardHeads((q0, q1), kv, _head_segments(q0, q1, G)))
+    return out
+
+
+def attention_calls(cfg, tp: int) -> int:
+    """The ``flash_attention`` calls of one attention layer of ``cfg``
+    over a row of ``tp`` shards: every shard's head segments (1 where
+    the layer does not split)."""
+    if not heads_split(cfg, tp):
+        return 1
+    return sum(len(s.segments)
+               for s in shard_heads(cfg.n_heads, cfg.n_kv_heads, tp))
 
 
 def tp_layout(cfg, tp: int) -> dict:
     """How the sharded train step runs each kind of layer of ``cfg`` on
     a model axis of ``tp`` positions: "split" (each shard computes its
-    part from its own weights), "expert" (the MoE's experts split over
-    the shards), "gather" (its model-sharded weights gathered whole, the
-    layer run whole) or "whole" (no weight of it model-sharded).
-    Attention splits where ``heads_split``; the MLPs, the experts, the
-    vocabulary and the recurrent layers (xLSTM's mLSTM and sLSTM,
-    hymba's SSM with its fused output projection) split wherever
-    ``param_spec`` split their weights."""
+    part), "expert" (the MoE's experts split over the shards) or "whole"
+    (no weight of it model-sharded). Attention (hymba's too) splits by
+    query heads wherever its weights are model-sharded
+    (``heads_split``); the MLPs, the experts, the vocabulary and the
+    recurrent layers (xLSTM's mLSTM and sLSTM, hymba's SSM with its
+    fused output projection) split wherever ``param_spec`` split their
+    weights."""
     ax = MeshAxes()
     ms = {"data": 1, "model": tp}
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab
@@ -231,10 +281,7 @@ def tp_layout(cfg, tp: int) -> dict:
     if cfg.family == "ssm":
         return {**out, "recurrent": split(("wv3", (d, d // H, H)),
                                           ("w_zi", (d, d)))}
-    attn = any(sharded(n, s) for n, s in (("wq", (d, H * Dh)),
-                                           ("wk", (d, Hk * Dh))))
-    out["attention"] = ("split" if heads_split(cfg, tp) else
-                        "gather" if attn else "whole")
+    out["attention"] = split(("wq", (d, H * Dh)), ("wk", (d, Hk * Dh)))
     if cfg.enc_dec:
         out["cross_attention"] = out["attention"]
     if cfg.moe is not None:
@@ -263,7 +310,9 @@ def tp_split(cfg, mesh_shape: dict) -> dict:
     """The model-sharded leaves of ``cfg``'s params on a mesh of
     ``mesh_shape``, by how the sharded train step uses them:
     ``{"split": [...], "gathered": [...]}`` (``/``-joined paths, in the
-    params' order); ``tp_layout``'s rule."""
+    params' order); ``tp_layout``'s rule. "gathered" would list the
+    leaves of a layer run whole on gathered weights: none, since
+    attention splits at every tp."""
     from ..launch.specs import param_structs
     tp = mesh_shape.get("model", 1)
     layout = tp_layout(cfg, tp)
@@ -295,4 +344,5 @@ def mesh_shape_dict(mesh: _mesh.DeviceMesh) -> dict:
 __all__ = ["P", "MeshAxes", "use_mesh", "axes_for_mesh", "constrain",
            "ambient_axes", "constrain_model_dim", "constrain_batch",
            "param_spec", "tree_param_specs", "mesh_shape_dict",
-           "heads_split", "tp_layout", "tp_split"]
+           "heads_split", "ShardHeads", "shard_heads",
+           "attention_calls", "tp_layout", "tp_split"]

@@ -16,18 +16,18 @@ layers, the reference's partitioned step:
   across processes every model shard of the row runs its own part;
 * a model-sharded weight enters the model as ``ModelShards`` and the
   layers split where ``models.sharding.tp_layout`` says: attention by
-  heads (``heads_split``), the MLPs by ff, MoE experts by expert (or
-  each expert's ff), the embedding and the unembedding by vocabulary,
-  xLSTM's and hymba's recurrent layers by their columns
-  (``models.recurrent``), Megatron's layout through
+  whole query heads at every tp (``heads_split``; each shard's heads
+  from the weight columns ``placement.take_model`` fetches), the MLPs
+  by ff, MoE experts by expert (or each expert's ff), the embedding and
+  the unembedding by vocabulary, xLSTM's and hymba's recurrent layers
+  by their columns (``models.recurrent``), Megatron's layout through
   ``placement.to_model``/``sum_model``; the logits stay vocab shards
   and the masked loss is the vocab-parallel one
-  (``step._masked_nll_model``); an attention whose heads do not divide
-  gathers its weights over ``model`` inside its layer's (checkpointed)
-  call and runs whole; remat
-  recomputes a layer's collectives in the backward, in the forward's
-  order on every rank; a replicated weight is used only outside a split
-  region, so each rank's gradient of it is the whole one;
+  (``step._masked_nll_model``); remat recomputes a layer's collectives
+  in the backward, in the forward's order on every rank; a replicated
+  weight reaches a split region only through ``to_model``,
+  ``split_model`` or ``take_model``, whose backwards sum over
+  ``model``, so each rank's gradient of it is the whole one;
 * the loss is the global mean: each row's masked sum over the global
   count of labels >= 0, so the rows' gradients sum to the one-device
   gradient; microbatches split the batch first, as the reference's scan
@@ -55,7 +55,7 @@ one-device ``make_train_step``'s.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -65,7 +65,7 @@ from ..distributed.compression import _codes, _step
 from ..models import forward as model_forward
 from ..models import layers as _L
 from ..models.model import unembed_shards
-from ..models.sharding import axes_for_mesh, tp_layout
+from ..models.sharding import axes_for_mesh, shard_heads, tp_layout
 from .optimizer import AdamWConfig, AdamWState, adamw_update
 from .step import (TrainState, TrainStepConfig, _masked_nll,
                    _masked_nll_model)
@@ -350,33 +350,39 @@ def _scan_flops(passes: int, chunks: int, inter: int, intra: int,
 
 
 def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
-                      local: int = 1, remat: bool = True,
-                      device: str = "cpu") -> int:
+                      local: int = 1, position: Optional[int] = None,
+                      remat: bool = True, device: str = "cpu") -> int:
     """The matmul FLOPs of one train step of a data row's ``local``
     model shards (1: one position, as a rank computes; ``tp``: the
-    whole row, as one process does), reckoned from the shapes: the
-    count ``torch.utils.flop_counter`` gives for a row computing
-    ``rows`` sequences of ``seq`` tokens (over all its microbatches) on
-    a model axis of ``tp``, where a split layer (``models.sharding.
-    tp_layout``) does 1 / tp of its work on each shard and the rest all
-    of it once. A dense config without softcap or window, xLSTM or
-    hymba. Each projection is 2 N a b FLOPs forward, again under
-    ``remat``, and twice in the backward (input and weight), but the
-    recompute skips the layer's last product (the checkpoint stops once
-    it has every tensor the backward saved: the last local shard's
-    w_down; a row spread over several cards of one process recomputes
-    it, through ``models.model._FrameGate``, and is not reckoned here).
-    Attention's core runs ``kernels.flash``'s plain version forward (on
-    the CPU: its 256-row tiles, those above the diagonal skipped; on
-    CUDA the kernel, which no counter sees) and the chunked oracle's
-    recompute and gradient (6 products of 2 B H S T Dh) backward; a
-    window shorter than ``seq`` runs the chunked oracle throughout (2
-    such products a forward, 4 backward). The recurrent scans count
-    their chunks' products (``_scan_flops``): the mLSTM's per shard over
-    its Dh / tp columns of v beside the whole q k^T, hymba's SSM per
-    shard over the heads its columns span. Replicated projections (q,
-    k and the gates of the mLSTM, hymba's attention and dt/B/C) run
-    once a row. The unembedding is outside remat."""
+    whole row, as one process does, the sum over its shards), reckoned
+    from the shapes: the count ``torch.utils.flop_counter`` gives for a
+    row computing ``rows`` sequences of ``seq`` tokens (over all its
+    microbatches) on a model axis of ``tp``, where a split layer
+    (``models.sharding.tp_layout``) does its shard's part of the work on
+    each shard and the rest all of it once. Attention splits by whole
+    query heads (``sharding.shard_heads``), unevenly where the heads do
+    not divide: one position's count is then that of the model
+    coordinate ``position``, which must be given (never an average). A
+    dense config without softcap or window, xLSTM or hymba. Each
+    projection is 2 N a b FLOPs forward, again under ``remat``, and
+    twice in the backward (input and weight), but the recompute skips
+    the layer's last product (the checkpoint stops once it has every
+    tensor the backward saved: the last local shard's w_down; a row
+    spread over several cards of one process recomputes it, through
+    ``models.model._FrameGate``, and is not reckoned here). Attention's
+    core runs ``kernels.flash``'s plain version forward (on the CPU: its
+    256-row tiles, those above the diagonal skipped; on CUDA the kernel,
+    which no counter sees) and the chunked oracle's recompute and
+    gradient (6 products of 2 B H S T Dh) backward, H a shard's query
+    heads; a window shorter than ``seq`` runs the chunked oracle
+    throughout (2 such products a forward, 4 backward). The recurrent
+    scans count their chunks' products (``_scan_flops``): the mLSTM's
+    per shard over its Dh / tp columns of v beside the whole q k^T,
+    hymba's SSM per shard over the heads its columns span. Replicated
+    projections (q, k and the gates of the mLSTM, hymba's dt/B/C) run
+    once a row; a split hymba projects its fused output twice a shard
+    (its heads' rows of wo, its own rows). The unembedding is outside
+    remat."""
     fam = cfg.family
     if (fam not in ("dense", "ssm", "hybrid") or cfg.attn_softcap
             or cfg.final_softcap or cfg.local_global_period):
@@ -391,6 +397,20 @@ def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
     def share(kind):
         """(divisor of the work, times it runs)"""
         return (tp, local) if layout[kind] == "split" else (1, 1)
+
+    def mine(kind, per_shard: list, whole) -> list:
+        """The values of the shards this count covers: every shard's
+        (``local == tp``), ``position``'s, or the one value all share."""
+        if layout[kind] != "split":
+            return [whole]
+        if local == tp:
+            return per_shard
+        if position is not None:
+            return [per_shard[position]]
+        if len(set(per_shard)) == 1:
+            return per_shard[:1]
+        raise ValueError(f"{cfg.name}: its shards at tp {tp} differ: give "
+                         "the position")
     v_div, v_n = share("unembed")
     unembed = v_n * 3 * 2 * N * d * V // v_div
     if fam == "ssm":
@@ -406,33 +426,35 @@ def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
                 i1 = min(i0 + 256, seq)
                 fwd += 2 * 2 * rows * heads * (i1 - i0) * i1 * Dh
         return (passes - 2) * fwd + 6 * 2 * rows * heads * seq * seq * Dh
-    (a_div, a_n), (m_div, m_n) = share("attention"), share("mlp")
-    proj = 2 * N * d * (2 * H * Dh + 2 * Hk * Dh) // a_div
+    split = layout["attention"] == "split"
+    heads = mine("attention", [(s.q[1] - s.q[0], s.kv[1] - s.kv[0])
+                               for s in shard_heads(H, Hk, tp)], (H, Hk))
+    # wq, wk, wv, and wo where it projects the attention alone (dense,
+    # a split hymba's heads' rows; a whole hymba's fused wo is ``own``)
+    q_and_o = 2 if fam == "dense" or split else 1
+    proj = [2 * N * d * Dh * (q_and_o * hq + 2 * hk) for hq, hk in heads]
+    m_div, m_n = share("mlp")
     ffn = 2 * N * d * ff // m_div          # each of w_gate, w_up, w_down
     mlp = m_n * passes * 3 * ffn - (passes - 3) * ffn
     if fam == "dense":
-        return cfg.n_layers * (a_n * (passes * proj + attention(
-            H // a_div, seq)) + mlp) + unembed
+        return cfg.n_layers * (sum(passes * pr + attention(hq, seq) for pr,
+                                   (hq, _) in zip(proj, heads)) + mlp) \
+            + unembed
     from ..models.model import window_schedule
     r_div, r_n = share("recurrent")
-    qkv = 2 * N * d * (H * Dh + 2 * Hk * Dh) + 2 * N * d * (H + 2 * H
-                                                            * cfg.ssm_state)
+    dtbc = 2 * N * d * (H + 2 * H * cfg.ssm_state)
     own = 2 * 2 * N * d * (H * Dh // r_div)          # ssm_in and wo
     n = H * Dh // r_div
-    spans = [-(-(c0 + n) // Dh) - c0 // Dh for c0 in range(0, H * Dh, n)]
-    if r_n == r_div:
-        heads = sum(spans)
-    elif len(set(spans)) == 1:
-        heads = spans[0] * r_n
-    else:
-        raise ValueError(f"{cfg.name}: its shards span unequal heads")
+    spans = mine("recurrent", [-(-(c0 + n) // Dh) - c0 // Dh
+                               for c0 in range(0, H * Dh, n)], H)
     L = _chunk(seq)
     NS, c = cfg.ssm_state, seq // L
-    scan = _scan_flops(passes, c, 2 * rows * L * heads * NS * Dh,
-                       2 * rows * L * L * heads * Dh,
-                       2 * rows * L * heads * NS * Dh)
-    return sum(passes * (qkv + r_n * own) + attention(H, int(w)) + scan
-               + mlp for w in window_schedule(cfg)) + unembed
+    scan = _scan_flops(passes, c, 2 * rows * L * sum(spans) * NS * Dh,
+                       2 * rows * L * L * sum(spans) * Dh,
+                       2 * rows * L * sum(spans) * NS * Dh)
+    return sum(passes * (dtbc + sum(proj) + r_n * own) + sum(
+        attention(hq, int(w)) for hq, _ in heads) + scan + mlp
+        for w in window_schedule(cfg)) + unembed
 
 
 def _chunk(seq: int) -> int:

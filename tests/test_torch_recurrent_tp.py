@@ -9,7 +9,8 @@ the same block on whole weights, and against the reference's block.
   its 4 heads; hymba's SSM, fused projection and MLP split by columns at
   2 and 4 shards, on the smoke config's 4/2 heads of 16 and on hymba's
   25/5 heads at d_head 8, whose 100 or 50 columns a shard cut heads:
-  each shard scans the 13 or 7 heads its columns span;
+  each shard scans the 13 or 7 heads its columns span, and attends with
+  its whole query heads (``tests/test_torch_attention_tp.py``);
 * the residual and the gradient of every weight and of x within
   ``test_torch_tensor_parallel``'s RTOL 1e-5 and ATOL 1e-5 of the
   unsplit tensor's largest value; the split forward within 1e-5 of the
@@ -41,7 +42,8 @@ REF = dict(rtol=1e-5, atol=1e-5)
 #: split weights -> the dim each splits along
 MLSTM = {"wv3": 1, "w_z3": 1, "w_down3": 0}
 SLSTM = {"w_zi": 1, "w_zf": 1, "w_zz": 1, "w_zo": 1, "w_down": 0}
-HYMBA = {"ssm_in": 1, "wo": 0, "w_gate": 1, "w_up": 1, "w_down": 0}
+HYMBA = {"wq": 1, "wk": 1, "wv": 1, "ssm_in": 1, "wo": 0, "w_gate": 1,
+         "w_up": 1, "w_down": 0}
 
 
 def layer_np(tree, group: str, index, seed: int) -> dict:
@@ -167,9 +169,10 @@ def test_hymba_splits_its_ssm_fused_projection_and_mlp(heads, tp,
                                                        scan_shapes):
     """The sliding layer (window 8 over 16 positions): each shard scans
     the heads its columns of ``ssm_in`` span, [c0 // Dh, ceil(c1 / Dh)),
-    the norm of the SSM branch sums over the whole width, the attention
-    runs whole; the block and every gradient (A_log, the replicated
-    dt/B/C projections and norms included) match the unsplit block."""
+    the norm of each branch sums over the whole width, the attention
+    splits by query heads; the block and every gradient (A_log, the
+    replicated dt/B/C projections and norms included) match the unsplit
+    block."""
     H, Hk, Dh = HYMBA_HEADS[heads]
     jcfg, cfg = _configs("hymba-1.5b", dtype="float32", n_heads=H,
                          n_kv_heads=Hk, d_head=Dh)

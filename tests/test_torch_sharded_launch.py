@@ -64,7 +64,7 @@ from repro_torch.launch import specs as S
 from repro_torch.launch import train as tlaunch
 from repro_torch.launch.mesh import (DeviceMesh, make_host_mesh, make_mesh,
                                      make_production_mesh)
-from repro_torch.models import init_params
+from repro_torch.models import init_params, layers
 from repro_torch.models.config import MoEConfig
 from repro_torch.train import (AdamWConfig, TrainState, TrainStepConfig,
                                make_train_step)
@@ -208,17 +208,21 @@ def test_place_then_gather_is_bitwise(arch, mesh_name):
 
 
 @pytest.mark.parametrize("mesh_name", ["1x4", "2x2"])
-def test_the_gathers_gradient_is_the_full_gradients_slice(mesh_name):
-    """A row's model shards through ``ModelShards``, on hymba's
-    attention (whose wq/wk/wv gather whole over ``model``: its heads do
-    not split): the loss and every shard's gradient equal the one-device
-    loss and the slice of its full gradient, bit for bit (one
-    contribution reduce-scattered). The embedding goes in as shards too
-    (the vocab-parallel lookup is the whole lookup's bits); the other
-    model-sharded weights whole (the SSM, the fused projection and the
-    MLP split, and the unembedding's vocab-sharded logits would need
-    the step's vocab-parallel loss: their sums round in another order)."""
-    cfg = f32("hymba-1.5b")
+def test_the_gathers_gradient_is_the_full_gradients_slice(mesh_name,
+                                                         monkeypatch):
+    """A row's model shards through ``ModelShards``, on the MoE's expert
+    weights under ``layers.MOE_EP_MODE`` (which ``ffn_block`` gathers
+    whole over ``model`` for ``moe_ffn_ep``, here without an ambient
+    mesh: the dense ``moe_ffn``; since attention splits at every tp this
+    is the layer a model gathers): the loss and every shard's gradient
+    equal the one-device loss and the slice of its full gradient, bit
+    for bit (one contribution reduce-scattered). The embedding goes in
+    as shards too (the vocab-parallel lookup is the whole lookup's
+    bits); the other model-sharded weights whole (the split attention
+    and the unembedding's vocab-sharded logits would need the step's
+    sums over ``model``: they round in another order)."""
+    monkeypatch.setattr(layers, "MOE_EP_MODE", True)
+    cfg = f32("qwen3-moe-235b-a22b")
     mesh = cpu_mesh(mesh_name)
     params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
     batch = make_batch(cfg, 4, B=2)
@@ -230,8 +234,8 @@ def test_the_gathers_gradient_is_the_full_gradients_slice(mesh_name):
     for (name, s), whole in zip(tree.flatten_with_path(placed),
                                 tree.leaves(params)):
         k = PL.model_dim(s.sharding.spec)
-        if k is None or name.split("/")[-1] not in ("embed", "wq", "wk",
-                                                     "wv"):
+        if k is None or name.split("/")[-1] not in (
+                "embed", "moe_w_gate", "moe_w_up", "moe_w_down"):
             t = (whole if k is not None else s.local[0]).detach()
             view.append(t.requires_grad_(True))
             flat.append((view[-1], s, None))
@@ -251,7 +255,7 @@ def test_the_gathers_gradient_is_the_full_gradients_slice(mesh_name):
             want_g = want_g[PL.shard_slices(s.sharding, s.shape, q)]
             n_split += 1
         assert torch.equal(g, want_g)
-    assert n_split > len(qs)          # wq, wk, wv, ... and the embedding
+    assert n_split > len(qs)          # the experts and the embedding
 
 
 # --- the sharded step, one process ------------------------------------------
@@ -568,10 +572,11 @@ def gloo_flops(name: str) -> int:
     return fc.get_total_flops()
 
 
-def reckoned_flops(name: str, tp=None) -> int:
+def reckoned_flops(name: str, tp=None, position=None) -> int:
     """``step_matmul_flops`` of one position of the case (on a model
-    axis of ``tp``, default the case's): its data row's rows of the
-    batch of 8 (each pod's half, split over ``data``)."""
+    axis of ``tp``, default the case's; at model coordinate
+    ``position``): its data row's rows of the batch of 8 (each pod's
+    half, split over ``data``)."""
     arch, (shape, axes), kw = GLOO_CASES[name]
     sizes = dict(zip(axes, shape))
     tcfg = TrainStepConfig(**kw)
@@ -579,7 +584,7 @@ def reckoned_flops(name: str, tp=None) -> int:
     nd = sizes["data"]
     rows = (m if m % nd or m < nd else m // nd) * tcfg.n_microbatches
     return step_matmul_flops(f32(arch), rows, 16, tp or sizes["model"],
-                             remat=tcfg.remat)
+                             position=position, remat=tcfg.remat)
 
 
 _GLOO_WORKER = textwrap.dedent('''
@@ -656,13 +661,17 @@ def test_gloo_ranks_are_the_one_process_run(gloo_ranks, name):
 @pytest.mark.parametrize("name", list(GLOO_CASES))
 def test_gloo_ranks_compute_their_share(gloo_ranks, name):
     """Each rank's matmul FLOPs of one step (``FlopCounterMode``) are the
-    count reckoned from the shapes for one position: the layers split
-    over ``model`` (``tp_layout``) at 1 / tp of their work, the rest
-    whole: fewer than the same rows take unsplit."""
-    want = reckoned_flops(name)
+    count reckoned from the shapes for its own position: the layers
+    split over ``model`` (``tp_layout``) at its shard's part of their
+    work (smollm's 3/1 heads fall 1 and 2 to the shards of 2, none, 1, 1
+    and 1 to those of 4), the rest whole: fewer than the same rows take
+    unsplit."""
+    _, (shape, axes), _ = GLOO_CASES[name]
+    mesh = make_mesh(shape, axes, devices=["cpu"] * WORLD)
     for r, got in enumerate(gloo_ranks[1]):
+        want = reckoned_flops(name, position=mesh.coords(r)["model"])
         assert got["flops"][name] == want, (name, r)
-    assert want < reckoned_flops(name, tp=1)
+        assert want < reckoned_flops(name, tp=1)
 
 
 def test_gloo_ranks_hold_one_position_each(gloo_ranks):

@@ -18,8 +18,10 @@ port's tensor-parallel layers against the unsplit ones, on the CPU.
   (the attention calls are counted and their shapes checked), and a
   split whose weights are not all model-sharded raises;
 * ``sharding.tp_layout`` / ``tp_split`` for every config of ``configs``
-  at tp 2, 4 and 8 against the head rule and ``param_spec`` (the
-  recurrent families' splits: ``tests/test_torch_recurrent_tp.py``).
+  at tp 2, 4, 8 and 16 against the head rule and ``param_spec``: no
+  layer gathers its weights (the recurrent families' splits:
+  ``tests/test_torch_recurrent_tp.py``; attention at the published head
+  counts and every tp: ``tests/test_torch_attention_tp.py``).
 """
 import dataclasses
 
@@ -214,11 +216,11 @@ def split_layer(lp, dims, mesh, pos):
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 @pytest.mark.parametrize("arch", ["granite-8b", "gemma2-9b"])
 def test_attention_splits_by_heads(arch, mesh_name, attention_calls):
-    """granite (4/2 heads) and gemma2 (softcap 50, window 8, post-norm)
-    where the heads divide: each shard attends with its H / tp and
-    Hk / tp heads; the residual and every gradient match the unsplit
-    block. At 4 shards the 2 KV heads do not divide: the weights gather
-    and the block runs once on every head."""
+    """granite (4/2 heads) and gemma2 (softcap 50, window 8, post-norm):
+    each shard attends with its H / tp query heads; at 2 shards with its
+    own KV head, at 4 with the one KV head two shards share (fetched
+    from its owner); the residual and every gradient match the unsplit
+    block."""
     cfg = f32(arch)
     mesh, pos = row_of(mesh_name)
     tp = mesh.shape["model"]
@@ -231,13 +233,10 @@ def test_attention_splits_by_heads(arch, mesh_name, attention_calls):
     attention_calls.clear()
     sp = split_layer(lp, ATTN, mesh, pos)
     got = blocks.attention_block(cfg, sp, x, positions, window=window)
-    split = heads_split(cfg, tp)
-    assert split == (cfg.n_kv_heads % tp == 0)
-    H, Hk = (cfg.n_heads // tp, cfg.n_kv_heads // tp) if split else \
-        (cfg.n_heads, cfg.n_kv_heads)
-    assert attention_calls == [((2, 16, H, 16), (2, 16, Hk, 16))] * (
-        tp if split else 1)
-    assert (got.k is None) == split
+    assert heads_split(cfg, tp)
+    H, Hk = cfg.n_heads // tp, max(cfg.n_kv_heads // tp, 1)
+    assert attention_calls == [((2, 16, H, 16), (2, 16, Hk, 16))] * tp
+    assert got.k is None
     close(got.y, want.y)
     names = sorted(k for k in lp if k.startswith("ln1") or k in ATTN)
     grads_match(got.y, want.y, [x] + [sp[k] for k in names],
@@ -423,13 +422,7 @@ def expected_layout(cfg, tp: int) -> dict:
     if cfg.family == "ssm":           # mLSTM by Dh, sLSTM by columns
         rec = (cfg.d_model // cfg.n_heads) % tp == 0 or cfg.d_model % tp == 0
         return {**out, "recurrent": "split" if rec else "whole"}
-    H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if cfg.family != "hybrid" and H % tp == 0 and Hk % tp == 0:
-        attn = "split"
-    elif (H * Dh) % tp == 0 or (Hk * Dh) % tp == 0:
-        attn = "gather"
-    else:
-        attn = "whole"
+    attn = "split" if (cfg.n_heads * cfg.head_dim) % tp == 0 else "whole"
     out["attention"] = attn
     if cfg.enc_dec:
         out["cross_attention"] = attn
@@ -439,12 +432,12 @@ def expected_layout(cfg, tp: int) -> dict:
                           "split" if cfg.d_ff % tp == 0 else "whole")
     else:
         out["mlp"] = "split" if cfg.d_ff % tp == 0 else "whole"
-    if cfg.family == "hybrid":        # the SSM and the fused projection
-        out["recurrent"] = "split" if (H * Dh) % tp == 0 else "whole"
+    if cfg.family == "hybrid":   # the SSM and fused projection: H Dh too
+        out["recurrent"] = attn
     return out
 
 
-@pytest.mark.parametrize("tp", [2, 4, 8])
+@pytest.mark.parametrize("tp", [2, 4, 8, 16])
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_which_layers_split(arch, tp):
     cfg = get_config(arch)
@@ -455,27 +448,22 @@ def test_which_layers_split(arch, tp):
     sharded = [name for name, leaf in tree.flatten_with_path(
         M.init_params(cfg, None, "meta"))
         if "model" in param_spec(name, tuple(leaf.shape), MeshAxes(), ms)]
-    assert sorted(got["split"] + got["gathered"]) == sorted(sharded)
-    split_names = {n.split("/")[-1] for n in got["split"]}
-    if layout.get("attention") == "gather":
-        assert not split_names & {"wq", "wk", "wv"}
-        # hymba's wo projects the fused attention and SSM output
-        assert ("wo" in split_names) == (cfg.family == "hybrid" and
-                                         layout["recurrent"] == "split")
+    assert sorted(got["split"]) == sorted(sharded)
+    assert got["gathered"] == []
+    assert layout.get("attention", "split") == "split"
 
 
 @pytest.mark.parametrize("tp", [2, 4])
 def test_the_named_examples(tp):
     smollm = tp_layout(get_config("smollm-135m"), tp)
-    assert smollm["attention"] == "gather" and smollm["mlp"] == "split"
+    assert smollm["attention"] == "split" and smollm["mlp"] == "split"
     granite = tp_layout(get_config("granite-8b"), tp)
     assert granite["attention"] == "split" and granite["mlp"] == "split"
     hymba = get_config("hymba-1.5b")
     assert tp_layout(hymba, tp) == {
-        "embed": "whole", "unembed": "whole", "attention": "gather",
+        "embed": "whole", "unembed": "whole", "attention": "split",
         "mlp": "split", "recurrent": "split"}
-    assert tp_split(hymba, {"data": 1, "model": tp})["gathered"] == [
-        "blocks/wk", "blocks/wq", "blocks/wv"]
+    assert tp_split(hymba, {"data": 1, "model": tp})["gathered"] == []
     for n in (tp, 8):
         xlstm = get_config("xlstm-1.3b")
         assert tp_layout(xlstm, n)["recurrent"] == "split"

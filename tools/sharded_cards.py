@@ -483,7 +483,7 @@ def tp_ranks_leg(world: int, work: Path, cell: str) -> None:
     with position i on cuda:i in this process, over ``world`` NCCL
     ranks, and on the 1 x 1 mesh of cuda:0: the ranks bitwise the
     one-process run (losses and every shard's sha1), each rank's FLOPs
-    the reckoned count of one position."""
+    the reckoned count of its own position."""
     import dataclasses
     import torch
     from chip_smoke import emit
@@ -498,8 +498,9 @@ def tp_ranks_leg(world: int, work: Path, cell: str) -> None:
     one = tp_on_mesh(mesh, torch.device("cuda", 0), cell)
     _spawn(world, lambda r: ["--train", "--cell", cell, "--out",
                              str(work / f"{cell}{r}.pt")])
-    per_position = step_matmul_flops(cfg, k["batch"], k["seq"], world,
-                                     device="cuda")
+    per_position = [step_matmul_flops(cfg, k["batch"], k["seq"], world,
+                                      position=r, device="cuda")
+                    for r in range(world)]
     ranks = []
     for r in range(world):
         got = torch.load(work / f"{cell}{r}.pt", weights_only=False)
@@ -526,7 +527,7 @@ def tp_ranks_leg(world: int, work: Path, cell: str) -> None:
     if not all(r["bitwise"] for r in ranks):
         raise AssertionError("the ranks' tensor-parallel steps are not the "
                              "one-process mesh's")
-    if any(r["matmul_flops"] != per_position for r in ranks):
+    if any(r["matmul_flops"] != per_position[r["rank"]] for r in ranks):
         raise AssertionError(f"rank FLOPs {[r['matmul_flops'] for r in ranks]}"
                              f", {per_position} reckoned a position")
 
