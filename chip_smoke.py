@@ -263,7 +263,21 @@ Phases, each asserting (any failure exits non-zero):
    group two shards share, flash exactly 64 a step against 4, the
    bytes each position fetches a layer; then smollm's widths at 2
    layers in f32 on a (1, 2) card mesh against the CPU's one-device
-   step (9b's tolerances), flash 48. The ``sharded_train`` records
+   step (9b's tolerances), flash 48. (11h) a MoE config's data rows
+   in lockstep, meeting at every MoE layer: qwen3-moe at phase 8's cut
+   (64/4 heads of 128, 128 experts top-8, vocab 151936; d_model 512,
+   expert d_ff 256), 4 layers, bf16, seeded, 3 steps of 4 x 2048 on a
+   (2, 2) mesh with every position on cuda:0, then on 1 x 1: step
+   seconds, tokens/s, peak bytes, flash exactly 32 a step (each row's
+   2 sequences on each shard's 32/2 heads) against 8, the process's
+   matmul FLOPs equal to ``step_matmul_flops`` (each row attending and
+   unembedding its own rows, routing all 4 sequences) and below the
+   parent's layout (each row the whole batch's forward), each
+   position's reckoned, losses within 1e-2; then the cut at 2 layers in
+   f32 and capacity factor 0.5, 3 steps of 2 x 128 on a (2, 1) card
+   mesh against the CPU's one-device step (9b's tolerances), flash 24;
+   then ``serve_lm.main`` on that f32 cut, 32 requests, on (2, 2)
+   against 1 x 1: equal tokens. The ``sharded_train`` records
    carry ``tp_split``, the split and the gathered leaves (none), and
    each position's resident bytes (``specs.shard_bytes``) and matmul
    FLOPs. Phase 2b checks and times flash at the shard shapes (4, 2048,
@@ -2008,14 +2022,16 @@ def tp_flash_shapes() -> dict:
     """{dtype name: the (B, S, H, Hk, Dh) of every flash call phase 11's
     split legs make}: each shard's head segments
     (``sharding.shard_heads``) over each data row's sequences, for
-    11a's smollm-135m on (2, 2), 11f's hymba-1.5b on (1, 4) and 11g's
-    deepseek-coder-33b on (1, 16) in bf16, and the f32 legs on (2, 2)
-    and (1, 2)."""
+    11a's smollm-135m on (2, 2), 11f's hymba-1.5b on (1, 4), 11g's
+    deepseek-coder-33b on (1, 16) and 11h's qwen3-moe on (2, 2) in bf16,
+    and the f32 legs on (2, 2), (1, 2) and (2, 1)."""
     from repro_torch.configs import get_config
     from repro_torch.models.sharding import shard_heads
     legs = [("bfloat16", "smollm-135m", SHARDED_TRAIN, (2, 2)),
             ("bfloat16", "hymba-1.5b", RECURRENT_TP["hymba"], (1, 4)),
             ("bfloat16", "deepseek-coder-33b", TP_PRODUCTION, (1, 16)),
+            ("bfloat16", "qwen3-moe-235b-a22b", MOE_ROWS, (2, 2)),
+            ("float32", "qwen3-moe-235b-a22b", MOE_ROWS_PARITY, (2, 1)),
             ("float32", "smollm-135m", SHARDED_PARITY, (2, 2)),
             ("float32", "smollm-135m", TP_PARITY, (1, 2)),
             ("float32", "hymba-1.5b", RECURRENT_PARITY, (1, 2))]
@@ -3707,15 +3723,21 @@ TP_TRAIN = dict(arch="granite-8b", n_layers=8, batch=4, seq=2048, steps=3,
 TP_PARITY = dict(batch=2, seq=128, steps=3)
 
 
-def tp_cell(cfg, mesh, seed: int, k: dict, label: str) -> dict:
+def tp_cell(cfg, mesh, seed: int, k: dict, label: str,
+            starts=None) -> dict:
     """``k["steps"]`` sharded train steps of ``cfg`` (seeded weights drawn
     on cuda:0, placed on ``mesh``) from seeded token batches: losses,
     each step's seconds and flash launches, the peak bytes, each
     position's resident bytes (which must be ``specs.shard_bytes``) and
     the matmul FLOPs ``FlopCounterMode`` counts in the first step (which
-    the median leaves out)."""
+    the median leaves out). With ``starts`` (a list) an empty one takes
+    the whole state before each step (on the host), and a filled one
+    (another run's) gives each step its state, placed anew outside the
+    timed step: the steps' losses then compare step by step, where
+    chained bf16 steps drift apart (see ``phase_moe_rows``)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import tree
     from repro_torch.distributed import placement
     from repro_torch.launch import specs
     from repro_torch.models import init_params
@@ -3738,8 +3760,17 @@ def tp_cell(cfg, mesh, seed: int, k: dict, label: str) -> dict:
                              f"{shard}")
     step = make_train_step(cfg, TrainStepConfig(), AdamWConfig(**TRAIN_OPT),
                            mesh=mesh)
+    shardings = TrainState(specs.param_shardings(cfg, mesh),
+                           specs.opt_state_shardings(cfg, mesh,
+                                                     zero1=mesh.size > 1))
     losses, secs, flash, flops = [], [], [], None
     for i in range(k["steps"]):
+        if starts is not None and len(starts) > i:
+            state = None
+            state = placement.place_tree(starts[i], shardings)
+        elif starts is not None:
+            starts.append(tree.tree_map(lambda t: t.cpu(),
+                                        placement.gather_tree(state)))
         b = _on(_train_inputs(cfg, k["batch"], k["seq"], i, seed),
                 MESH_DEVICE)
         torch.cuda.synchronize()
@@ -3986,6 +4017,145 @@ def phase_tp_production(seed: int) -> int:
     return total + rec["flash_launches"]
 
 
+#: 11h: a MoE config's data rows in lockstep, meeting at every MoE layer:
+#: qwen3-moe at phase 8's cut (its 64/4 heads of 128, 128 experts top-8
+#: and 151,936-token vocabulary; d_model narrowed to 512, the expert d_ff
+#: to 256), 4 layers, bf16, seeded, 3 steps of 4 x 2048 tokens on (2, 2)
+#: with every position on cuda:0, beside 1 x 1. A row attends its 2
+#: sequences on each shard's 32/2 heads: 4 layers x (forward, remat) x
+#: 2 rows x 2 shards flash calls a step
+MOE_ROWS = dict(arch="qwen3-moe-235b-a22b", n_layers=4, d_model=512,
+                d_ff=256, batch=4, seq=2048, steps=3, shape=(2, 2),
+                flash={"2x2": 32, "1x1": 8})
+#: 11h's f32 leg: the cut at 2 layers and capacity factor 0.5 (the
+#: layers drop assignments), 2 x 128 tokens, 3 steps on (2, 1) with both
+#: rows on cuda:0, against the CPU's one-device step
+MOE_ROWS_PARITY = dict(batch=2, seq=128, steps=3, capacity_factor=0.5)
+#: 11h's serve check: 32 requests of 16 + 8 tokens on (2, 2) and 1 x 1
+MOE_ROWS_SERVE = ["--batch", "32", "--prompt-len", "16", "--new-tokens",
+                  "8"]
+
+
+def moe_rows_config(n_layers: int, dtype: str = "bfloat16",
+                    capacity_factor=None):
+    """``MOE_ROWS``' cut of qwen3-moe at ``n_layers`` layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    k = MOE_ROWS
+    cfg = dataclasses.replace(get_config(k["arch"]), n_layers=n_layers,
+                              d_model=k["d_model"], d_ff=k["d_ff"],
+                              dtype=dtype)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    return cfg
+
+
+def phase_moe_rows(seed: int) -> int:
+    """11h: ``MOE_ROWS`` through ``tp_cell`` on (2, 2) (every position on
+    cuda:0) and on 1 x 1: flash as ``MOE_ROWS["flash"]`` states, the
+    process's matmul FLOPs equal to ``step_matmul_flops`` of its 2 rows
+    (each attending and unembedding its own 2 sequences, routing all 4
+    at every MoE layer) and below the parent's layout (each row the
+    whole batch's forward, its own rows' unembedding), each position's
+    reckoned, the losses within 1e-2 of 1 x 1. Then the f32 leg
+    (``MOE_ROWS_PARITY``, ``sharded_parity`` on (2, 1) against the CPU
+    within ``TRAIN_TOL``) and the serve check: ``serve_lm.main`` on the
+    cut at 2 layers in f32 and capacity factor 0.5 on (2, 2) gives the
+    1 x 1 tokens (no kernel launch). Each (2, 2) step starts from the
+    1 x 1 run's state before it: chained bf16 steps drift apart (1.2 %
+    at the third step on an H100, with rows in lockstep or not), AdamW
+    moving elements whose gradients lie within the bf16 noise of zero by
+    lr either way and the router then picking other experts. Returns
+    the flash launches."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.sharding import attention_calls, tp_split
+    from repro_torch.train.sharded import step_matmul_flops
+    k = MOE_ROWS
+    t0 = time.perf_counter()
+    cfg = moe_rows_config(k["n_layers"])
+    B, S = k["batch"], k["seq"]
+    legs, starts = {}, []
+    for name, mesh in (("1x1", make_host_mesh(MESH_DEVICE)),
+                       ("2x2", lm_mesh([MESH_DEVICE] * 4, k["shape"]))):
+        dp, tp = mesh.shape["data"], mesh.shape["model"]
+        leg = tp_cell(cfg, mesh, seed, k, f"11h {name}", starts=starts)
+        want = (train_flash_per_step(cfg, S, True) * dp
+                * attention_calls(cfg, tp))
+        if want != k["flash"][name] or \
+                leg["flash_launches_per_step"] != [want] * k["steps"]:
+            raise AssertionError(f"11h {name}: flash launches "
+                                 f"{leg['flash_launches_per_step']}, "
+                                 f"{want} reckoned, {k['flash'][name]} "
+                                 "stated")
+        rows = B // dp
+        reckoned = dp * step_matmul_flops(cfg, rows, S, tp, local=tp,
+                                          device="cuda", moe_rows=B)
+        # the parent's rows each ran the whole batch's forward and
+        # unembedded their own rows (6 N d V of the unembedding a row)
+        parent = (dp * step_matmul_flops(cfg, B, S, tp, local=tp,
+                                         device="cuda")
+                  - (dp - 1) * 6 * B * S * cfg.d_model * cfg.vocab)
+        counted = leg["matmul_flops_step_process"]
+        if counted != reckoned or (dp > 1 and not counted < parent):
+            raise AssertionError(f"11h {name}: {counted} matmul FLOPs, "
+                                 f"{reckoned} reckoned, the parent's "
+                                 f"layout {parent}")
+        leg.update(
+            matmul_flops_step_position=[step_matmul_flops(
+                cfg, rows, S, tp, position=j, device="cuda", moe_rows=B)
+                for j in range(tp)],
+            matmul_flops_parent_layout=parent, tp_split=tp_split(
+                cfg, mesh.shape))
+        legs[name] = leg
+    del starts
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(legs["2x2"]["losses"], legs["1x1"]["losses"])]
+    if not all(np.isfinite(legs["2x2"]["losses"])) or max(rel) > 1e-2:
+        raise AssertionError(f"11h: losses {legs['2x2']['losses']} against "
+                             f"{legs['1x1']['losses']}")
+    one = legs["1x1"]["matmul_flops_step_process"]
+    emit({"phase": "sharded_train", "leg": "11h MoE rows",
+          "each_step_from_the_1x1_state": True,
+          "model": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+          "heads": [cfg.n_heads, cfg.n_kv_heads], "vocab": cfg.vocab,
+          "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k, **k,
+          "remat": True, "legs": legs, "max_rel_loss_diff": max(rel),
+          "process_flops_over_1x1":
+              legs["2x2"]["matmul_flops_step_process"] / one,
+          "parent_layout_flops_over_1x1":
+              legs["2x2"]["matmul_flops_parent_layout"] / one})
+    total = sum(sum(leg["flash_launches_per_step"])
+                for leg in legs.values())
+    pk = MOE_ROWS_PARITY
+    f32 = moe_rows_config(2, "float32", pk["capacity_factor"])
+    rec = sharded_parity(seed, [MESH_DEVICE] * 2, "11h f32", cfg=f32,
+                         shape=(2, 1), k=pk, checkpoint=False)
+    emit({"phase": "sharded_train", "leg": "11h f32 rows vs CPU", **rec})
+    total += rec["flash_launches"]
+    argv = ["--arch", k["arch"], "--seed", str(seed)] + MOE_ROWS_SERVE
+    runs = {}
+    for name, mesh in (("1x1", make_host_mesh(MESH_DEVICE)),
+                       ("2x2", lm_mesh([MESH_DEVICE] * 4))):
+        toks, secs, launches = run_serve(argv, f32, mesh)
+        if any(launches.values()):
+            raise AssertionError(f"11h serve {name}: launches {launches}")
+        runs[name] = (toks.cpu(), secs)
+    if not torch.equal(runs["1x1"][0], runs["2x2"][0]):
+        raise AssertionError("11h serve: the (2, 2) tokens are not the "
+                             "1 x 1 run's")
+    emit({"phase": "sharded_serve", "leg": "11h MoE rows", "argv": argv,
+          "model": f32.name, "n_layers": f32.n_layers, "dtype": f32.dtype,
+          "capacity_factor": pk["capacity_factor"],
+          "seconds_1x1": runs["1x1"][1], "seconds_2x2": runs["2x2"][1],
+          "tokens_equal": True, "tokens": list(runs["2x2"][0].shape)})
+    emit({"phase": "sharded_train", "leg": "11h total",
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nyx", type=int, default=512,
@@ -4171,6 +4341,7 @@ def main(argv=None) -> int:
     launches["flash"] += phase_tp_train(seed=13)
     launches["flash"] += phase_recurrent_tp(seed=14)
     launches["flash"] += phase_tp_production(seed=15)
+    launches["flash"] += phase_moe_rows(seed=16)
     emit({"phase": "sharded_launch_total",
           "seconds": time.perf_counter() - t0})
 

@@ -44,6 +44,13 @@ of several leaves that may straddle the shards' blocks (attention's
 head columns): in one process copies of the pieces, across processes
 an all-gather of the leaf narrowed; its backward adds the takers'
 gradients into the owners' in f32, in model order.
+
+``BatchRows`` describes the data rows that meet at a MoE layer, and
+``gather_rows`` hands each of them every row's activation concatenated
+in row order (copies in one process, an all-gather over the batch axes
+across processes); its backward sums each row's slice of the copies'
+gradients in f32, in row order: a reduce-scatter with ``axis_sum``'s
+arithmetic.
 """
 from __future__ import annotations
 
@@ -59,7 +66,7 @@ __all__ = ["Sharded", "ModelShards", "place", "place_tree", "gather",
            "spec_axes", "model_dim", "mixed_radix", "all_gather",
            "axis_sum", "barrier", "ModelRow", "to_model", "sum_model",
            "split_model", "cat_model", "max_model", "take_model",
-           "take_plan"]
+           "take_plan", "BatchRows", "gather_rows"]
 
 
 class Sharded:
@@ -552,6 +559,86 @@ class ModelShards:
         if self.row.tp == 1:
             return self.parts[0].to(self.row.home)
         return cat_model(self.parts, self.row, self.dim)
+
+
+class BatchRows(NamedTuple):
+    """The data rows this process holds that meet at a MoE layer: every
+    row of a gather group in one process (in row order), the rank's own
+    row across processes. ``positions`` holds each local row's home
+    position (its first local position, whose device holds the row's
+    activations), ``bounds`` every row's range [lo, hi) of the domain
+    batch, in row order over ``axes`` (the rows whose tokens one MoE
+    layer routes together)."""
+    mesh: Any
+    axes: Tuple[str, ...]
+    positions: List[int]
+    bounds: List[Tuple[int, int]]
+
+    @property
+    def homes(self) -> List[torch.device]:
+        return [self.mesh.device_at(q) for q in self.positions]
+
+    @property
+    def ranges(self) -> List[Tuple[int, int]]:
+        """Each local row's [lo, hi)."""
+        return [self.bounds[mixed_radix(self.mesh.coords(q), self.axes,
+                                        self.mesh.shape)]
+                for q in self.positions]
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every row's tensor concatenated along dim 0 in row order, on each
+    local row's home; the backward sums each row's slice of every copy's
+    gradient in f32, in row order (``axis_sum``'s arithmetic)."""
+
+    @staticmethod
+    def forward(ctx, rows: BatchRows, *xs):
+        ctx.rows, ctx.like = rows, [(x.shape, x.dtype) for x in xs]
+        if rows.mesh.multi_process:
+            (x,) = xs
+            (q,) = rows.positions
+            return torch.cat(all_gather(rows.mesh, {q: x.contiguous()},
+                                        rows.axes)[q], 0)
+        return tuple(torch.cat([x.to(h) for x in xs], 0) for h in rows.homes)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gs):
+        rows = ctx.rows
+        n = sum(hi - lo for lo, hi in rows.bounds)
+        gs = [torch.zeros((n,) + tuple(shape[1:]), dtype=dtype, device=h)
+              if g is None else g
+              for g, (shape, dtype), h in zip(gs, ctx.like, rows.homes)]
+        if rows.mesh.multi_process:
+            (q,) = rows.positions
+            gs = all_gather(rows.mesh, {q: gs[0].contiguous()},
+                            rows.axes)[q]
+        out = [_model_sum([g[lo:hi].to(h) for g in gs], dtype)
+               for (lo, hi), h, (_, dtype) in zip(rows.ranges, rows.homes,
+                                                  ctx.like)]
+        return (None,) + tuple(out)
+
+
+def gather_rows(xs: Sequence[torch.Tensor], rows: BatchRows
+                ) -> List[torch.Tensor]:
+    """For each local row of ``rows``, the rows' tensors ``xs`` (one a
+    local row, each its rows of the domain batch along dim 0, the rows'
+    shapes equal) concatenated in row order, on the row's home: copies
+    in one process, an all-gather over ``rows.axes`` across processes.
+    The backward hands each row its slice of the gradient summed over
+    every row's copy in f32, in row order: a reduce-scatter built as an
+    all-gather and an ordered local sum, so ranks give one process's
+    bits."""
+    if len(xs) != len(rows.positions):
+        raise ValueError(f"gather_rows: {len(xs)} tensors for "
+                         f"{len(rows.positions)} local rows")
+    if len({hi - lo for lo, hi in rows.bounds}) != 1:
+        raise ValueError(f"gather_rows: uneven rows {rows.bounds}")
+    if not rows.mesh.multi_process and len(xs) != len(rows.bounds):
+        raise ValueError("gather_rows: one process holds every row of its "
+                         "group")
+    out = _GatherRows.apply(rows, *xs)
+    return [out] if isinstance(out, torch.Tensor) else list(out)
 
 
 def model_dim(spec) -> Optional[int]:

@@ -12,9 +12,13 @@ smaller one. As in the reference no parameter is placed: the params
 stay whole on each data row's device (a row is a position of the batch
 axes), the requests split over the rows (every row takes them all
 where they do not divide, and row 0's tokens are kept), and each row
-runs ``serve.greedy_generate`` on its own requests; across processes
-the rows' tokens are all-gathered, so every rank returns the whole
-batch's. ``--arch`` takes every config of ``configs`` (dense, gemma2,
+runs ``serve.greedy_generate`` on its own requests. A MoE config's rows
+decode in lockstep instead (``serve.greedy_generate_rows``): at every
+MoE layer the rows' tokens meet (``placement.gather_rows``) and each row
+routes the whole batch, as the reference's step does, so capacity and
+drops, and the tokens, are the 1 x 1 run's at any batch. Across
+processes the rows' tokens are all-gathered, so every rank returns the
+whole batch's. ``--arch`` takes every config of ``configs`` (dense, gemma2,
 MoE, llava, whisper, xLSTM and hymba). Like the reference launcher it
 prefills token by token through decode steps: llava gets no image
 embeddings and whisper's encoder memory stays the cache's zeros, as
@@ -37,10 +41,10 @@ import torch
 from .. import tree
 from ..configs import get_config, get_smoke_config
 from ..device import DeviceLike, resolve_device
-from ..distributed.placement import all_gather, mixed_radix
+from ..distributed.placement import BatchRows, all_gather, mixed_radix
 from ..models import init_params
 from ..models.sharding import axes_for_mesh
-from ..serve import greedy_generate
+from ..serve import greedy_generate, greedy_generate_rows
 from .mesh import launcher_mesh
 
 
@@ -88,11 +92,21 @@ def main(argv=None, *, device: DeviceLike = None, mesh=None):
     t0 = time.perf_counter()
     outs = {}
     with torch.inference_mode():
-        for r, (q, d) in homes.items():
-            lo = 0 if shared else r * per
-            outs[q] = greedy_generate(cfg, params[d],
-                                      prompt[lo:lo + per].to(d),
-                                      args.new_tokens)
+        if cfg.moe is not None and not shared and dp > 1:
+            order = sorted(homes)
+            meet = BatchRows(mesh, ax.batch, [homes[r][0] for r in order],
+                             [(r * per, (r + 1) * per) for r in range(dp)])
+            got = greedy_generate_rows(
+                cfg, [params[homes[r][1]] for r in order],
+                [prompt[lo:hi].to(d) for (lo, hi), d in
+                 zip(meet.ranges, meet.homes)], args.new_tokens, meet)
+            outs = dict(zip(meet.positions, got))
+        else:
+            for r, (q, d) in homes.items():
+                lo = 0 if shared else r * per
+                outs[q] = greedy_generate(cfg, params[d],
+                                          prompt[lo:lo + per].to(d),
+                                          args.new_tokens)
         _sync([d for _, d in homes.values()])
         if mesh.multi_process:
             (q,) = outs

@@ -14,10 +14,12 @@ expert-parallel MoE a shard at a time over the ambient mesh."""
 from . import recurrent
 from .config import ArchConfig, MoEConfig, ShapeConfig, SHAPES, shape_by_name
 from .model import (init_params, forward, decode_step, init_decode_cache,
-                    window_schedule, ForwardOut)
+                    window_schedule, ForwardOut, forward_rows,
+                    decode_step_rows)
 
 __all__ = [
     "ArchConfig", "MoEConfig", "ShapeConfig", "SHAPES", "shape_by_name",
     "init_params", "forward", "decode_step", "init_decode_cache",
-    "window_schedule", "ForwardOut", "recurrent",
+    "window_schedule", "ForwardOut", "recurrent", "forward_rows",
+    "decode_step_rows",
 ]

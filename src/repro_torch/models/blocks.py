@@ -29,7 +29,7 @@ weight columns, never activations. The MLPs split by
 ``layers.model_parallel``; such a layer returns no k and v."""
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -168,31 +168,57 @@ def attention_decode(cfg: ArchConfig, p, x, k_cache, v_cache, t: int, *,
     return x + y, k_cache, v_cache
 
 
+def _moe(cfg: ArchConfig, p, h) -> layers.MoEOut:
+    """The layer's MoE on its normed input ``h``: ``layers.moe_ffn``, or
+    under ``layers.MOE_EP_MODE`` the expert-parallel ``moe_ffn_ep``
+    (which falls back to ``moe_ffn`` where the reference's does) on
+    whole weights."""
+    moe = {"router": p["router"], "w_gate": p["moe_w_gate"],
+           "w_up": p["moe_w_up"], "w_down": p["moe_w_down"]}
+    if layers.MOE_EP_MODE:        # its own layout over the ambient mesh
+        moe = {k: layers.whole(v) for k, v in moe.items()}
+        return layers.moe_ffn_ep(h, moe, cfg.moe.n_experts, cfg.moe.top_k,
+                                 cfg.moe.capacity_factor)
+    return layers.moe_ffn(h, moe, cfg.moe.n_experts, cfg.moe.top_k,
+                          cfg.moe.capacity_factor)
+
+
+def _residual(cfg: ArchConfig, p, x, y) -> torch.Tensor:
+    if "ln2_post" in p:
+        y = layers.rms_norm(y, p["ln2_post"], cfg.norm_eps)
+    return x + y
+
+
 def ffn_block(cfg: ArchConfig, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense SwiGLU or MoE, with gemma2's post-norm where the layer has
-    one; returns (residual, aux_loss). The MoE is ``layers.moe_ffn``, or
-    under ``layers.MOE_EP_MODE`` the expert-parallel ``moe_ffn_ep`` (which
-    falls back to ``moe_ffn`` where the reference's does) on whole
-    weights."""
+    """Dense SwiGLU or MoE (``_moe``), with gemma2's post-norm where the
+    layer has one; returns (residual, aux_loss)."""
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
-        moe = {"router": p["router"], "w_gate": p["moe_w_gate"],
-               "w_up": p["moe_w_up"], "w_down": p["moe_w_down"]}
-        if layers.MOE_EP_MODE:    # its own layout over the ambient mesh
-            moe = {k: layers.whole(v) for k, v in moe.items()}
-            out = layers.moe_ffn_ep(h, moe, cfg.moe.n_experts,
-                                    cfg.moe.top_k, cfg.moe.capacity_factor)
-        else:
-            out = layers.moe_ffn(h, moe, cfg.moe.n_experts, cfg.moe.top_k,
-                                 cfg.moe.capacity_factor)
-        y, aux = out.y, out.aux_loss
+        y, aux = _moe(cfg, p, h)
     else:
         y = layers.model_parallel(layers.swiglu, h, p["w_gate"], p["w_up"],
                                   p["w_down"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if "ln2_post" in p:
-        y = layers.rms_norm(y, p["ln2_post"], cfg.norm_eps)
-    return x + y, aux
+    return _residual(cfg, p, x, y), aux
+
+
+def moe_block_rows(cfg: ArchConfig, ps, xs, rows: PL.BatchRows
+                   ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """``ffn_block`` of a MoE config over the data rows ``rows`` in
+    lockstep: ``xs`` each local row's residual (its own rows of the
+    batch), ``ps`` its layer params. The rows' normed inputs meet
+    (``placement.gather_rows``) and each row routes the whole domain
+    batch, the router, sort and dispatch replicated over the rows as the
+    reference's partitioner runs them, its experts split over its model
+    shards; each keeps its own rows of y. Returns each row's (residual,
+    aux_loss), the aux loss over the domain batch."""
+    hs = [layers.rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(ps, xs)]
+    out = []
+    for p, x, h, (lo, hi) in zip(ps, xs, PL.gather_rows(hs, rows),
+                                 rows.ranges):
+        y, aux = _moe(cfg, p, h)
+        out.append((_residual(cfg, p, x, y[lo:hi]), aux))
+    return out
 
 
 # --- whisper (enc-dec) ------------------------------------------------------

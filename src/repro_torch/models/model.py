@@ -226,10 +226,13 @@ class _FrameGate(torch.autograd.Function):
 
 
 def _spans_devices(args) -> bool:
-    """Whether a layer's model shards lie on more than one device."""
-    devs = {p.device for a in args if isinstance(a, dict)
-            for v in a.values() if isinstance(v, PL.ModelShards)
-            for p in v.parts}
+    """Whether a layer's model shards lie on more than one device (its
+    params a dict, or a list of dicts: a layer over several data
+    rows)."""
+    dicts = [d for a in args for d in (a if isinstance(a, list) else [a])
+             if isinstance(d, dict)]
+    devs = {p.device for a in dicts for v in a.values()
+            if isinstance(v, PL.ModelShards) for p in v.parts}
     return len(devs) > 1
 
 
@@ -453,6 +456,50 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     return ForwardOut(_unembed(cfg, params, x), aux_total, cache)
 
 
+def _moe_rows_layer(cfg: ArchConfig, rows, lps, xs, positions, window: int):
+    """One layer of a MoE config over the data rows ``rows`` in lockstep:
+    each row's attention on its own rows, then the MoE where the rows
+    meet (``blocks.moe_block_rows``). Returns each row's residual, then
+    each row's aux loss."""
+    ys = [blocks.attention_block(cfg, lp, x, pos, window=window).y
+          for lp, x, pos in zip(lps, xs, positions)]
+    out = blocks.moe_block_rows(cfg, lps, ys, rows)
+    return tuple(x for x, _ in out) + tuple(a for _, a in out)
+
+
+def forward_rows(cfg: ArchConfig, params: List[Params],
+                 batches: List[Dict[str, torch.Tensor]], rows, *,
+                 remat: bool = False) -> List[ForwardOut]:
+    """``forward(logits_mode="hidden")`` of a MoE config over data rows
+    that meet at every MoE layer: ``params`` and ``batches`` each local
+    row's of ``rows`` (a ``placement.BatchRows``), its batch its own rows
+    of the domain batch. The rows advance a layer at a time: each row
+    embeds, attends and normalizes its own rows, and every MoE layer
+    routes the domain batch (``blocks.moe_block_rows``), so the rows
+    compute the one-device forward's function. Under ``remat`` the unit
+    of recompute is one layer over every row (``_run``), so the
+    backward's recompute gathers again, in the forward's order. Returns
+    each row's final hidden states and aux loss (over the domain
+    batch)."""
+    if cfg.family != "moe":
+        raise ValueError(f"{cfg.name}: forward_rows runs the MoE family")
+    xs = [_embed_inputs(cfg, p, b) for p, b in zip(params, batches)]
+    positions = [torch.arange(x.shape[1], dtype=torch.int32,
+                              device=x.device).expand(x.shape[:2])
+                 for x in xs]
+    aux = [torch.zeros((), dtype=torch.float32, device=x.device)
+           for x in xs]
+    stacks = [_layers(p["blocks"]) for p in params]
+    n = len(xs)
+    for i, w in enumerate(window_schedule(cfg)):
+        out = _run(remat, _moe_rows_layer, cfg, rows, [s[i] for s in stacks],
+                   xs, positions, int(w))
+        xs = list(out[:n])
+        aux = [a + b for a, b in zip(aux, out[n:])]
+    return [ForwardOut(layers.rms_norm(x, p["final_norm"], cfg.norm_eps), a,
+                       None) for p, x, a in zip(params, xs, aux)]
+
+
 def _xlstm_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
                  remat: bool = False) -> torch.Tensor:
     for group, sp in zip(_layers(params["mlstm"]), _layers(params["slstm"])):
@@ -546,6 +593,29 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
             x, _ = blocks.ffn_block(cfg, lp, x)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, x), cache
+
+
+def decode_step_rows(cfg: ArchConfig, params: List[Params],
+                     caches: List[Dict[str, Any]], tokens: List[torch.Tensor],
+                     t: int, rows) -> List[torch.Tensor]:
+    """``decode_step`` of a MoE config over data rows that meet at every
+    MoE layer (``forward_rows``' rule): ``params``, ``caches`` and
+    ``tokens`` each local row's of ``rows``, its requests its own rows
+    of the batch. Every MoE layer routes the whole batch's tokens, so
+    capacity and drops are the one-device step's. Returns each row's
+    logits (its rows, 1, V) f32; the caches are updated in place."""
+    if cfg.family != "moe":
+        raise ValueError(f"{cfg.name}: decode_step_rows runs the MoE family")
+    xs = [_embed_tokens(cfg, p, tok) for p, tok in zip(params, tokens)]
+    for i, w in enumerate(window_schedule(cfg)):
+        lps = [_layer(p["blocks"], i) for p in params]
+        ys = [blocks.attention_decode(cfg, lp, x, c["k"][i], c["v"][i], t,
+                                      window=int(w))[0]
+              for lp, x, c in zip(lps, xs, caches)]
+        xs = [x for x, _ in blocks.moe_block_rows(cfg, lps, ys, rows)]
+    return [_unembed(cfg, p, layers.rms_norm(x, p["final_norm"],
+                                             cfg.norm_eps))
+            for p, x in zip(params, xs)]
 
 
 def _xlstm_decode(cfg: ArchConfig, params: Params, cache: Dict[str, Any],

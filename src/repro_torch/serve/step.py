@@ -9,7 +9,8 @@ from typing import Callable, Optional
 import torch
 
 from ..device import full_precision_matmuls
-from ..models import decode_step, forward, init_decode_cache
+from ..models import (decode_step, decode_step_rows, forward,
+                      init_decode_cache)
 from ..models.config import ArchConfig
 
 
@@ -58,21 +59,53 @@ def make_prefill(cfg: ArchConfig, max_len: int) -> Callable:
     return prefill
 
 
+def _generate(cfg: ArchConfig, step: Callable, prompts, n_new: int,
+              max_len: Optional[int]):
+    """Greedy generation token by token from position 0 through decode
+    steps only, over one prompt batch a row: ``step(caches, tokens, t)``
+    gives each row's logits. Returns each row's (B, n_new) int32
+    tokens."""
+    S0 = prompts[0].shape[1]
+    max_len = max_len or (S0 + n_new)
+    caches = [init_decode_cache(cfg, p.shape[0], max_len, device=p.device)
+              for p in prompts]
+    cur = [p[:, :1] for p in prompts]
+    out = []
+    for t in range(S0 + n_new - 1):
+        cur = [p[:, t:t + 1] for p in prompts] if t < S0 else cur
+        nxt = [torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+               for lg in step(caches, cur, t)]
+        if t >= S0 - 1:
+            out.append(nxt)
+            cur = nxt
+    if not out:
+        return [p[:, :0].to(torch.int32) for p in prompts]
+    return [torch.cat(col, dim=1) for col in zip(*out)]
+
+
 def greedy_generate(cfg: ArchConfig, params, prompt: torch.Tensor,
                     n_new: int, max_len: Optional[int] = None
                     ) -> torch.Tensor:
     """Reference end-to-end generation loop (token by token from position
     0, through decode steps only); returns (B, n_new) int32 tokens."""
-    B, S0 = prompt.shape
-    max_len = max_len or (S0 + n_new)
-    cache = init_decode_cache(cfg, B, max_len, device=prompt.device)
-    step = make_serve_step(cfg)
-    cur = prompt[:, :1]
-    out = []
-    for t in range(S0 + n_new - 1):
-        cur = prompt[:, t:t + 1] if t < S0 else cur
-        nxt, _, cache = step(params, cache, cur, t)
-        if t >= S0 - 1:
-            out.append(nxt)
-            cur = nxt
-    return torch.cat(out, dim=1) if out else prompt[:, :0].to(torch.int32)
+    full_precision_matmuls()
+
+    def step(caches, tokens, t):
+        return [decode_step(cfg, params, caches[0], tokens[0], t)[0]]
+    return _generate(cfg, step, [prompt], n_new, max_len)[0]
+
+
+def greedy_generate_rows(cfg: ArchConfig, params, prompts, n_new: int,
+                         rows, max_len: Optional[int] = None):
+    """``greedy_generate`` of a MoE config over data rows whose decode
+    steps advance together and meet at every MoE layer
+    (``models.decode_step_rows``): ``params`` and ``prompts`` each local
+    row's of ``rows`` (a ``placement.BatchRows``), its prompts its own
+    rows of the batch. The MoE routes the whole batch each step, so the
+    tokens are the one-device run's whatever the batch. Returns each
+    row's (B_row, n_new) int32 tokens."""
+    full_precision_matmuls()
+
+    def step(caches, tokens, t):
+        return decode_step_rows(cfg, params, caches, tokens, t, rows)
+    return _generate(cfg, step, prompts, n_new, max_len)

@@ -32,11 +32,21 @@ layers, the reference's partitioned step:
   count of labels >= 0, so the rows' gradients sum to the one-device
   gradient; microbatches split the batch first, as the reference's scan
   does, and keep its mean of microbatch means;
-* a MoE config's rows each run the whole batch's forward (the dense
-  dispatch sets capacity, drops and the aux loss over every token, so
-  the rows' tokens meet in every MoE layer) and take the loss of their
-  own rows and 1 / rows of the aux loss: the gather of each MoE layer's
-  input moved to the batch itself;
+* a MoE config's rows compute only their own rows and meet at every MoE
+  layer, as the reference's partitioner runs them: the rows of a domain
+  (the rows whose gradients sum exactly) advance in lockstep a layer at
+  a time (``models.forward_rows``; in one process every local row, one
+  backward through all their layers after each row's loss stage;
+  across processes the rank's row), each embedding, attending and
+  unembedding its own rows, and at
+  each MoE layer the rows' normed inputs are gathered
+  (``placement.gather_rows``, whose backward is the reduce-scatter in
+  row order) so that every row routes the domain batch (the dense
+  dispatch sets capacity, drops and the aux loss over every token) and
+  keeps its own rows of the output; a row takes 1 / rows of the aux
+  loss. The remat unit is one layer over the rows, so the recompute
+  gathers again. Under ``layers.MOE_EP_MODE``, or where the batch does
+  not divide, each row runs the whole microbatch's forward instead;
 * the rows' gradients sum over the batch axes (an all-gather and an f32
   sum in row order); with ``grad_compress`` over a ``pod`` axis they sum
   over ``data`` within the pod and then cross the pods compressed (one
@@ -57,12 +67,14 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .. import tree
 from ..distributed import placement as PL
 from ..distributed.compression import _codes, _step
 from ..models import forward as model_forward
+from ..models import forward_rows
 from ..models import layers as _L
 from ..models.model import unembed_shards
 from ..models.sharding import axes_for_mesh, shard_heads, tp_layout
@@ -132,17 +144,10 @@ def make_sharded_train_step(cfg, tcfg: TrainStepConfig,
             owners.extend([q] for q in qs)
         return view, flat, owners
 
-    def row_loss(params, mb: Dict[str, torch.Tensor], lo: int, hi: int,
-                 n_tok: torch.Tensor, shared: bool):
-        """(objective, masked loss sum of the row's rows, aux loss) of one
-        microbatch ``mb`` (the domain's), the row's rows being
-        ``lo:hi``."""
-        own = {k: v[lo:hi] for k, v in mb.items()}
-        out = model_forward(cfg, params, mb if coupled else own,
-                            remat=tcfg.remat, logits_mode="hidden")
-        h = out.logits
-        if coupled and (lo, hi) != (0, h.shape[0]):
-            h = h[lo:hi]
+    def loss_of(params, own: Dict[str, torch.Tensor], h,
+                n_tok: torch.Tensor, shared: bool):
+        """(the row's loss term, its masked loss sum) from its final
+        hidden states ``h``, its rows being ``own``."""
         parts, vrow = unembed_shards(cfg, params, h)
         if cfg.n_img_tokens and "image_embeds" in own:
             parts = [p[:, cfg.n_img_tokens:] for p in parts]
@@ -154,10 +159,57 @@ def make_sharded_train_step(cfg, tcfg: TrainStepConfig,
         loss = loss_sum / n_tok
         if shared and nd > 1:
             loss = loss / nd
-        aux = tcfg.aux_loss_weight * out.aux_loss
+        return loss, loss_sum.detach()
+
+    def aux_of(aux_loss, shared: bool):
+        aux = tcfg.aux_loss_weight * aux_loss
         if (coupled or shared) and nd > 1:
             aux = aux / nd
-        return loss + aux, loss_sum.detach(), out.aux_loss.detach()
+        return aux
+
+    def row_grads(params, mbs, spans, n_toks, shared: bool, meet, flat):
+        """The gradient of every leaf of ``flat`` (None where unused) and
+        each row's (loss sum, aux loss) of one microbatch: ``mbs`` the
+        domain's microbatch on each row's home, ``spans`` each row's
+        rows of it. With ``meet`` (a ``BatchRows``) the rows run in
+        lockstep on their own rows and meet at every MoE layer
+        (``models.forward_rows``): each row's loss from its final hidden
+        states alone first (its gradient of them and of the
+        unembedding: one row's logits live at a time), then one backward
+        through every row's layers from those gradients and the rows'
+        aux terms. Otherwise each row alone (a coupled MoE runs the
+        whole microbatch and keeps its own rows)."""
+        owns = [{k: v[lo:hi] for k, v in mb.items()}
+                for mb, (lo, hi) in zip(mbs, spans)]
+        if meet is None:
+            (p,), (mb,), (own,), ((lo, hi),), (n,) = (params, mbs, owns,
+                                                       spans, n_toks)
+            out = model_forward(cfg, p, mb if coupled else own,
+                                remat=tcfg.remat, logits_mode="hidden")
+            h = out.logits
+            if coupled and (lo, hi) != (0, h.shape[0]):
+                h = h[lo:hi]
+            loss, loss_sum = loss_of(p, own, h, n, shared)
+            g = torch.autograd.grad(loss + aux_of(out.aux_loss, shared),
+                                    flat, allow_unused=True)
+            return g, [(loss_sum, out.aux_loss.detach())]
+        outs = forward_rows(cfg, params, owns, meet, remat=tcfg.remat)
+        roots, seeds, head, stats = [], [], [None] * len(flat), []
+        for p, own, out, n in zip(params, owns, outs, n_toks):
+            h = out.logits.detach().requires_grad_(True)
+            loss, loss_sum = loss_of(p, own, h, n, shared)
+            gh, *g = torch.autograd.grad(loss, [h] + flat,
+                                         allow_unused=True)
+            head = [x if y is None else y if x is None else x + y
+                    for x, y in zip(head, g)]
+            aux = aux_of(out.aux_loss, shared)
+            roots += [out.logits, aux]
+            seeds += [gh, torch.ones_like(aux)]
+            stats.append((loss_sum, out.aux_loss.detach()))
+        g = torch.autograd.grad(roots, flat, grad_outputs=seeds,
+                                allow_unused=True)
+        return [y if x is None else x if y is None else x + y
+                for x, y in zip(g, head)], stats
 
     def split(B: int):
         """(domain batch, microbatch size, whether each row takes the
@@ -170,38 +222,60 @@ def make_sharded_train_step(cfg, tcfg: TrainStepConfig,
         m = Bd // n_mb
         return Bd, m, m % nd != 0 or m < nd
 
+    def groups(lockstep: bool) -> List[List[List[int]]]:
+        """The local rows that compute together, each a list of its
+        positions: in lockstep every row of a domain (the rows one MoE
+        layer routes: a pod's under compression), in row order; else
+        each row alone."""
+        if not lockstep:
+            return [[qs] for qs in rows().values()]
+        out: Dict[int, list] = {}
+        for qs in rows().values():
+            c = mesh.coords(qs[0])
+            out.setdefault(c["pod"] if compress else 0, []).append(
+                (PL.mixed_radix(c, sum_axes, sizes), qs))
+        return [[qs for _, qs in sorted(g)] for g in out.values()]
+
     def compute(params_like, batch, Bd: int, m: int, shared: bool):
         """Each local position's gradient leaves (its row's, summed over
         the microbatches) and metric inputs (loss sum, aux, count)."""
         leaves = tree.leaves(params_like)
         bounds = [(0, m)] if shared else [(j * m // nd, (j + 1) * m // nd)
                                           for j in range(nd)]
+        lockstep = (coupled and not shared and nd > 1
+                    and not _L.MOE_EP_MODE)
         grads: Dict[int, list] = {}
         stats: Dict[int, torch.Tensor] = {}
-        for qs in rows().values():
-            home = mesh.device_at(qs[0])
-            c = mesh.coords(qs[0])
+        for group in groups(lockstep):
+            homes = [mesh.device_at(qs[0]) for qs in group]
+            c = mesh.coords(group[0][0])
             pod = c["pod"] if compress else 0
-            lo, hi = bounds[0 if shared else
-                            PL.mixed_radix(c, sum_axes, sizes)]
-            view, flat, owners = row_view(leaves, qs)
-            params = tree.unflatten(params_like, view)
+            meet = (PL.BatchRows(mesh, sum_axes, [qs[0] for qs in group],
+                                 bounds) if lockstep else None)
+            spans = (meet.ranges if lockstep else
+                     [bounds[0 if shared else
+                             PL.mixed_radix(c, sum_axes, sizes)]])
+            views = [row_view(leaves, qs) for qs in group]
+            params = [tree.unflatten(params_like, v) for v, _, _ in views]
+            flat = [t for _, f, _ in views for t in f]
             acc = None
             for i in range(n_mb):
                 s0 = pod * Bd + i * m
-                mb = {k: v[s0:s0 + m].to(home) for k, v in batch.items()}
-                counts = [(mb["labels"][a:b] >= 0).float().sum()
-                          for a, b in bounds]
-                n_tok = counts[0]
-                for cnt in counts[1:]:
-                    n_tok = n_tok + cnt
-                n_tok = torch.clamp_min(n_tok, 1.0)
-                total, loss_sum, aux = row_loss(params, mb, lo, hi, n_tok,
-                                                shared)
-                g = torch.autograd.grad(total, flat, allow_unused=True)
+                mbs = [{k: v[s0:s0 + m].to(h) for k, v in batch.items()}
+                       for h in homes]
+                n_toks = []
+                for mb in mbs:
+                    counts = [(mb["labels"][a:b] >= 0).float().sum()
+                              for a, b in bounds]
+                    n_tok = counts[0]
+                    for cnt in counts[1:]:
+                        n_tok = n_tok + cnt
+                    n_toks.append(torch.clamp_min(n_tok, 1.0))
+                g, got = row_grads(params, mbs, spans, n_toks, shared,
+                                   meet, flat)
                 g = [torch.zeros_like(t) if x is None else x
                      for t, x in zip(flat, g)]
-                del total
+                del mbs
                 if n_mb <= 1:
                     acc = g
                 elif acc is None:
@@ -211,13 +285,18 @@ def make_sharded_train_step(cfg, tcfg: TrainStepConfig,
                         a_.add_(x)
             if n_mb > 1:
                 acc = [x / n_mb for x in acc]
-            for q in qs:
-                grads[q] = []
-                stats[q] = torch.stack([loss_sum.float(), aux.float(),
-                                        n_tok.float()]).to(mesh.device_at(q))
-            for x, own in zip(acc, owners):
-                for q in own:
-                    grads[q].append(x.to(mesh.device_at(q)))
+            k = 0
+            for qs, (_, f, owners), (loss_sum, aux), n_tok in zip(
+                    group, views, got, n_toks):
+                for q in qs:
+                    grads[q] = []
+                    stats[q] = torch.stack([loss_sum.float(), aux.float(),
+                                            n_tok.float()]).to(
+                                                mesh.device_at(q))
+                for x, own in zip(acc[k:k + len(f)], owners):
+                    for q in own:
+                        grads[q].append(x.to(mesh.device_at(q)))
+                k += len(f)
         return grads, stats
 
     def metrics_of(stats, shared: bool):
@@ -351,7 +430,9 @@ def _scan_flops(passes: int, chunks: int, inter: int, intra: int,
 
 def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
                       local: int = 1, position: Optional[int] = None,
-                      remat: bool = True, device: str = "cpu") -> int:
+                      remat: bool = True, device: str = "cpu",
+                      moe_rows: Optional[int] = None,
+                      microbatches: int = 1) -> int:
     """The matmul FLOPs of one train step of a data row's ``local``
     model shards (1: one position, as a rank computes; ``tp``: the
     whole row, as one process does, the sum over its shards), reckoned
@@ -366,7 +447,7 @@ def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
     dense config without softcap or window, xLSTM or hymba. Each
     projection is 2 N a b FLOPs forward, again under ``remat``, and
     twice in the backward (input and weight), but the recompute skips
-    the layer's last product (the checkpoint stops once it has every
+    a dense layer's last product (the checkpoint stops once it has every
     tensor the backward saved: the last local shard's w_down; a row
     spread over several cards of one process recomputes it, through
     ``models.model._FrameGate``, and is not reckoned here). Attention's
@@ -382,12 +463,20 @@ def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
     projections (q, k and the gates of the mLSTM, hymba's dt/B/C) run
     once a row; a split hymba projects its fused output twice a shard
     (its heads' rows of wo, its own rows). The unembedding is outside
-    remat."""
+    remat. A MoE config (without softcaps) attends and unembeds its
+    ``rows`` and routes ``moe_rows`` sequences at every MoE layer, once
+    for each of ``microbatches`` (default: the row's own, ``rows`` over
+    the microbatches; in lockstep the domain's microbatch): the f32
+    router (d x E) replicated on the row, the three expert products at
+    the static capacity (``E x cap`` slots of 2 d ff each) split over
+    ``model`` as ``tp_layout``'s "experts" says; the recompute runs
+    all of them (the layer's last saved tensor is the combine's)."""
     fam = cfg.family
-    if (fam not in ("dense", "ssm", "hybrid") or cfg.attn_softcap
+    if (fam not in ("dense", "ssm", "hybrid", "moe") or cfg.attn_softcap
             or cfg.final_softcap or cfg.local_global_period):
         raise NotImplementedError(f"{cfg.name}: the reckoning covers the "
-                                  "plain dense family, xLSTM and hymba")
+                                  "plain dense family, MoE, xLSTM and "
+                                  "hymba")
     layout = tp_layout(cfg, tp)
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab
     H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -430,13 +519,22 @@ def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
     heads = mine("attention", [(s.q[1] - s.q[0], s.kv[1] - s.kv[0])
                                for s in shard_heads(H, Hk, tp)], (H, Hk))
     # wq, wk, wv, and wo where it projects the attention alone (dense,
-    # a split hymba's heads' rows; a whole hymba's fused wo is ``own``)
-    q_and_o = 2 if fam == "dense" or split else 1
+    # MoE, a split hymba's heads' rows; a whole hymba's fused wo is
+    # ``own``)
+    q_and_o = 1 if fam == "hybrid" and not split else 2
     proj = [2 * N * d * Dh * (q_and_o * hq + 2 * hk) for hq, hk in heads]
-    m_div, m_n = share("mlp")
-    ffn = 2 * N * d * ff // m_div          # each of w_gate, w_up, w_down
-    mlp = m_n * passes * 3 * ffn - (passes - 3) * ffn
-    if fam == "dense":
+    if fam == "moe":
+        E, K = cfg.moe.n_experts, cfg.moe.top_k
+        Nm = (moe_rows or rows // microbatches) * seq
+        cap = int(np.ceil(Nm * K / E * cfg.moe.capacity_factor / 8)) * 8
+        e_div, e_n = (1, 1) if layout["experts"] == "whole" else (tp, local)
+        mlp = microbatches * passes * (2 * Nm * d * E + e_n * 3 * 2 * E
+                                       * cap * d * ff // e_div)
+    else:
+        m_div, m_n = share("mlp")
+        ffn = 2 * N * d * ff // m_div      # each of w_gate, w_up, w_down
+        mlp = m_n * passes * 3 * ffn - (passes - 3) * ffn
+    if fam in ("dense", "moe"):
         return cfg.n_layers * (sum(passes * pr + attention(hq, seq) for pr,
                                    (hq, _) in zip(proj, heads)) + mlp) \
             + unembed

@@ -64,6 +64,21 @@ of all three runs go in the record. Then the same three runs of
 chip_smoke's 11f xLSTM cell (xlstm-1.3b at full width, 8 layers, bf16,
 2 x 1024 tokens a step, 3 steps; ``chip_smoke.RECURRENT_TP["xlstm"]``),
 whose mLSTM and sLSTM blocks split over the ranks.
+
+    python3 tools/sharded_cards.py --train --ranks 4 --cell qwen3-moe
+    python3 tools/sharded_cards.py --train --ranks 4 --cell qwen3-moe \
+        --tree build/parent
+
+``--cell qwen3-moe`` runs the MoE rows' cell alone (``MOE_FULL``:
+qwen3-moe-235b-a22b at its published widths, 2 layers, bf16, 4 x 2048
+tokens a step on (2, N / 2)): the one-process mesh with position i on
+cuda:i, then N ranks, which must be bitwise the one-process run; each
+rank's matmul FLOPs the reckoning of its position (its row's 2
+sequences, every MoE layer routing all 4), each card's peak bytes.
+``--tree`` runs another checkout's ``src/`` (ranks too): a parent
+unpacked with ``git archive`` under ``build/``, run beside this tree in
+one call, gives the parent-against-change numbers (its FLOPs are
+recorded, not reckoned, where its ``step_matmul_flops`` lacks the cell).
 """
 from __future__ import annotations
 
@@ -311,16 +326,32 @@ def train_on_mesh(mesh, dev, seed: int) -> dict:
 
 
 #: the seed of each tensor-parallel cell's weights and batches (11e's,
-#: 11f's)
-TP_SEED = {"tp": 13, "xlstm": 14}
+#: 11f's, 11h's)
+TP_SEED = {"tp": 13, "xlstm": 14, "qwen3-moe": 16}
+
+#: the MoE rows' full-width cell: qwen3-moe-235b-a22b at its published
+#: widths (d 4096, 64/4 heads of 128, 128 experts top-8, expert d_ff
+#: 1536, vocab 151936), 2 of 94 layers (6.2 B parameters), bf16, 3 steps
+#: of 4 x 2048 tokens on (2, N / 2): each data row attends its 2
+#: sequences and every MoE layer routes all 4
+MOE_FULL = dict(arch="qwen3-moe-235b-a22b", n_layers=2, batch=4, seq=2048,
+                steps=3)
 
 
 def tp_cell_of(cell: str) -> dict:
-    """The tensor-parallel cell ``cell``: "tp" (11e's granite,
-    ``chip_smoke.TP_TRAIN``) or "xlstm" (11f's,
-    ``chip_smoke.RECURRENT_TP``)."""
+    """The sharded cell ``cell``: "tp" (11e's granite,
+    ``chip_smoke.TP_TRAIN``), "xlstm" (11f's,
+    ``chip_smoke.RECURRENT_TP``) or "qwen3-moe" (``MOE_FULL``)."""
     from chip_smoke import RECURRENT_TP, TP_TRAIN
+    if cell == "qwen3-moe":
+        return MOE_FULL
     return TP_TRAIN if cell == "tp" else RECURRENT_TP[cell]
+
+
+def cell_shape(cell: str, world: int) -> tuple:
+    """The mesh of ``cell`` over ``world`` positions: (2, N / 2) for the
+    MoE rows, (1, N) for the tensor-parallel cells."""
+    return (2, world // 2) if cell == "qwen3-moe" else (1, world)
 
 
 def tp_on_mesh(mesh, dev, cell: str) -> dict:
@@ -339,21 +370,34 @@ def tp_on_mesh(mesh, dev, cell: str) -> dict:
     from repro_torch.launch import specs
     from repro_torch.models import init_params
     from repro_torch.train import (AdamWConfig, TrainState, TrainStepConfig,
-                                   adamw_init, make_train_step)
+                                   make_train_step)
+    from repro_torch.train.optimizer import AdamWState
     k, seed = tp_cell_of(cell), TP_SEED[cell]
     cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                          dev)
+    # the moments placed from zeros that hold no storage: whole f32
+    # moments of the MoE cell (50 GB) would not fit the card
+    def zeros(p):
+        return torch.zeros((), dtype=torch.float32, device=dev).expand(
+            p.shape)
+    opt = AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
+                     tree.tree_map(zeros, params),
+                     tree.tree_map(zeros, params))
     state = placement.place_tree(
-        TrainState(params, adamw_init(params)),
+        TrainState(params, opt),
         TrainState(specs.param_shardings(cfg, mesh),
                    specs.opt_state_shardings(cfg, mesh,
                                              zero1=mesh.size > 1)))
-    del params
+    del params, opt
     step = make_train_step(cfg, TrainStepConfig(), AdamWConfig(**TRAIN_OPT),
                            mesh=mesh)
     sync = (lambda: torch.cuda.synchronize(dev)) if mesh.multi_process \
         else _sync_all
+    cards = [dev] if mesh.multi_process else [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
     losses, secs, flops = [], [], None
     for i in range(k["steps"]):
         b = {n: torch.from_numpy(v).to(dev) for n, v in
@@ -380,7 +424,9 @@ def tp_on_mesh(mesh, dev, cell: str) -> dict:
     del state
     torch.cuda.empty_cache()
     return {"losses": losses, "step_seconds": secs, "matmul_flops": flops,
-            "shard_sha1": sha}
+            "shard_sha1": sha,
+            "peak_bytes": {str(c): torch.cuda.max_memory_allocated(c)
+                           for c in cards}}
 
 
 def train_rank_worker(rank: int, world: int, addr: str, out: str,
@@ -394,8 +440,8 @@ def train_rank_worker(rank: int, world: int, addr: str, out: str,
         raise RuntimeError("init_distributed did not start a group")
     dev = torch.device("cuda", torch.cuda.current_device())
     if cell != "smollm":
-        rec = tp_on_mesh(make_mesh((1, world), ("data", "model")), dev,
-                         cell)
+        rec = tp_on_mesh(make_mesh(cell_shape(cell, world),
+                                   ("data", "model")), dev, cell)
     else:
         rec = train_on_mesh(make_mesh((2, world // 2), ("data", "model")),
                             dev, TRAIN_SEED)
@@ -403,6 +449,12 @@ def train_rank_worker(rank: int, world: int, addr: str, out: str,
     torch.save(rec, out)
     torch.distributed.destroy_process_group()
     return 0
+
+
+def _checkout() -> Path:
+    """The root of the checkout whose ``repro_torch`` this process runs."""
+    import repro_torch
+    return Path(repro_torch.__file__).resolve().parents[2]
 
 
 def _spawn(world: int, extra) -> list:
@@ -415,7 +467,8 @@ def _spawn(world: int, extra) -> list:
     env = dict(os.environ, NCCL_DEBUG="WARN")
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--ranks",
-         str(world), "--rank", str(r), "--rendezvous", f"localhost:{port}"]
+         str(world), "--rank", str(r), "--rendezvous", f"localhost:{port}",
+         "--tree", str(_checkout())]
         + extra(r), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, env=env) for r in range(world)]
     deadline = time.monotonic() + 600
@@ -479,11 +532,14 @@ def ranks_train_leg(world: int) -> None:
 
 
 def tp_ranks_leg(world: int, work: Path, cell: str) -> None:
-    """A tensor-parallel cell (``tp_on_mesh``) on a (1, ``world``) mesh
-    with position i on cuda:i in this process, over ``world`` NCCL
-    ranks, and on the 1 x 1 mesh of cuda:0: the ranks bitwise the
+    """A sharded cell (``tp_on_mesh``) on its ``cell_shape`` mesh with
+    position i on cuda:i in this process, over ``world`` NCCL ranks,
+    and (but for the MoE cell, whose 6.2 B parameters and moments do not
+    fit one card) on the 1 x 1 mesh of cuda:0: the ranks bitwise the
     one-process run (losses and every shard's sha1), each rank's FLOPs
-    the reckoned count of its own position."""
+    the reckoned count of its own position (where the checkout's
+    ``step_matmul_flops`` reckons the cell: a parent's may not), each
+    card's peak bytes."""
     import dataclasses
     import torch
     from chip_smoke import emit
@@ -493,14 +549,19 @@ def tp_ranks_leg(world: int, work: Path, cell: str) -> None:
     from repro_torch.train.sharded import step_matmul_flops
     k = tp_cell_of(cell)
     cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
-    mesh = make_mesh((1, world), ("data", "model"),
+    shape = cell_shape(cell, world)
+    mesh = make_mesh(shape, ("data", "model"),
                      devices=[f"cuda:{i}" for i in range(world)])
     one = tp_on_mesh(mesh, torch.device("cuda", 0), cell)
     _spawn(world, lambda r: ["--train", "--cell", cell, "--out",
                              str(work / f"{cell}{r}.pt")])
-    per_position = [step_matmul_flops(cfg, k["batch"], k["seq"], world,
-                                      position=r, device="cuda")
-                    for r in range(world)]
+    try:
+        per_position = [step_matmul_flops(
+            cfg, k["batch"] // shape[0], k["seq"], shape[1],
+            position=mesh.coords(r)["model"], device="cuda",
+            moe_rows=k["batch"]) for r in range(world)]
+    except (NotImplementedError, TypeError):    # a parent's reckoning
+        per_position = None
     ranks = []
     for r in range(world):
         got = torch.load(work / f"{cell}{r}.pt", weights_only=False)
@@ -509,25 +570,30 @@ def tp_ranks_leg(world: int, work: Path, cell: str) -> None:
         ranks.append({"rank": r, "device": got["device"],
                       "losses": got["losses"], "bitwise": same,
                       "matmul_flops": got["matmul_flops"],
-                      "step_seconds": got["step_seconds"]})
-    host = tp_on_mesh(make_host_mesh("cuda:0"), torch.device("cuda", 0),
-                      cell)
+                      "step_seconds": got["step_seconds"],
+                      "peak_bytes": got["peak_bytes"]})
+    host = None
+    if cell != "qwen3-moe":
+        run = tp_on_mesh(make_host_mesh("cuda:0"), torch.device("cuda", 0),
+                         cell)
+        host = {n: run[n] for n in ("losses", "step_seconds",
+                                    "matmul_flops", "peak_bytes")}
     emit({"phase": "sharded_train_tp_ranks", "cell": cell, "world": world,
           "model": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
           **k, "mesh": mesh.shape, "backend": "nccl",
+          "package": str(_checkout()),
           "tp_split": tp_split(cfg, mesh.shape),
-          "one_process": {"losses": one["losses"],
-                          "step_seconds": one["step_seconds"],
-                          "matmul_flops": one["matmul_flops"]},
-          "ranks": ranks, "one_card_1x1": {
-              "losses": host["losses"], "step_seconds": host["step_seconds"],
-              "matmul_flops": host["matmul_flops"]},
+          "one_process": {n: one[n] for n in ("losses", "step_seconds",
+                                              "matmul_flops",
+                                              "peak_bytes")},
+          "ranks": ranks, "one_card_1x1": host,
           "matmul_flops_reckoned_per_position": per_position,
           "all_bitwise": all(r["bitwise"] for r in ranks)})
     if not all(r["bitwise"] for r in ranks):
-        raise AssertionError("the ranks' tensor-parallel steps are not the "
+        raise AssertionError("the ranks' sharded steps are not the "
                              "one-process mesh's")
-    if any(r["matmul_flops"] != per_position[r["rank"]] for r in ranks):
+    if per_position is not None and any(
+            r["matmul_flops"] != per_position[r["rank"]] for r in ranks):
         raise AssertionError(f"rank FLOPs {[r['matmul_flops'] for r in ranks]}"
                              f", {per_position} reckoned a position")
 
@@ -562,15 +628,20 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--rendezvous", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--cell", default="smollm", help=argparse.SUPPRESS)
+    ap.add_argument("--cell", default=None,
+                    help="with --train --ranks: run this cell alone "
+                         "(qwen3-moe: the MoE rows at full width)")
+    ap.add_argument("--tree", default=None,
+                    help="run the package of another checkout (its src/), "
+                         "such as a parent unpacked under build/")
     args = ap.parse_args(argv)
     import torch
-    sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.tree or ROOT).resolve() / "src"))
     if args.rank is not None:
         if args.train:
             return train_rank_worker(args.rank, args.ranks, args.rendezvous,
-                                     args.out, args.cell)
+                                     args.out, args.cell or "smollm")
         return rank_worker(args.rank, args.ranks, args.rendezvous)
     if torch.cuda.device_count() < 2:
         print("sharded_cards: needs two or more CUDA cards", file=sys.stderr)
@@ -597,7 +668,11 @@ def main(argv=None) -> int:
         emit({"phase": "cards", "count": cards, "smi": smi})
         if args.ep:
             ep_leg(cards)
-        if args.ranks:
+        if args.ranks and args.train and args.cell:
+            work = ROOT / "build" / "train_ranks"
+            work.mkdir(parents=True, exist_ok=True)
+            tp_ranks_leg(args.ranks, work, args.cell)
+        elif args.ranks:
             (ranks_train_leg if args.train else ranks_leg)(args.ranks)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

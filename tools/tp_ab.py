@@ -16,6 +16,9 @@ cells are that commit's. The second is a comma-separated list (default
   a (2, 2) mesh of cuda:0 and on 1 x 1);
 * ``11e``, ``11f_hymba``: ``tp_legs`` of granite-8b's and hymba-1.5b's
   cells (their f32 legs against the CPU left out);
+* ``11h``: ``tp_cell`` of 11h's MoE cell (``MOE_CELL``, defined here
+  so that a parent without 11h runs the same cell) on (2, 2) and on
+  1 x 1, with the process's matmul FLOPs of the first step;
 * ``prof_11a``: one (2, 2) smollm-135m step after two warm ones under
   ``torch.profiler``: its wall seconds, the kernel launches
   (``cudaLaunchKernel`` calls), the sum of every row's self device time
@@ -44,7 +47,15 @@ from pathlib import Path
 SEEDS = dict(phase_flash_segments=19, phase_sharded_train_full=10,
              phase_sharded_train_parity=11, phase_sharded_serve=12,
              phase_sharded_cards=11, phase_tp_train=13,
-             phase_recurrent_tp=14, phase_tp_production=15)
+             phase_recurrent_tp=14, phase_tp_production=15,
+             phase_moe_rows=16)
+
+
+#: ``chip_smoke.MOE_ROWS``' cell: qwen3-moe at d_model 512 and expert
+#: d_ff 256 (its heads, experts, top-k and vocabulary), 4 layers, bf16,
+#: 3 steps of 4 x 2048 tokens, seed 16
+MOE_CELL = dict(arch="qwen3-moe-235b-a22b", n_layers=4, d_model=512,
+                d_ff=256, batch=4, seq=2048, steps=3, seed=16)
 
 
 def steps(rec: dict) -> dict:
@@ -111,6 +122,19 @@ def run_cell(C, cell: str):
         cfg = dataclasses.replace(get_config(k["arch"]),
                                   n_layers=k["n_layers"])
         return steps(C.tp_legs(cell, cfg, k, 13 if cell == "11e" else 14))
+    if cell == "11h":
+        from repro_torch.launch.mesh import make_host_mesh
+        k = MOE_CELL
+        cfg = dataclasses.replace(get_config(k["arch"]),
+                                  n_layers=k["n_layers"],
+                                  d_model=k["d_model"], d_ff=k["d_ff"])
+        legs = {name: C.tp_cell(cfg, mesh, k["seed"], k, f"11h {name}")
+                for name, mesh in (
+                    ("2x2", C.lm_mesh([C.MESH_DEVICE] * 4)),
+                    ("1x1", make_host_mesh(C.MESH_DEVICE)))}
+        return {n: steps({"legs": legs})[n]
+                + (leg["matmul_flops_step_process"], leg["losses"])
+                for n, leg in legs.items()}
     if cell == "prof_11a":
         return profile_smollm(C)
     return getattr(C, cell)(seed=SEEDS[cell])
