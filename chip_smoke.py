@@ -4156,6 +4156,207 @@ def phase_moe_rows(seed: int) -> int:
     return total
 
 
+#: 11i: expert parallelism at the reference's partition, under
+#: MOE_EP_MODE with the mesh ambient: 11h's cut of qwen3-moe, 3 steps of
+#: 4 x 2048 on (2, 2) with every position on cuda:0 (each position routes
+#: its row's 4,096 tokens through its 64 of the 128 experts), beside
+#: 1 x 1 (one position, all 128 experts), each (2, 2) step from the 1 x 1
+#: state. Capacity factor 4.0, the least at which no assignment can drop
+#: in either layout (an expert takes at most one a token: cap_loc 8,192
+#: on 1 x 1, 8,192 from a row's two senders on (2, 2)). At 11h's 1.25
+#: the first AdamW step on the seeded router sends most tokens to a few
+#: experts, 60-83 % of the assignments drop, and which tokens keep their
+#: experts depends on the layout by design (each row's capacity under
+#: EP, the batch's on 1 x 1: the reference's semantics): a step's loss
+#: moved 1.2 % from 1 x 1's, 1.9 % at 2.0; at 5.0 1.6e-4. Flash as 11h:
+#: 32 a step on (2, 2), 8 on 1 x 1
+MOE_EP = dict(MOE_ROWS, capacity_factor=4.0, flash={"2x2": 32, "1x1": 8})
+#: 11i's f32 leg: the smoke config, 3 steps of 8 x 1024 (EP engages
+#: above 4,096 tokens) on (2, 2) on cuda:0 against the same mesh on the
+#: CPU, each card step from the CPU's state (chained, a router tie at the
+#: third step moved 3 of 156,992 params past 1e-4); flash 16 a step (2
+#: layers, forward and remat, 2 rows, 2 shards)
+MOE_EP_PARITY = dict(batch=8, seq=1024, steps=3, flash=16)
+
+
+@contextlib.contextmanager
+def expert_parallel(mesh):
+    """``layers.MOE_EP_MODE`` with ``mesh`` ambient; yields a record of
+    the EP bodies run and the expert leaves gathered whole (which must
+    stay empty)."""
+    import torch
+    from repro_torch.distributed import placement
+    from repro_torch.models import layers
+    seen = {"bodies": 0, "built": []}
+    body, whole, full = (layers._moe_ep_body, layers.whole,
+                         placement.ModelShards.full)
+
+    def count(*a, **k):
+        seen["bodies"] += 1
+        return body(*a, **k)
+
+    def spy_whole(w):
+        if not isinstance(w, torch.Tensor) and w.parts[0].dim() >= 3:
+            seen["built"].append(tuple(w.parts[0].shape))
+        return whole(w)
+
+    def spy_full(self):
+        if self.parts[0].dim() >= 3:
+            seen["built"].append(tuple(self.parts[0].shape))
+        return full(self)
+    layers._moe_ep_body, layers.whole = count, spy_whole
+    placement.ModelShards.full = spy_full
+    layers.MOE_EP_MODE = True
+    try:
+        with mesh:
+            yield seen
+    finally:
+        layers.MOE_EP_MODE = False
+        layers._moe_ep_body, layers.whole = body, whole
+        placement.ModelShards.full = full
+
+
+def phase_moe_ep_rows(seed: int) -> int:
+    """11i: ``MOE_EP`` through ``tp_cell`` under ``expert_parallel`` on
+    1 x 1 and then on (2, 2) (every position on cuda:0; each (2, 2) step
+    from the 1 x 1 run's state before it, as 11h): EP bodies run and no
+    expert leaf built whole, flash as ``MOE_EP["flash"]`` states, the
+    process's matmul FLOPs equal to ``step_matmul_flops(..., ep_rows=dp)``
+    over its positions, each position's reckoned, the bytes the
+    exchanges move a layer (``placement.EXCHANGED``), the losses within
+    1e-2 of 1 x 1. Then the f32 leg (``MOE_EP_PARITY``): the smoke
+    config's 3 EP steps on a (2, 2) mesh on cuda:0 against the same mesh
+    on the CPU within ``TRAIN_TOL``, each card step from the CPU's state.
+    Returns the flash launches."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import placement
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers
+    from repro_torch.train import (AdamWConfig, TrainState, TrainStepConfig,
+                                   adamw_init, make_train_step)
+    from repro_torch.train.sharded import step_matmul_flops
+    k = MOE_EP
+    t0 = time.perf_counter()
+    cfg = moe_rows_config(k["n_layers"], capacity_factor=k["capacity_factor"])
+    B, S = k["batch"], k["seq"]
+    legs, starts = {}, []
+    for name, mesh in (("1x1", make_host_mesh(MESH_DEVICE)),
+                       ("2x2", lm_mesh([MESH_DEVICE] * 4, k["shape"]))):
+        dp, tp = mesh.shape["data"], mesh.shape["model"]
+        placement.EXCHANGED["bytes"] = 0
+        with expert_parallel(mesh) as seen:
+            leg = tp_cell(cfg, mesh, seed, k, f"11i {name}", starts=starts)
+        if not seen["bodies"] or seen["built"]:
+            raise AssertionError(f"11i {name}: {seen['bodies']} EP bodies, "
+                                 f"expert leaves built whole "
+                                 f"{seen['built']}")
+        if leg["flash_launches_per_step"] != [k["flash"][name]] * k["steps"]:
+            raise AssertionError(f"11i {name}: flash launches "
+                                 f"{leg['flash_launches_per_step']}, "
+                                 f"{k['flash'][name]} stated")
+        ep = layers.ep_shape(B * S, dp, tp, cfg.moe.n_experts,
+                             cfg.moe.top_k, cfg.d_ff,
+                             cfg.moe.capacity_factor)
+        reckoned = dp * step_matmul_flops(cfg, B // dp, S, tp, local=tp,
+                                          device="cuda", ep_rows=dp)
+        counted = leg["matmul_flops_step_process"]
+        if counted != reckoned:
+            raise AssertionError(f"11i {name}: {counted} matmul FLOPs, "
+                                 f"{reckoned} reckoned")
+        leg.update(
+            ep_shape=ep._asdict(),
+            expert_slots_per_position_layer=ep.e_loc * ep.cap_loc,
+            matmul_flops_step_position=step_matmul_flops(
+                cfg, B // dp, S, tp, device="cuda", ep_rows=dp),
+            exchanged_bytes_per_step_layer=placement.EXCHANGED["bytes"]
+            / k["steps"] / cfg.n_layers, ep_bodies=seen["bodies"])
+        legs[name] = leg
+    del starts
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(legs["2x2"]["losses"], legs["1x1"]["losses"])]
+    if not all(np.isfinite(legs["2x2"]["losses"])) or max(rel) > 1e-2:
+        raise AssertionError(f"11i: losses {legs['2x2']['losses']} against "
+                             f"{legs['1x1']['losses']}")
+    emit({"phase": "sharded_train", "leg": "11i expert parallel",
+          "each_step_from_the_1x1_state": True, "model": cfg.name,
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+          "heads": [cfg.n_heads, cfg.n_kv_heads], "vocab": cfg.vocab,
+          "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k, **k,
+          "remat": True, "legs": legs, "max_rel_loss_diff": max(rel),
+          "process_flops_over_1x1":
+              legs["2x2"]["matmul_flops_step_process"]
+              / legs["1x1"]["matmul_flops_step_process"]})
+    total = sum(sum(leg["flash_launches_per_step"])
+                for leg in legs.values())
+    pk = MOE_EP_PARITY
+    f32 = dataclasses.replace(get_smoke_config(k["arch"]), dtype="float32")
+    cpu, gpu = _weights_both(f32, seed)
+    meshes = {"cpu": lm_mesh(["cpu"] * 4), "card": lm_mesh([MESH_DEVICE] * 4)}
+    shard = {side: TrainState(specs.param_shardings(f32, m),
+                              specs.opt_state_shardings(f32, m, zero1=True))
+             for side, m in meshes.items()}
+    fns = {side: make_train_step(f32, TrainStepConfig(),
+                                 AdamWConfig(**TRAIN_OPT), mesh=m)
+           for side, m in meshes.items()}
+    sc = placement.place_tree(TrainState(cpu, adamw_init(cpu)), shard["cpu"])
+    runs = {"cpu": [[], None, 0], "card": [[], None, 0]}
+    for i in range(pk["steps"]):
+        start = placement.gather_tree(sc)
+        sg = placement.place_tree(
+            tree.tree_map(lambda t: t.to(MESH_DEVICE), start), shard["card"])
+        b = _train_inputs(f32, pk["batch"], pk["seq"], i, seed)
+        for side in ("cpu", "card"):
+            with expert_parallel(meshes[side]) as seen:
+                reset_launches()
+                if side == "cpu":
+                    sc, m = fns[side](sc, _on(b, "cpu"))
+                else:
+                    sg, m = fns[side](sg, _on(b, "cuda"))
+                runs[side][0].append(float(m["loss"]))
+                runs[side][2] += read_launches()["flash"]
+            if not seen["bodies"] or seen["built"]:
+                raise AssertionError(f"11i f32 {side}: {seen}")
+    runs["cpu"][1] = placement.gather_tree(sc)
+    runs["card"][1] = placement.gather_tree(sg)
+    del cpu, gpu
+    want = pk["flash"] * pk["steps"]
+    if runs["cpu"][2] != 0 or runs["card"][2] != want:
+        raise AssertionError(f"11i f32: flash {runs['card'][2]} on the card, "
+                             f"{runs['cpu'][2]} on the CPU, {want} stated")
+    for lc, lg in zip(runs["cpu"][0], runs["card"][0]):
+        if not abs(lg - lc) <= TRAIN_TOL["loss"] * abs(lc):
+            raise AssertionError(f"11i f32: loss {lg} on the card, {lc} on "
+                                 "the CPU")
+    over, total_p, err = 0, 0, 0.0
+    for a, b in zip(_leaves(runs["cpu"][1].params),
+                    _leaves(runs["card"][1].params)):
+        d = (b.cpu() - a).abs()
+        over += int((d > TRAIN_TOL["param"]).sum())
+        total_p += d.numel()
+        err = max(err, float(d.max()))
+    if over > TRAIN_TOL["param_share"] * total_p or \
+            err > 2 * TRAIN_OPT["lr_peak"] * pk["steps"]:
+        raise AssertionError(f"11i f32: {over} of {total_p} params differ "
+                             f"by more than {TRAIN_TOL['param']}, the most "
+                             f"by {err}")
+    emit({"phase": "sharded_train", "leg": "11i f32 card mesh vs CPU mesh",
+          "model": f32.name, "dtype": f32.dtype, "mesh": [2, 2], **pk,
+          "each_step_from_the_cpu_state": True,
+          "losses_cpu_card": list(zip(runs["cpu"][0], runs["card"][0])),
+          "param_max_abs_err": err, "params_over_tol": over,
+          "params": total_p, "flash_launches": runs["card"][2]})
+    total += runs["card"][2]
+    emit({"phase": "sharded_train", "leg": "11i total",
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nyx", type=int, default=512,
@@ -4342,6 +4543,7 @@ def main(argv=None) -> int:
     launches["flash"] += phase_recurrent_tp(seed=14)
     launches["flash"] += phase_tp_production(seed=15)
     launches["flash"] += phase_moe_rows(seed=16)
+    launches["flash"] += phase_moe_ep_rows(seed=17)
     emit({"phase": "sharded_launch_total",
           "seconds": time.perf_counter() - t0})
 

@@ -54,6 +54,7 @@ arithmetic.
 """
 from __future__ import annotations
 
+import math
 from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
                     Tuple)
 
@@ -66,7 +67,9 @@ __all__ = ["Sharded", "ModelShards", "place", "place_tree", "gather",
            "spec_axes", "model_dim", "mixed_radix", "all_gather",
            "axis_sum", "barrier", "ModelRow", "to_model", "sum_model",
            "split_model", "cat_model", "max_model", "take_model",
-           "take_plan", "BatchRows", "gather_rows"]
+           "take_plan", "BatchRows", "gather_rows", "EXCHANGED",
+           "exchange_model", "permute_model", "to_first", "scatter_first",
+           "from_first", "mean_rows_model"]
 
 
 class Sharded:
@@ -639,6 +642,319 @@ def gather_rows(xs: Sequence[torch.Tensor], rows: BatchRows
                          "group")
     out = _GatherRows.apply(rows, *xs)
     return [out] if isinstance(out, torch.Tensor) else list(out)
+
+
+# ---------------------------------------------------------------------------
+# exchanges between the model shards of a row (expert parallelism)
+# ---------------------------------------------------------------------------
+
+#: bytes the exchanges (``exchange_model``, ``permute_model``,
+#: ``to_first``, ``from_first``, ``scatter_first``) moved between two
+#: positions of a row, forward and backward; a counter the caller resets
+EXCHANGED = {"bytes": 0}
+
+
+def _exchange(row: ModelRow, sends: Sequence[Sequence[torch.Tensor]],
+              shapes: Sequence[Sequence[Tuple[int, ...]]],
+              dtype: torch.dtype) -> List[List[torch.Tensor]]:
+    """Each local shard's tensors from every shard of ``row``:
+    ``sends[k][j]`` local shard k's tensor for model coordinate j,
+    ``shapes[i][j]`` the shape coordinate i sends coordinate j (all of
+    ``dtype``). Returns ``out[k][i]``, what local shard k received from
+    coordinate i, on its device: copies in one process, one
+    ``all_to_all_single`` over ``model`` of the tensors' bytes across
+    processes."""
+    tp = row.tp
+    size = torch.empty((), dtype=dtype).element_size()
+    for i in row.indices:
+        EXCHANGED["bytes"] += size * sum(
+            math.prod(shapes[i][j]) for j in range(tp) if j != i)
+    if not row.mesh.multi_process:
+        return [[sends[i][j].to(dev) for i in range(tp)]
+                for j, dev in zip(row.indices, row.devices)]
+    import torch.distributed as dist
+    (send,), (me,) = sends, row.indices
+    raw = [_wire(t) for t in send]
+    out_sizes = [math.prod(shapes[i][me]) * size for i in range(tp)]
+    out = torch.empty(sum(out_sizes), dtype=torch.uint8,
+                      device=row.devices[0])
+    dist.all_to_all_single(out, torch.cat(raw), out_sizes,
+                           [r.numel() for r in raw],
+                           group=row.mesh.group(("model",)))
+    return [[p.view(dtype).reshape(shapes[i][me])
+             for i, p in enumerate(out.split(out_sizes))]]
+
+
+def _swap(row: ModelRow, blocks: Sequence[torch.Tensor]
+          ) -> List[torch.Tensor]:
+    """``exchange_model``'s exchange on tensors."""
+    shape = tuple(blocks[0].shape[1:])
+    got = _exchange(row, [b.unbind(0) for b in blocks],
+                    [[shape] * row.tp] * row.tp, blocks[0].dtype)
+    return [torch.stack(r) for r in got]
+
+
+class _ExchangeModel(torch.autograd.Function):
+    """``exchange_model`` with a gradient: the backward is the same
+    exchange of the gradients (block i of shard j's gradient goes back to
+    shard i as its block j)."""
+
+    @staticmethod
+    def forward(ctx, row: ModelRow, *blocks):
+        ctx.row, ctx.like = row, [(b.shape, b.dtype, b.device)
+                                  for b in blocks]
+        return tuple(_swap(row, blocks))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gs):
+        gs = [torch.zeros(s, dtype=dt, device=dv) if g is None else g
+              for g, (s, dt, dv) in zip(gs, ctx.like)]
+        return (None,) + tuple(_swap(ctx.row, gs))
+
+
+def exchange_model(blocks: Sequence[torch.Tensor], row: ModelRow
+                   ) -> List[torch.Tensor]:
+    """The all-to-all over ``model`` of each local shard's ``(tp, ...)``
+    blocks (one tensor a local shard, in ``row.positions`` order, equal
+    shapes): block j of every shard goes to model shard j, which
+    receives block i from shard i, in shard order
+    (``jax.lax.all_to_all(x, "model", 0, 0, tiled=False)``). In one
+    process copies between the shards' devices, across processes one
+    ``all_to_all_single`` over the row's model group of the blocks'
+    bytes. The backward is the reverse exchange; integer blocks (the
+    expert ids) cross without a gradient."""
+    if len(blocks) != len(row.positions):
+        raise ValueError(f"exchange_model: {len(blocks)} blocks for "
+                         f"{len(row.positions)} local shards")
+    if any(b.shape[0] != row.tp for b in blocks):
+        raise ValueError(f"exchange_model: blocks {blocks[0].shape} for "
+                         f"{row.tp} shards")
+    if not blocks[0].is_floating_point():
+        return _swap(row, blocks)
+    return list(_ExchangeModel.apply(row, *blocks))
+
+
+class _PermuteModel(torch.autograd.Function):
+    """``permute_model``: the backward hands each taken row's gradient
+    back to its owner (every row is taken once: no sum)."""
+
+    @staticmethod
+    def forward(ctx, row: ModelRow, plan, *parts):
+        ctx.row, ctx.plan = row, plan
+        ctx.like = [(p.shape, p.dtype, p.device) for p in parts]
+        return tuple(_permute(row, plan, parts))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gs):
+        row, plan = ctx.row, ctx.plan
+        gs = [torch.zeros((len(plan[j]),) + tuple(s[1:]), dtype=dt,
+                          device=dv) if g is None else g
+              for g, j, (s, dt, dv) in zip(gs, row.indices, ctx.like)]
+        tp = row.tp
+        back = [[[] for _ in range(tp)] for _ in gs]
+        for k, j in enumerate(row.indices):       # taker j's rows, home
+            for t, (i, _) in enumerate(plan[j]):
+                back[k][i].append(gs[k][t])
+        shape = tuple(gs[0].shape[1:])
+        sizes = _plan_sizes(plan, tp)
+        got = _exchange(row, [[torch.stack(b) if b else
+                               gs[k].new_zeros((0,) + shape) for b in bk]
+                              for k, bk in enumerate(back)],
+                        [[(sizes[i][j],) + shape for i in range(tp)]
+                         for j in range(tp)], gs[0].dtype)
+        out = []
+        for k, i in enumerate(row.indices):       # owner i
+            g = torch.empty(ctx.like[k][0], dtype=gs[0].dtype,
+                            device=ctx.like[k][2])
+            for j in range(tp):
+                rows_ = [r for o, r in plan[j] if o == i]
+                if rows_:
+                    g[rows_] = got[k][j]
+            out.append(g)
+        return (None, None) + tuple(out)
+
+
+def _plan_sizes(plan, tp: int) -> List[List[int]]:
+    """``sizes[i][j]``: the rows owner i sends taker j under ``plan``."""
+    return [[sum(1 for o, _ in plan[j] if o == i) for j in range(tp)]
+            for i in range(tp)]
+
+
+def _permute(row: ModelRow, plan, parts) -> List[torch.Tensor]:
+    """``permute_model``'s exchange on tensors."""
+    tp = row.tp
+    shape = tuple(parts[0].shape[1:])
+    sends = [[parts[k][[r for o, r in plan[j] if o == i]]
+              for j in range(tp)] for k, i in enumerate(row.indices)]
+    sizes = _plan_sizes(plan, tp)
+    got = _exchange(row, sends, [[(sizes[i][j],) + shape
+                                  for j in range(tp)] for i in range(tp)],
+                    parts[0].dtype)
+    out = []
+    for k, j in enumerate(row.indices):
+        owners = [iter(t) for t in got[k]]   # each owner's rows, in order
+        out.append(torch.stack([next(owners[i]) for i, _ in plan[j]]))
+    return out
+
+
+def permute_model(parts: Sequence[torch.Tensor], row: ModelRow,
+                  plan: Sequence[Sequence[Tuple[int, int]]]
+                  ) -> List[torch.Tensor]:
+    """Rows of a leaf's model shards dealt out anew: ``parts`` each local
+    shard's tensor (rows along dim 0), ``plan[j]`` the (owner coordinate,
+    row) pairs model shard j takes, in the order it stacks them; every
+    row of every shard is taken exactly once (a permutation). Returns
+    each local shard's stacked rows, on its device: copies in one
+    process, one ``all_to_all_single`` over ``model`` across processes
+    (each owner sends each taker the rows it takes, nothing else). The
+    backward sends each row's gradient back to its owner."""
+    if len(parts) != len(row.positions) or len(plan) != row.tp:
+        raise ValueError("permute_model: one part a local shard and one "
+                         "plan a shard")
+    taken = sorted(x for p in plan for x in p)
+    if taken != [(i, r) for i in range(row.tp)
+                 for r in range(parts[0].shape[0])]:
+        raise ValueError("permute_model: the plan takes each row once")
+    return list(_PermuteModel.apply(row, tuple(tuple(p) for p in plan),
+                                    *parts))
+
+
+def to_first(row: ModelRow, parts: Sequence[torch.Tensor]
+             ) -> Optional[List[torch.Tensor]]:
+    """Every shard's tensor (``parts`` the local shards', equal shapes)
+    sent to model coordinate 0: the list in model order on its device
+    where this process holds coordinate 0, else None. No gradient."""
+    tp, shape = row.tp, tuple(parts[0].shape)
+    empty = (0,) + shape[1:]
+    got = _exchange(row, [[p if j == 0 else p[:0] for j in range(tp)]
+                          for p in parts],
+                    [[shape if j == 0 else empty for j in range(tp)]
+                     for _ in range(tp)], parts[0].dtype)
+    k = row.indices.index(0) if 0 in row.indices else None
+    return None if k is None else got[k]
+
+
+def scatter_first(row: ModelRow, parts: Optional[Sequence[torch.Tensor]],
+                  shape: Tuple[int, ...], dtype: torch.dtype
+                  ) -> List[torch.Tensor]:
+    """``to_first``'s reverse: ``parts`` (on coordinate 0's process, one
+    a model coordinate, each of ``shape``) handed to their shards; each
+    local shard's, on its device. No gradient."""
+    tp = row.tp
+    empty = (0,) + tuple(shape[1:])
+    dev = row.devices[0]
+    sends = [[parts[j] if i == 0 else torch.empty(empty, dtype=dtype,
+                                                   device=dev)
+              for j in range(tp)] for i in row.indices]
+    got = _exchange(row, sends, [[tuple(shape) if i == 0 else empty
+                                  for _ in range(tp)] for i in range(tp)],
+                    dtype)
+    return [g[0] for g in got]
+
+
+def from_first(row: ModelRow, x: Optional[torch.Tensor],
+               shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    """Model coordinate 0's ``x`` on this process's home of the row: the
+    tensor itself in one process (coordinate 0's device is the row's
+    home), a broadcast over the row's model group across processes (each
+    rank's copy on its device; ``x`` None but on coordinate 0). No
+    gradient."""
+    if not row.mesh.multi_process:
+        return x
+    (i,) = row.indices
+    empty = (0,) + tuple(shape[1:])
+    send = x if i == 0 else torch.empty(empty, dtype=dtype,
+                                         device=row.devices[0])
+    got = _exchange(row, [[send if i == 0 else send[:0]
+                           for _ in range(row.tp)]],
+                    [[tuple(shape) if a == 0 else empty
+                      for _ in range(row.tp)] for a in range(row.tp)],
+                    dtype)
+    return got[0][0]
+
+
+class _MeanRowsModel(torch.autograd.Function):
+    """``mean_rows_model``: the backward gives each scalar its share of
+    the rows' gradients summed in row order (the mean's true gradient),
+    divided as autograd divides it: by each axis's size, the last first,
+    then by tp."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, homes, *vals):
+        ctx.mesh, ctx.axes = mesh, axes
+        ctx.devs = [v.device for v in vals]
+        table = _gather_table(mesh, axes, vals)
+        ctx.save_for_backward(table)
+        out = _mean_table(table, mesh, axes)
+        return tuple(out.to(h) for h in homes)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gs):
+        (table,) = ctx.saved_tensors
+        mesh, axes = ctx.mesh, ctx.axes
+        dev = table.device
+        gs = [torch.zeros((), dtype=table.dtype, device=dev) if g is None
+              else g.to(dev) for g in gs]
+        if mesh.multi_process:
+            (q,) = mesh.local_positions()
+            gs = all_gather(mesh, {q: gs[0].reshape(1)}, axes)[q]
+            gs = [g.reshape(()) for g in gs]
+        gsum = gs[0]
+        for g in gs[1:]:
+            gsum = gsum + g
+        for a in reversed(axes):          # the mean's divisions, undone
+            gsum = gsum / mesh.shape[a]
+        grad = gsum / table.shape[1]
+        return (None, None, None) + tuple(grad.to(d) for d in ctx.devs)
+
+
+def _gather_table(mesh, axes, vals) -> torch.Tensor:
+    """The (rows, tp) f32 table of every position's scalar, in row and
+    model order, on the first local value's device."""
+    tp = mesh.shape["model"]
+    if not mesh.multi_process:
+        return torch.stack([v.to(vals[0].device) for v in vals]
+                           ).reshape(-1, tp)
+    (q,) = mesh.local_positions()
+    got = all_gather(mesh, {q: vals[0].reshape(1)}, axes + ("model",))[q]
+    return torch.cat(got).reshape(-1, tp)
+
+
+def _mean_table(table: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The mean over ``model`` (each row's scalars summed in model order,
+    over tp), then over each axis of ``axes`` in turn (summed in order,
+    over its size): the reference's ``pmean``s."""
+    acc = table[:, 0]
+    for j in range(1, table.shape[1]):
+        acc = acc + table[:, j]
+    t = (acc / table.shape[1]).reshape([mesh.shape[a] for a in axes])
+    for _ in axes:
+        s = t[0]
+        for i in range(1, t.shape[0]):
+            s = s + t[i]
+        t = s / t.shape[0]
+    return t
+
+
+def mean_rows_model(vals: Sequence[Sequence[torch.Tensor]], mesh,
+                    axes: Sequence[str], homes: Sequence[torch.device]
+                    ) -> List[torch.Tensor]:
+    """The mean of a 0-d f32 value at every position of the rows over
+    ``axes`` and ``model``: over ``model`` first, then over each axis of
+    ``axes`` in turn, each an ordered sum over its size (the reference's
+    ``pmean`` over ``model`` and then over each batch axis). ``vals[k]``
+    local row k's local shards' values in model order: every row's,
+    in row order, in one process; the rank's one across processes (the
+    rest all-gathered over ``axes`` and ``model``: scalars, no
+    all-reduce). Returns the mean on each local row's home ``homes[k]``.
+    The backward gives each value the true gradient: the rows'
+    gradients summed in row order (all-gathered across processes), over
+    the count, so a one-process run and ranks give the same bits."""
+    flat = [v for vs in vals for v in vs]
+    return list(_MeanRowsModel.apply(mesh, tuple(axes), tuple(homes), *flat))
 
 
 def model_dim(spec) -> Optional[int]:

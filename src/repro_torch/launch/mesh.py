@@ -38,6 +38,7 @@ position in this process.
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import itertools
 import math
@@ -47,7 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["BLOCK_AXIS_ORDER", "DeviceMesh", "active_mesh",
+__all__ = ["BLOCK_AXIS_ORDER", "DeviceMesh", "active_mesh", "entered",
            "factor_block_shape", "init_distributed", "make_block_mesh",
            "launcher_mesh", "make_data_mesh", "make_host_mesh", "make_mesh",
            "make_production_mesh"]
@@ -198,6 +199,22 @@ def active_mesh() -> Optional[DeviceMesh]:
     or None."""
     stack = _ACTIVE.get()
     return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def entered(mesh: Optional[DeviceMesh]):
+    """``mesh`` as the active mesh of this context while the block runs
+    (nothing for None): a context another thread took from
+    ``active_mesh()``, such as a remat recompute on autograd's device
+    thread, which does not see the caller's."""
+    if mesh is None:
+        yield
+        return
+    token = _ACTIVE.set(_ACTIVE.get() + (mesh,))
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(token)
 
 
 def _visible() -> List[torch.device]:

@@ -9,8 +9,11 @@ as the reference's are plain jnp. ``forward`` is differentiable for
 every family (``forward(..., remat=True)`` recomputes each layer in the
 backward), which ``train`` builds on. ``sharding`` holds the reference's
 mesh axes and parameter sharding rules; its ``constrain_*`` hints are the
-identity (no SPMD partitioner), and ``layers.moe_ffn_ep`` runs the
-expert-parallel MoE a shard at a time over the ambient mesh."""
+identity (no SPMD partitioner), and the expert-parallel MoE runs a
+(data, model) position at a time over the ambient mesh
+(``layers.moe_ffn_ep`` on whole weights in one process,
+``layers.moe_ep_rows`` on a position's own experts in the sharded
+step)."""
 from . import recurrent
 from .config import ArchConfig, MoEConfig, ShapeConfig, SHAPES, shape_by_name
 from .model import (init_params, forward, decode_step, init_decode_cache,

@@ -168,13 +168,19 @@ def attention_decode(cfg: ArchConfig, p, x, k_cache, v_cache, t: int, *,
     return x + y, k_cache, v_cache
 
 
+def _moe_params(p) -> dict:
+    return {"router": p["router"], "w_gate": p["moe_w_gate"],
+            "w_up": p["moe_w_up"], "w_down": p["moe_w_down"]}
+
+
 def _moe(cfg: ArchConfig, p, h) -> layers.MoEOut:
     """The layer's MoE on its normed input ``h``: ``layers.moe_ffn``, or
-    under ``layers.MOE_EP_MODE`` the expert-parallel ``moe_ffn_ep``
-    (which falls back to ``moe_ffn`` where the reference's does) on
-    whole weights."""
-    moe = {"router": p["router"], "w_gate": p["moe_w_gate"],
-           "w_up": p["moe_w_up"], "w_down": p["moe_w_down"]}
+    under ``layers.MOE_EP_MODE`` the one-process expert-parallel
+    ``moe_ffn_ep`` over the ambient mesh on whole weights (it falls back
+    to ``moe_ffn`` where the reference's does). The sharded train step's
+    MoE layers go through ``moe_block_rows`` instead, which never builds
+    an expert leaf whole under EP."""
+    moe = _moe_params(p)
     if layers.MOE_EP_MODE:        # its own layout over the ambient mesh
         moe = {k: layers.whole(v) for k, v in moe.items()}
         return layers.moe_ffn_ep(h, moe, cfg.moe.n_experts, cfg.moe.top_k,
@@ -202,21 +208,49 @@ def ffn_block(cfg: ArchConfig, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
     return _residual(cfg, p, x, y), aux
 
 
+def _ep_rows_shape(cfg: ArchConfig, xs, rows: PL.BatchRows):
+    """The ``layers.EPShape`` of a lockstep MoE layer under
+    ``layers.MOE_EP_MODE`` and an ambient mesh, decided as the reference's
+    call decides it, on the domain batch (every row's tokens: the global
+    microbatch, or a pod's under ``grad_compress``) over the rows, so
+    every row takes the same branch; None where it falls back."""
+    from .sharding import ambient_axes
+    if not layers.MOE_EP_MODE or ambient_axes() is None:
+        return None
+    n = sum(hi - lo for lo, hi in rows.bounds) * xs[0].shape[1]
+    return layers.ep_shape(n, len(rows.bounds),
+                           rows.mesh.shape.get("model", 1),
+                           cfg.moe.n_experts, cfg.moe.top_k, cfg.d_ff,
+                           cfg.moe.capacity_factor)
+
+
 def moe_block_rows(cfg: ArchConfig, ps, xs, rows: PL.BatchRows
                    ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """``ffn_block`` of a MoE config over the data rows ``rows`` in
     lockstep: ``xs`` each local row's residual (its own rows of the
-    batch), ``ps`` its layer params. The rows' normed inputs meet
-    (``placement.gather_rows``) and each row routes the whole domain
-    batch, the router, sort and dispatch replicated over the rows as the
-    reference's partitioner runs them, its experts split over its model
-    shards; each keeps its own rows of y. Returns each row's (residual,
-    aux_loss), the aux loss over the domain batch."""
+    batch), ``ps`` its layer params. Under ``layers.MOE_EP_MODE`` with an
+    ambient mesh, where the reference's expert parallelism engages
+    (``_ep_rows_shape``), each position routes its row's tokens through
+    its own experts (``layers.moe_ep_rows``). Otherwise the rows' normed
+    inputs meet (``placement.gather_rows``) and each row routes the whole
+    domain batch with the dense ``moe_ffn``, the router, sort and
+    dispatch replicated over the rows as the reference's partitioner runs
+    them, its experts split over its model shards, and keeps its own rows
+    of y. Returns each row's (residual, aux_loss), the aux loss over the
+    domain batch."""
     hs = [layers.rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(ps, xs)]
+    shape = _ep_rows_shape(cfg, xs, rows)
+    if shape is not None:
+        ys, auxs = layers.moe_ep_rows(hs, [_moe_params(p) for p in ps], rows,
+                                      shape, cfg.moe.n_experts,
+                                      cfg.moe.top_k)
+        return [(_residual(cfg, p, x, y), aux)
+                for p, x, y, aux in zip(ps, xs, ys, auxs)]
     out = []
     for p, x, h, (lo, hi) in zip(ps, xs, PL.gather_rows(hs, rows),
                                  rows.ranges):
-        y, aux = _moe(cfg, p, h)
+        y, aux = layers.moe_ffn(h, _moe_params(p), cfg.moe.n_experts,
+                                cfg.moe.top_k, cfg.moe.capacity_factor)
         out.append((_residual(cfg, p, x, y[lo:hi]), aux))
     return out
 

@@ -433,14 +433,45 @@ def moe_ffn(x: torch.Tensor, p, n_experts: int, top_k: int,
     return MoEOut(y.reshape(B, S, d).to(x.dtype), aux)
 
 
-# --- expert-parallel MoE: the reference's shard_map body, a shard at a time --
-# The reference's launchers turn it on with REPRO_MOE_EP=1. Its token
-# movement is two all_to_all ops over the model axis; here, on a
-# single-process mesh, they are copies of the (tp, cap_send, d) blocks
-# between the model shards of one data row (peer copies between cards).
+# --- expert-parallel MoE: the reference's shard_map body, a position at a time
+# Each (data row, model shard) position routes its row's tokens, runs its
+# own experts, and moves tokens by two exchanges over the model axis
+# (``placement.exchange_model`` out, ``placement.to_first`` back): copies
+# in one process, ``all_to_all_single`` across processes. The reference's
+# dry-run turns it on with REPRO_MOE_EP=1 (``launch.dryrun``).
 
-#: route ``blocks.ffn_block``'s MoE through ``moe_ffn_ep``
+#: route ``blocks.ffn_block``'s MoE through ``moe_ffn_ep``, and the
+#: sharded train step's MoE layers through ``moe_ep_rows``
 MOE_EP_MODE = False
+
+
+class EPShape(NamedTuple):
+    """The static shapes of one expert-parallel call (``ep_shape``)."""
+    m: int            # ff slices a real expert (E * m virtual experts)
+    n_loc: int        # tokens a data row routes
+    cap_send: int     # rows a position sends each model shard
+    e_loc: int        # virtual experts a model shard holds
+    cap_loc: int      # rows a virtual expert takes
+
+
+def ep_shape(n_tokens: int, dp: int, tp: int, E: int, K: int, ff: int,
+             capacity_factor: float) -> Optional[EPShape]:
+    """The shapes of the reference's ``moe_ffn_ep`` over ``n_tokens``
+    (the B * S its call sees) on ``dp`` data rows and ``tp`` model
+    shards, or None where it falls back to the dense ``moe_ffn``: ff % m,
+    (E * m) % tp or B * S % dp non-zero, or at most 4096 tokens
+    (decode-shaped calls, too few tokens to amortize the exchange)."""
+    m = tp // math.gcd(E, tp)
+    if ff % m or (E * m) % tp or n_tokens % dp or n_tokens <= 4096:
+        return None
+    n_loc = n_tokens // dp
+    cap_send = max(int(np.ceil(n_loc * K * m / tp * capacity_factor / 8))
+                   * 8, 8)
+    e_loc = E * m // tp
+    # a shard receives <= tp*cap_send rows spread over its E_loc experts
+    cap_loc = max(int(np.ceil(tp * cap_send / e_loc
+                              * capacity_factor / 8)) * 8, 8)
+    return EPShape(m, n_loc, cap_send, e_loc, cap_loc)
 
 
 class _Dispatch(NamedTuple):
@@ -525,127 +556,250 @@ def _ep_experts(recv: torch.Tensor, recv_eid: torch.Tensor, w_gate, w_up,
     return back.reshape(tp, cap_send, d)
 
 
-def _moe_ep_body(xf: torch.Tensor, router, w_gate, w_up, w_down, devices,
-                 *, E: int, K: int, m: int, tp: int, cap_send: int,
-                 cap_loc: int):
-    """One data row of the reference's shard_map body: xf (N_loc, d) its
-    tokens, ``devices`` its tp model shards' devices, w_* the (E * m, d,
-    ff / m) virtual-expert weights (shard j holds rows j * E_loc..).
-    Returns (y (N_loc, d) in xf's dtype on devices[0], aux).
-
-    As in the reference, every model shard of the row routes the same
-    tokens and sends its blocks (the first all_to_all: shard j receives
-    block j of every shard, in shard order), runs its E_loc experts on
-    what it received, and sends each shard its rows back (the second).
-    The reference's ``out_specs`` declare y replicated over ``model``
-    (unchecked) and read back model shard 0's; where the second dispatch
-    drops the later copies of a hot expert the shards' y differ, so the
-    combine runs for model shard 0 alone. aux is the mean over the model
-    shards of each shard's loss (its ``pmean``). Each shard's expert
-    buffers are freed before the next shard runs."""
-    E_loc = E * m // tp
-    disp = [_ep_dispatch(xf.to(dev), router.to(dev), E=E, K=K, m=m, tp=tp,
-                         cap_send=cap_send) for dev in devices]
-    backs = []
-    for j, dev in enumerate(devices):
-        recv = torch.stack([dp.send[j].to(dev) for dp in disp])
-        recv_eid = torch.stack([dp.send_eid[j].to(dev) for dp in disp])
-        ws = (w[j * E_loc:(j + 1) * E_loc].to(dev)
-              for w in (w_gate, w_up, w_down))
-        backs.append(_ep_experts(recv, recv_eid, *ws, cap_loc=cap_loc))
-        del recv, recv_eid
-    home = devices[0]
-    aux = sum(dp.aux.to(home) for dp in disp) / tp
-    slot, order, w = disp[0].slot, disp[0].order, disp[0].w
-    del disp
-    flat_back = torch.cat([b[0].to(home) for b in backs]
-                          + [backs[0].new_zeros((1, xf.shape[1]))], 0)
-    del backs
+def _combine(flat_back: torch.Tensor, slot: torch.Tensor,
+             order: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
+    """A position's combine: its sorted entries' rows of ``flat_back``
+    (the blocks its experts' shards sent back, then a zero row for the
+    dropped) weighted in f32 and summed a token (``_unsort_sum``)."""
     weighted = flat_back[slot].float() * w[:, None]
-    y = _unsort_sum(weighted, order, K * m)
-    return y.to(xf.dtype), aux
+    return _unsort_sum(weighted, order, k)
 
 
-def _ep_devices(mesh, ax) -> np.ndarray:
-    """``mesh``'s devices as (dp, tp): the batch axes flattened in
-    ``ax.batch`` order (the data rows), the model axis last."""
-    names = list(mesh.axis_names)
-    order = [names.index(a) for a in ax.batch] + [names.index(ax.model)]
-    if len(order) != len(names):
+class _FirstCombine(torch.autograd.Function):
+    """Model shard 0's combine of a row (``_moe_ep_body``): every shard's
+    block for shard 0 sent back to it (``placement.to_first``), shard 0's
+    combine, its y handed to the row's other positions
+    (``placement.from_first``). The backward: shard 0 takes the gradient
+    of y (every position holds the same whole gradient of the replicated
+    y), recomputes its combine's gradient and hands each shard the
+    gradient of its block (``scatter_first``); the other inputs take
+    zeros. Every position runs the same nodes and saves as many tensors,
+    so ranks recompute alike under remat."""
+
+    @staticmethod
+    def forward(ctx, row, k: int, *ins):
+        n = len(row.positions)
+        backs, ws, slots, orders = (ins[:n], ins[n:2 * n], ins[2 * n:3 * n],
+                                    ins[3 * n:])
+        tp, cap_send, d = backs[0].shape
+        dtype = backs[0].dtype
+        first = row.indices.index(0) if 0 in row.indices else None
+        blocks = PL.to_first(row, [b[0] for b in backs])
+        y = None
+        if first is None:
+            flat = backs[0].new_empty((0, d))
+        else:
+            flat = torch.cat(blocks + [blocks[0].new_zeros((1, d))], 0)
+            y = _combine(flat, slots[first], orders[first], ws[first],
+                         k).to(dtype)
+        sel = 0 if first is None else first
+        ctx.row, ctx.k, ctx.first = row, k, first
+        ctx.like = [(b.shape, b.device) for b in backs]
+        ctx.save_for_backward(flat, ws[sel], slots[sel], orders[sel])
+        return PL.from_first(row, y, (orders[0].numel() // k, d), dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        flat, w, slot, order = ctx.saved_tensors
+        (tp, cap_send, d), _ = ctx.like[0]
+        dtype = flat.dtype
+        parts, gw = None, None
+        if ctx.first is not None:
+            g_fl, gw = _combine_grads(flat, slot, order, w, ctx.k,
+                                      g.to(flat.device))
+            parts = list(g_fl[:-1].reshape(tp, cap_send, d).unbind(0))
+        got = PL.scatter_first(ctx.row, parts, (cap_send, d), dtype)
+        gbacks, gws = [], []
+        for i, (gb, (shape, dev)) in enumerate(zip(got, ctx.like)):
+            z = torch.zeros(shape, dtype=dtype, device=dev)
+            z[0] = gb
+            gbacks.append(z)
+            gws.append(gw if i == ctx.first else
+                       torch.zeros(w.shape, dtype=w.dtype, device=dev))
+        return ((None, None) + tuple(gbacks) + tuple(gws)
+                + (None,) * (2 * len(gbacks)))
+
+
+def _combine_grads(flat, slot, order, w, k: int, g):
+    """The gradients of ``_combine(flat, slot, order, w, k).to(flat's
+    dtype)`` for the gradient ``g`` of y, by autograd's own steps
+    (written out: a nested backward could run other nodes of the step's
+    graph first, and ranks must run their collectives in one order)."""
+    n, d = g.shape
+    g_inv = g.float()[:, None, :].expand(n, k, d).reshape(n * k, d)
+    g_wt = g_inv[order]                   # un-sorting was a permutation
+    a = flat[slot].float()
+    gw = (g_wt * a).sum(1)
+    g_flat = torch.zeros_like(flat).index_put_(
+        (slot,), (g_wt * w[:, None]).to(flat.dtype), accumulate=True)
+    return g_flat, gw
+
+
+def _moe_ep_body(h: torch.Tensor, router, ws, row, shape: EPShape, *,
+                 E: int, K: int):
+    """One data row of the reference's shard_map body over its local
+    model shards (every shard of the row in one process, each on its
+    position's device; the rank's own across processes): h (N_loc, d)
+    the row's tokens on ``row.home``, ``router`` replicated, ``ws`` each
+    local shard's (w_gate, w_up, w_down) of its E_loc virtual experts
+    (``_expert_weights``). Returns (y (N_loc, d) in h's dtype on
+    ``row.home``, each local shard's aux loss).
+
+    As in the reference, every position routes the row's tokens and
+    sends its blocks (``placement.exchange_model``: shard j receives
+    block j of every shard, in shard order), runs its E_loc experts on
+    what it received and sends its results back. The reference's
+    ``out_specs`` declare y replicated over ``model`` (unchecked) and
+    read back model shard 0's; where the second dispatch drops the later
+    copies of a hot expert the shards' combines differ, so only shard
+    0's blocks go back and shard 0's combine is the row's y
+    (``_FirstCombine``). h and the router reach the shards through
+    ``to_model``, whose backward sums the shards' gradients over
+    ``model`` in f32, so a rank's gradient of them is the row's whole."""
+    tp = row.tp
+    hs = PL.to_model(h, row)
+    rs = PL.to_model(router, row)
+    disp = [_ep_dispatch(hj, rj, E=E, K=K, m=shape.m, tp=tp,
+                         cap_send=shape.cap_send) for hj, rj in zip(hs, rs)]
+    recv = PL.exchange_model([dp.send for dp in disp], row)
+    eids = PL.exchange_model([dp.send_eid for dp in disp], row)
+    backs = [_ep_experts(r, e, *w, cap_loc=shape.cap_loc)
+             for r, e, w in zip(recv, eids, ws)]
+    del recv
+    y = _FirstCombine.apply(row, K * shape.m, *backs,
+                            *[dp.w for dp in disp], *[dp.slot for dp in disp],
+                            *[dp.order for dp in disp])
+    return y, [dp.aux for dp in disp]
+
+
+def _virtual(w: torch.Tensor, m: int, down: bool) -> torch.Tensor:
+    """(E, d, ff) -> (E * m, d, ff / m), or for the down projection (E,
+    ff, d) -> (E * m, ff / m, d): virtual expert e * m + s is expert e's
+    ff slice s."""
+    if down:
+        E, f, d = w.shape
+        return w.reshape(E * m, f // m, d)
+    E, d, f = w.shape
+    return (w.reshape(E, d, m, f // m).permute(0, 2, 1, 3)
+            .reshape(E * m, d, f // m))
+
+
+def _expert_weights(p, row, shape: EPShape):
+    """Each local shard's (w_gate, w_up, w_down) of its virtual experts
+    [j E_loc, (j + 1) E_loc) (j its model coordinate): a leaf split by
+    expert (m = 1) is the shard's own part; a leaf split by ff (m > 1:
+    each virtual expert's ff slice spans tp / m owners' blocks of one
+    expert) deals each owner's block of each expert to the one shard
+    whose virtual expert covers it (``placement.permute_model``: only
+    the blocks a shard runs reach it, never the whole leaf); a whole or
+    replicated leaf is narrowed (``placement.split_model``)."""
+    m, e_loc, tp = shape.m, shape.e_loc, row.tp
+    out = []
+    for name, down in (("w_gate", False), ("w_up", False),
+                       ("w_down", True)):
+        w = p[name]
+        if isinstance(w, torch.Tensor):
+            parts = PL.split_model(_virtual(w, m, down), row, 0)
+        elif w.dim == 0:                          # split by expert: m = 1
+            parts = list(w.parts)
+        else:                                     # split by ff
+            g = tp // m
+            plan = [[(o, (j * e_loc + t) // m)
+                     for t in range(e_loc)
+                     for o in range((j * e_loc + t) % m * g,
+                                    ((j * e_loc + t) % m + 1) * g)]
+                    for j in range(tp)]
+            got = PL.permute_model(w.parts, w.row, plan)
+            if down:
+                parts = [x.reshape(e_loc, -1, x.shape[-1]) for x in got]
+            else:
+                parts = [x.reshape(e_loc, g, x.shape[1], x.shape[2])
+                         .permute(0, 2, 1, 3).reshape(e_loc, x.shape[1], -1)
+                         for x in got]
+        out.append(parts)
+    return list(zip(*out))
+
+
+def moe_ep_rows(hs, ps, rows, shape: EPShape, n_experts: int, top_k: int):
+    """The expert-parallel MoE of the data rows ``rows`` (a
+    ``placement.BatchRows``; the sharded train step's lockstep rows):
+    ``hs`` each local row's normed input (its own rows of the batch),
+    ``ps`` its MoE params (router, w_gate, w_up, w_down; the experts as
+    ``ModelShards`` or tensors). Each row's positions run
+    ``_moe_ep_body`` on the row's tokens with their own experts
+    (``_expert_weights``: no expert leaf is built whole). Returns (each
+    local row's y, each local row's aux loss: every position's loss
+    averaged over ``model`` and then over each of ``rows.axes`` in turn,
+    ``placement.mean_rows_model``)."""
+    mesh = rows.mesh
+    ys, auxs = [], []
+    for h, p, q, home in zip(hs, ps, rows.positions, rows.homes):
+        row = PL.ModelRow(mesh, q, home)
+        y, aux = _moe_ep_body(h.reshape(-1, h.shape[-1]), p["router"],
+                              _expert_weights(p, row, shape), row, shape,
+                              E=n_experts, K=top_k)
+        ys.append(y.reshape(h.shape))
+        auxs.append(aux)
+    return ys, PL.mean_rows_model(auxs, mesh, rows.axes, rows.homes)
+
+
+def _ep_homes(mesh, ax) -> list:
+    """Each data row's position at model coordinate 0, in row order over
+    ``ax.batch``."""
+    if set(mesh.axis_names) != set(ax.batch) | {ax.model}:
         raise ValueError(f"moe_ffn_ep: mesh axes {mesh.axis_names} beyond "
                          f"{ax.batch + (ax.model,)}")
-    devs = np.transpose(mesh.devices, order)
-    return devs.reshape(-1, devs.shape[-1])
+    qs = [q for q in range(mesh.size) if mesh.coords(q)[ax.model] == 0]
+    return sorted(qs, key=lambda q: PL.mixed_radix(mesh.coords(q), ax.batch,
+                                                   mesh.shape))
 
 
 def moe_ffn_ep(x: torch.Tensor, p, n_experts: int, top_k: int,
                capacity_factor: float = 1.25) -> MoEOut:
     """Expert-parallel MoE over the ambient ``(data, model)`` or ``(pod,
-    data, model)`` mesh (``with mesh:``): tokens split over the batch
-    axes, experts over ``model`` (``_moe_ep_body`` a data row, each model
-    shard on its device). E < tp is handled by ff-sliced virtual experts
-    (m = tp / gcd(E, tp) slices an expert, each computing a partial
-    down-projection that the combine sums). Falls back to the dense
-    ``moe_ffn`` without an ambient mesh, when ff % m, (E * m) % tp or
-    (B * S) % dp is non-zero, and for B * S <= 4096 tokens, where the
-    reference does. y is on x's device; aux is the mean of the per-shard
-    losses over ``model``, then over each batch axis in turn."""
+    data, model)`` mesh (``with mesh:``) of one process, on tensors:
+    tokens split over the batch axes, experts over ``model``
+    (``_moe_ep_body`` a data row, each model shard on its position's
+    device, its virtual experts narrowed from the whole weights). E < tp
+    is handled by ff-sliced virtual experts (m = tp / gcd(E, tp) slices
+    an expert, each computing a partial down-projection that the combine
+    sums). Falls back to the dense ``moe_ffn`` without an ambient mesh
+    and where ``ep_shape`` says the reference does. y is on x's device;
+    aux is the mean of the per-shard losses over ``model``, then over
+    each batch axis in turn. The sharded train step runs each position's
+    body on its own expert shards instead (``moe_ep_rows``), in one
+    process or across processes."""
     from ..launch.mesh import active_mesh
     from .sharding import ambient_axes
     ax = ambient_axes()
     if ax is None:
         return moe_ffn(x, p, n_experts, top_k, capacity_factor)
-    sizes = active_mesh().shape
-    tp = sizes.get("model", 1)
-    dp = math.prod(sizes.get(a, 1) for a in ax.batch)
-
+    mesh = active_mesh()
+    sizes = mesh.shape
     B, S, d = x.shape
-    E, K = n_experts, top_k
-    ff = p["w_gate"].shape[-1]
-    m = tp // math.gcd(E, tp)
-    if ff % m or (E * m) % tp or (B * S) % dp:
+    shape = ep_shape(B * S, math.prod(sizes.get(a, 1) for a in ax.batch),
+                     sizes.get("model", 1), n_experts, top_k,
+                     p["w_gate"].shape[-1], capacity_factor)
+    if shape is None:
         return moe_ffn(x, p, n_experts, top_k, capacity_factor)
-    if B * S <= 4096:
-        # decode-shaped calls: too few tokens to amortize the exchange;
-        # the dense dispatch is cheap at this size (the reference's rule)
-        return moe_ffn(x, p, n_experts, top_k, capacity_factor)
-
-    def virt3(w):                       # (E, d, ff) -> (E*m, d, ff/m)
-        Ew, dw, fw = w.shape
-        return (w.reshape(Ew, dw, m, fw // m).permute(0, 2, 1, 3)
-                .reshape(Ew * m, dw, fw // m))
-
-    def virt_down(w):                   # (E, ff, d) -> (E*m, ff/m, d)
-        Ew, fw, dw = w.shape
-        return w.reshape(Ew * m, fw // m, dw)
-
-    wg, wu, wd = virt3(p["w_gate"]), virt3(p["w_up"]), virt_down(p["w_down"])
-    N = B * S
-    N_loc = N // dp
-    K_eff = K * m
-    cap_send = max(int(np.ceil(N_loc * K_eff / tp * capacity_factor / 8))
-                   * 8, 8)
-    # a shard receives <= tp*cap_send rows spread over its E_loc experts
-    E_loc = E * m // tp
-    cap_loc = max(int(np.ceil(tp * cap_send / E_loc
-                              * capacity_factor / 8)) * 8, 8)
-
-    devs = _ep_devices(active_mesh(), ax)
-    xf = x.reshape(N, d)
+    if mesh.multi_process:
+        raise NotImplementedError(
+            "moe_ffn_ep on a multi-process mesh: whole weights in one "
+            "process; the sharded train step runs each position's EP body "
+            "(moe_ep_rows)")
+    xf = x.reshape(B * S, d)
+    n = shape.n_loc
     ys, auxs = [], []
-    for r in range(dp):
-        y, aux = _moe_ep_body(xf[r * N_loc:(r + 1) * N_loc], p["router"],
-                              wg, wu, wd, [torch.device(v) for v in devs[r]],
-                              E=E, K=K, m=m, tp=tp, cap_send=cap_send,
-                              cap_loc=cap_loc)
+    for r, q in enumerate(_ep_homes(mesh, ax)):
+        row = PL.ModelRow(mesh, q, mesh.device_at(q))
+        y, aux = _moe_ep_body(xf[r * n:(r + 1) * n].to(row.home),
+                              p["router"], _expert_weights(p, row, shape),
+                              row, shape, E=n_experts, K=top_k)
         ys.append(y.to(x.device))
-        auxs.append(aux.to(x.device))
-    # the reference's pmean over each batch axis in turn (pod, then data)
-    aux_t = torch.stack(auxs).reshape(
-        [sizes[a] for a in ax.batch])
-    for _ in ax.batch:
-        aux_t = aux_t.sum(0) / aux_t.shape[0]
-    return MoEOut(torch.cat(ys, 0).reshape(B, S, d), aux_t)
+        auxs.append(aux)
+    (aux,) = PL.mean_rows_model(auxs, mesh, ax.batch, [x.device] * len(ys))[:1]
+    return MoEOut(torch.cat(ys, 0).reshape(B, S, d), aux)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..distributed import placement as PL
+from ..launch.mesh import active_mesh, entered
 from . import blocks, layers, recurrent
 from .blocks import GLOBAL_WINDOW
 from .config import ArchConfig
@@ -263,11 +264,18 @@ def _run(remat: bool, fn, *args):
     weights live only while the layer runs. The recompute issues the
     layer's collectives again, in the forward's order. A layer whose
     shards span several devices goes through ``_FrameGate``, so one
-    thread recomputes it."""
+    thread recomputes it. The recompute runs on autograd's device thread
+    (on CUDA), which does not see the caller's ambient mesh
+    (``with mesh:``, a context variable): it enters the mesh the
+    forward saw, so a layer that reads it (``layers.moe_ffn_ep``,
+    ``blocks.moe_block_rows`` under ``MOE_EP_MODE``) takes the same
+    branch twice."""
     gate = remat and _spans_devices(args)
+    ambient = active_mesh()
 
     def call(*a):
-        out = fn(*a)
+        with entered(ambient):
+            out = fn(*a)
         return _gate(out) if gate else out
     if remat and torch.is_grad_enabled():
         return torch.utils.checkpoint.checkpoint(

@@ -45,8 +45,21 @@ layers, the reference's partitioned step:
   dispatch sets capacity, drops and the aux loss over every token) and
   keeps its own rows of the output; a row takes 1 / rows of the aux
   loss. The remat unit is one layer over the rows, so the recompute
-  gathers again. Under ``layers.MOE_EP_MODE``, or where the batch does
-  not divide, each row runs the whole microbatch's forward instead;
+  gathers again. Where the batch does not divide, each row runs the
+  whole microbatch's forward instead;
+* under ``layers.MOE_EP_MODE`` with the step's mesh ambient (``with
+  mesh:``, as the reference's launcher jits under ``use_mesh``) the
+  MoE layers run expert-parallel at the reference's partition: the
+  rows advance in lockstep as above (a lone row too), and at each MoE
+  layer every (data, model) position routes its row's tokens through
+  its own experts, the tokens crossing by an all-to-all over ``model``
+  (``layers.moe_ep_rows``; copies in one process, NCCL or gloo across
+  processes); no expert leaf is built whole. A layer where the
+  reference's ``moe_ffn_ep`` falls back (``layers.ep_shape``: ff not
+  split in m slices, the tokens not split over the rows, or at most
+  4,096 tokens in the domain's microbatch) takes the gather above. The aux loss is
+  every position's averaged over ``model`` and then over the batch
+  axes, 1 / rows of it a row;
 * the rows' gradients sum over the batch axes (an all-gather and an f32
   sum in row order); with ``grad_compress`` over a ``pod`` axis they sum
   over ``data`` within the pod and then cross the pods compressed (one
@@ -76,8 +89,11 @@ from ..distributed.compression import _codes, _step
 from ..models import forward as model_forward
 from ..models import forward_rows
 from ..models import layers as _L
+from ..models.layers import ep_shape
 from ..models.model import unembed_shards
-from ..models.sharding import axes_for_mesh, shard_heads, tp_layout
+from ..launch.mesh import active_mesh
+from ..models.sharding import (ambient_axes, axes_for_mesh, shard_heads,
+                               tp_layout)
 from .optimizer import AdamWConfig, AdamWState, adamw_update
 from .step import (TrainState, TrainStepConfig, _masked_nll,
                    _masked_nll_model)
@@ -107,10 +123,6 @@ def make_sharded_train_step(cfg, tcfg: TrainStepConfig,
         raise ValueError(f"n_pods={tcfg.n_pods} but the mesh's pod axis has "
                          f"{n_pods} positions")
     coupled = cfg.moe is not None
-    if coupled and _L.MOE_EP_MODE and mesh.multi_process:
-        raise NotImplementedError("MOE_EP_MODE on a multi-process mesh: "
-                                  "moe_ffn_ep exchanges between one "
-                                  "process's shards")
     # the rows whose gradients sum exactly: a pod's under compression
     sum_axes = ("data",) if compress else ax.batch
     nd = math.prod(sizes[a] for a in sum_axes)
@@ -222,6 +234,19 @@ def make_sharded_train_step(cfg, tcfg: TrainStepConfig,
         m = Bd // n_mb
         return Bd, m, m % nd != 0 or m < nd
 
+    def expert_parallel() -> bool:
+        """Whether the MoE layers run expert-parallel: under
+        ``layers.MOE_EP_MODE`` with the step's mesh ambient (``with
+        mesh:``), as the reference's launcher jits its step under
+        ``use_mesh``; a layer still falls back where the reference's
+        does (``blocks.moe_block_rows``)."""
+        if not (coupled and _L.MOE_EP_MODE) or ambient_axes() is None:
+            return False
+        if active_mesh() is not mesh:
+            raise ValueError("MOE_EP_MODE: the ambient mesh is not the "
+                             "step's")
+        return True
+
     def groups(lockstep: bool) -> List[List[List[int]]]:
         """The local rows that compute together, each a list of its
         positions: in lockstep every row of a domain (the rows one MoE
@@ -242,8 +267,7 @@ def make_sharded_train_step(cfg, tcfg: TrainStepConfig,
         leaves = tree.leaves(params_like)
         bounds = [(0, m)] if shared else [(j * m // nd, (j + 1) * m // nd)
                                           for j in range(nd)]
-        lockstep = (coupled and not shared and nd > 1
-                    and not _L.MOE_EP_MODE)
+        lockstep = coupled and not shared and (nd > 1 or expert_parallel())
         grads: Dict[int, list] = {}
         stats: Dict[int, torch.Tensor] = {}
         for group in groups(lockstep):
@@ -432,7 +456,8 @@ def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
                       local: int = 1, position: Optional[int] = None,
                       remat: bool = True, device: str = "cpu",
                       moe_rows: Optional[int] = None,
-                      microbatches: int = 1) -> int:
+                      microbatches: int = 1,
+                      ep_rows: Optional[int] = None) -> int:
     """The matmul FLOPs of one train step of a data row's ``local``
     model shards (1: one position, as a rank computes; ``tp``: the
     whole row, as one process does, the sum over its shards), reckoned
@@ -470,7 +495,13 @@ def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
     router (d x E) replicated on the row, the three expert products at
     the static capacity (``E x cap`` slots of 2 d ff each) split over
     ``model`` as ``tp_layout``'s "experts" says; the recompute runs
-    all of them (the layer's last saved tensor is the combine's)."""
+    all of them (the layer's last saved tensor is the combine's). With
+    ``ep_rows`` the MoE layers run expert-parallel
+    (``layers.moe_ep_rows``) over a domain of that many data rows, each
+    routing its own ``rows`` over the microbatches: on each position the
+    f32 router over the row's N_loc tokens and the E_loc x cap_loc slots
+    of its virtual experts, three products of 2 d ff / m each
+    (``layers.ep_shape``), under the same remat rule."""
     fam = cfg.family
     if (fam not in ("dense", "ssm", "hybrid", "moe") or cfg.attn_softcap
             or cfg.final_softcap or cfg.local_global_period):
@@ -523,7 +554,17 @@ def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
     # ``own``)
     q_and_o = 1 if fam == "hybrid" and not split else 2
     proj = [2 * N * d * Dh * (q_and_o * hq + 2 * hk) for hq, hk in heads]
-    if fam == "moe":
+    if fam == "moe" and ep_rows:
+        E, K = cfg.moe.n_experts, cfg.moe.top_k
+        Nm = rows // microbatches * seq
+        ep = ep_shape(Nm * ep_rows, ep_rows, tp, E, K, ff,
+                      cfg.moe.capacity_factor)
+        if ep is None:
+            raise ValueError(f"{cfg.name}: expert parallelism falls back at "
+                             f"{Nm * ep_rows} tokens over {ep_rows} rows")
+        mlp = microbatches * passes * local * (
+            2 * Nm * d * E + 3 * 2 * ep.e_loc * ep.cap_loc * d * ff // ep.m)
+    elif fam == "moe":
         E, K = cfg.moe.n_experts, cfg.moe.top_k
         Nm = (moe_rows or rows // microbatches) * seq
         cap = int(np.ceil(Nm * K / E * cfg.moe.capacity_factor / 8)) * 8

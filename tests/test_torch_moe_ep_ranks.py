@@ -1,0 +1,744 @@
+"""Expert parallelism at the reference's partition and across processes,
+on the CPU in f32: each (data, model) position routes its own row's
+tokens through its own experts (``layers.moe_ep_rows``), the tokens
+crossing by an all-to-all over ``model`` (``placement.exchange_model``).
+
+* ``exchange_model`` on (1, 4) and (2, 2): the copy semantics of
+  ``all_to_all(..., "model", 0, 0, tiled=False)``, forward and backward;
+  ``permute_model``, ``to_first``/``scatter_first`` and
+  ``mean_rows_model`` against their plain definitions;
+* the EP body on model-sharded expert leaves (m = 1: split by expert;
+  m = 2: each expert's ff split) bitwise the whole-weight one-process
+  call (``moe_ffn_ep``): y, aux and every gradient; those within 1e-5 of
+  max|y| and max|g| of the reference's ``moe_ffn_ep`` and ``jax.grad``
+  of it (a child with 8 emulated devices under ``use_mesh``) at
+  capacity factor 8 (nothing dropped) and 1.25, on inputs where the
+  reference's ``replica_spread`` is 0 (its model shards' combines agree,
+  so its gradient, their mean, is shard 0's);
+* the sharded train step under ``MOE_EP_MODE`` with the step's mesh
+  ambient: qwen3-moe's smoke config, 3 steps of 8 x 1024 tokens (EP
+  engages) on (2, 2) and (1, 4), of 8 x 1040 on (2, 2) with 2
+  microbatches and on a (2, 1, 2) pod mesh with ``grad_compress`` (a
+  microbatch, a pod, routes 4160 tokens: EP engages; at 1024 it would
+  fall back), against the reference's jitted step under ``use_mesh``
+  with Auto axes (the child) within ``test_torch_sharded_launch``'s
+  ``LOSS_RTOL``/``PARAM_ATOL``/``PARAM_SHARE``/``MOMENT_RTOL``; no
+  ``moe_w_*`` leaf built whole on that path, and the process's matmul
+  FLOPs the reckoning (``step_matmul_flops(..., ep_rows=dp)``);
+* four gloo ranks on (2, 2) and (1, 4) under EP: bitwise the
+  one-process run, each rank's matmul FLOPs its position's reckoning.
+
+The reference child starts with the module and runs while the port's
+runs compute, at a lower priority and on one XLA thread a device, so
+that the suite's other tests (their own children on timeouts) keep the
+cores; the tests run torch on one thread (restored after)."""
+import contextlib
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+from typing import NamedTuple
+
+import numpy as np
+import pytest
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch import tree
+from repro_torch.convert import params_from_numpy
+from repro_torch.distributed import placement as PL
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import layers
+from repro_torch.models.config import MoEConfig
+from repro_torch.train import (AdamWConfig, TrainState, TrainStepConfig,
+                               make_train_step)
+from repro_torch.train.optimizer import adamw_init
+from repro_torch.train.sharded import step_matmul_flops
+
+from test_torch_sharded_launch import (LOSS_RTOL, MOMENT_RTOL, OPT,
+                                       PARAM_ATOL, PARAM_SHARE, WORLD, f32,
+                                       make_batch, shardings)
+
+ROOT = Path(__file__).resolve().parent.parent
+ARCH = "qwen3-moe-235b-a22b"
+AX2 = ("data", "model")
+AX3 = ("pod", "data", "model")
+
+#: the EP layer's cases: (name, mesh shape, E, top-k, ff, capacity
+#: factor, seed, whether the reference runs it). E 8 on tp 4 is m = 1,
+#: E 1 on tp 2 and E 2 on tp 4 are m = 2. The reference's ``jax.grad``
+#: of ``moe_ffn_ep`` fails to partition where m > 1 and E > 1 (its
+#: virtual experts' gradient takes a sharding of E over ``model`` that
+#: does not divide): E 2 is held to the whole-weight call alone (its
+#: forward against the reference's is test_torch_moe_ep's)
+LAYER_CASES = (("m1-cf8", (2, 4), 8, 2, 32, 8.0, 0, True),
+               ("m1-cf1.25", (2, 4), 8, 2, 32, 1.25, 2, True),
+               ("m2-e1-cf8", (2, 2), 1, 1, 32, 8.0, 1, True),
+               ("m2-e1-cf1.25", (2, 2), 1, 1, 32, 1.25, 3, True),
+               ("m2-e2-cf1.25", (2, 4), 2, 2, 32, 1.25, 4, False))
+D_LAYER = 16
+
+#: the step's cases: (mesh shape, axes, TrainStepConfig kwargs, seq,
+#: capacity factor, whether the reference's step is compared). At the
+#: smoke config's 1.25 the second dispatch drops the later copies of a
+#: hot expert, so the reference's model shards' combines differ, and its
+#: partitioned program reads each shard's own y wherever a consumer is
+#: split over ``model``: its forward's logits then differ from the same
+#: forward's hidden states unembedded (in 5 of 8 sequences at these
+#: weights), and no one function is its step. At 2.0 a virtual expert
+#: takes every row it can receive (top-2 of 8 puts at most half a
+#: shard's assignments on one expert: ``second_drops`` counts none), the
+#: shards agree, and the port is held to the reference's step; at 1.25
+#: the port (model shard 0's combine, on every rank) is held to itself
+#: across processes. The pod case's quantizer at bound 1e-4, as in
+#: test_torch_moe_rows (an f32 sum in another order moves a gradient on
+#: a rounding edge by one code)
+STEP_CASES = {
+    "2x2": ((2, 2), AX2, {}, 1024, 2.0, True),
+    "1x4": ((1, 4), AX2, {}, 1024, 2.0, True),
+    "2x2 mb2": ((2, 2), AX2, dict(n_microbatches=2), 1040, 2.0, True),
+    "pods 2x1x2": ((2, 1, 2), AX3, dict(grad_compress=True, n_pods=2,
+                                        grad_compress_bound=1e-4), 1040,
+                   2.0, True),
+    "2x2 cf1.25": ((2, 2), AX2, {}, 1024, 1.25, False),
+    "1x4 cf1.25": ((1, 4), AX2, {}, 1024, 1.25, False),
+}
+REF_CASES = [c for c, v in STEP_CASES.items() if v[-1]]
+#: the batches' seeds (SEED + step)
+SEED = 20
+#: the least gap between a token's k-th and (k + 1)-th router
+#: probabilities at which the two packages still choose alike: where
+#: they are an ulp or two apart (3e-8 at p ~ 0.2) XLA's and torch's
+#: softmaxes break the tie their own ways, moving that token's
+#: assignment and the steps after it (test_torch_moe_ep's docstring)
+TIE = 1e-7
+GLOO_CASES = ("2x2 cf1.25", "1x4 cf1.25")
+
+
+def layer_inputs(seed: int, E: int, ff: int):
+    """x (2, 4096, d) and the router on a dyadic grid (the router logits
+    are exact in both packages, so both route alike), the experts and the
+    loss's weights c normal."""
+    rng = np.random.default_rng(seed)
+
+    def grid(shape, step):
+        return np.clip(np.round(rng.normal(size=shape) / step) * step,
+                       -2, 2).astype(np.float32)
+    x = grid((2, 4096, D_LAYER), 0.25)
+    router = grid((D_LAYER, E), 0.125)
+    w = [(rng.normal(size=s) * 0.1).astype(np.float32)
+         for s in ((E, D_LAYER, ff), (E, D_LAYER, ff), (E, ff, D_LAYER))]
+    c = rng.normal(size=x.shape).astype(np.float32)
+    return x, dict(router=router, w_gate=w[0], w_up=w[1], w_down=w[2]), c
+
+
+def step_batch(cfg, seed: int, seq: int):
+    return make_batch(cfg, seed, B=8, S_=seq)
+
+
+def step_cfg(case: str):
+    return f32(ARCH, moe=MoEConfig(8, 2, STEP_CASES[case][4]))
+
+
+_REF = textwrap.dedent('''
+    import dataclasses, os, sys
+    os.nice(10)             # yield the cores to the suite's other tests
+    os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
+                               "--xla_cpu_multi_thread_eigen=false "
+                               "intra_op_parallelism_threads=1")
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import numpy as np, jax, jax.numpy as jnp
+    sys.path.insert(0, sys.argv[2])
+    from test_torch_moe_ep_ranks import (ARCH, LAYER_CASES, OPT, REF_CASES,
+                                         SEED, STEP_CASES, layer_inputs,
+                                         step_batch)
+    from repro import configs, models, train
+    from repro.launch import specs as S
+    from repro.models import layers
+    from repro.models.config import MoEConfig
+    from repro.models.sharding import use_mesh
+
+    out, traced = {}, []
+    body = layers._moe_ep_body
+    layers._moe_ep_body = lambda *a, **k: traced.append(1) or body(*a, **k)
+
+    def mesh_of(shape, axes):
+        return jax.make_mesh(shape, axes, devices=jax.devices()[:int(
+            np.prod(shape))], axis_types=(jax.sharding.AxisType.Auto,)
+            * len(shape))
+
+    for name, shape, E, K, ff, cf, seed, run in LAYER_CASES:
+        if not run:
+            continue
+        x, p, c = layer_inputs(seed, E, ff)
+        x, p, c = jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()},\\
+            jnp.asarray(c)
+
+        def loss(x, p):
+            r = layers.moe_ffn_ep(x, p, E, K, cf)
+            return jnp.sum(r.y * c) + 0.5 * r.aux_loss
+        with use_mesh(mesh_of(shape, ("data", "model"))):
+            r = jax.jit(lambda x, p: layers.moe_ffn_ep(x, p, E, K, cf))(x, p)
+            g = jax.jit(jax.grad(loss, argnums=(0, 1)))(x, p)
+        out[f"{name}/g/x"] = np.asarray(g[0])
+        out.update({f"{name}/g/{k}": np.asarray(v) for k, v in g[1].items()})
+        spread = max(float(np.abs(np.asarray(s.data)
+                                  - np.asarray(r.y)[s.index]).max())
+                     for s in r.y.addressable_shards)
+        out.update({f"{name}/y": np.asarray(r.y),
+                    f"{name}/aux": np.asarray(r.aux_loss),
+                    f"{name}/spread": np.asarray(spread)})
+    layers.MOE_EP_MODE = True
+    cfg = dataclasses.replace(configs.get_smoke_config(ARCH),
+                              dtype="float32")
+    p0 = models.init_params(cfg, jax.random.PRNGKey(0))
+    for k, v in jax.tree_util.tree_flatten_with_path(p0)[0]:
+        out["w/" + "/".join(str(x.key) for x in k)] = np.asarray(v)
+    for case in REF_CASES:
+        shape, axes, kw, seq, cf, _ = STEP_CASES[case]
+        cfg = dataclasses.replace(cfg, moe=MoEConfig(8, 2, cf))
+        del traced[:]
+        mesh = mesh_of(shape, axes)
+        with use_mesh(mesh):
+            state = train.TrainState(p0, train.adamw_init(p0))
+            shard = train.TrainState(S.param_shardings(cfg, mesh),
+                                     S.opt_state_shardings(cfg, mesh,
+                                                           zero1=True))
+            state = jax.device_put(state, shard)
+            step = jax.jit(train.make_train_step(
+                cfg, train.TrainStepConfig(**kw), train.AdamWConfig(**OPT)),
+                in_shardings=(shard, None), out_shardings=(shard, None))
+            for i in range(3):
+                b = {k: jnp.asarray(v.numpy())
+                     for k, v in step_batch(cfg, SEED + i, seq).items()}
+                state, m = step(state, b)
+                out.update({f"{case}/m{i}/{k}": np.asarray(v)
+                            for k, v in m.items()})
+        out[f"{case}/ep_traced"] = np.asarray(len(traced))
+        for part, t in (("p", state.params), ("m", state.opt.m),
+                        ("v", state.opt.v)):
+            for k, v in jax.tree_util.tree_flatten_with_path(t)[0]:
+                out[f"{case}/{part}/" + "/".join(
+                    str(x.key) for x in k)] = np.asarray(v)
+    np.savez(sys.argv[1], **out)
+    print("OK")
+''')
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_child(tmp_path_factory):
+    """The reference's runs, started with the module (see ``ref``)."""
+    out = tmp_path_factory.mktemp("moe_ep_ranks") / "ref.npz"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, "-c", _REF, str(out),
+                             str(ROOT / "tests")], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        yield proc, out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def ref(reference_child):
+    proc, out = reference_child
+    stdout, stderr = proc.communicate(timeout=900)
+    assert proc.returncode == 0, stderr[-3000:]
+    assert stdout.split()[-1:] == ["OK"]
+    return dict(np.load(out))
+
+
+@contextlib.contextmanager
+def ep_mode():
+    old = layers.MOE_EP_MODE
+    layers.MOE_EP_MODE = True
+    try:
+        yield
+    finally:
+        layers.MOE_EP_MODE = old
+
+
+def cpu_mesh(shape, axes=AX2):
+    return make_mesh(shape, axes, devices=["cpu"] * int(np.prod(shape)))
+
+
+def row_of(mesh, pos: int) -> PL.ModelRow:
+    return PL.ModelRow(mesh, pos, mesh.device_at(pos))
+
+
+def row_heads(mesh) -> list:
+    """Each data row's position at model coordinate 0, in row order."""
+    return [q for q in range(mesh.size) if mesh.coords(q)["model"] == 0]
+
+
+# --- the exchanges ------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+def test_exchange_model_is_the_all_to_all(shape):
+    """Shard j receives block j of every shard i, in shard order; the
+    gradient of shard i's block j is shard j's gradient of what it got
+    from i; int32 blocks cross alike."""
+    mesh = cpu_mesh(shape)
+    rng = np.random.default_rng(0)
+    for q in row_heads(mesh):
+        row = row_of(mesh, q)
+        tp = row.tp
+        blocks = [torch.from_numpy(rng.standard_normal((tp, 3, 5))
+                                   .astype(np.float32)).requires_grad_(True)
+                  for _ in range(tp)]
+        got = PL.exchange_model(blocks, row)
+        for j in range(tp):
+            for i in range(tp):
+                assert torch.equal(got[j][i], blocks[i][j].detach())
+        ws = [torch.from_numpy(rng.standard_normal((tp, 3, 5))
+                               .astype(np.float32)) for _ in range(tp)]
+        grads = torch.autograd.grad(sum((g * w).sum() for g, w in
+                                        zip(got, ws)), blocks)
+        for i in range(tp):
+            for j in range(tp):
+                assert torch.equal(grads[i][j], ws[j][i])
+        ids = [torch.arange(tp * 4, dtype=torch.int32).reshape(tp, 4) + 100 * i
+               for i in range(tp)]
+        got = PL.exchange_model(ids, row)
+        assert all(torch.equal(got[j][i], ids[i][j]) for i in range(tp)
+                   for j in range(tp))
+
+
+def test_permute_model_deals_each_row_once_and_back():
+    """Each shard's rows as its plan lists them, from their owners; the
+    gradient of each owner's row is its taker's gradient of it; a plan
+    that takes a row twice raises."""
+    mesh = cpu_mesh((1, 4))
+    row = row_of(mesh, 0)
+    rng = np.random.default_rng(1)
+    parts = [torch.from_numpy(rng.standard_normal((3, 2)).astype(np.float32))
+             .requires_grad_(True) for _ in range(4)]
+    cells = [(i, r) for i in range(4) for r in range(3)]
+    order = rng.permutation(len(cells))
+    plan = [[cells[k] for k in order[j * 3:(j + 1) * 3]] for j in range(4)]
+    got = PL.permute_model(parts, row, plan)
+    ws = [torch.from_numpy(rng.standard_normal((3, 2)).astype(np.float32))
+          for _ in range(4)]
+    grads = torch.autograd.grad(sum((g * w).sum() for g, w in zip(got, ws)),
+                                parts)
+    for j in range(4):
+        for t, (i, r) in enumerate(plan[j]):
+            assert torch.equal(got[j][t], parts[i][r].detach())
+            assert torch.equal(grads[i][r], ws[j][t])
+    with pytest.raises(ValueError, match="once"):
+        PL.permute_model(parts, row, [plan[0]] * 4)
+
+
+def test_first_exchanges_and_the_rows_mean():
+    """``to_first`` hands coordinate 0 every shard's tensor in model
+    order, ``scatter_first`` the reverse; ``mean_rows_model`` is the
+    mean over ``model`` then over each batch axis, with the true
+    gradient: each value's d mean / d value times the rows' gradients
+    summed."""
+    mesh = cpu_mesh((2, 1, 2), AX3)
+    row = row_of(mesh, 0)
+    parts = [torch.full((2, 3), float(i)) for i in range(2)]
+    got = PL.to_first(row, parts)
+    assert all(torch.equal(g, p) for g, p in zip(got, parts))
+    back = PL.scatter_first(row, got, (2, 3), torch.float32)
+    assert all(torch.equal(b, p) for b, p in zip(back, parts))
+    vals = [[torch.tensor(float(1 + r * 2 + j)).requires_grad_(True)
+             for j in range(2)] for r in range(2)]
+    homes = [torch.device("cpu")] * 2
+    outs = PL.mean_rows_model(vals, mesh, ("pod", "data"), homes)
+    assert all(float(o.detach()) == 2.5 for o in outs)
+    grads = torch.autograd.grad(2.0 * outs[0] + 6.0 * outs[1],
+                                [v for vs in vals for v in vs])
+    assert all(float(g) == 2.0 for g in grads)      # 8 / (2 * 2)
+
+
+def test_a_recompute_on_another_thread_sees_the_forwards_mesh():
+    """On CUDA a remat recompute runs on autograd's device thread, which
+    does not see the caller's ``with mesh:`` (a context variable):
+    ``models.model._run`` enters the mesh the forward saw, so an EP layer
+    takes the same branch in the forward and the recompute (else the
+    checkpoint's saved tensors differ and it raises). The backward runs
+    on a thread of its own here."""
+    import threading
+    from repro_torch.launch.mesh import active_mesh
+    from repro_torch.models.model import _run
+    mesh = cpu_mesh((2, 2))
+    seen = []
+
+    def fn(x):
+        seen.append(active_mesh())
+        return x * x
+    x = torch.ones(3, requires_grad=True)
+    with mesh:
+        y = _run(True, fn, x)
+    got = {}
+    t = threading.Thread(target=lambda: got.update(
+        g=torch.autograd.grad(y.sum(), x)[0]))
+    t.start()
+    t.join()
+    assert seen == [mesh, mesh] and torch.equal(got["g"], 2 * x.detach())
+
+
+# --- the sharded step ---------------------------------------------------------
+
+def ref_state(weights: dict) -> TrainState:
+    """A fresh state on the reference's initial weights (``w/...``)."""
+    cfg = f32(ARCH)
+    w = {}
+    for k, v in weights.items():
+        node = w
+        *path, leaf = k.split("/")
+        for p_ in path:
+            node = node.setdefault(p_, {})
+        node[leaf] = np.array(v)       # the step updates it in place
+    params = params_from_numpy(w, cfg, "cpu")
+    return TrainState(params, adamw_init(params))
+
+
+def init_weights() -> dict:
+    """The reference's ``init_params(cfg, PRNGKey(0))`` as numpy, by
+    path (the child's initial weights)."""
+    import dataclasses
+    import jax
+    from repro import configs as jconfigs
+    from repro import models as jmodels
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(ARCH),
+                               dtype="float32")
+    p = jmodels.init_params(jcfg, jax.random.PRNGKey(0))
+    return {"/".join(str(x.key) for x in k): np.asarray(v)
+            for k, v in jax.tree_util.tree_flatten_with_path(p)[0]}
+
+
+class Run(NamedTuple):
+    state: TrainState             # gathered
+    metrics: list                 # each step's, as floats
+    flops: int                    # the first step's matmul FLOPs
+    bodies: int                   # EP bodies run (recomputes included)
+    built: list                   # expert leaves gathered whole
+    second_drops: int             # rows the second dispatches dropped
+    margin: float                 # the least gap of a top-k choice
+
+
+def ep_steps(case: str, mesh, weights: dict, spy: bool = False) -> Run:
+    """3 steps of the case under ``MOE_EP_MODE`` with ``mesh`` ambient;
+    with ``spy``, every expert leaf gathered whole is recorded."""
+    shape, axes, kw, seq = STEP_CASES[case][:4]
+    cfg = step_cfg(case)
+    state = PL.place_tree(ref_state(weights), shardings(cfg, mesh))
+    fn = make_train_step(cfg, TrainStepConfig(**kw), AdamWConfig(**OPT),
+                         mesh=mesh)
+    bodies, built, drops, margins = [], [], [], []
+    real_body, real_experts = layers._moe_ep_body, layers._ep_experts
+    real_whole, real_full = layers.whole, PL.ModelShards.full
+    real_route = layers._route
+
+    def route(xf, router, E, K):     # in numpy: no FLOPs counted
+        z = xf.detach().float().numpy() @ router.detach().float().numpy()
+        p = np.exp(z - z.max(-1, keepdims=True))
+        top = -np.sort(-p / p.sum(-1, keepdims=True), -1)
+        margins.append(float((top[:, K - 1] - top[:, K]).min()))
+        return real_route(xf, router, E, K)
+
+    def body(*a, **k):
+        bodies.append(1)
+        return real_body(*a, **k)
+
+    def experts(recv, recv_eid, w_gate, *a, cap_loc):
+        ids = recv_eid.reshape(-1)
+        counts = torch.bincount(ids[ids >= 0].long(),
+                                minlength=w_gate.shape[0])
+        drops.append(int((counts - cap_loc).clamp_min(0).sum()))
+        return real_experts(recv, recv_eid, w_gate, *a, cap_loc=cap_loc)
+
+    def whole(w):
+        if not isinstance(w, torch.Tensor) and w.parts[0].dim() >= 3:
+            built.append(tuple(w.parts[0].shape))
+        return real_whole(w)
+
+    def full(self):
+        if self.parts[0].dim() >= 3:
+            built.append(tuple(self.parts[0].shape))
+        return real_full(self)
+    layers._moe_ep_body, layers._ep_experts = body, experts
+    layers._route = route
+    if spy:
+        layers.whole, PL.ModelShards.full = whole, full
+    metrics, flops = [], None
+    try:
+        with ep_mode(), mesh:
+            for i in range(3):
+                if i == 0:
+                    with FlopCounterMode(display=False) as fc:
+                        state, m = fn(state, step_batch(cfg, SEED + i, seq))
+                    flops = fc.get_total_flops()
+                else:
+                    state, m = fn(state, step_batch(cfg, SEED + i, seq))
+                metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        layers._moe_ep_body, layers._ep_experts = real_body, real_experts
+        layers.whole, PL.ModelShards.full = real_whole, real_full
+        layers._route = real_route
+    return Run(PL.gather_tree(state), metrics, flops, len(bodies), built,
+               sum(drops), min(margins))
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return init_weights()
+
+
+@pytest.fixture(scope="module")
+def one_process(weights):
+    """Every step case in one process, computed before the tests wait
+    for the reference child."""
+    return {case: ep_steps(case, cpu_mesh(STEP_CASES[case][0],
+                                          STEP_CASES[case][1]), weights,
+                           spy=True)
+            for case in STEP_CASES}
+
+
+def reckoning(case: str, local: int) -> int:
+    """The matmul FLOPs of the case's first step on ``local`` model
+    shards of one data row."""
+    shape, axes, kw, seq = STEP_CASES[case][:4]
+    tp = shape[-1]
+    n_rows = int(np.prod(shape[:-1])) // (kw.get("n_pods", 1)
+                                           if kw.get("grad_compress")
+                                           else 1)
+    mb = kw.get("n_microbatches", 1)
+    return step_matmul_flops(step_cfg(case), 8 // int(np.prod(shape[:-1])), seq,
+                             tp, local=local, microbatches=mb,
+                             ep_rows=n_rows)
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_ep_step_builds_no_expert_leaf_and_reckons_its_flops(case,
+                                                            one_process):
+    """No ``moe_w_*`` leaf is gathered whole (``layers.whole``,
+    ``ModelShards.full``) on the step's path; the process's matmul FLOPs
+    are every row's reckoning over its model shards."""
+    run = one_process[case]
+    shape = STEP_CASES[case][0]
+    dp = int(np.prod(shape[:-1]))
+    assert run.bodies > 0 and run.built == []
+    assert run.flops == dp * reckoning(case, shape[-1])
+
+
+def test_second_dispatch_drops_only_at_the_smoke_capacity(one_process):
+    """At capacity factor 2.0 no virtual expert drops a row it received
+    (the shards' combines agree: the reference's step is one function);
+    at the smoke config's 1.25 hot experts drop rows, so the rank tests
+    there go through model shard 0's combine where the shards' differ."""
+    for case, run in one_process.items():
+        assert (run.second_drops == 0) == (STEP_CASES[case][4] == 2.0), \
+            (case, run.second_drops)
+
+
+# --- four gloo processes ------------------------------------------------------
+
+_GLOO_WORKER = textwrap.dedent('''
+    import sys
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, sys.argv[3])
+    import test_torch_moe_ep_ranks as T
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    rank, rdv = int(sys.argv[1]), sys.argv[2]
+    weights = dict(np.load(sys.argv[4]))
+    init_distributed(coordinator_address="file://" + rdv,
+                     num_processes=T.WORLD, process_id=rank, backend="gloo")
+    out = {}
+    for case in T.GLOO_CASES:
+        shape, axes = T.STEP_CASES[case][:2]
+        out[case] = T.ep_steps(case, make_mesh(shape, axes), weights)
+    torch.save(out, f"{rdv}.rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+''')
+
+
+@pytest.fixture(scope="module")
+def gloo_ranks(tmp_path_factory, weights):
+    tmp = tmp_path_factory.mktemp("gloo_ep")
+    rdv = str(tmp / "rendezvous")
+    wpath = str(tmp / "weights.npz")
+    np.savez(wpath, **weights)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(k, None)
+    procs = [subprocess.Popen([sys.executable, "-c", _GLOO_WORKER, str(r),
+                               rdv, str(ROOT / "tests"), wpath], cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(WORLD)]
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=400)
+            errs.append((p.returncode, err[-3000:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(rc == 0 for rc, _ in errs), errs
+    return [torch.load(f"{rdv}.rank{r}.pt", weights_only=False)
+            for r in range(WORLD)]
+
+
+def _equal_trees(a, b) -> bool:
+    la, lb = tree.leaves(a), tree.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("case", GLOO_CASES)
+def test_gloo_ep_ranks_are_the_one_process_run(case, one_process,
+                                               gloo_ranks):
+    want = one_process[case]
+    for r, got in enumerate(gloo_ranks):
+        run = got[case]
+        assert run.bodies > 0, r
+        assert _equal_trees(run.state, want.state), r
+        assert run.metrics == want.metrics, r
+
+
+@pytest.mark.parametrize("case", GLOO_CASES)
+def test_gloo_ep_ranks_compute_their_share(case, gloo_ranks):
+    """Each rank's matmul FLOPs are its position's reckoning: its row's
+    sequences attended and unembedded, the router over its row's tokens,
+    its E_loc x cap_loc expert slots."""
+    want = reckoning(case, 1)
+    for r, got in enumerate(gloo_ranks):
+        assert got[case].flops == want, r
+
+
+# --- against the reference -----------------------------------------------------
+
+@pytest.mark.parametrize("case", REF_CASES)
+def test_ep_step_matches_the_references_jitted_step(case, one_process,
+                                                     weights, ref):
+    for k, v in weights.items():
+        assert np.array_equal(v, ref[f"w/{k}"]), k
+    got, gm = one_process[case].state, one_process[case].metrics
+    assert one_process[case].bodies > 0 and one_process[case].margin > TIE
+    assert int(ref[f"{case}/ep_traced"]) > 0
+    for i, m in enumerate(gm):
+        for k, v in m.items():
+            np.testing.assert_allclose(v, float(ref[f"{case}/m{i}/{k}"]),
+                                       rtol=LOSS_RTOL, atol=1e-7,
+                                       err_msg=f"{case} step {i} {k}")
+    over, total = 0, 0
+    for key, b in tree.flatten_with_path(got.params):
+        d = np.abs(b.numpy() - ref[f"{case}/p/{key}"])
+        assert d.max() <= 2 * OPT["lr_peak"] * len(gm), key
+        over += int((d > PARAM_ATOL).sum())
+        total += d.size
+    assert over <= PARAM_SHARE * total, (over, total)
+    for part, t in (("m", got.opt.m), ("v", got.opt.v)):
+        for key, b in tree.flatten_with_path(t):
+            a = ref[f"{case}/{part}/{key}"]
+            assert np.abs(b.numpy() - a).max() <= \
+                MOMENT_RTOL * np.abs(a).max(), (part, key)
+
+
+# --- the EP layer on model-sharded leaves ------------------------------------
+
+def _split(w: np.ndarray, tp: int, dim: int):
+    return [torch.from_numpy(np.ascontiguousarray(b))
+            for b in np.split(w, tp, axis=dim)]
+
+
+def _sharded_layer(case):
+    """``moe_ep_rows`` on the case's leaves split as ``param_spec``
+    splits them (by expert where E divides tp, else by ff), each row
+    its own leaves; returns (y, aux, every whole gradient of
+    sum(y * c) + aux / 2, each row adding aux / (2 dp))."""
+    name, shape, E, K, ff, cf, seed, _ = case
+    x, p, c = layer_inputs(seed, E, ff)
+    mesh = cpu_mesh(shape)
+    dp, tp = shape
+    heads = row_heads(mesh)
+    shp = layers.ep_shape(x.shape[0] * x.shape[1], dp, tp, E, K, ff, cf)
+    by_expert = E % tp == 0
+    dims = {"w_gate": 0 if by_expert else 2, "w_up": 0 if by_expert else 2,
+            "w_down": 0 if by_expert else 1}
+    hs, ps, leaves = [], [], []
+    for r, q in enumerate(heads):
+        h = torch.from_numpy(x[r:r + 1].copy()).requires_grad_(True)
+        router = torch.from_numpy(p["router"].copy()).requires_grad_(True)
+        mp = {"router": router}
+        for k, dim in dims.items():
+            parts = [t.requires_grad_(True) for t in _split(p[k], tp, dim)]
+            mp[k] = PL.ModelShards(parts, dim, mesh, q, torch.device("cpu"))
+        hs.append(h)
+        ps.append(mp)
+        leaves.append(mp)
+    rows = PL.BatchRows(mesh, ("data",), heads, [(r, r + 1)
+                                                 for r in range(dp)])
+    with mesh:
+        ys, auxs = layers.moe_ep_rows(hs, ps, rows, shp, E, K)
+    loss = sum((y * torch.from_numpy(c[r:r + 1])).sum()
+               for r, y in enumerate(ys))
+    loss = loss + sum(0.5 * a / dp for a in auxs)
+    flat = ([h for h in hs] + [mp["router"] for mp in leaves]
+            + [t for mp in leaves for k in dims for t in mp[k].parts])
+    g = torch.autograd.grad(loss, flat)
+    grads = {"x": torch.cat(g[:dp]), "router": g[dp]}
+    for r in range(1, dp):
+        grads["router"] = grads["router"] + g[dp + r]
+    k0 = 2 * dp
+    for r in range(dp):
+        for k, dim in dims.items():
+            whole = torch.cat(g[k0:k0 + tp], dim)
+            grads[k] = whole if r == 0 else grads[k] + whole
+            k0 += tp
+    return torch.cat(ys).detach(), auxs[0].detach(), grads, auxs
+
+
+def _whole_layer(case):
+    name, shape, E, K, ff, cf, seed, _ = case
+    x, p, c = layer_inputs(seed, E, ff)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    pt = {k: torch.from_numpy(v).requires_grad_(True) for k, v in p.items()}
+    with cpu_mesh(shape):
+        out = layers.moe_ffn_ep(xt, pt, E, K, cf)
+    loss = (out.y * torch.from_numpy(c)).sum() + 0.5 * out.aux_loss
+    names = ["router", "w_gate", "w_up", "w_down"]
+    g = torch.autograd.grad(loss, [xt] + [pt[k] for k in names])
+    return out.y.detach(), out.aux_loss.detach(), dict(zip(["x"] + names, g))
+
+
+@pytest.mark.parametrize("case", LAYER_CASES, ids=[c[0] for c in LAYER_CASES])
+def test_ep_body_on_model_shards_is_the_whole_weight_call(case, ref):
+    name = case[0]
+    y, aux, grads, auxs = _sharded_layer(case)
+    wy, waux, wgrads = _whole_layer(case)
+    assert torch.equal(y, wy) and torch.equal(aux, waux)
+    assert all(torch.equal(a.detach(), aux) for a in auxs)
+    for k, g in wgrads.items():
+        assert torch.equal(grads[k], g), k
+    if not case[-1]:
+        return
+    want = ref[f"{name}/y"]
+    assert np.abs(y.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    assert abs(float(aux) - float(ref[f"{name}/aux"])) <= \
+        1e-6 * abs(float(ref[f"{name}/aux"]))
+    assert float(ref[f"{name}/spread"]) == 0.0
+    for k, g in grads.items():
+        w = ref[f"{name}/g/{k}"]
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max(), k

@@ -79,10 +79,25 @@ sequences, every MoE layer routing all 4), each card's peak bytes.
 unpacked with ``git archive`` under ``build/``, run beside this tree in
 one call, gives the parent-against-change numbers (its FLOPs are
 recorded, not reckoned, where its ``step_matmul_flops`` lacks the cell).
+
+    python3 tools/sharded_cards.py --train --ep --ranks 4 --cell qwen3-moe
+
+``--ep`` with ``--train --cell qwen3-moe``: the cell under
+``layers.MOE_EP_MODE`` with its mesh ambient (``chip_smoke.
+expert_parallel``), on (2, N / 2) and on (1, N): each position routes
+its row's tokens through its own experts and exchanges them over
+``model`` (peer copies in one process, NCCL all-to-alls over the
+ranks). Each run records the EP bodies run, the expert leaves built
+whole (none), the bytes exchanged a layer (``placement.EXCHANGED``)
+beside the rest; the ranks must be bitwise the one-process run and
+each rank's FLOPs its position's reckoning
+(``step_matmul_flops(..., ep_rows=dp)``). A tree whose ranks refuse EP
+(``NotImplementedError``) has the refusal recorded instead of its ranks.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -354,16 +369,19 @@ def cell_shape(cell: str, world: int) -> tuple:
     return (2, world // 2) if cell == "qwen3-moe" else (1, world)
 
 
-def tp_on_mesh(mesh, dev, cell: str) -> dict:
+def tp_on_mesh(mesh, dev, cell: str, ep: bool = False) -> dict:
     """``tp_cell_of(cell)``'s steps on ``mesh`` from weights drawn on
-    ``dev``: the losses, each step's seconds, the matmul FLOPs counted
-    in this process over the first step, and the sha1 of every param
-    shard this process holds, by position."""
+    ``dev`` (with ``ep`` under ``chip_smoke.expert_parallel``): the
+    losses, each step's seconds, the matmul FLOPs counted in this
+    process over the first step, and the sha1 of every param shard this
+    process holds, by position; with ``ep`` the EP bodies run, the
+    expert leaves built whole and the bytes exchanged a step and
+    layer."""
     import dataclasses
     import hashlib
     import torch
     from torch.utils.flop_counter import FlopCounterMode
-    from chip_smoke import TRAIN_OPT, _train_inputs
+    from chip_smoke import TRAIN_OPT, _train_inputs, expert_parallel
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.distributed import placement
@@ -399,20 +417,23 @@ def tp_on_mesh(mesh, dev, cell: str) -> dict:
     for c in cards:
         torch.cuda.reset_peak_memory_stats(c)
     losses, secs, flops = [], [], None
-    for i in range(k["steps"]):
-        b = {n: torch.from_numpy(v).to(dev) for n, v in
-             _train_inputs(cfg, k["batch"], k["seq"], i, seed).items()}
-        sync()
-        t0 = time.perf_counter()
-        if i == 0:
-            with FlopCounterMode(display=False) as fc:
+    exchanged = getattr(placement, "EXCHANGED", {})
+    exchanged["bytes"] = 0
+    with (expert_parallel(mesh) if ep else contextlib.nullcontext()) as seen:
+        for i in range(k["steps"]):
+            b = {n: torch.from_numpy(v).to(dev) for n, v in
+                 _train_inputs(cfg, k["batch"], k["seq"], i, seed).items()}
+            sync()
+            t0 = time.perf_counter()
+            if i == 0:
+                with FlopCounterMode(display=False) as fc:
+                    state, m = step(state, b)
+                flops = fc.get_total_flops()
+            else:
                 state, m = step(state, b)
-            flops = fc.get_total_flops()
-        else:
-            state, m = step(state, b)
-        losses.append(float(m["loss"]))
-        sync()
-        secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            sync()
+            secs.append(time.perf_counter() - t0)
     sha = {}
     for s in tree.leaves(state.params):
         for q, t in s.local.items():
@@ -423,16 +444,22 @@ def tp_on_mesh(mesh, dev, cell: str) -> dict:
                 hashlib.sha1(t.numpy().tobytes()).hexdigest())
     del state
     torch.cuda.empty_cache()
-    return {"losses": losses, "step_seconds": secs, "matmul_flops": flops,
-            "shard_sha1": sha,
-            "peak_bytes": {str(c): torch.cuda.max_memory_allocated(c)
-                           for c in cards}}
+    out = {"losses": losses, "step_seconds": secs, "matmul_flops": flops,
+           "shard_sha1": sha,
+           "peak_bytes": {str(c): torch.cuda.max_memory_allocated(c)
+                          for c in cards}}
+    if ep:
+        out.update(ep_bodies=seen["bodies"], expert_leaves_built=seen["built"],
+                   exchanged_bytes_per_step_layer=exchanged.get("bytes", 0)
+                   / k["steps"] / cfg.n_layers)
+    return out
 
 
 def train_rank_worker(rank: int, world: int, addr: str, out: str,
-                      cell: str) -> int:
+                      cell: str, shape=None, ep: bool = False) -> int:
     """One rank of ``--train --ranks``: saves its run of ``cell``
-    ("smollm" on (2, N / 2), "tp" or "xlstm" on (1, N)) to ``out``."""
+    ("smollm" on (2, N / 2), "tp" or "xlstm" on (1, N), "qwen3-moe" on
+    ``shape``, by default (2, N / 2)) to ``out``."""
     import torch
     from repro_torch.launch.mesh import init_distributed, make_mesh
     if not init_distributed(coordinator_address=addr, num_processes=world,
@@ -440,8 +467,8 @@ def train_rank_worker(rank: int, world: int, addr: str, out: str,
         raise RuntimeError("init_distributed did not start a group")
     dev = torch.device("cuda", torch.cuda.current_device())
     if cell != "smollm":
-        rec = tp_on_mesh(make_mesh(cell_shape(cell, world),
-                                   ("data", "model")), dev, cell)
+        rec = tp_on_mesh(make_mesh(shape or cell_shape(cell, world),
+                                   ("data", "model")), dev, cell, ep=ep)
     else:
         rec = train_on_mesh(make_mesh((2, world // 2), ("data", "model")),
                             dev, TRAIN_SEED)
@@ -531,7 +558,8 @@ def ranks_train_leg(world: int) -> None:
         tp_ranks_leg(world, work, cell)
 
 
-def tp_ranks_leg(world: int, work: Path, cell: str) -> None:
+def tp_ranks_leg(world: int, work: Path, cell: str, shape=None,
+                 ep: bool = False) -> None:
     """A sharded cell (``tp_on_mesh``) on its ``cell_shape`` mesh with
     position i on cuda:i in this process, over ``world`` NCCL ranks,
     and (but for the MoE cell, whose 6.2 B parameters and moments do not
@@ -539,7 +567,8 @@ def tp_ranks_leg(world: int, work: Path, cell: str) -> None:
     one-process run (losses and every shard's sha1), each rank's FLOPs
     the reckoned count of its own position (where the checkout's
     ``step_matmul_flops`` reckons the cell: a parent's may not), each
-    card's peak bytes."""
+    card's peak bytes. ``shape`` overrides the cell's mesh; ``ep`` runs
+    it expert-parallel (see the module's docstring)."""
     import dataclasses
     import torch
     from chip_smoke import emit
@@ -549,46 +578,68 @@ def tp_ranks_leg(world: int, work: Path, cell: str) -> None:
     from repro_torch.train.sharded import step_matmul_flops
     k = tp_cell_of(cell)
     cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
-    shape = cell_shape(cell, world)
+    shape = tuple(shape or cell_shape(cell, world))
     mesh = make_mesh(shape, ("data", "model"),
                      devices=[f"cuda:{i}" for i in range(world)])
-    one = tp_on_mesh(mesh, torch.device("cuda", 0), cell)
-    _spawn(world, lambda r: ["--train", "--cell", cell, "--out",
-                             str(work / f"{cell}{r}.pt")])
+    tag = f"{cell}{'-ep' if ep else ''}-{shape[0]}x{shape[1]}"
+    extra = ["--mesh", f"{shape[0]}x{shape[1]}"] + (["--ep"] if ep else [])
+    rec = {"phase": "sharded_train_tp_ranks", "cell": cell, "world": world,
+           "model": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           **k, "mesh": mesh.shape, "backend": "nccl", "ep": ep,
+           "package": str(_checkout()),
+           "tp_split": tp_split(cfg, mesh.shape)}
+    other = ep and _checkout() != ROOT      # a parent's EP is recorded
     try:
+        one = tp_on_mesh(mesh, torch.device("cuda", 0), cell, ep=ep)
+    except Exception as e:                   # noqa: BLE001
+        if not other:
+            raise
+        rec["one_process_failed"] = f"{type(e).__name__}: {str(e)[-400:]}"
+        one = None
+        torch.cuda.empty_cache()
+    if one is not None:
+        rec["one_process"] = {n: v for n, v in one.items()
+                              if n != "shard_sha1"}
+    try:
+        _spawn(world, lambda r: ["--train", "--cell", cell, "--out",
+                                 str(work / f"{tag}{r}.pt")] + extra)
+    except AssertionError as e:
+        if not other:
+            raise
+        emit({**rec, "ranks_refused": str(e)[-600:]})
+        return
+    if one is None:
+        raise AssertionError(f"{tag}: the ranks ran where one process "
+                             f"failed: {rec['one_process_failed']}")
+    try:
+        kw = (dict(ep_rows=shape[0]) if ep else dict(moe_rows=k["batch"]))
         per_position = [step_matmul_flops(
             cfg, k["batch"] // shape[0], k["seq"], shape[1],
-            position=mesh.coords(r)["model"], device="cuda",
-            moe_rows=k["batch"]) for r in range(world)]
+            position=mesh.coords(r)["model"], device="cuda", **kw)
+            for r in range(world)]
     except (NotImplementedError, TypeError):    # a parent's reckoning
         per_position = None
     ranks = []
     for r in range(world):
-        got = torch.load(work / f"{cell}{r}.pt", weights_only=False)
+        got = torch.load(work / f"{tag}{r}.pt", weights_only=False)
         same = (got["losses"] == one["losses"]
                 and got["shard_sha1"][r] == one["shard_sha1"][r])
-        ranks.append({"rank": r, "device": got["device"],
-                      "losses": got["losses"], "bitwise": same,
-                      "matmul_flops": got["matmul_flops"],
-                      "step_seconds": got["step_seconds"],
-                      "peak_bytes": got["peak_bytes"]})
+        ranks.append({"rank": r, "bitwise": same,
+                      **{n: v for n, v in got.items()
+                         if n not in ("shard_sha1", "rank")}})
     host = None
     if cell != "qwen3-moe":
         run = tp_on_mesh(make_host_mesh("cuda:0"), torch.device("cuda", 0),
                          cell)
         host = {n: run[n] for n in ("losses", "step_seconds",
                                     "matmul_flops", "peak_bytes")}
-    emit({"phase": "sharded_train_tp_ranks", "cell": cell, "world": world,
-          "model": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-          **k, "mesh": mesh.shape, "backend": "nccl",
-          "package": str(_checkout()),
-          "tp_split": tp_split(cfg, mesh.shape),
-          "one_process": {n: one[n] for n in ("losses", "step_seconds",
-                                              "matmul_flops",
-                                              "peak_bytes")},
-          "ranks": ranks, "one_card_1x1": host,
+    emit({**rec, "ranks": ranks, "one_card_1x1": host,
           "matmul_flops_reckoned_per_position": per_position,
           "all_bitwise": all(r["bitwise"] for r in ranks)})
+    if ep and _checkout() == ROOT and (not one["ep_bodies"]
+                                       or one["expert_leaves_built"]):
+        raise AssertionError(f"EP: {one['ep_bodies']} bodies, expert "
+                             f"leaves built whole {one['expert_leaves_built']}")
     if not all(r["bitwise"] for r in ranks):
         raise AssertionError("the ranks' sharded steps are not the "
                              "one-process mesh's")
@@ -631,6 +682,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cell", default=None,
                     help="with --train --ranks: run this cell alone "
                          "(qwen3-moe: the MoE rows at full width)")
+    ap.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tree", default=None,
                     help="run the package of another checkout (its src/), "
                          "such as a parent unpacked under build/")
@@ -640,8 +692,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(args.tree or ROOT).resolve() / "src"))
     if args.rank is not None:
         if args.train:
+            shape = (tuple(int(n) for n in args.mesh.split("x"))
+                     if args.mesh else None)
             return train_rank_worker(args.rank, args.ranks, args.rendezvous,
-                                     args.out, args.cell or "smollm")
+                                     args.out, args.cell or "smollm", shape,
+                                     args.ep)
         return rank_worker(args.rank, args.ranks, args.rendezvous)
     if torch.cuda.device_count() < 2:
         print("sharded_cards: needs two or more CUDA cards", file=sys.stderr)
@@ -666,12 +721,15 @@ def main(argv=None) -> int:
     cards = torch.cuda.device_count()
     if args.ep or args.ranks:
         emit({"phase": "cards", "count": cards, "smi": smi})
-        if args.ep:
+        cell_ep = args.ep and args.train and args.cell
+        if args.ep and not cell_ep:
             ep_leg(cards)
         if args.ranks and args.train and args.cell:
             work = ROOT / "build" / "train_ranks"
             work.mkdir(parents=True, exist_ok=True)
-            tp_ranks_leg(args.ranks, work, args.cell)
+            w = args.ranks
+            for shape in ([(2, w // 2), (1, w)] if cell_ep else [None]):
+                tp_ranks_leg(w, work, args.cell, shape, ep=bool(cell_ep))
         elif args.ranks:
             (ranks_train_leg if args.train else ranks_leg)(args.ranks)
         print(json.dumps({"ok": True, "device": {

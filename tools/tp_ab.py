@@ -19,6 +19,10 @@ cells are that commit's. The second is a comma-separated list (default
 * ``11h``: ``tp_cell`` of 11h's MoE cell (``MOE_CELL``, defined here
   so that a parent without 11h runs the same cell) on (2, 2) and on
   1 x 1, with the process's matmul FLOPs of the first step;
+* ``11i``: the same cell under ``layers.MOE_EP_MODE`` with each mesh
+  ambient (``EP_CELL``: capacity factor 4.0, seed 17, as chip_smoke's
+  11i), on (2, 2) and on 1 x 1; a checkout whose train step cannot run
+  it fails the cell, and the traceback is printed;
 * ``prof_11a``: one (2, 2) smollm-135m step after two warm ones under
   ``torch.profiler``: its wall seconds, the kernel launches
   (``cudaLaunchKernel`` calls), the sum of every row's self device time
@@ -35,6 +39,7 @@ failed.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -56,6 +61,9 @@ SEEDS = dict(phase_flash_segments=19, phase_sharded_train_full=10,
 #: 3 steps of 4 x 2048 tokens, seed 16
 MOE_CELL = dict(arch="qwen3-moe-235b-a22b", n_layers=4, d_model=512,
                 d_ff=256, batch=4, seq=2048, steps=3, seed=16)
+#: ``chip_smoke.MOE_EP``' cell: the MoE cell at capacity factor 4.0,
+#: seed 17, run expert-parallel
+EP_CELL = dict(MOE_CELL, seed=17, capacity_factor=4.0)
 
 
 def steps(rec: dict) -> dict:
@@ -122,16 +130,26 @@ def run_cell(C, cell: str):
         cfg = dataclasses.replace(get_config(k["arch"]),
                                   n_layers=k["n_layers"])
         return steps(C.tp_legs(cell, cfg, k, 13 if cell == "11e" else 14))
-    if cell == "11h":
+    if cell in ("11h", "11i"):
         from repro_torch.launch.mesh import make_host_mesh
-        k = MOE_CELL
-        cfg = dataclasses.replace(get_config(k["arch"]),
-                                  n_layers=k["n_layers"],
+        from repro_torch.models import layers
+        k = MOE_CELL if cell == "11h" else EP_CELL
+        base = get_config(k["arch"])
+        cfg = dataclasses.replace(base, n_layers=k["n_layers"],
                                   d_model=k["d_model"], d_ff=k["d_ff"])
-        legs = {name: C.tp_cell(cfg, mesh, k["seed"], k, f"11h {name}")
-                for name, mesh in (
-                    ("2x2", C.lm_mesh([C.MESH_DEVICE] * 4)),
-                    ("1x1", make_host_mesh(C.MESH_DEVICE)))}
+        if cell == "11i":
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                base.moe, capacity_factor=k["capacity_factor"]))
+        legs = {}
+        layers.MOE_EP_MODE = cell == "11i"
+        try:
+            for name, mesh in (("2x2", C.lm_mesh([C.MESH_DEVICE] * 4)),
+                               ("1x1", make_host_mesh(C.MESH_DEVICE))):
+                with mesh if cell == "11i" else contextlib.nullcontext():
+                    legs[name] = C.tp_cell(cfg, mesh, k["seed"], k,
+                                           f"{cell} {name}")
+        finally:
+            layers.MOE_EP_MODE = False
         return {n: steps({"legs": legs})[n]
                 + (leg["matmul_flops_step_process"], leg["losses"])
                 for n, leg in legs.items()}
