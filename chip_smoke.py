@@ -282,7 +282,23 @@ Phases, each asserting (any failure exits non-zero):
    each position's resident bytes (``specs.shard_bytes``) and matmul
    FLOPs. Phase 2b checks and times flash at the shard shapes (4, 2048,
    8, 2, 128) and (2, 2048, 4, 1, 128); phase 2d checks it at every
-   head-segment shape of the split legs (``tp_flash_shapes``).
+   head-segment shape of the split legs and of 11j's prefills
+   (``tp_flash_shapes``). (11i)
+   11h's cut under ``MOE_EP_MODE`` (``MOE_EP``). (11j) serving at the
+   reference's dry-run partition (``serve.sharded``,
+   ``SERVE_SHARDED``): granite-8b at its published widths, 4 layers,
+   bf16, 4 x 20,480-token prompts into a 32,768-position cache and 16
+   greedy steps on (1, 4) and (2, 2) with every position on cuda:0,
+   then 1 x 1 through ``make_prefill`` + ``make_serve_step``: each
+   position's resident cache bytes ``specs.shard_bytes`` of the cache
+   under ``cache_shardings``, flash exactly 16, 16 and 4, the split
+   meshes' prefill logits within ``SERVE_BF16_REL`` of 1 x 1's largest
+   and their token agreement recorded (bf16); its f32 leg
+   (``SERVE_PARITY``: equal tokens, logits within ``SERVE_TOL``) and MoE
+   leg (``SERVE_MOE``: f32 EP prefill on (2, 2) against 1 x 1, the
+   routing of both recorded, flips only at router near-ties, the
+   logits of the requests that never flipped within ``SERVE_MOE_TOL``).
+   Records ``"phase": "sharded_serving"``.
 
 Phases 3e-3i run after phase 4. Stdout carries JSON records, then the
 script's total seconds; the line before the last is the per-kernel
@@ -2024,9 +2040,14 @@ def tp_flash_shapes() -> dict:
     (``sharding.shard_heads``) over each data row's sequences, for
     11a's smollm-135m on (2, 2), 11f's hymba-1.5b on (1, 4), 11g's
     deepseek-coder-33b on (1, 16) and 11h's qwen3-moe on (2, 2) in bf16,
-    and the f32 legs on (2, 2), (1, 2) and (2, 1)."""
+    and the f32 legs on (2, 2), (1, 2) and (2, 1); and every prefill of
+    11j: granite-8b's 20,480-token prompts on (1, 4), (2, 2) and 1 x 1
+    in bf16, its f32 leg on (1, 2), its MoE leg on (2, 2) and 1 x 1."""
     from repro_torch.configs import get_config
     from repro_torch.models.sharding import shard_heads
+    serve = dict(batch=SERVE_SHARDED["batch"], seq=SERVE_SHARDED["prompt"])
+    serve_f32 = dict(batch=SERVE_PARITY["batch"], seq=SERVE_PARITY["prompt"])
+    serve_moe = dict(batch=SERVE_MOE["batch"], seq=SERVE_MOE["prompt"])
     legs = [("bfloat16", "smollm-135m", SHARDED_TRAIN, (2, 2)),
             ("bfloat16", "hymba-1.5b", RECURRENT_TP["hymba"], (1, 4)),
             ("bfloat16", "deepseek-coder-33b", TP_PRODUCTION, (1, 16)),
@@ -2034,7 +2055,13 @@ def tp_flash_shapes() -> dict:
             ("float32", "qwen3-moe-235b-a22b", MOE_ROWS_PARITY, (2, 1)),
             ("float32", "smollm-135m", SHARDED_PARITY, (2, 2)),
             ("float32", "smollm-135m", TP_PARITY, (1, 2)),
-            ("float32", "hymba-1.5b", RECURRENT_PARITY, (1, 2))]
+            ("float32", "hymba-1.5b", RECURRENT_PARITY, (1, 2)),
+            ("bfloat16", "granite-8b", serve, (1, 4)),
+            ("bfloat16", "granite-8b", serve, (2, 2)),
+            ("bfloat16", "granite-8b", serve, (1, 1)),
+            ("float32", "granite-8b", serve_f32, (1, 2)),
+            ("float32", "qwen3-moe-235b-a22b", serve_moe, SERVE_MOE["shape"]),
+            ("float32", "qwen3-moe-235b-a22b", serve_moe, (1, 1))]
     out: dict = {}
     for dt, arch, k, (dp, tp) in legs:
         cfg = get_config(arch)
@@ -3718,7 +3745,7 @@ def phase_sharded_cards(seed: int) -> int:
 #: step, on a (1, 4) mesh with every position on cuda:0 beside 1 x 1
 TP_TRAIN = dict(arch="granite-8b", n_layers=8, batch=4, seq=2048, steps=3,
                 shape=(1, 4), flash={"1x4": 64, "1x1": 16})
-#: 11e's f32 leg: granite's widths at 2 layers, 2 x 128 tokens, 3 steps on
+#: 11e's f32 leg: granite's widths at 1 layer, 2 x 128 tokens, 3 steps on
 #: a (1, 2) card mesh against the CPU's one-device step
 TP_PARITY = dict(batch=2, seq=128, steps=3)
 
@@ -4357,6 +4384,449 @@ def phase_moe_ep_rows(seed: int) -> int:
     return total
 
 
+#: 11j: serving at the reference's dry-run partition (``serve.sharded``):
+#: granite-8b at its published widths (``configs/granite_8b.py``: d 4096,
+#: 32/8 heads of 128, d_ff 14336, vocab 49152), 4 of its 36 layers
+#: (depth cut for time), bf16, seeded; 4 requests of 20,480-token prompts
+#: into a 32,768-position cache (``decode_32k``'s length, ``SHAPES`` in
+#: ``models/config.py``), then 16 greedy decode steps. On (1, 4) and
+#: (2, 2) (every position on cuda:0) the cache splits its positions over
+#: ``model`` (8,192 a shard on (1, 4), 16,384 on (2, 2) with the requests
+#: over ``data``), so the prompts cover shards 0-2 of (1, 4) and both of
+#: (2, 2); then the 1 x 1 run through ``serve.make_prefill`` +
+#: ``make_serve_step``. Flash: one call a layer a shard's head segment
+#: (8 query heads over 2 KV heads a shard: one), 16 on each split mesh, 4
+#: on 1 x 1; a position's cache 536,870,912 bytes (2,147,483,648 on 1 x 1)
+SERVE_SHARDED = dict(arch="granite-8b", n_layers=4, batch=4, prompt=20480,
+                     max_len=32768, steps=16,
+                     flash={"1x4": 16, "2x2": 16, "1x1": 4},
+                     cache_bytes={"1x4": 536870912, "2x2": 536870912,
+                                  "1x1": 2147483648})
+#: 11j's f32 leg: granite's widths at 1 layer, 2 requests of 160 tokens,
+#: a 256-position cache, (1, 2) on the card against the CPU's 1 x 1; the
+#: tokens equal and the logits within ``SERVE_TOL``, the tolerance
+#: ``tests/test_torch_sharded_serve.py`` states (rtol, atol)
+SERVE_PARITY = dict(n_layers=1, batch=2, prompt=160, max_len=256, steps=8,
+                    shape=(1, 2))
+SERVE_TOL = (2e-5, 2e-5)
+#: 11j's split meshes' prefill logits (bf16) against 1 x 1's: the largest
+#: |difference| at most SERVE_BF16_REL of 1 x 1's largest |logit|, the
+#: root mean square of the differences at most SERVE_BF16_REL of 1 x 1's
+#: root mean square. Their bf16 sums run in another order (row-parallel
+#: partials summed over ``model``), ~3 bf16 roundings (2^-8) of the rms
+#: apart: the runs before this gate read 0.0591 and 0.0534 largest
+#: against 4.557, 0.0125 and 0.0129 rms against 1.000 ((1, 4) and (2, 2));
+#: a wrong head segment or cache shard moves the last hidden state, and
+#: the logits, by their own scale
+SERVE_BF16_REL = 2.0 ** -5
+#: 11j's MoE leg: 11i's cut of qwen3-moe (``MOE_EP``: capacity 4.0, no
+#: assignment can drop) in f32 under ``MOE_EP_MODE``, prefill 4 x 2048 on
+#: (2, 2) on cuda:0 (EP engages: 8,192 tokens), then 8 decode steps (the
+#: dense dispatch at 4 tokens a step) fed 1 x 1's tokens, held against
+#: 1 x 1. The two layouts' f32 sums differ in the last bits, which can
+#: move the experts of a token whose k-th and (k + 1)-th router
+#: probabilities tie within them (8,192 tokens x 4 layers x top-8 of 128),
+#: and with them its request's later positions (attention stays within a
+#: request, and no expert drops at this capacity). So the prefill's
+#: routing is recorded on both layouts (``routes_recorded``,
+#: ``routing_flips``): in a request that has not flipped yet the
+#: layouts' router probabilities differ by at most ``SERVE_MOE_NOISE``,
+#: and a token's experts differ only where its 1 x 1 margin is below
+#: twice the largest such difference; every call's logits of the
+#: requests whose routing never differed are within ``SERVE_MOE_TOL``
+#: (rtol, atol), of the others within ``SERVE_MOE_FLIP_TOL``. Read on an
+#: H100 at seed 20: one token of request 3 flips in layer 0 at a margin
+#: of 3.7e-8, its request's later layers follow (17, 43, 81 tokens); the
+#: noise 1.2e-6 to 4.2e-6 over the layers; the other requests' logits
+#: 3.6e-5 (prefill) and 1.7e-5 (decode) from 1 x 1's, request 3's 6.44e-3
+#: and 8.75e-3. A wrong EP body or cache shard moves every request's
+#: hidden states by far more than ``SERVE_MOE_NOISE``
+SERVE_MOE = dict(batch=4, prompt=2048, steps=8, shape=(2, 2))
+SERVE_MOE_TOL = (1e-4, 1e-4)
+SERVE_MOE_FLIP_TOL = (2e-2, 2e-2)
+SERVE_MOE_NOISE = 2e-5
+
+
+@contextlib.contextmanager
+def routes_recorded(min_tokens: int):
+    """Every ``layers._route`` call over at least ``min_tokens`` tokens,
+    in call order: (its router probabilities (N, E) f32, as ``_route``
+    computes them; its top-k expert ids (N, K), sorted)."""
+    import torch
+    from repro_torch.models import layers
+    real, calls = layers._route, []
+
+    def route(xf, router, E, K):
+        out = real(xf, router, E, K)
+        if xf.shape[0] >= min_tokens:
+            with torch.no_grad():
+                probs = torch.softmax(xf.detach().float()
+                                      @ router.detach().float(), dim=-1)
+            calls.append((probs, out[1].sort(-1).values))
+        return out
+    layers._route = route
+    try:
+        yield calls
+    finally:
+        layers._route = real
+
+
+def routing_flips(one: list, split: list, n_layers: int, dp: int, tp: int,
+                  seq: int) -> dict:
+    """The prefill's routing on 1 x 1 (``one``: a call a layer over every
+    token) against a (dp, tp) mesh (``split``: a call a layer, row and
+    model shard, each shard routing its row's tokens, row r the tokens
+    [r n, (r + 1) n)): raises unless the shards of a row route alike, the
+    requests that have not flipped before a layer see router
+    probabilities within ``SERVE_MOE_NOISE`` of 1 x 1's there, and every
+    token of such a request whose experts differ has a 1 x 1 margin
+    (k-th minus (k + 1)-th probability) below twice the largest
+    difference the other tokens of such requests see.
+    Returns the flips a layer, the requests with any, the noise a layer
+    and the margins."""
+    import torch
+    if len(one) != n_layers or len(split) != n_layers * dp * tp:
+        raise AssertionError(f"11j MoE: {len(one)} and {len(split)} prefill "
+                             f"router calls, {n_layers} and "
+                             f"{n_layers * dp * tp} expected")
+    flipped: set = set()
+    out = dict(flips=[], noise=[], first_flip_margins=[], min_margin=None)
+    for layer in range(n_layers):
+        p1, i1 = one[layer]
+        calls = split[layer * dp * tp:(layer + 1) * dp * tp]
+        for r in range(dp):
+            for j in range(1, tp):
+                a, b = calls[r * tp], calls[r * tp + j]
+                if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                    raise AssertionError(f"11j MoE: layer {layer} row {r}: "
+                                         "its shards route differently")
+        p2 = torch.cat([calls[r * tp][0] for r in range(dp)])
+        i2 = torch.cat([calls[r * tp][1] for r in range(dp)])
+        K = i1.shape[1]
+        top = p1.sort(-1, descending=True).values
+        margin = top[:, K - 1] - top[:, K]
+        flip = (i1 != i2).any(-1)
+        req = torch.arange(p1.shape[0], device=p1.device) // seq
+        pristine = torch.ones_like(flip)
+        for r in flipped:
+            pristine &= req != r
+        delta = (p1 - p2).abs().amax(-1)
+        calm = pristine & ~flip
+        noise = float(delta[calm].max()) if calm.any() else 0.0
+        first = (flip & pristine).nonzero().flatten()
+        if noise > SERVE_MOE_NOISE or \
+                any(float(margin[t]) >= 2 * noise for t in first):
+            raise AssertionError(
+                f"11j MoE: layer {layer}: router probabilities "
+                f"{noise} from 1 x 1's (at most {SERVE_MOE_NOISE}); "
+                f"margins of its flipped tokens {margin[first].tolist()}")
+        out["flips"].append(int(flip.sum()))
+        out["noise"].append(noise)
+        out["first_flip_margins"] += margin[first].tolist()
+        m = float(margin.min())
+        out["min_margin"] = (m if out["min_margin"] is None
+                             else min(out["min_margin"], m))
+        flipped |= set(req[flip].tolist())
+    out["flipped_requests"] = sorted(flipped)
+    return out
+
+
+def sharded_serve_run(cfg, mesh, params, batch: dict, max_len: int,
+                      steps: int, forced=None) -> dict:
+    """``serve.sharded``'s prefill and ``steps`` greedy decode steps on
+    ``mesh`` from whole ``params`` (placed here by
+    ``serve_param_shardings``; the prefill's are the same where
+    ``specs.needs_fsdp`` is false), or with ``mesh`` None the one-device
+    ``make_prefill`` + ``make_serve_step``: the tokens, every call's
+    logits (whole, on the CPU; the prefill's last first), the prefill
+    seconds and each step's ms (device synced), the flash launches, and
+    each position's resident cache bytes. With ``forced`` (B, 1 + steps)
+    each step is fed those tokens instead of its own."""
+    import torch
+    from repro_torch.distributed import placement
+    from repro_torch.launch import specs
+    from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.serve import sharded as SS
+    B = batch["tokens"].shape[0]
+    t0 = batch["tokens"].shape[1]
+    reset_launches()
+    if mesh is None:
+        prefill, step = make_prefill(cfg, max_len), make_serve_step(cfg)
+        placed = params
+    else:
+        if specs.needs_fsdp(cfg, mesh):
+            raise AssertionError(f"{cfg.name}: the prefill's params need "
+                                 "ZeRO-1 here")
+        placed = placement.place_tree(params,
+                                      SS.serve_param_shardings(cfg, mesh))
+        prefill = SS.make_sharded_prefill(cfg, mesh, max_len)
+        step = SS.make_sharded_serve_step(cfg, mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cache, last = prefill(placed, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    if mesh is None:
+        tok = torch.argmax(last[:, -1], -1).to(torch.int32)[:, None]
+        toks, whole = [tok], last
+        resident = {0: sum(t.numel() * t.element_size()
+                           for t in (cache["k"], cache["v"]))}
+    else:
+        tok = SS.sharded_argmax(cfg, last)
+        toks, whole = [placement.gather(tok)], placement.gather(last)
+        resident = placement.resident_bytes(cache)
+    ms, logits = [], [whole.float().cpu()]
+    for i in range(steps):
+        if forced is not None:
+            tok = forced[:, i:i + 1].to(MESH_DEVICE)
+        t1 = time.perf_counter()
+        tok, lg, cache = step(placed, cache, tok, t0 + i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        toks.append(tok if mesh is None else placement.gather(tok))
+        logits.append((lg if mesh is None else placement.gather(lg))
+                      .float().cpu())
+    launches = read_launches()
+    out = dict(tokens=torch.cat(toks, 1).cpu(), last=logits[0],
+               logits=logits,
+               prefill_s=prefill_s, decode_ms=ms,
+               decode_ms_median=float(np.median(ms)),
+               flash=launches["flash"], resident_cache_bytes=resident,
+               logits_finite=bool(torch.isfinite(whole).all()))
+    del cache, placed
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_serving(seed: int) -> int:
+    """11j: ``SERVE_SHARDED`` on (1, 4) and (2, 2) then 1 x 1, each
+    position's resident cache bytes ``specs.shard_bytes`` of the cache
+    under ``cache_shardings`` (predicted ``cache_bytes``), flash as
+    ``flash`` states, the prefill logits within ``SERVE_BF16_REL``,
+    whether the split meshes' tokens equal 1 x 1's (recorded: bf16 sums
+    in another order may flip a near-tie); the f32
+    leg (``SERVE_PARITY``) and the MoE leg (``SERVE_MOE``). A leg that
+    raises fails the script; nothing falls back to a whole cache or the
+    CPU. Returns the flash launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models import layers
+    from repro_torch.serve import sharded as SS
+    k = SERVE_SHARDED
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
+    params = init_params(cfg, torch.Generator(device=MESH_DEVICE)
+                         .manual_seed(seed), MESH_DEVICE)
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (k["batch"], k["prompt"]))
+        .astype(np.int32)).to(MESH_DEVICE)}
+    shape = SS.serve_shape(k["batch"], k["max_len"])
+    runs, total = {}, 0
+    for name, mshape in (("1x4", (1, 4)), ("2x2", (2, 2)), ("1x1", None)):
+        mesh = lm_mesh([MESH_DEVICE] * 4, mshape) if mshape else None
+        run = sharded_serve_run(cfg, mesh, params, batch, k["max_len"],
+                                k["steps"])
+        want = specs.shard_bytes(specs.cache_structs(cfg, shape),
+                                 specs.cache_shardings(
+                                     cfg, shape, mesh or make_host_mesh(
+                                         MESH_DEVICE)))
+        got = run["resident_cache_bytes"]
+        if set(got.values()) != {want} or want != k["cache_bytes"][name]:
+            raise AssertionError(f"11j {name}: cache bytes a position {got},"
+                                 f" {want} by cache_shardings, "
+                                 f"{k['cache_bytes'][name]} stated")
+        if run["flash"] != k["flash"][name] or not run["logits_finite"]:
+            raise AssertionError(f"11j {name}: flash {run['flash']} "
+                                 f"({k['flash'][name]} stated), logits "
+                                 f"finite {run['logits_finite']}")
+        runs[name] = run
+        total += run["flash"]
+    one = runs["1x1"]
+    scale = float(one["last"].abs().max())
+    rms = float(one["last"].double().pow(2).mean().sqrt())
+    legs = {}
+    for name, run in runs.items():
+        gap = max_abs_diff([run["last"]], [one["last"]])
+        gap_rms = float((run["last"].double() - one["last"].double())
+                        .pow(2).mean().sqrt())
+        if gap > SERVE_BF16_REL * scale or gap_rms > SERVE_BF16_REL * rms:
+            raise AssertionError(f"11j {name}: prefill logits {gap} (rms "
+                                 f"{gap_rms}) from 1 x 1's, above "
+                                 f"{SERVE_BF16_REL} of its largest |logit| "
+                                 f"{scale} (rms {rms})")
+        legs[name] = {
+            "prefill_s": run["prefill_s"],
+            "decode_ms_median": run["decode_ms_median"],
+            "decode_ms": run["decode_ms"], "flash_launches": run["flash"],
+            "resident_cache_bytes_per_position":
+                sorted(set(run["resident_cache_bytes"].values())),
+            "positions": len(run["resident_cache_bytes"]),
+            "tokens_equal_1x1": bool(torch.equal(run["tokens"],
+                                                 one["tokens"])),
+            "tokens_agree_share": float((run["tokens"] == one["tokens"])
+                                        .float().mean()),
+            "prefill_logits_max_abs_diff_1x1": gap,
+            "prefill_logits_rms_diff_1x1": gap_rms}
+    emit({"phase": "sharded_serving", "leg": "11j granite-8b",
+          "model": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab, **{n: v for n, v in k.items()
+                                                  if n not in ("flash",)},
+          "cache_spec": repr(specs.cache_shardings(
+              cfg, shape, lm_mesh([MESH_DEVICE] * 4, (1, 4)))["k"].spec),
+          "prefill_logits_max_abs_1x1": scale,
+          "prefill_logits_rms_1x1": rms,
+          "bf16_rel_tol": SERVE_BF16_REL, "legs": legs})
+    del params
+    torch.cuda.empty_cache()
+
+    pk = SERVE_PARITY
+    f32 = dataclasses.replace(get_config(k["arch"]), n_layers=pk["n_layers"],
+                              dtype="float32")
+    cpu, gpu = _weights_both(f32, seed + 1)
+    rng = np.random.default_rng(seed + 1)
+    prompt = torch.from_numpy(rng.integers(0, f32.vocab, (
+        pk["batch"], pk["prompt"])).astype(np.int32))
+    want = _cpu_serve(f32, cpu, prompt, pk["max_len"], pk["steps"])
+    mesh = lm_mesh([MESH_DEVICE] * 2, pk["shape"])
+    got = _card_serve(f32, mesh, gpu, prompt.to(MESH_DEVICE), pk["max_len"],
+                      pk["steps"])
+    rtol, atol = SERVE_TOL
+    errs = [max_abs_diff([g], [c]) for g, c in zip(got["logits"],
+                                                   want["logits"])]
+    for i, (g, c) in enumerate(zip(got["logits"], want["logits"])):
+        if not torch.allclose(g, c, rtol=rtol, atol=atol):
+            raise AssertionError(f"11j f32: logits of call {i} differ by "
+                                 f"{errs[i]} (rtol {rtol}, atol {atol})")
+    if not torch.equal(got["tokens"], want["tokens"]):
+        raise AssertionError("11j f32: the card's (1, 2) tokens are not the "
+                             "CPU's 1 x 1 tokens")
+    total += got["flash"]
+    emit({"phase": "sharded_serving", "leg": "11j f32 card (1, 2) vs CPU",
+          "model": f32.name, "dtype": f32.dtype, **pk, "tol": SERVE_TOL,
+          "prefill_max_abs_err": errs[0], "decode_max_abs_err": max(errs[1:]),
+          "tokens_equal": True, "flash_launches": got["flash"]})
+    del cpu, gpu
+
+    mk = SERVE_MOE
+    moe = moe_rows_config(MOE_EP["n_layers"], "float32",
+                          MOE_EP["capacity_factor"])
+    params = init_params(moe, torch.Generator(device=MESH_DEVICE)
+                         .manual_seed(seed + 2), MESH_DEVICE)
+    rng = np.random.default_rng(seed + 2)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, moe.vocab, (
+        mk["batch"], mk["prompt"])).astype(np.int32)).to(MESH_DEVICE)}
+    max_len = mk["prompt"] + mk["steps"]
+    moe_runs, routes = {}, {}
+    for name, mesh in (("1x1", make_host_mesh(MESH_DEVICE)),
+                       ("2x2", lm_mesh([MESH_DEVICE] * 4, mk["shape"]))):
+        forced = moe_runs["1x1"]["tokens"] if moe_runs else None
+        with expert_parallel(mesh) as seen, \
+                routes_recorded(mk["prompt"]) as calls:
+            run = sharded_serve_run(moe, mesh if name != "1x1" else None,
+                                    params, batch, max_len, mk["steps"],
+                                    forced)
+        if not seen["bodies"] or seen["built"] or not run["logits_finite"]:
+            raise AssertionError(f"11j MoE {name}: {seen['bodies']} EP "
+                                 f"bodies, built whole {seen['built']}, "
+                                 f"finite {run['logits_finite']}")
+        moe_runs[name] = dict(run, ep_bodies=seen["bodies"])
+        routes[name] = calls
+        total += run["flash"]
+    a, b = moe_runs["2x2"], moe_runs["1x1"]
+    dp, tp = mk["shape"]
+    flips = routing_flips(routes["1x1"], routes["2x2"], moe.n_layers, dp, tp,
+                          mk["prompt"])
+    del routes
+    clean = [r for r in range(mk["batch"])
+             if r not in flips["flipped_requests"]]
+    if not clean:
+        raise AssertionError("11j MoE: every request's routing differs "
+                             f"from 1 x 1's ({flips})")
+    held = {"clean": (clean, SERVE_MOE_TOL),
+            "flipped": (flips["flipped_requests"], SERVE_MOE_FLIP_TOL)}
+    errs = {}
+    for kind, (reqs, (mrtol, matol)) in held.items():
+        errs[kind] = [max_abs_diff([x[reqs]], [y[reqs]])
+                      for x, y in zip(a["logits"], b["logits"])]
+        if reqs and not all(torch.allclose(x[reqs], y[reqs], rtol=mrtol,
+                                           atol=matol)
+                            for x, y in zip(a["logits"], b["logits"])):
+            raise AssertionError(f"11j MoE: the {kind} requests {reqs}: "
+                                 f"logits differ by {errs[kind]} (rtol "
+                                 f"{mrtol}, atol {matol})")
+    emit({"phase": "sharded_serving", "leg": "11j qwen3-moe EP",
+          "model": moe.name, "n_layers": moe.n_layers, "dtype": moe.dtype,
+          "d_model": moe.d_model, "d_ff": moe.d_ff,
+          "capacity_factor": moe.moe.capacity_factor, **mk,
+          "ep": True,
+          "legs": {n: {"prefill_s": r["prefill_s"],
+                       "decode_ms_median": r["decode_ms_median"],
+                       "flash_launches": r["flash"],
+                       "ep_bodies": r["ep_bodies"],
+                       "resident_cache_bytes_per_position": sorted(set(
+                           r["resident_cache_bytes"].values()))}
+                   for n, r in moe_runs.items()},
+          "steps_fed_1x1_tokens": True, "routing": flips,
+          "clean_requests": clean, "tol_clean": SERVE_MOE_TOL,
+          "tol_flipped": SERVE_MOE_FLIP_TOL, "noise_bound": SERVE_MOE_NOISE,
+          "prefill_logits_max_abs_diff": {k: v[0] for k, v in errs.items()},
+          "decode_logits_max_abs_diff": {k: max(v[1:])
+                                         for k, v in errs.items()},
+          "own_tokens_agree_share": float((a["tokens"] == b["tokens"])
+                                          .float().mean())})
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "sharded_serving", "leg": "11j total",
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
+def _cpu_serve(cfg, params, prompt, max_len: int, steps: int) -> dict:
+    """The one-device prefill and ``steps`` greedy steps on the CPU:
+    tokens and each call's logits (the prefill's last first)."""
+    import torch
+    from repro_torch.serve import make_prefill, make_serve_step
+    with torch.no_grad():
+        cache, last = make_prefill(cfg, max_len)(params, {"tokens": prompt})
+        tok = torch.argmax(last[:, -1], -1).to(torch.int32)[:, None]
+        toks, logits = [tok], [last]
+        step = make_serve_step(cfg)
+        for i in range(steps):
+            tok, lg, cache = step(params, cache, tok, prompt.shape[1] + i)
+            toks.append(tok)
+            logits.append(lg)
+    return dict(tokens=torch.cat(toks, 1), logits=logits)
+
+
+def _card_serve(cfg, mesh, params, prompt, max_len: int, steps: int) -> dict:
+    """``_cpu_serve`` through ``serve.sharded`` on ``mesh``, the logits
+    gathered whole and moved to the CPU, with the flash launches."""
+    import torch
+    from repro_torch.distributed import placement
+    from repro_torch.serve import sharded as SS
+    placed = placement.place_tree(params, SS.serve_param_shardings(cfg,
+                                                                   mesh))
+    reset_launches()
+    cache, last = SS.make_sharded_prefill(cfg, mesh, max_len)(
+        placed, {"tokens": prompt})
+    tok = SS.sharded_argmax(cfg, last)
+    toks, logits = [placement.gather(tok).cpu()], [placement.gather(last)
+                                                    .cpu()]
+    step = SS.make_sharded_serve_step(cfg, mesh, whole_logits=True)
+    for i in range(steps):
+        tok, lg, cache = step(placed, cache, tok, prompt.shape[1] + i)
+        toks.append(placement.gather(tok).cpu())
+        logits.append(lg.cpu())
+    return dict(tokens=torch.cat(toks, 1), logits=logits,
+                flash=read_launches()["flash"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nyx", type=int, default=512,
@@ -4544,6 +5014,7 @@ def main(argv=None) -> int:
     launches["flash"] += phase_tp_production(seed=15)
     launches["flash"] += phase_moe_rows(seed=16)
     launches["flash"] += phase_moe_ep_rows(seed=17)
+    launches["flash"] += phase_sharded_serving(seed=18)
     emit({"phase": "sharded_launch_total",
           "seconds": time.perf_counter() - t0})
 

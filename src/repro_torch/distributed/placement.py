@@ -51,6 +51,14 @@ in row order (copies in one process, an all-gather over the batch axes
 across processes); its backward sums each row's slice of the copies'
 gradients in f32, in row order: a reduce-scatter with ``axis_sum``'s
 arithmetic.
+
+For serving at the dry-run partition (``serve.sharded``): ``row_params``
+is a data row's view of placed params (``regather`` first rebuilds a
+ZeRO-1 leaf at its model split), ``CacheShards`` one layer of a KV cache
+as a row's model shards keep it, ``put_model`` writes a tensor held in
+pieces over the shards (each shard's KV heads) into the shards that keep
+each piece (the cache's positions) by one all-to-all over ``model``, and
+``argmax_model`` is the greedy argmax over vocabulary shards.
 """
 from __future__ import annotations
 
@@ -69,7 +77,9 @@ __all__ = ["Sharded", "ModelShards", "place", "place_tree", "gather",
            "split_model", "cat_model", "max_model", "take_model",
            "take_plan", "BatchRows", "gather_rows", "EXCHANGED",
            "exchange_model", "permute_model", "to_first", "scatter_first",
-           "from_first", "mean_rows_model"]
+           "from_first", "mean_rows_model", "argmax_model", "put_model",
+           "slice_box", "regather", "row_params", "put_local",
+           "CacheShards"]
 
 
 class Sharded:
@@ -174,6 +184,51 @@ def resident_bytes(placed: Any) -> Dict[int, int]:
         for q, t in s.local.items():
             out[q] = out.get(q, 0) + t.numel() * t.element_size()
     return out
+
+
+def regather(s: Sharded, sharding) -> Sharded:
+    """``s`` under ``sharding``, which splits over a subset of the axes
+    ``s`` splits over (a ZeRO-1 / FSDP leaf, split over the batch axes
+    too, back at its model split): each position's shard assembled from
+    its members' shards over the axes that drop out (an all-gather over
+    them); the whole leaf is never formed."""
+    extra = tuple(a for a in spec_axes(s.sharding.spec)
+                  if a not in spec_axes(sharding.spec))
+    mesh = s.mesh
+    if not extra:
+        return Sharded(sharding, s.shape, s.dtype, s.local)
+    local = {}
+    for q, parts in all_gather(mesh, s.local, extra).items():
+        outer = slice_box(shard_slices(sharding, s.shape, q))
+        out = torch.empty(sharding.shard_shape(s.shape), dtype=s.dtype,
+                          device=mesh.device_at(q))
+        for q2, part in zip(mesh.members(q, extra), parts):
+            out[_within(slice_box(shard_slices(s.sharding, s.shape, q2)),
+                        outer)] = part
+        local[q] = out
+    return Sharded(sharding, s.shape, s.dtype, local)
+
+
+def row_params(placed: Any, qs: Sequence[int]) -> Any:
+    """One data row's view of a placed tree: ``qs`` the row's local
+    positions in model order (every position of the row in one process,
+    the rank's one across processes). A leaf split over ``model``
+    becomes ``ModelShards`` of those positions' shards (the layers then
+    split, ``models.blocks``), any other leaf the tensor of ``qs[0]``;
+    the row's activations live on ``qs[0]``'s device. A leaf split over
+    the batch axes too raises (``regather`` it first)."""
+    def view(s: Sharded):
+        if s.sharding.spec and any(
+                a != "model" for a in spec_axes(s.sharding.spec)):
+            raise ValueError(f"row_params: a leaf split over "
+                             f"{s.sharding.spec!r}: regather it first")
+        k = model_dim(s.sharding.spec)
+        if k is None:
+            return s.local[qs[0]]
+        mesh = s.mesh
+        return ModelShards([s.local[q] for q in qs], k, mesh, qs[0],
+                           mesh.device_at(qs[0]))
+    return tree.tree_map(view, placed)
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +446,29 @@ def max_model(parts: Sequence[torch.Tensor], row: ModelRow
     return out
 
 
+def argmax_model(parts: Sequence[torch.Tensor], row: ModelRow
+                 ) -> torch.Tensor:
+    """The argmax along the last dim of a tensor split over ``model`` in
+    equal blocks along it (``parts`` the local shards', in
+    ``row.positions`` order), as global indices (int64) on
+    ``row.home``, without a gradient: each shard's max and its first
+    index, then the shards in model order, a later one taken only where
+    its max is strictly greater, so a tie takes the lowest index, as
+    ``torch.argmax`` and ``jnp.argmax`` do. The pairs cross as f64
+    (exact for f32 values and for indices below 2^53)."""
+    n = parts[0].shape[-1]
+    pairs = [torch.stack([p.detach().amax(-1).double(),
+                          (p.detach().argmax(-1) + j * n).double()])
+             for p, j in zip(parts, row.indices)]
+    got = _gather_model(row, pairs, row.home)
+    best, idx = got[0][0], got[0][1]
+    for t in got[1:]:
+        take = t[0] > best
+        best = torch.where(take, t[0], best)
+        idx = torch.where(take, t[1], idx)
+    return idx.long()
+
+
 def _pieces(lo: int, hi: int, n: int) -> List[Tuple[int, int, int]]:
     """The pieces of the range [lo, hi) held by blocks of ``n``: (block,
     first, last), global indices, in order."""
@@ -571,11 +649,15 @@ class BatchRows(NamedTuple):
     position (its first local position, whose device holds the row's
     activations), ``bounds`` every row's range [lo, hi) of the domain
     batch, in row order over ``axes`` (the rows whose tokens one MoE
-    layer routes together)."""
+    layer routes together). ``shared``: every row holds the whole
+    domain batch (a batch that does not divide over the rows; each
+    bound is then the whole batch), so nothing is gathered, and under
+    expert parallelism each row routes its share of the tokens."""
     mesh: Any
     axes: Tuple[str, ...]
     positions: List[int]
     bounds: List[Tuple[int, int]]
+    shared: bool = False
 
     @property
     def homes(self) -> List[torch.device]:
@@ -635,6 +717,8 @@ def gather_rows(xs: Sequence[torch.Tensor], rows: BatchRows
     if len(xs) != len(rows.positions):
         raise ValueError(f"gather_rows: {len(xs)} tensors for "
                          f"{len(rows.positions)} local rows")
+    if rows.shared:
+        raise ValueError("gather_rows: every shared row holds the batch")
     if len({hi - lo for lo, hi in rows.bounds}) != 1:
         raise ValueError(f"gather_rows: uneven rows {rows.bounds}")
     if not rows.mesh.multi_process and len(xs) != len(rows.bounds):
@@ -683,6 +767,109 @@ def _exchange(row: ModelRow, sends: Sequence[Sequence[torch.Tensor]],
                            group=row.mesh.group(("model",)))
     return [[p.view(dtype).reshape(shapes[i][me])
              for i, p in enumerate(out.split(out_sizes))]]
+
+
+Box = Tuple[Tuple[int, int], ...]
+
+
+def slice_box(slices: Sequence[slice]) -> Box:
+    """``shard_slices``' slices as a box: (first, last) a dimension."""
+    return tuple((s.start, s.stop) for s in slices)
+
+
+def _meet(a: Box, b: Box) -> Box:
+    """The intersection of two boxes (empty dims as (lo, lo))."""
+    out = []
+    for (a0, a1), (b0, b1) in zip(a, b):
+        lo = max(a0, b0)
+        out.append((lo, max(lo, min(a1, b1))))
+    return tuple(out)
+
+
+def _within(box: Box, outer: Box) -> Tuple[slice, ...]:
+    """The slices of ``box`` relative to ``outer``'s first corner."""
+    return tuple(slice(lo - o, hi - o) for (lo, hi), (o, _) in
+                 zip(box, outer))
+
+
+def put_model(row: ModelRow, parts: Sequence[torch.Tensor],
+              boxes: Sequence[Box], targets: Sequence[Optional[torch.Tensor]],
+              dests: Sequence[Box]) -> None:
+    """Write the pieces of a tensor held over a row's model shards into
+    the shards that keep them: local shard k's ``parts[k]`` holds the
+    global box ``boxes[i]`` (i its model coordinate; an empty box where
+    it holds nothing) and ``targets[k]`` is the global box ``dests[j]``
+    (None or an empty box where it keeps nothing); ``boxes`` and
+    ``dests`` list every coordinate's, so each shard knows what it
+    receives. Each source sends each keeper the intersection of their
+    boxes, nothing else, written in place: copies in one process, one
+    ``all_to_all_single`` over ``model`` across processes
+    (``_exchange``). The prefill's K/V go from a shard's KV heads to the
+    cache's split this way, a decode token's k and v to the shard that
+    owns its position. No gradient."""
+    tp = row.tp
+    meet = [[_meet(boxes[i], dests[j]) for j in range(tp)]
+            for i in range(tp)]
+    shapes = [[tuple(hi - lo for lo, hi in m) for m in mi] for mi in meet]
+    sends = [[parts[k].detach()[_within(meet[i][j], boxes[i])].contiguous()
+              for j in range(tp)] for k, i in enumerate(row.indices)]
+    got = _exchange(row, sends, shapes, parts[0].dtype)
+    for k, j in enumerate(row.indices):
+        for i in range(tp):
+            if got[k][i].numel():
+                targets[k][_within(meet[i][j], dests[j])] = got[k][i]
+
+
+def put_local(x: torch.Tensor, box: Box,
+              targets: Sequence[Optional[torch.Tensor]],
+              dests: Sequence[Box], row: ModelRow) -> None:
+    """``put_model`` for a tensor every local shard holds whole (``x``,
+    the global ``box``, replicated over the row: each rank computed it):
+    each local shard copies its own part, nothing crosses."""
+    for k, j in enumerate(row.indices):
+        m = _meet(box, dests[j])
+        if all(hi > lo for lo, hi in m):
+            targets[k][_within(m, dests[j])] = x.detach()[_within(m, box)]
+
+
+class CacheShards(NamedTuple):
+    """One layer of a KV cache leaf pair as one data row's model shards
+    hold it: ``k[i]``/``v[i]`` local shard i's (B', T', Hk', Dh') slice of
+    the layer (None where it keeps none of it: a cache split over the
+    layers), ``boxes[j]`` every model coordinate's global (B, T, Hk, Dh)
+    box of the layer (T empty where it keeps none), ``kind`` the dim the
+    cache splits over ``model`` (``models.layers.CACHE_SPLITS``; None:
+    each shard keeps it whole)."""
+    row: ModelRow
+    kind: Optional[str]
+    k: List[Optional[torch.Tensor]]
+    v: List[Optional[torch.Tensor]]
+    boxes: List[Box]
+
+    def parts(self) -> list:
+        """Each local shard's (k, v, its (T, Hk, Dh) box) or None, as
+        ``layers.decode_attention_model`` takes them."""
+        return [None if k is None else (k, v, self.boxes[j][1:])
+                for k, v, j in zip(self.k, self.v, self.row.indices)]
+
+    def write(self, k, v, t0: int, owned=None) -> None:
+        """Write the row's k and v of the positions [t0, t0 + S) into the
+        shards that keep them: ``k``/``v`` the row's whole (B', S, Hk, Dh)
+        tensors, held alike by each local shard (``put_local``), or with
+        ``owned`` (every model coordinate's KV heads [lo, hi)) lists of
+        each local shard's (B', S, hi - lo, Dh) heads, sent to their
+        keepers (``put_model``: one all-to-all over ``model`` each)."""
+        b0, b1 = self.boxes[0][0]
+        if owned is None:
+            S, Hk, Dh = k.shape[1:]
+            box = ((b0, b1), (t0, t0 + S), (0, Hk), (0, Dh))
+            put_local(k, box, self.k, self.boxes, self.row)
+            put_local(v, box, self.v, self.boxes, self.row)
+            return
+        S, Dh = k[0].shape[1], k[0].shape[3]
+        boxes = [((b0, b1), (t0, t0 + S), tuple(o), (0, Dh)) for o in owned]
+        put_model(self.row, k, boxes, self.k, self.boxes)
+        put_model(self.row, v, boxes, self.v, self.boxes)
 
 
 def _swap(row: ModelRow, blocks: Sequence[torch.Tensor]

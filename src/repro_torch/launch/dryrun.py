@@ -68,12 +68,6 @@ def cell_is_applicable(arch: str, shape: ShapeConfig) -> tuple[bool, str]:
     return True, ""
 
 
-def _needs_fsdp(cfg: ArchConfig, mesh) -> bool:
-    tp = S.mesh_shape_dict(mesh).get("model", 1)
-    per_dev_gb = cfg.n_params() * 2 / tp / 2**30
-    return per_dev_gb > 4.0
-
-
 def _train_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
     """(step thunk, per-device bytes of each argument, extra record)."""
     n_pods = S.mesh_shape_dict(mesh).get("pod", 1)
@@ -84,7 +78,7 @@ def _train_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
         grad_compress_bits=int(os.environ.get("REPRO_GC_BITS", "16")),
         n_pods=n_pods)
     step_fn = make_train_step(cfg, tcfg, AdamWConfig(), mesh=mesh)
-    fsdp = _needs_fsdp(cfg, mesh)
+    fsdp = S.needs_fsdp(cfg, mesh)
     params = S.param_structs(cfg)
     opt = S.opt_state_structs(cfg)
     batch = S.batch_spec(cfg, shape, mesh)
@@ -99,7 +93,7 @@ def _train_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
 
 
 def _prefill_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
-    fsdp = _needs_fsdp(cfg, mesh)
+    fsdp = S.needs_fsdp(cfg, mesh)
     params = S.param_structs(cfg)
     batch = S.batch_spec(cfg, shape, mesh)
     mem = {"params": S.shard_bytes(params, S.param_shardings(

@@ -139,6 +139,15 @@ def param_shardings(cfg: ArchConfig, mesh, zero1: bool = False,
     return tree.tree_map(lambda s: NamedSharding(mesh, s), specs)
 
 
+def needs_fsdp(cfg: ArchConfig, mesh) -> bool:
+    """The dry-run's rule for the prefill's and the train step's params
+    (``repro/launch/dryrun.py``'s ``_needs_fsdp``): ZeRO-1's split over
+    the batch axes too where a model shard of the bf16 params would pass
+    4 GiB."""
+    tp = mesh_shape_dict(mesh).get("model", 1)
+    return cfg.n_params() * 2 / tp / 2**30 > 4.0
+
+
 def cache_structs(cfg: ArchConfig, shape: ShapeConfig) -> Any:
     return init_decode_cache(cfg, shape.global_batch, shape.seq_len,
                              device="meta")
@@ -211,6 +220,7 @@ def shard_bytes(structs: Any, shardings: Any) -> int:
 
 
 __all__ = ["NamedSharding", "batch_spec", "batch_shardings", "param_structs",
-           "param_shardings", "cache_structs", "cache_shardings",
+           "param_shardings", "needs_fsdp", "cache_structs",
+           "cache_shardings",
            "opt_state_structs", "opt_state_shardings", "shard_bytes",
            "MeshAxes", "axes_for_mesh", "mesh_shape_dict"]

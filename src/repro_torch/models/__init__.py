@@ -11,18 +11,20 @@ backward), which ``train`` builds on. ``sharding`` holds the reference's
 mesh axes and parameter sharding rules; its ``constrain_*`` hints are the
 identity (no SPMD partitioner), and the expert-parallel MoE runs a
 (data, model) position at a time over the ambient mesh
-(``layers.moe_ffn_ep`` on whole weights in one process,
-``layers.moe_ep_rows`` on a position's own experts in the sharded
-step)."""
+(``layers.moe_ffn_ep`` on the whole batch, ``layers.moe_ep_rows`` on a
+position's own experts in the sharded step and the sharded serving).
+``forward_rows`` and ``decode_step_model`` run data rows over placed
+params and (the decode step) a KV cache split as
+``launch.specs.cache_shardings`` splits it."""
 from . import recurrent
 from .config import ArchConfig, MoEConfig, ShapeConfig, SHAPES, shape_by_name
 from .model import (init_params, forward, decode_step, init_decode_cache,
                     window_schedule, ForwardOut, forward_rows,
-                    decode_step_rows)
+                    decode_step_model, greedy_tokens)
 
 __all__ = [
     "ArchConfig", "MoEConfig", "ShapeConfig", "SHAPES", "shape_by_name",
     "init_params", "forward", "decode_step", "init_decode_cache",
     "window_schedule", "ForwardOut", "recurrent", "forward_rows",
-    "decode_step_rows",
+    "decode_step_model", "greedy_tokens",
 ]

@@ -26,10 +26,14 @@ rather than the columns ``param_spec`` splits: a layer's weights are
 smaller than one row's activations (smollm: 1.8 MB of wq/wk/wv/wo in
 bf16 against 9.4 MB of one 4 x 2048-token row's q), so a shard fetches
 weight columns, never activations. The MLPs split by
-``layers.model_parallel``; such a layer returns no k and v."""
+``layers.model_parallel``; such a layer returns no k and v, or with
+``shard_kv`` each shard's KV heads, which the sharded prefill writes
+into a cache placed by ``launch.specs.cache_shardings`` (``write_kv``).
+``attention_decode_model`` decodes one token over such a cache, split
+over ``model`` along its positions (or Dh, Hk, the layers)."""
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,8 +47,9 @@ GLOBAL_WINDOW = 1 << 30
 
 class AttnOut(NamedTuple):
     y: torch.Tensor
-    k: Optional[torch.Tensor]     # None where the layer split over model
-    v: Optional[torch.Tensor]
+    k: Any                        # (B, S, Hk, Dh); where the layer split
+    v: Any                        # over model None, or with shard_kv each
+                                  # local shard's KV heads
 
 
 def _qkv(cfg: ArchConfig, p, x, positions):
@@ -119,10 +124,14 @@ def _no_heads(h: torch.Tensor, wq, wo) -> torch.Tensor:
 
 
 def attention_block(cfg: ArchConfig, p, x, positions, *, window=None,
-                    causal=True, q_offset=0) -> AttnOut:
+                    causal=True, q_offset=0, shard_kv=False) -> AttnOut:
     """Pre-norm attention with gemma2's post-norm where the layer has
-    one; returns the residual and this layer's k, v (None for a layer
-    split over ``model``: see the module's docstring)."""
+    one; returns the residual and this layer's k, v: where the layer
+    splits over ``model`` (see the module's docstring) None, or with
+    ``shard_kv`` lists of each local shard's k and v of the KV heads
+    ``ShardHeads.kv`` gives it (none for a shard with no query head),
+    which the sharded prefill writes into the cache's split
+    (``write_kv``)."""
     p = dict(p)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     kw = dict(causal=causal, window=window, logit_softcap=cfg.attn_softcap,
@@ -133,16 +142,21 @@ def attention_block(cfg: ArchConfig, p, x, positions, *, window=None,
         y = _project_out(layers.flash_attention(q, k, v, **kw), p["wo"])
     else:
         row, heads, ws = split
-        k = v = None
-        ys = []
+        k, v, ys = [], [], []
         for hd, hj, wj in zip(heads, PL.to_model(h, row), ws):
             if not hd.segments:
                 ys.append(_no_heads(hj, wj["wq"], wj["wo"]))
+                k.append(hj.new_empty(hj.shape[:2] + (0, cfg.head_dim)))
+                v.append(k[-1])
                 continue
             q, kj, vj = _qkv(cfg, wj, hj, positions.to(hj.device))
             ys.append(_project_out(_by_segments(cfg, hd, q, kj, vj, **kw),
                                    wj["wo"]))
+            k.append(kj)
+            v.append(vj)
         y = PL.sum_model(ys, row)
+        if not shard_kv:
+            k = v = None
     if "ln1_post" in p:
         y = layers.rms_norm(y, p["ln1_post"], cfg.norm_eps)
     return AttnOut(x + y, k, v)
@@ -168,6 +182,96 @@ def attention_decode(cfg: ArchConfig, p, x, k_cache, v_cache, t: int, *,
     return x + y, k_cache, v_cache
 
 
+def owned_kv(cfg: ArchConfig, tp: int) -> List[Tuple[int, int]]:
+    """Each model shard's KV heads [lo, hi) it writes to the cache where
+    the heads split (``shard_heads``): its own, where shards share a KV
+    head the lowest shard reading it; (lo, lo) for a shard that writes
+    none."""
+    out, done = [], 0
+    for h in shard_heads(cfg.n_heads, cfg.n_kv_heads, tp):
+        lo = max(h.kv[0], done) if h.segments else done
+        hi = max(lo, h.kv[1]) if h.segments else lo
+        out.append((lo, hi))
+        done = hi
+    return out
+
+
+def _own(cfg: ArchConfig, row, ts: List[torch.Tensor]):
+    """Each local shard's owned KV heads (``owned_kv``) of its k or v
+    (B, S, its KV heads, Dh), and every coordinate's owned range."""
+    owned = owned_kv(cfg, row.tp)
+    heads = shard_heads(cfg.n_heads, cfg.n_kv_heads, row.tp)
+    out = []
+    for j, t in zip(row.indices, ts):
+        lo, hi = owned[j]
+        k0 = heads[j].kv[0] if heads[j].segments else lo
+        out.append(t[:, :, lo - k0:hi - k0])
+    return out, owned
+
+
+def write_kv(cfg: ArchConfig, cache: PL.CacheShards, k, v, t0: int) -> None:
+    """An attention layer's k and v (``AttnOut``'s: whole, or each local
+    shard's KV heads where it split) written into its layer of the
+    cache's split at positions [t0, t0 + S)."""
+    if isinstance(k, torch.Tensor):
+        cache.write(k, v, t0)
+        return
+    ks, owned = _own(cfg, cache.row, k)
+    vs, _ = _own(cfg, cache.row, v)
+    cache.write(ks, vs, t0, owned)
+
+
+def attention_decode_model(cfg: ArchConfig, p, x, cache: PL.CacheShards,
+                           t: int, *, window=None) -> torch.Tensor:
+    """``attention_decode`` of one data row whose weights may be model
+    shards (the heads split as in ``attention_block``: each shard
+    projects its query and KV heads) and whose cache layer is split over
+    its model shards (``cache``): the token's k and v go to the shards
+    that keep position ``t`` (``write_kv``), the query heads meet on the
+    row's home (each shard's placed in zeros and summed over ``model``:
+    B H Dh a layer), ``layers.decode_attention_model`` attends over the
+    split, and each shard multiplies its heads' output by its rows of
+    wo. Returns the residual on the row's home; no cache is gathered."""
+    p = dict(p)
+    B = x.shape[0]
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    positions = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+    split = _attn_split(cfg, p, ("wq", "wk", "wv", "wo"))
+    kw = dict(window=window, logit_softcap=cfg.attn_softcap)
+    row = cache.row
+    if split is None:
+        q, k, v = _qkv(cfg, p, h, positions)
+        write_kv(cfg, cache, k, v, t)
+        out = layers.decode_attention_model(q, cache.parts(), t, cache.kind,
+                                            row, **kw)
+        y = out.reshape(B, 1, -1) @ p["wo"]
+    else:
+        row, heads, ws = split
+        Dh, H = cfg.head_dim, cfg.n_heads
+        qs, ks, vs = [], [], []
+        for hd, hj, wj in zip(heads, PL.to_model(h, row), ws):
+            full = torch.zeros((B, 1, H, Dh), dtype=torch.float32,
+                               device=hj.device)
+            if not hd.segments:
+                kj = vj = hj.new_empty((B, 1, 0, Dh))
+            else:
+                qj, kj, vj = _qkv(cfg, wj, hj, positions.to(hj.device))
+                full[:, :, hd.q[0]:hd.q[1]] = qj.float()
+            qs.append(full)
+            ks.append(kj)
+            vs.append(vj)
+        write_kv(cfg, cache, ks, vs, t)
+        q = PL.sum_model(qs, row).to(x.dtype)
+        out = layers.decode_attention_model(q, cache.parts(), t, cache.kind,
+                                            row, **kw)
+        y = PL.sum_model([
+            out[:, :, hd.q[0]:hd.q[1]].to(wj["wo"].device).reshape(B, 1, -1)
+            @ wj["wo"] for hd, wj in zip(heads, ws)], row)
+    if "ln1_post" in p:
+        y = layers.rms_norm(y, p["ln1_post"], cfg.norm_eps)
+    return x + y
+
+
 def _moe_params(p) -> dict:
     return {"router": p["router"], "w_gate": p["moe_w_gate"],
             "w_up": p["moe_w_up"], "w_down": p["moe_w_down"]}
@@ -175,14 +279,14 @@ def _moe_params(p) -> dict:
 
 def _moe(cfg: ArchConfig, p, h) -> layers.MoEOut:
     """The layer's MoE on its normed input ``h``: ``layers.moe_ffn``, or
-    under ``layers.MOE_EP_MODE`` the one-process expert-parallel
-    ``moe_ffn_ep`` over the ambient mesh on whole weights (it falls back
-    to ``moe_ffn`` where the reference's does). The sharded train step's
-    MoE layers go through ``moe_block_rows`` instead, which never builds
-    an expert leaf whole under EP."""
+    under ``layers.MOE_EP_MODE`` the expert-parallel ``moe_ffn_ep`` over
+    the ambient mesh (it falls back to ``moe_ffn`` where the reference's
+    does), each position's virtual experts narrowed from whole weights or
+    taken from model shards (``layers._expert_weights``: no expert leaf
+    is built whole). The sharded train step's and the sharded serving's
+    MoE layers go through ``moe_block_rows`` instead."""
     moe = _moe_params(p)
     if layers.MOE_EP_MODE:        # its own layout over the ambient mesh
-        moe = {k: layers.whole(v) for k, v in moe.items()}
         return layers.moe_ffn_ep(h, moe, cfg.moe.n_experts, cfg.moe.top_k,
                                  cfg.moe.capacity_factor)
     return layers.moe_ffn(h, moe, cfg.moe.n_experts, cfg.moe.top_k,
@@ -217,7 +321,8 @@ def _ep_rows_shape(cfg: ArchConfig, xs, rows: PL.BatchRows):
     from .sharding import ambient_axes
     if not layers.MOE_EP_MODE or ambient_axes() is None:
         return None
-    n = sum(hi - lo for lo, hi in rows.bounds) * xs[0].shape[1]
+    n = (xs[0].shape[0] if rows.shared else
+         sum(hi - lo for lo, hi in rows.bounds)) * xs[0].shape[1]
     return layers.ep_shape(n, len(rows.bounds),
                            rows.mesh.shape.get("model", 1),
                            cfg.moe.n_experts, cfg.moe.top_k, cfg.d_ff,
@@ -236,8 +341,10 @@ def moe_block_rows(cfg: ArchConfig, ps, xs, rows: PL.BatchRows
     domain batch with the dense ``moe_ffn``, the router, sort and
     dispatch replicated over the rows as the reference's partitioner runs
     them, its experts split over its model shards, and keeps its own rows
-    of y. Returns each row's (residual, aux_loss), the aux loss over the
-    domain batch."""
+    of y. Rows that each hold the whole batch (``rows.shared``) route it
+    alone, or under EP each its share (``layers.moe_ep_rows``). Returns
+    each row's (residual, aux_loss), the aux loss over the domain
+    batch."""
     hs = [layers.rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(ps, xs)]
     shape = _ep_rows_shape(cfg, xs, rows)
     if shape is not None:
@@ -247,8 +354,8 @@ def moe_block_rows(cfg: ArchConfig, ps, xs, rows: PL.BatchRows
         return [(_residual(cfg, p, x, y), aux)
                 for p, x, y, aux in zip(ps, xs, ys, auxs)]
     out = []
-    for p, x, h, (lo, hi) in zip(ps, xs, PL.gather_rows(hs, rows),
-                                 rows.ranges):
+    for p, x, h, (lo, hi) in zip(ps, xs, hs if rows.shared else
+                                 PL.gather_rows(hs, rows), rows.ranges):
         y, aux = layers.moe_ffn(h, _moe_params(p), cfg.moe.n_experts,
                                 cfg.moe.top_k, cfg.moe.capacity_factor)
         out.append((_residual(cfg, p, x, y[lo:hi]), aux))

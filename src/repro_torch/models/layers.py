@@ -306,6 +306,121 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+#: the dims of a (L, B, T, Hk, Dh) KV cache leaf ``decode_attention_model``
+#: takes split over ``model``, by index
+CACHE_SPLITS = {0: "L", 2: "T", 3: "Hk", 4: "Dh"}
+
+
+def decode_attention_model(q: torch.Tensor, parts, t: int, kind, row, *,
+                           window: Optional[int] = None,
+                           logit_softcap: Optional[float] = None
+                           ) -> torch.Tensor:
+    """``decode_attention`` at position ``t`` (the cache holds t + 1
+    valid entries) of the whole q (B, 1, H, D) on ``row.home`` against a
+    KV cache split over the row's model shards: ``parts[k]`` local shard
+    k's (k, v, box) of this layer, box the global (T, Hk, D) ranges its
+    (B, T', Hk', D') k and v hold, or None where the shard keeps none of
+    the layer. ``kind`` is the dim ``launch.specs.cache_shardings`` split
+    over ``model`` (``CACHE_SPLITS``, None: every shard holds the whole
+    cache); no shard's cache leaves it. Returns (B, 1, H, D) in q's dtype
+    on ``row.home``, the same function within the order of its sums:
+
+    * "T" (the reference's layout at its serving shapes: its docstring
+      says the (B, H, T) logits "shard cleanly when the cache's T dim is
+      sharded over the model axis"): each shard takes its valid
+      positions' scores for every head (softcap, then the window and
+      ``t`` bounds), the global max over ``model`` (``max_model``),
+      ``exp(s - max)`` locally, their sum over ``model``, the
+      probabilities in v's dtype times its v, and those partials summed
+      over ``model`` in model order (``sum_model``). A shard with no
+      valid position (past t, or outside the window) adds exact zeros.
+      Three collectives a layer of B H (the last B H D) elements;
+    * "Hk": each shard's KV heads whole and their query groups' output,
+      placed in zeros and summed over ``model`` (one term an element);
+    * "Dh": the scores' partial dot products over each shard's columns
+      summed over ``model`` in model order, the softmax on the row's
+      home, each shard's columns of the output, summed as above (one
+      B H T' collective a layer, then the output's);
+    * "L": the layer's owner attends whole; the others add zeros;
+    * None: the first local shard's cache, as ``decode_attention``."""
+    B, _, H, D = q.shape
+    held = [(p, dev) for p, dev in zip(parts, row.devices) if p is not None]
+    if kind is None:
+        (kc, vc, _), dev = held[0]
+        return decode_attention(q.to(dev), kc, vc, t + 1, window=window,
+                                logit_softcap=logit_softcap).to(row.home)
+    zeros = dict(dtype=torch.float32)
+    if kind in ("L", "Hk"):
+        outs = []
+        for p, dev in zip(parts, row.devices):
+            full = torch.zeros((B, 1, H, D), device=dev, **zeros)
+            if p is not None:
+                kc, vc, box = p
+                G = H // (kc.shape[2] * (row.tp if kind == "Hk" else 1))
+                a, b = box[1][0] * G, box[1][1] * G
+                full[:, :, a:b] = decode_attention(
+                    q[:, :, a:b].to(dev), kc, vc, t + 1, window=window,
+                    logit_softcap=logit_softcap).float()
+            outs.append(full)
+        return PL.sum_model(outs, row).to(q.dtype)
+    lo = 0 if window is None else max(0, t + 1 - window)
+    if kind == "Dh":
+        Hk = held[0][0][0].shape[2]
+        G = H // Hk
+        ss = []
+        for (kc, _, box), dev in held:
+            c0, c1 = box[2]
+            qr = q.to(dev).reshape(B, Hk, G, D)[..., c0:c1].float()
+            ss.append(torch.einsum("bhgd,bthd->bhgt", qr,
+                                   kc[:, lo:t + 1].float()))
+        s = softcap(PL.sum_model(ss, row) * (D ** -0.5), logit_softcap)
+        p = torch.softmax(s, dim=-1)
+        outs = []
+        for (kc, vc, box), dev in held:
+            c0, c1 = box[2]
+            full = torch.zeros((B, Hk, G, D), device=dev, **zeros)
+            full[..., c0:c1] = torch.einsum(
+                "bhgt,bthd->bhgd", p.to(dev).to(vc.dtype).float(),
+                vc[:, lo:t + 1].float())
+            outs.append(full)
+        return PL.sum_model(outs, row).reshape(B, 1, H, D).to(q.dtype)
+    if kind != "T" or len(held) != len(parts):
+        raise ValueError(f"decode_attention_model: a cache split over "
+                         f"{kind!r}, {len(held)} of {len(parts)} shards "
+                         "holding the layer")
+    Hk = held[0][0][0].shape[2]
+    G = H // Hk
+    spans, ss, ms = [], [], []
+    for (kc, _, box), dev in held:
+        a, b = box[0]
+        v0, v1 = max(lo, a), min(t + 1, b)
+        spans.append((v0 - a, max(v0, v1) - a))
+        if v1 > v0:
+            qr = q.to(dev).reshape(B, Hk, G, D).float()
+            s = torch.einsum("bhgd,bthd->bhgt", qr,
+                             kc[:, v0 - a:v1 - a].float()) * (D ** -0.5)
+            s = softcap(s, logit_softcap)
+            ms.append(s.amax(-1))
+        else:
+            s = None
+            ms.append(torch.full((B, Hk, G), -math.inf, device=dev, **zeros))
+        ss.append(s)
+    m = PL.max_model(ms, row)
+    es = [None if s is None else torch.exp(s - m.to(s.device)[..., None])
+          for s in ss]
+    l_ = PL.sum_model([torch.zeros_like(mj) if e is None else e.sum(-1)
+                       for e, mj in zip(es, ms)], row)
+    outs = []
+    for e, (i0, i1), ((_, vc, _), dev) in zip(es, spans, held):
+        if e is None:
+            outs.append(torch.zeros((B, Hk, G, D), device=dev, **zeros))
+            continue
+        p = (e / l_.to(dev)[..., None]).to(vc.dtype).float()
+        outs.append(torch.einsum("bhgt,bthd->bhgd", p,
+                                 vc[:, i0:i1].float()))
+    return PL.sum_model(outs, row).reshape(B, 1, H, D).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Mixture of Experts (sort-based dispatch, static capacity)
 # ---------------------------------------------------------------------------
@@ -693,7 +808,9 @@ def _expert_weights(p, row, shape: EPShape):
     expert) deals each owner's block of each expert to the one shard
     whose virtual expert covers it (``placement.permute_model``: only
     the blocks a shard runs reach it, never the whole leaf); a whole or
-    replicated leaf is narrowed (``placement.split_model``)."""
+    replicated leaf is narrowed (``placement.split_model``). Model shards
+    of another row of one process (rows hold copies) are moved to
+    ``row``'s devices."""
     m, e_loc, tp = shape.m, shape.e_loc, row.tp
     out = []
     for name, down in (("w_gate", False), ("w_up", False),
@@ -717,7 +834,7 @@ def _expert_weights(p, row, shape: EPShape):
                 parts = [x.reshape(e_loc, g, x.shape[1], x.shape[2])
                          .permute(0, 2, 1, 3).reshape(e_loc, x.shape[1], -1)
                          for x in got]
-        out.append(parts)
+        out.append([t.to(d) for t, d in zip(parts, row.devices)])
     return list(zip(*out))
 
 
@@ -731,17 +848,30 @@ def moe_ep_rows(hs, ps, rows, shape: EPShape, n_experts: int, top_k: int):
     (``_expert_weights``: no expert leaf is built whole). Returns (each
     local row's y, each local row's aux loss: every position's loss
     averaged over ``model`` and then over each of ``rows.axes`` in turn,
-    ``placement.mean_rows_model``)."""
+    ``placement.mean_rows_model``). Where ``rows.shared`` (each row holds
+    the whole batch) row r routes the tokens [r n, (r + 1) n) of it,
+    ``moe_ffn_ep``'s split (n = ``shape.n_loc``), and the rows' outputs
+    meet (``placement.gather_rows``, whose backward sums every row's
+    gradient in row order), so each row's y is the whole batch's."""
     mesh = rows.mesh
+    n = shape.n_loc
     ys, auxs = [], []
     for h, p, q, home in zip(hs, ps, rows.positions, rows.homes):
         row = PL.ModelRow(mesh, q, home)
-        y, aux = _moe_ep_body(h.reshape(-1, h.shape[-1]), p["router"],
-                              _expert_weights(p, row, shape), row, shape,
-                              E=n_experts, K=top_k)
-        ys.append(y.reshape(h.shape))
+        xf = h.reshape(-1, h.shape[-1])
+        if rows.shared:
+            r = PL.mixed_radix(mesh.coords(q), rows.axes, mesh.shape)
+            xf = xf[r * n:(r + 1) * n]
+        y, aux = _moe_ep_body(xf, p["router"], _expert_weights(p, row, shape),
+                              row, shape, E=n_experts, K=top_k)
+        ys.append(y)
         auxs.append(aux)
-    return ys, PL.mean_rows_model(auxs, mesh, rows.axes, rows.homes)
+    if rows.shared:
+        ys = PL.gather_rows(ys, rows._replace(
+            shared=False, bounds=[(r * n, (r + 1) * n)
+                                  for r in range(len(rows.bounds))]))
+    return ([y.reshape(h.shape) for y, h in zip(ys, hs)],
+            PL.mean_rows_model(auxs, mesh, rows.axes, rows.homes))
 
 
 def _ep_homes(mesh, ax) -> list:
@@ -758,18 +888,22 @@ def _ep_homes(mesh, ax) -> list:
 def moe_ffn_ep(x: torch.Tensor, p, n_experts: int, top_k: int,
                capacity_factor: float = 1.25) -> MoEOut:
     """Expert-parallel MoE over the ambient ``(data, model)`` or ``(pod,
-    data, model)`` mesh (``with mesh:``) of one process, on tensors:
-    tokens split over the batch axes, experts over ``model``
-    (``_moe_ep_body`` a data row, each model shard on its position's
-    device, its virtual experts narrowed from the whole weights). E < tp
-    is handled by ff-sliced virtual experts (m = tp / gcd(E, tp) slices
-    an expert, each computing a partial down-projection that the combine
-    sums). Falls back to the dense ``moe_ffn`` without an ambient mesh
-    and where ``ep_shape`` says the reference does. y is on x's device;
-    aux is the mean of the per-shard losses over ``model``, then over
-    each batch axis in turn. The sharded train step runs each position's
-    body on its own expert shards instead (``moe_ep_rows``), in one
-    process or across processes."""
+    data, model)`` mesh (``with mesh:``) on the whole batch x: tokens
+    split over the batch axes (row r the tokens [r n, (r + 1) n)),
+    experts over ``model`` (``_moe_ep_body`` a data row, each model shard
+    on its position's device, its virtual experts narrowed from the
+    whole weights). E < tp is handled by ff-sliced virtual experts (m =
+    tp / gcd(E, tp) slices an expert, each computing a partial
+    down-projection that the combine sums). Falls back to the dense
+    ``moe_ffn`` without an ambient mesh and where ``ep_shape`` says the
+    reference does. y is on x's device; aux is the mean of the per-shard
+    losses over ``model``, then over each batch axis in turn. The rows
+    hold x whole (``moe_ep_rows`` over shared rows): in one process every
+    row's body runs here, across processes the rank runs its own
+    position's body on its row's share, and the rows' outputs meet, so
+    ranks give the one-process call's bits. The sharded train step and
+    the sharded serving run each position's body on its own expert
+    shards (``moe_ep_rows``)."""
     from ..launch.mesh import active_mesh
     from .sharding import ambient_axes
     ax = ambient_axes()
@@ -778,28 +912,24 @@ def moe_ffn_ep(x: torch.Tensor, p, n_experts: int, top_k: int,
     mesh = active_mesh()
     sizes = mesh.shape
     B, S, d = x.shape
+    w = p["w_gate"]                   # (E, d, ff), or its model shards
+    ff = (w.shape[-1] if isinstance(w, torch.Tensor) else
+          w.parts[0].shape[-1] * (w.row.tp if w.dim == 2 else 1))
     shape = ep_shape(B * S, math.prod(sizes.get(a, 1) for a in ax.batch),
-                     sizes.get("model", 1), n_experts, top_k,
-                     p["w_gate"].shape[-1], capacity_factor)
+                     sizes.get("model", 1), n_experts, top_k, ff,
+                     capacity_factor)
     if shape is None:
         return moe_ffn(x, p, n_experts, top_k, capacity_factor)
-    if mesh.multi_process:
-        raise NotImplementedError(
-            "moe_ffn_ep on a multi-process mesh: whole weights in one "
-            "process; the sharded train step runs each position's EP body "
-            "(moe_ep_rows)")
-    xf = x.reshape(B * S, d)
-    n = shape.n_loc
-    ys, auxs = [], []
-    for r, q in enumerate(_ep_homes(mesh, ax)):
-        row = PL.ModelRow(mesh, q, mesh.device_at(q))
-        y, aux = _moe_ep_body(xf[r * n:(r + 1) * n].to(row.home),
-                              p["router"], _expert_weights(p, row, shape),
-                              row, shape, E=n_experts, K=top_k)
-        ys.append(y.to(x.device))
-        auxs.append(aux)
-    (aux,) = PL.mean_rows_model(auxs, mesh, ax.batch, [x.device] * len(ys))[:1]
-    return MoEOut(torch.cat(ys, 0).reshape(B, S, d), aux)
+    # every row holds the whole batch and routes its share; in one process
+    # each row's head position runs its row's body, across processes the
+    # rank its own position's
+    heads = (list(mesh.local_positions()) if mesh.multi_process
+             else _ep_homes(mesh, ax))
+    rows = PL.BatchRows(mesh, ax.batch, heads, [(0, B)] * math.prod(
+        sizes.get(a, 1) for a in ax.batch), shared=True)
+    ys, auxs = moe_ep_rows([x.to(mesh.device_at(q)) for q in heads],
+                           [p] * len(heads), rows, shape, n_experts, top_k)
+    return MoEOut(ys[0].to(x.device), auxs[0].to(x.device))
 
 
 # ---------------------------------------------------------------------------

@@ -464,33 +464,61 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     return ForwardOut(_unembed(cfg, params, x), aux_total, cache)
 
 
-def _moe_rows_layer(cfg: ArchConfig, rows, lps, xs, positions, window: int):
-    """One layer of a MoE config over the data rows ``rows`` in lockstep:
-    each row's attention on its own rows, then the MoE where the rows
-    meet (``blocks.moe_block_rows``). Returns each row's residual, then
-    each row's aux loss."""
-    ys = [blocks.attention_block(cfg, lp, x, pos, window=window).y
-          for lp, x, pos in zip(lps, xs, positions)]
-    out = blocks.moe_block_rows(cfg, lps, ys, rows)
+def _rows_layer(cfg: ArchConfig, rows, lps, xs, positions, window: int,
+                put=None):
+    """One layer over the data rows ``rows`` in lockstep: each row's
+    attention on its own rows (its k and v handed to ``put(r, k, v)``,
+    r the local row), then a MoE config's MoE where the rows meet
+    (``blocks.moe_block_rows``), a dense one's MLP a row. Returns each
+    row's residual, then each row's aux loss."""
+    ys = []
+    for r, (lp, x, pos) in enumerate(zip(lps, xs, positions)):
+        a = blocks.attention_block(cfg, lp, x, pos, window=window,
+                                   shard_kv=put is not None)
+        if put is not None:
+            put(r, a.k, a.v)
+        ys.append(a.y)
+    if cfg.moe is not None:
+        out = blocks.moe_block_rows(cfg, lps, ys, rows)
+    else:
+        out = [blocks.ffn_block(cfg, lp, y) for lp, y in zip(lps, ys)]
     return tuple(x for x, _ in out) + tuple(a for _, a in out)
+
+
+#: the families ``forward_rows`` and ``decode_step_model`` run: the
+#: decoder-only attention families (dense and gemma2, MoE, llava)
+ROWS_FAMILIES = ("dense", "moe", "vlm")
+
+
+def check_rows_family(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a family outside
+    ``ROWS_FAMILIES``."""
+    if cfg.family not in ROWS_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the rows' forward and the placed decode step run "
+            f"the decoder-only attention families ({', '.join(ROWS_FAMILIES)}"
+            "); whisper's enc_out cross-attention and xLSTM's and hymba's "
+            "caches at cache_shardings are ROADMAP Queue 1's next item")
 
 
 def forward_rows(cfg: ArchConfig, params: List[Params],
                  batches: List[Dict[str, torch.Tensor]], rows, *,
-                 remat: bool = False) -> List[ForwardOut]:
-    """``forward(logits_mode="hidden")`` of a MoE config over data rows
-    that meet at every MoE layer: ``params`` and ``batches`` each local
-    row's of ``rows`` (a ``placement.BatchRows``), its batch its own rows
-    of the domain batch. The rows advance a layer at a time: each row
-    embeds, attends and normalizes its own rows, and every MoE layer
-    routes the domain batch (``blocks.moe_block_rows``), so the rows
-    compute the one-device forward's function. Under ``remat`` the unit
-    of recompute is one layer over every row (``_run``), so the
-    backward's recompute gathers again, in the forward's order. Returns
-    each row's final hidden states and aux loss (over the domain
-    batch)."""
-    if cfg.family != "moe":
-        raise ValueError(f"{cfg.name}: forward_rows runs the MoE family")
+                 remat: bool = False, put_kv=None) -> List[ForwardOut]:
+    """``forward(logits_mode="hidden")`` over data rows that advance a
+    layer at a time: ``params`` and ``batches`` each local row's of
+    ``rows`` (a ``placement.BatchRows``), its batch its own rows of the
+    domain batch (the whole of it where ``rows.shared``). Each row
+    embeds (llava's image embeddings first), attends and normalizes its
+    own rows; a MoE config's MoE layers route the domain batch where the
+    rows meet (``blocks.moe_block_rows``), so the rows compute the
+    one-device forward's function. Under ``remat`` the unit of recompute
+    is one layer over every row (``_run``), so the backward's recompute
+    gathers again, in the forward's order. ``put_kv(i, r, k, v)`` takes
+    layer i's k and v of local row r (``blocks.AttnOut``'s: whole, or
+    each model shard's KV heads), the sharded prefill's cache writer.
+    Returns each row's final hidden states and aux loss (over the domain
+    batch). The decoder-only attention families (``ROWS_FAMILIES``)."""
+    check_rows_family(cfg)
     xs = [_embed_inputs(cfg, p, b) for p, b in zip(params, batches)]
     positions = [torch.arange(x.shape[1], dtype=torch.int32,
                               device=x.device).expand(x.shape[:2])
@@ -500,8 +528,10 @@ def forward_rows(cfg: ArchConfig, params: List[Params],
     stacks = [_layers(p["blocks"]) for p in params]
     n = len(xs)
     for i, w in enumerate(window_schedule(cfg)):
-        out = _run(remat, _moe_rows_layer, cfg, rows, [s[i] for s in stacks],
-                   xs, positions, int(w))
+        out = _run(remat, functools.partial(
+            _rows_layer, put=None if put_kv is None else
+            functools.partial(put_kv, i)), cfg, rows,
+            [s[i] for s in stacks], xs, positions, int(w))
         xs = list(out[:n])
         aux = [a + b for a, b in zip(aux, out[n:])]
     return [ForwardOut(layers.rms_norm(x, p["final_norm"], cfg.norm_eps), a,
@@ -603,27 +633,48 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
     return _unembed(cfg, params, x), cache
 
 
-def decode_step_rows(cfg: ArchConfig, params: List[Params],
-                     caches: List[Dict[str, Any]], tokens: List[torch.Tensor],
-                     t: int, rows) -> List[torch.Tensor]:
-    """``decode_step`` of a MoE config over data rows that meet at every
-    MoE layer (``forward_rows``' rule): ``params``, ``caches`` and
-    ``tokens`` each local row's of ``rows``, its requests its own rows
-    of the batch. Every MoE layer routes the whole batch's tokens, so
-    capacity and drops are the one-device step's. Returns each row's
-    logits (its rows, 1, V) f32; the caches are updated in place."""
-    if cfg.family != "moe":
-        raise ValueError(f"{cfg.name}: decode_step_rows runs the MoE family")
+def decode_step_model(cfg: ArchConfig, params: List[Params], caches,
+                      tokens: List[torch.Tensor], t: int, rows
+                      ) -> List[torch.Tensor]:
+    """``decode_step`` over placed params and a placed cache, for data
+    rows that advance a layer at a time (``forward_rows``' rule):
+    ``params`` each local row's view (``placement.row_params``), its
+    weights model shards where ``param_spec`` splits them;
+    ``caches[r][i]`` local row r's ``placement.CacheShards`` of layer i;
+    ``tokens`` each local row's (B_r, 1) at position ``t``. Each row
+    attends over its cache's split (``blocks.attention_decode_model``:
+    the token's k and v go to the shards that keep position t), the MLPs
+    split by ff, a MoE config's rows meet at every MoE layer
+    (``blocks.moe_block_rows``). Returns each local row's final hidden
+    states (B_r, 1, d), normed; the caches are written in place."""
+    check_rows_family(cfg)
     xs = [_embed_tokens(cfg, p, tok) for p, tok in zip(params, tokens)]
+    stacks = [_layers(p["blocks"]) for p in params]
     for i, w in enumerate(window_schedule(cfg)):
-        lps = [_layer(p["blocks"], i) for p in params]
-        ys = [blocks.attention_decode(cfg, lp, x, c["k"][i], c["v"][i], t,
-                                      window=int(w))[0]
+        lps = [s[i] for s in stacks]
+        ys = [blocks.attention_decode_model(cfg, lp, x, c[i], t,
+                                            window=int(w))
               for lp, x, c in zip(lps, xs, caches)]
-        xs = [x for x, _ in blocks.moe_block_rows(cfg, lps, ys, rows)]
-    return [_unembed(cfg, p, layers.rms_norm(x, p["final_norm"],
-                                             cfg.norm_eps))
+        if cfg.moe is not None:
+            xs = [x for x, _ in blocks.moe_block_rows(cfg, lps, ys, rows)]
+        else:
+            xs = [blocks.ffn_block(cfg, lp, y)[0] for lp, y in zip(lps, ys)]
+    return [layers.rms_norm(x, p["final_norm"], cfg.norm_eps)
             for p, x in zip(params, xs)]
+
+
+def greedy_tokens(cfg: ArchConfig, params: Params, h: torch.Tensor):
+    """The greedy next tokens of one data row's last hidden states ``h``
+    (B, 1, d): ((B, 1) int32 on the row's home, the logits as
+    ``unembed_shards`` gives them). Over vocabulary shards the argmax is
+    ``placement.argmax_model``'s (the max over ``model``, the lowest
+    index on ties, as ``jnp.argmax`` and ``torch.argmax`` take it)."""
+    parts, vrow = unembed_shards(cfg, params, h)
+    if vrow is None:
+        tok = torch.argmax(parts[0][:, -1], dim=-1)
+    else:
+        tok = PL.argmax_model([p[:, -1] for p in parts], vrow)
+    return tok.to(torch.int32)[:, None], (parts, vrow)
 
 
 def _xlstm_decode(cfg: ArchConfig, params: Params, cache: Dict[str, Any],

@@ -9,9 +9,11 @@ from typing import Callable, Optional
 import torch
 
 from ..device import full_precision_matmuls
-from ..models import (decode_step, decode_step_rows, forward,
+from ..distributed import placement as PL
+from ..models import (decode_step, decode_step_model, forward,
                       init_decode_cache)
 from ..models.config import ArchConfig
+from ..models.model import unembed_shards
 
 
 def make_serve_step(cfg: ArchConfig) -> Callable:
@@ -95,17 +97,36 @@ def greedy_generate(cfg: ArchConfig, params, prompt: torch.Tensor,
     return _generate(cfg, step, [prompt], n_new, max_len)[0]
 
 
+def _whole_layers(cache, row: PL.ModelRow, rng) -> list:
+    """A row's whole cache (``init_decode_cache``'s, its requests the
+    batch's [lo, hi) ``rng``) as ``decode_step_model`` takes it: a
+    ``placement.CacheShards`` a layer that every model shard of the row
+    holds whole."""
+    L, _, T, Hk, Dh = cache["k"].shape
+    n = len(row.indices)
+    box = (tuple(rng), (0, T), (0, Hk), (0, Dh))
+    return [PL.CacheShards(row, None, [cache["k"][i]] * n,
+                           [cache["v"][i]] * n, [box] * row.tp)
+            for i in range(L)]
+
+
 def greedy_generate_rows(cfg: ArchConfig, params, prompts, n_new: int,
                          rows, max_len: Optional[int] = None):
     """``greedy_generate`` of a MoE config over data rows whose decode
     steps advance together and meet at every MoE layer
-    (``models.decode_step_rows``): ``params`` and ``prompts`` each local
-    row's of ``rows`` (a ``placement.BatchRows``), its prompts its own
-    rows of the batch. The MoE routes the whole batch each step, so the
-    tokens are the one-device run's whatever the batch. Returns each
-    row's (B_row, n_new) int32 tokens."""
+    (``models.decode_step_model`` on whole params and each row's whole
+    cache): ``params`` and ``prompts`` each local row's of ``rows`` (a
+    ``placement.BatchRows``), its prompts its own rows of the batch. The
+    MoE routes the whole batch each step, so the tokens are the
+    one-device run's whatever the batch. Returns each row's (B_row,
+    n_new) int32 tokens."""
     full_precision_matmuls()
+    heads = [PL.ModelRow(rows.mesh, q, home)
+             for q, home in zip(rows.positions, rows.homes)]
 
     def step(caches, tokens, t):
-        return decode_step_rows(cfg, params, caches, tokens, t, rows)
+        views = [_whole_layers(c, row, rng)
+                 for c, row, rng in zip(caches, heads, rows.ranges)]
+        hs = decode_step_model(cfg, params, views, tokens, t, rows)
+        return [unembed_shards(cfg, p, h)[0][0] for p, h in zip(params, hs)]
     return _generate(cfg, step, prompts, n_new, max_len)

@@ -54,12 +54,17 @@ layers, the reference's partitioned step:
   layer every (data, model) position routes its row's tokens through
   its own experts, the tokens crossing by an all-to-all over ``model``
   (``layers.moe_ep_rows``; copies in one process, NCCL or gloo across
-  processes); no expert leaf is built whole. A layer where the
-  reference's ``moe_ffn_ep`` falls back (``layers.ep_shape``: ff not
-  split in m slices, the tokens not split over the rows, or at most
-  4,096 tokens in the domain's microbatch) takes the gather above. The aux loss is
-  every position's averaged over ``model`` and then over the batch
-  axes, 1 / rows of it a row;
+  processes); no expert leaf is built whole. A batch that does not
+  divide over the rows runs so too, every row holding the whole
+  microbatch: each position routes its row's share of the tokens
+  (``moe_ffn_ep``'s split) and the rows' outputs meet
+  (``placement.gather_rows``), so ranks give the one-process bits. A
+  layer where the reference's ``moe_ffn_ep`` falls back
+  (``layers.ep_shape``: ff not split in m slices, the tokens not split
+  over the rows, or at most 4,096 tokens in the domain's microbatch)
+  takes the gather above (or, every row holding the batch, routes it
+  alone). The aux loss is every position's averaged over ``model`` and
+  then over the batch axes, 1 / rows of it a row;
 * the rows' gradients sum over the batch axes (an all-gather and an f32
   sum in row order); with ``grad_compress`` over a ``pod`` axis they sum
   over ``data`` within the pod and then cross the pods compressed (one
@@ -267,7 +272,8 @@ def make_sharded_train_step(cfg, tcfg: TrainStepConfig,
         leaves = tree.leaves(params_like)
         bounds = [(0, m)] if shared else [(j * m // nd, (j + 1) * m // nd)
                                           for j in range(nd)]
-        lockstep = coupled and not shared and (nd > 1 or expert_parallel())
+        lockstep = coupled and (expert_parallel() or (not shared
+                                                      and nd > 1))
         grads: Dict[int, list] = {}
         stats: Dict[int, torch.Tensor] = {}
         for group in groups(lockstep):
@@ -275,7 +281,8 @@ def make_sharded_train_step(cfg, tcfg: TrainStepConfig,
             c = mesh.coords(group[0][0])
             pod = c["pod"] if compress else 0
             meet = (PL.BatchRows(mesh, sum_axes, [qs[0] for qs in group],
-                                 bounds) if lockstep else None)
+                                 bounds * nd if shared else bounds, shared)
+                    if lockstep else None)
             spans = (meet.ranges if lockstep else
                      [bounds[0 if shared else
                              PL.mixed_radix(c, sum_axes, sizes)]])

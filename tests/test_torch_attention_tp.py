@@ -38,6 +38,7 @@ import torch
 from repro import configs as jconfigs
 from repro.models import blocks as jblocks
 from repro.models import recurrent as jrec
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.configs import get_smoke_config
 from repro_torch.distributed import placement as PL
 from repro_torch.launch.mesh import make_mesh

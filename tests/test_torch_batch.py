@@ -16,6 +16,7 @@ import torch
 from repro.compress import codec as jcodec, pipeline as jpipe
 from repro.core import driver as jdriver, fixes as jfixes
 from repro.data import synthetic_field
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.compress import codec as tcodec, pipeline as tpipe
 from repro_torch.compress import szlike as tsz
 from repro_torch.convert import artifact_from_dict

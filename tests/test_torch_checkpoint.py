@@ -28,6 +28,7 @@ from repro import configs as jconfigs
 from repro import models as jmodels
 from repro import train as jtrain
 from repro.checkpoint.manager import _tensor_key
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch import checkpoint as tckpt
 from repro_torch import configs as tconfigs
 from repro_torch import train as ttrain

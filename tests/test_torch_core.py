@@ -11,6 +11,7 @@ import torch
 from repro.core import grid as jgrid, labels as jlabels
 from repro.core.ref import mss_labels_ref, steepest_dirs_ref
 from repro.data import synthetic_field as j_synthetic_field
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.core import grid as tgrid, labels as tlabels
 from repro_torch.data import synthetic_field as t_synthetic_field
 

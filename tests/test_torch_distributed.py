@@ -22,6 +22,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch import tree
 from repro_torch.configs import get_smoke_config
 from repro_torch.distributed.compression import compressed_psum_tree
@@ -60,6 +61,7 @@ def train_setup():
 _WORKER = textwrap.dedent('''
     import sys
     import torch
+    torch.set_num_threads(1)
     sys.path.insert(0, sys.argv[3])
     from test_torch_distributed import WORLD, pod_grads, train_setup
     from repro_torch.distributed.compression import (

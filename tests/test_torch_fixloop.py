@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro.core import fixes as jfixes
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.convert import topo_from_numpy
 from repro_torch.core import driver as tdriver, fixes as tfixes
 

@@ -31,6 +31,7 @@ import torch
 
 from repro.kernels.flash import flash_attention_pallas
 from repro.models import layers as jlayers
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.kernels import flash as tflash
 from repro_torch.models import layers as tlayers
 

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = r"""

@@ -18,6 +18,7 @@ from repro.core import mss_labels, self_code, steepest_dirs
 from repro.kernels.extrema import extrema_masks_pallas
 from repro.kernels.fixpass import fix_pass_pallas
 from repro.kernels.lorenzo import lorenzo_quant_pallas
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.compress import szlike
 from repro_torch.convert import topo_from_numpy
 from repro_torch.core import backend as tbackend

@@ -27,6 +27,7 @@ import torch
 from repro import configs as jconfigs
 from repro import models as jmodels
 from repro import serve as jserve
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch import configs as tconfigs
 from repro_torch import models as tmodels
 from repro_torch import serve as tserve

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 import repro.compress as jc
+from _torch_threads import one_thread  # noqa: F401
 import repro_torch.compress as tc
 from repro.data import synthetic_field
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.models import layers as jlayers
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.models import layers as tlayers
 
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.models import blocks, layers

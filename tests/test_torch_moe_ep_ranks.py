@@ -105,6 +105,14 @@ STEP_CASES = {
     "1x4 cf1.25": ((1, 4), AX2, {}, 1024, 1.25, False),
 }
 REF_CASES = [c for c, v in STEP_CASES.items() if v[-1]]
+#: a microbatch that does not divide over the data rows under EP: every
+#: row holds all of it and routes its share of the tokens
+#: (``layers.moe_ep_rows`` over shared rows, the rows' outputs meeting),
+#: 33 sequences of 126 (4,158 tokens: EP engages) on (2, 2) at 2.0, held
+#: to the reference's jitted step as the step cases are
+SHARED_CASES = {"2x2 shared": ((2, 2), AX2, {}, 126, 2.0, True)}
+SHARED_B = 33
+ALL_CASES = {**STEP_CASES, **SHARED_CASES}
 #: the batches' seeds (SEED + step)
 SEED = 20
 #: the least gap between a token's k-th and (k + 1)-th router
@@ -133,12 +141,14 @@ def layer_inputs(seed: int, E: int, ff: int):
     return x, dict(router=router, w_gate=w[0], w_up=w[1], w_down=w[2]), c
 
 
-def step_batch(cfg, seed: int, seq: int):
-    return make_batch(cfg, seed, B=8, S_=seq)
+def step_batch(cfg, case: str, step: int):
+    return make_batch(cfg, SEED + step,
+                      B=SHARED_B if case in SHARED_CASES else 8,
+                      S_=ALL_CASES[case][3])
 
 
 def step_cfg(case: str):
-    return f32(ARCH, moe=MoEConfig(8, 2, STEP_CASES[case][4]))
+    return f32(ARCH, moe=MoEConfig(8, 2, ALL_CASES[case][4]))
 
 
 _REF = textwrap.dedent('''
@@ -150,9 +160,9 @@ _REF = textwrap.dedent('''
     os.environ["JAX_PLATFORMS"] = "cpu"
     import numpy as np, jax, jax.numpy as jnp
     sys.path.insert(0, sys.argv[2])
-    from test_torch_moe_ep_ranks import (ARCH, LAYER_CASES, OPT, REF_CASES,
-                                         SEED, STEP_CASES, layer_inputs,
-                                         step_batch)
+    from test_torch_moe_ep_ranks import (ALL_CASES, ARCH, LAYER_CASES, OPT,
+                                         REF_CASES, SHARED_CASES,
+                                         layer_inputs, step_batch)
     from repro import configs, models, train
     from repro.launch import specs as S
     from repro.models import layers
@@ -195,8 +205,8 @@ _REF = textwrap.dedent('''
     p0 = models.init_params(cfg, jax.random.PRNGKey(0))
     for k, v in jax.tree_util.tree_flatten_with_path(p0)[0]:
         out["w/" + "/".join(str(x.key) for x in k)] = np.asarray(v)
-    for case in REF_CASES:
-        shape, axes, kw, seq, cf, _ = STEP_CASES[case]
+    for case in REF_CASES + list(SHARED_CASES):
+        shape, axes, kw, seq, cf, _ = ALL_CASES[case]
         cfg = dataclasses.replace(cfg, moe=MoEConfig(8, 2, cf))
         del traced[:]
         mesh = mesh_of(shape, axes)
@@ -211,7 +221,7 @@ _REF = textwrap.dedent('''
                 in_shardings=(shard, None), out_shardings=(shard, None))
             for i in range(3):
                 b = {k: jnp.asarray(v.numpy())
-                     for k, v in step_batch(cfg, SEED + i, seq).items()}
+                     for k, v in step_batch(cfg, case, i).items()}
                 state, m = step(state, b)
                 out.update({f"{case}/m{i}/{k}": np.asarray(v)
                             for k, v in m.items()})
@@ -436,7 +446,7 @@ class Run(NamedTuple):
 def ep_steps(case: str, mesh, weights: dict, spy: bool = False) -> Run:
     """3 steps of the case under ``MOE_EP_MODE`` with ``mesh`` ambient;
     with ``spy``, every expert leaf gathered whole is recorded."""
-    shape, axes, kw, seq = STEP_CASES[case][:4]
+    shape, axes, kw = ALL_CASES[case][:3]
     cfg = step_cfg(case)
     state = PL.place_tree(ref_state(weights), shardings(cfg, mesh))
     fn = make_train_step(cfg, TrainStepConfig(**kw), AdamWConfig(**OPT),
@@ -483,10 +493,10 @@ def ep_steps(case: str, mesh, weights: dict, spy: bool = False) -> Run:
             for i in range(3):
                 if i == 0:
                     with FlopCounterMode(display=False) as fc:
-                        state, m = fn(state, step_batch(cfg, SEED + i, seq))
+                        state, m = fn(state, step_batch(cfg, case, i))
                     flops = fc.get_total_flops()
                 else:
-                    state, m = fn(state, step_batch(cfg, SEED + i, seq))
+                    state, m = fn(state, step_batch(cfg, case, i))
                 metrics.append({k: float(v) for k, v in m.items()})
     finally:
         layers._moe_ep_body, layers._ep_experts = real_body, real_experts
@@ -503,12 +513,12 @@ def weights():
 
 @pytest.fixture(scope="module")
 def one_process(weights):
-    """Every step case in one process, computed before the tests wait
-    for the reference child."""
-    return {case: ep_steps(case, cpu_mesh(STEP_CASES[case][0],
-                                          STEP_CASES[case][1]), weights,
+    """Every step case (and the shared batch) in one process, computed
+    before the tests wait for the reference child."""
+    return {case: ep_steps(case, cpu_mesh(ALL_CASES[case][0],
+                                          ALL_CASES[case][1]), weights,
                            spy=True)
-            for case in STEP_CASES}
+            for case in ALL_CASES}
 
 
 def reckoning(case: str, local: int) -> int:
@@ -543,7 +553,8 @@ def test_second_dispatch_drops_only_at_the_smoke_capacity(one_process):
     (the shards' combines agree: the reference's step is one function);
     at the smoke config's 1.25 hot experts drop rows, so the rank tests
     there go through model shard 0's combine where the shards' differ."""
-    for case, run in one_process.items():
+    for case in STEP_CASES:
+        run = one_process[case]
         assert (run.second_drops == 0) == (STEP_CASES[case][4] == 2.0), \
             (case, run.second_drops)
 
@@ -629,7 +640,7 @@ def test_gloo_ep_ranks_compute_their_share(case, gloo_ranks):
 
 # --- against the reference -----------------------------------------------------
 
-@pytest.mark.parametrize("case", REF_CASES)
+@pytest.mark.parametrize("case", REF_CASES + list(SHARED_CASES))
 def test_ep_step_matches_the_references_jitted_step(case, one_process,
                                                      weights, ref):
     for k, v in weights.items():

@@ -1,7 +1,7 @@
 """A MoE config's data rows compute only their own rows and meet at every
 MoE layer: ``placement.gather_rows``, ``models.forward_rows`` /
-``decode_step_rows``, the sharded train step's lockstep rows and the
-serve launcher's, on the CPU at the smoke configs in f32.
+``decode_step_model`` on whole caches (the serve launcher's rows), the
+sharded train step's lockstep rows and the serve launcher's, on the CPU at the smoke configs in f32.
 
 * ``gather_rows`` on (2, 2) and (2, 2, 2) meshes (over the batch axes,
   and over ``data`` within each pod): each row's copy is the
@@ -10,7 +10,9 @@ serve launcher's, on the CPU at the smoke configs in f32.
 * ``forward_rows`` over two rows against the reference's
   ``repro.models.forward`` on the whole batch (hidden states and aux
   loss within 1e-5) at a capacity that drops assignments, and
-  ``decode_step_rows`` against the one-device ``decode_step``;
+  ``decode_step_model`` over two rows' whole caches (as
+  ``serve.greedy_generate_rows`` decodes) against the one-device
+  ``decode_step``;
 * the sharded step of qwen3-moe at capacity factor 0.5 on (2, 2),
   (4, 1), (2, 1, 2) and (2, 2, 1) pod meshes with ``grad_compress``,
   and with microbatches, within ``test_torch_sharded_launch``'s
@@ -47,9 +49,11 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.distributed import placement as PL
 from repro_torch.launch import serve_lm
 from repro_torch.launch.mesh import make_host_mesh, make_mesh
-from repro_torch.models import (decode_step, decode_step_rows, forward_rows,
+from repro_torch.models import (decode_step, decode_step_model, forward_rows,
                                 init_decode_cache)
 from repro_torch.models.config import MoEConfig
+from repro_torch.models.model import unembed_shards
+from repro_torch.serve.step import _whole_layers
 from repro_torch.train import AdamWConfig, TrainStepConfig, make_train_step
 from repro_torch.train.sharded import step_matmul_flops
 
@@ -168,9 +172,10 @@ def test_forward_rows_is_the_references_whole_batch_forward():
 
 
 def test_decode_step_rows_is_the_one_device_step():
-    """Two rows' decode steps from position 0, each its 8 of 16
-    requests, against ``decode_step`` on all 16: logits within 1e-5 and
-    equal greedy tokens at every step."""
+    """Two rows' decode steps from position 0 (``decode_step_model`` on
+    whole params and each row's whole cache, as the serve launcher's
+    rows decode), each its 8 of 16 requests, against ``decode_step`` on
+    all 16: logits within 1e-5 and equal greedy tokens at every step."""
     cfg = tight()
     params = fresh_state(cfg).params
     toks = torch.from_numpy(np.random.default_rng(2).integers(
@@ -178,13 +183,17 @@ def test_decode_step_rows_is_the_one_device_step():
     (rows,) = group_rows(cpu_mesh((2, 1)), ("data",), 16)
     cache = init_decode_cache(cfg, 16, 6, device="cpu")
     caches = [init_decode_cache(cfg, 8, 6, device="cpu") for _ in range(2)]
+    views = [_whole_layers(c, PL.ModelRow(rows.mesh, q, home), rng)
+             for c, q, home, rng in zip(caches, rows.positions, rows.homes,
+                                        rows.ranges)]
     with torch.inference_mode():
         for t in range(6):
             want, _ = decode_step(cfg, params, cache, toks[:, t:t + 1], t)
-            got = decode_step_rows(cfg, [params] * 2, caches,
+            hs = decode_step_model(cfg, [params] * 2, views,
                                    [toks[lo:hi, t:t + 1]
                                     for lo, hi in rows.ranges], t, rows)
-            got = torch.cat(got)
+            got = torch.cat([unembed_shards(cfg, params, h)[0][0]
+                             for h in hs])
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
             assert torch.equal(got.argmax(-1), want.argmax(-1))
 

@@ -20,6 +20,7 @@ import torch
 from repro.compress import pipeline as jpipe, szlike as jsz
 from repro.data import synthetic_field
 from repro.kernels import pack as jpack
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.compress import pipeline as tpipe, szlike as tsz
 from repro_torch.convert import artifact_from_dict, artifact_to_dict
 from repro_torch.core import backend as tbackend

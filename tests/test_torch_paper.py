@@ -13,6 +13,7 @@ import torch
 from repro.compress import pipeline as jpipe
 from repro.core import driver as jdriver, fixes as jfixes
 from repro.data import synthetic_field
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.compress import pipeline as tpipe
 from repro_torch.core import driver as tdriver, fixes as tfixes
 

@@ -15,6 +15,7 @@ import torch
 from repro.compress import codec as jcodec
 from repro.compress import pipeline as jpipe, szlike as jsz
 from repro.data import synthetic_field
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.compress import codec as tcodec
 from repro_torch.compress import pipeline as tpipe, szlike as tsz
 from repro_torch.convert import artifact_from_dict, artifact_to_dict

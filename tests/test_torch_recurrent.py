@@ -26,6 +26,7 @@ from repro import models as jmodels
 from repro import serve as jserve
 from repro.models import layers as jlayers
 from repro.models import recurrent as jrec
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch import models as tmodels
 from repro_torch import serve as tserve
 from repro_torch.convert import params_from_numpy, params_to_numpy

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from repro.models import recurrent as jrec
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.distributed import placement as PL
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import layers, recurrent

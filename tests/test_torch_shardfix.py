@@ -25,6 +25,7 @@ from repro.core import backend as jbackend
 from repro.core import fixes as jfixes
 from repro.data import synthetic_field
 from repro.distributed import shardfix as jsf
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.compress import szlike as tsz
 from repro_torch.compress import (CompressStream, DecompressStream,
                                   compress_preserving_mss,
@@ -536,6 +537,7 @@ def test_service_with_a_mesh_and_its_shard_timings():
 
 _CHILD = r"""
 import numpy as np, jax.numpy as jnp, torch
+torch.set_num_threads(1)
 from repro.core import fixes as jfixes
 from repro.distributed import shardfix as jsf
 from repro.launch import mesh as jmesh

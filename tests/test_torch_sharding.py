@@ -15,6 +15,7 @@ import torch
 from repro.configs import get_config as j_get_config
 from repro.models import init_params as j_init_params
 from repro.models import sharding as jsh
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch.specs import param_structs

@@ -18,18 +18,24 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch import tree
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models.config import SHAPES, shape_by_name
+from repro_torch.models.config import SHAPES, ShapeConfig, shape_by_name
 
 ROOT = Path(__file__).resolve().parent.parent
 
 #: param_shardings variants: (zero1, data_only, replicate_embed)
 PARAM_VARIANTS = ((False, False, False), (True, False, False),
                   (True, True, True))
+
+#: a short decode cache (name, positions, requests, kind): at 64
+#: positions ``_auto_spec`` puts ``model`` on Dh, not T, on the (16, 16)
+#: and (2, 16, 16) meshes (the serving shapes split T)
+SHORT_CACHE = ("decode_short", 64, 128, "decode")
 
 #: the cell run end to end here: cheap on meta (one decode step)
 CHEAP_CELL = ("smollm_135m", "decode_32k", False)
@@ -44,7 +50,7 @@ _DUMP = textwrap.dedent('''
     from repro.launch import specs as S
     from repro.launch.dryrun import cell_is_applicable
     from repro.launch.mesh import make_production_mesh
-    from repro.models.config import SHAPES
+    from repro.models.config import SHAPES, ShapeConfig
 
     def spec_json(spec):
         return [list(e) if isinstance(e, tuple) else e for e in spec]
@@ -72,7 +78,7 @@ _DUMP = textwrap.dedent('''
                                for z, d, r in %(variants)r],
                     "opt": leaves(opt, S.opt_state_shardings(cfg, mesh)),
                     "cache": {}, "batch": {}}
-            for sh in SHAPES:
+            for sh in SHAPES + (ShapeConfig(*%(short)r),):
                 cell["cache"][sh.name] = leaves(
                     S.cache_structs(cfg, sh), S.cache_shardings(cfg, sh, mesh))
                 b = S.batch_spec(cfg, sh, mesh)
@@ -80,7 +86,7 @@ _DUMP = textwrap.dedent('''
                     b, S.batch_shardings(b, cfg, mesh))
             dump["cells"][f"{arch}/{tag}"] = cell
     json.dump(dump, open(sys.argv[1], "w"))
-''') % {"variants": PARAM_VARIANTS}
+''') % {"variants": PARAM_VARIANTS, "short": SHORT_CACHE}
 
 
 @pytest.fixture(scope="module")
@@ -122,10 +128,11 @@ def test_shardings_match_reference(ref, arch, tag):
             cfg, mesh, zero1=z, data_only=d, replicate_embed=r)) == w
     assert _leaves(S.opt_state_structs(cfg),
                    S.opt_state_shardings(cfg, mesh)) == want["opt"]
-    for sh in SHAPES:
+    for sh in SHAPES + (ShapeConfig(*SHORT_CACHE),):
         assert _leaves(S.cache_structs(cfg, sh),
                        S.cache_shardings(cfg, sh, mesh)) == \
             want["cache"][sh.name], sh.name
+    for sh in SHAPES:
         b = S.batch_spec(cfg, sh, mesh)
         assert _leaves(b, S.batch_shardings(b, cfg, mesh)) == \
             want["batch"][sh.name], sh.name

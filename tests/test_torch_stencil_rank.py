@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from repro.kernels.extrema import extrema_masks_pallas
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.core.grid import shift
 from repro_torch.kernels import extrema as kx
 from repro_torch.kernels.stencil import geometry, neighbor_ok, slab_offsets

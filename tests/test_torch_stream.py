@@ -21,6 +21,7 @@ import torch
 from repro.compress import pipeline as jpipe
 from repro.data import synthetic_field
 from repro.distributed.straggler import StepWatchdog as JWatchdog
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch import device as tdevice
 from repro_torch.compress import (CompressStream, DecompressStream,
                                   SpecCache, StreamBackpressure,

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch import tree
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.distributed import placement as PL

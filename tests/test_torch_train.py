@@ -57,6 +57,7 @@ from repro import train as jtrain
 from repro.data import tokens as jtokens
 from repro.distributed import compression as jcomp
 from repro.train import step as jstep
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch import configs as tconfigs
 from repro_torch import train as ttrain
 from repro_torch import tree

@@ -16,6 +16,7 @@ import torch
 
 from repro.core import fixes as jfixes
 from repro.core.backend import PallasBackend
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.core import backend as tbackend, fixes as tfixes
 from repro_torch.core.backend import CudaBackend, get_backend
 

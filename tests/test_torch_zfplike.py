@@ -11,6 +11,7 @@ import pytest
 
 from repro.compress import pipeline as jpipe, zfplike as jzfp
 from repro.data import synthetic_field
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.compress import pipeline as tpipe, zfplike as tzfp
 from repro_torch.convert import artifact_from_dict
 

@@ -93,6 +93,20 @@ beside the rest; the ranks must be bitwise the one-process run and
 each rank's FLOPs its position's reckoning
 (``step_matmul_flops(..., ep_rows=dp)``). A tree whose ranks refuse EP
 (``NotImplementedError``) has the refusal recorded instead of its ranks.
+
+    python3 tools/sharded_cards.py --serve --ranks 4
+
+``--serve --ranks N``: serving at the reference's dry-run partition
+(``serve.sharded``) on (1, N) and (2, N / 2): chip_smoke's 11j cell
+(granite-8b at its published widths, 4 layers, bf16, 4 x 20,480-token
+prompts into a 32,768-position cache, 16 decode steps) and qwen3-moe at
+its published widths (2 layers, bf16, under ``MOE_EP_MODE``, a 4 x 2048
+prefill, 4 decode steps), each in this process with position i on
+cuda:i and over N NCCL ranks; the ranks' tokens, last logits and cache
+shards must be the one-process run's, bit for bit, and each position's
+resident cache bytes ``specs.shard_bytes`` of the cache under
+``cache_shardings``; prefill seconds, decode ms a step and each card's
+peak bytes are recorded.
 """
 from __future__ import annotations
 
@@ -484,9 +498,12 @@ def _checkout() -> Path:
     return Path(repro_torch.__file__).resolve().parents[2]
 
 
-def _spawn(world: int, extra) -> list:
+def _spawn(world: int, extra, timeout: float = 600) -> list:
     """``world`` worker processes of this script on a free localhost
-    port; returns each one's (exit code, stdout, stderr)."""
+    port; returns each one's (exit code, stdout, stderr). Past
+    ``timeout`` seconds every rank is stopped and each one's stderr
+    tail reported (a rank that fails early leaves the others waiting in
+    the rendezvous or a collective)."""
     import socket
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -498,7 +515,7 @@ def _spawn(world: int, extra) -> list:
          "--tree", str(_checkout())]
         + extra(r), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, env=env) for r in range(world)]
-    deadline = time.monotonic() + 600
+    deadline = time.monotonic() + timeout
     outs = []
     for r, p in enumerate(procs):
         try:
@@ -507,9 +524,13 @@ def _spawn(world: int, extra) -> list:
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()
-            out, err = p.communicate()
-            raise AssertionError(f"rank {r} did not finish in 600 s; its "
-                                 f"stderr: {err[-3000:]}") from None
+            tails = [f"rank {i} (exit {q.poll()}): "
+                     f"{q.communicate()[1][-1500:]}"
+                     for i, q in enumerate(procs) if i >= r]
+            raise AssertionError(
+                f"rank {r} did not finish in {timeout} s; earlier ranks: "
+                f"{[(rc, e[-1500:]) for rc, _, e in outs]}; "
+                + " | ".join(tails)) from None
         outs.append((p.returncode, out, err))
     for r, (rc, _, err) in enumerate(outs):
         if rc != 0:
@@ -649,6 +670,179 @@ def tp_ranks_leg(world: int, work: Path, cell: str, shape=None,
                              f", {per_position} reckoned a position")
 
 
+#: the seed of each serving cell's weights and prompts (``--serve``)
+SERVE_SEED = {"granite": 18, "qwen3-moe": 20}
+#: ``--serve``'s MoE cell: qwen3-moe at its published widths (``MOE_FULL``'s
+#: 2 of 94 layers), bf16, under ``MOE_EP_MODE``: a prefill of 4 x 2048
+#: (EP engages at 8,192 tokens) into a cache of 2,064 positions, then 4
+#: greedy decode steps (the dense dispatch at 4 tokens a step)
+SERVE_MOE_FULL = dict(arch="qwen3-moe-235b-a22b", n_layers=2, batch=4,
+                      prompt=2048, max_len=2064, steps=4)
+
+
+def serve_cell_of(cell: str) -> dict:
+    """``--serve``'s cells: "granite" (chip_smoke's 11j,
+    ``SERVE_SHARDED``) and "qwen3-moe" (``SERVE_MOE_FULL``)."""
+    from chip_smoke import SERVE_SHARDED
+    return SERVE_SHARDED if cell == "granite" else SERVE_MOE_FULL
+
+
+def serve_on_mesh(mesh, dev, cell: str) -> dict:
+    """``serve.sharded``'s prefill and greedy decode steps of
+    ``serve_cell_of(cell)`` on ``mesh`` from weights drawn whole on
+    ``dev`` (the MoE cell under ``chip_smoke.expert_parallel``): the
+    tokens (whole), the sha1 of the prefill's last logits (whole) and of
+    each cache shard this process holds, by position; the prefill
+    seconds, each step's ms, each card's peak bytes and each position's
+    resident cache bytes."""
+    import dataclasses
+    import hashlib
+    import torch
+    from chip_smoke import expert_parallel
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import placement
+    from repro_torch.models import init_params
+    from repro_torch.serve import sharded as SS
+    k, seed = serve_cell_of(cell), SERVE_SEED[cell]
+    cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    placed = placement.place_tree(params, SS.serve_param_shardings(cfg,
+                                                                   mesh))
+    del params
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (k["batch"], k["prompt"])).astype(np.int32)).to(dev)}
+    sync = (lambda: torch.cuda.synchronize(dev)) if mesh.multi_process \
+        else _sync_all
+    cards = [dev] if mesh.multi_process else [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    torch.cuda.empty_cache()
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+
+    def sha(t):
+        t = t.detach().contiguous().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return hashlib.sha1(t.numpy().tobytes()).hexdigest()
+    with (expert_parallel(mesh) if cell == "qwen3-moe"
+          else contextlib.nullcontext()) as seen:
+        sync()
+        t0 = time.perf_counter()
+        cache, last = SS.make_sharded_prefill(cfg, mesh, k["max_len"])(
+            placed, batch)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        tok = SS.sharded_argmax(cfg, last)
+        toks, ms = [placement.gather(tok)], []
+        step = SS.make_sharded_serve_step(cfg, mesh)
+        for i in range(k["steps"]):
+            sync()
+            t0 = time.perf_counter()
+            tok, _, cache = step(placed, cache, tok, k["prompt"] + i)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(placement.gather(tok))
+    out = {"tokens": torch.cat(toks, 1).cpu(),
+           "last_sha1": sha(placement.gather(last)),
+           "cache_sha1": {q: [sha(cache[n].local[q]) for n in ("k", "v")]
+                          for q in cache["k"].local},
+           "prefill_s": prefill_s, "decode_ms": ms,
+           "decode_ms_median": float(np.median(ms)),
+           "resident_cache_bytes": placement.resident_bytes(cache),
+           "peak_bytes": {str(c): torch.cuda.max_memory_allocated(c)
+                          for c in cards}}
+    if seen is not None:
+        out.update(ep_bodies=seen["bodies"],
+                   expert_leaves_built=seen["built"])
+    del cache, placed, last
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_rank_worker(rank: int, world: int, addr: str, out: str,
+                      cell: str, shape) -> int:
+    """One rank of ``--serve --ranks``: saves its run of ``cell`` on
+    ``shape`` to ``out``."""
+    import torch
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    if not init_distributed(coordinator_address=addr, num_processes=world,
+                            process_id=rank, backend="nccl"):
+        raise RuntimeError("init_distributed did not start a group")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rec = serve_on_mesh(make_mesh(shape, ("data", "model")), dev, cell)
+    rec.update(rank=rank, device=str(dev))
+    torch.save(rec, out)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def serve_ranks_leg(world: int, work: Path, cells=("granite", "qwen3-moe")
+                    ) -> None:
+    """``--serve --ranks``: each serving cell on (1, N) and (2, N / 2),
+    once in this process with position i on cuda:i and once over
+    ``world`` NCCL ranks, a card and a position each: every rank's
+    tokens, last logits and cache shards bitwise the one-process run's
+    (sha1), each position's resident cache bytes ``specs.shard_bytes``
+    of the cache under ``cache_shardings``; the prefill seconds, the
+    decode ms a step and each card's peak bytes beside them."""
+    import dataclasses
+    import torch
+    from chip_smoke import emit
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import sharded as SS
+    for cell in cells:
+        k = serve_cell_of(cell)
+        cfg = dataclasses.replace(get_config(k["arch"]),
+                                  n_layers=k["n_layers"])
+        for shape in ((1, world), (2, world // 2)):
+            mesh = make_mesh(shape, ("data", "model"),
+                             devices=[f"cuda:{i}" for i in range(world)])
+            one = serve_on_mesh(mesh, torch.device("cuda", 0), cell)
+            tag = f"serve-{cell}-{shape[0]}x{shape[1]}"
+            _spawn(world, lambda r: ["--serve", "--cell", cell, "--mesh",
+                                     f"{shape[0]}x{shape[1]}", "--out",
+                                     str(work / f"{tag}{r}.pt")],
+                   timeout=300)
+            sshape = SS.serve_shape(k["batch"], k["max_len"])
+            want = specs.shard_bytes(specs.cache_structs(cfg, sshape),
+                                     specs.cache_shardings(cfg, sshape, mesh))
+            ranks = []
+            for r in range(world):
+                got = torch.load(work / f"{tag}{r}.pt", weights_only=False)
+                same = (torch.equal(got["tokens"], one["tokens"])
+                        and got["last_sha1"] == one["last_sha1"]
+                        and got["cache_sha1"][r] == one["cache_sha1"][r])
+                ranks.append({"rank": r, "bitwise": same,
+                              "device": got["device"],
+                              "prefill_s": got["prefill_s"],
+                              "decode_ms_median": got["decode_ms_median"],
+                              "resident_cache_bytes":
+                                  got["resident_cache_bytes"],
+                              "peak_bytes": got["peak_bytes"]})
+            rec = {"phase": "sharded_serving_ranks", "cell": cell,
+                   "world": world, "model": cfg.name,
+                   "n_layers": cfg.n_layers, "dtype": cfg.dtype, **k,
+                   "mesh": mesh.shape, "backend": "nccl",
+                   "cache_bytes_per_position": want,
+                   "one_process": {n: v for n, v in one.items() if n not in
+                                   ("tokens", "cache_sha1", "last_sha1")},
+                   "ranks": ranks,
+                   "all_bitwise": all(r["bitwise"] for r in ranks)}
+            emit(rec)
+            if not rec["all_bitwise"]:
+                raise AssertionError(f"{tag}: the ranks are not the "
+                                     "one-process run")
+            if any(set(r["resident_cache_bytes"].values()) != {want}
+                   for r in ranks) or set(
+                       one["resident_cache_bytes"].values()) != {want}:
+                raise AssertionError(f"{tag}: resident cache bytes, "
+                                     f"{want} by cache_shardings")
+
+
 def ranks_leg(world: int) -> None:
     """``--ranks``: ``world`` worker processes, one NCCL group."""
     import torch
@@ -682,6 +876,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cell", default=None,
                     help="with --train --ranks: run this cell alone "
                          "(qwen3-moe: the MoE rows at full width)")
+    ap.add_argument("--serve", action="store_true",
+                    help="with --ranks: serving at the dry-run partition "
+                         "(11j's granite cell and qwen3-moe under EP)")
     ap.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tree", default=None,
                     help="run the package of another checkout (its src/), "
@@ -691,6 +888,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(Path(args.tree or ROOT).resolve() / "src"))
     if args.rank is not None:
+        if args.serve:
+            shape = tuple(int(n) for n in args.mesh.split("x"))
+            return serve_rank_worker(args.rank, args.ranks, args.rendezvous,
+                                     args.out, args.cell, shape)
         if args.train:
             shape = (tuple(int(n) for n in args.mesh.split("x"))
                      if args.mesh else None)
@@ -721,10 +922,17 @@ def main(argv=None) -> int:
     cards = torch.cuda.device_count()
     if args.ep or args.ranks:
         emit({"phase": "cards", "count": cards, "smi": smi})
+        if args.serve:
+            _build.build_all(("flash",))
         cell_ep = args.ep and args.train and args.cell
         if args.ep and not cell_ep:
             ep_leg(cards)
-        if args.ranks and args.train and args.cell:
+        if args.ranks and args.serve:
+            work = ROOT / "build" / "serve_ranks"
+            work.mkdir(parents=True, exist_ok=True)
+            serve_ranks_leg(args.ranks, work, *(
+                [(args.cell,)] if args.cell else []))
+        elif args.ranks and args.train and args.cell:
             work = ROOT / "build" / "train_ranks"
             work.mkdir(parents=True, exist_ok=True)
             w = args.ranks
