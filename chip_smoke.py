@@ -2035,14 +2035,18 @@ def phase_flash_families(seed: int) -> None:
 
 
 def tp_flash_shapes() -> dict:
-    """{dtype name: the (B, S, H, Hk, Dh) of every flash call phase 11's
-    split legs make}: each shard's head segments
+    """{dtype name: the (B, S, T, H, Hk, Dh, causal) of every flash call
+    phase 11's split legs make}: each shard's head segments
     (``sharding.shard_heads``) over each data row's sequences, for
     11a's smollm-135m on (2, 2), 11f's hymba-1.5b on (1, 4), 11g's
     deepseek-coder-33b on (1, 16) and 11h's qwen3-moe on (2, 2) in bf16,
-    and the f32 legs on (2, 2), (1, 2) and (2, 1); and every prefill of
+    and the f32 legs on (2, 2), (1, 2) and (2, 1); every prefill of
     11j: granite-8b's 20,480-token prompts on (1, 4), (2, 2) and 1 x 1
-    in bf16, its f32 leg on (1, 2), its MoE leg on (2, 2) and 1 x 1."""
+    in bf16, its f32 leg on (1, 2), its MoE leg on (2, 2) and 1 x 1; and
+    11k's split prefills: hymba-1.5b's global layers on (1, 4) and
+    (2, 2), whisper-base's encoder (non-causal over its frames), decoder
+    (causal) and cross-attention (non-causal, the prompt over the
+    frames) on (1, 4) and (2, 2) in bf16 and on its f32 leg's (1, 2)."""
     from repro_torch.configs import get_config
     from repro_torch.models.sharding import shard_heads
     serve = dict(batch=SERVE_SHARDED["batch"], seq=SERVE_SHARDED["prompt"])
@@ -2062,6 +2066,14 @@ def tp_flash_shapes() -> dict:
             ("float32", "granite-8b", serve_f32, (1, 2)),
             ("float32", "qwen3-moe-235b-a22b", serve_moe, SERVE_MOE["shape"]),
             ("float32", "qwen3-moe-235b-a22b", serve_moe, (1, 1))]
+    fam = {n: dict(batch=k["batch"], seq=k["prompt"])
+           for n, k in SERVE_FAMILIES.items()}
+    legs += [("bfloat16", "hymba-1.5b", fam["hymba"], (1, 4)),
+             ("bfloat16", "hymba-1.5b", fam["hymba"], (2, 2))]
+    whisper = [("bfloat16", fam["whisper"], (1, 4)),
+               ("bfloat16", fam["whisper"], (2, 2)),
+               ("float32", dict(batch=SERVE_FAMILY_PARITY["batch"],
+                                seq=SERVE_FAMILY_PARITY["prompt"]), (1, 2))]
     out: dict = {}
     for dt, arch, k, (dp, tp) in legs:
         cfg = get_config(arch)
@@ -2069,26 +2081,38 @@ def tp_flash_shapes() -> dict:
         for sh in shard_heads(cfg.n_heads, cfg.n_kv_heads, tp):
             for a, b in sh.segments:
                 out.setdefault(dt, set()).add(
-                    (k["batch"] // dp, k["seq"], b - a,
-                     (b - 1) // G - a // G + 1, cfg.head_dim))
+                    (k["batch"] // dp, k["seq"], k["seq"], b - a,
+                     (b - 1) // G - a // G + 1, cfg.head_dim, True))
+    cfg = get_config("whisper-base")
+    Te = cfg.enc_positions
+    for dt, k, (dp, tp) in whisper:
+        for sh in shard_heads(cfg.n_heads, cfg.n_kv_heads, tp):
+            for a, b in sh.segments:
+                n = (k["batch"] // dp, b - a, b - a, cfg.head_dim)
+                S = k["seq"]
+                out.setdefault(dt, set()).update([
+                    n[:1] + (Te, Te) + n[1:] + (False,),
+                    n[:1] + (S, S) + n[1:] + (True,),
+                    n[:1] + (S, Te) + n[1:] + (False,)])
     return {dt: sorted(v) for dt, v in out.items()}
 
 
 def phase_flash_segments(seed: int) -> None:
     """Phase 2d: the kernel against its plain version at every shape a
     split leg of phase 11 gives it (``tp_flash_shapes``): each shard's
-    runs of whole KV groups and partial groups, causal."""
+    runs of whole KV groups and partial groups, causal (whisper's
+    encoder and cross-attention shards non-causal)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for dt, shapes in tp_flash_shapes().items():
-        for B, S, H, Hk, Dh in shapes:
-            q, k, v = flash_inputs(B, S, S, H, Hk, Dh, getattr(torch, dt),
+        for B, S, T, H, Hk, Dh, causal in shapes:
+            q, k, v = flash_inputs(B, S, T, H, Hk, Dh, getattr(torch, dt),
                                    gen)
-            label = f"{(B, S, S, H, Hk, Dh)} causal=True"
-            err, _ = check_flash(f"segment {label}", q, k, v, True)
+            label = f"{(B, S, T, H, Hk, Dh)} causal={causal}"
+            err, _ = check_flash(f"segment {label}", q, k, v, causal)
             emit({"phase": "kernels_vs_plain",
                   "case": f"flash head segment {label}",
-                  "shape": [B, S, S, H, Hk, Dh], "causal": True,
+                  "shape": [B, S, T, H, Hk, Dh], "causal": causal,
                   "dtype": dt, "max_abs_err": err,
                   "rtol_atol": FLASH_TOL[dt]})
             del q, k, v
@@ -4539,10 +4563,13 @@ def sharded_serve_run(cfg, mesh, params, batch: dict, max_len: int,
     ``specs.needs_fsdp`` is false), or with ``mesh`` None the one-device
     ``make_prefill`` + ``make_serve_step``: the tokens, every call's
     logits (whole, on the CPU; the prefill's last first), the prefill
-    seconds and each step's ms (device synced), the flash launches, and
-    each position's resident cache bytes. With ``forced`` (B, 1 + steps)
-    each step is fed those tokens instead of its own."""
+    seconds and each step's ms (device synced), the flash launches (the
+    prefill's apart), the bytes the decode steps' exchanges moved
+    (``placement.EXCHANGED``), and each position's resident bytes of the
+    serving state. ``batch`` may hold whisper's frames. With ``forced``
+    (B, 1 + steps) each step is fed those tokens instead of its own."""
     import torch
+    from repro_torch import tree
     from repro_torch.distributed import placement
     from repro_torch.launch import specs
     from repro_torch.serve import make_prefill, make_serve_step
@@ -4566,11 +4593,13 @@ def sharded_serve_run(cfg, mesh, params, batch: dict, max_len: int,
     cache, last = prefill(placed, batch)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t1
+    flash_prefill = read_launches()["flash"]
+    placement.EXCHANGED["bytes"] = 0
     if mesh is None:
         tok = torch.argmax(last[:, -1], -1).to(torch.int32)[:, None]
         toks, whole = [tok], last
         resident = {0: sum(t.numel() * t.element_size()
-                           for t in (cache["k"], cache["v"]))}
+                           for t in tree.leaves(cache))}
     else:
         tok = SS.sharded_argmax(cfg, last)
         toks, whole = [placement.gather(tok)], placement.gather(last)
@@ -4591,7 +4620,9 @@ def sharded_serve_run(cfg, mesh, params, batch: dict, max_len: int,
                logits=logits,
                prefill_s=prefill_s, decode_ms=ms,
                decode_ms_median=float(np.median(ms)),
-               flash=launches["flash"], resident_cache_bytes=resident,
+               flash=launches["flash"], flash_prefill=flash_prefill,
+               exchanged_bytes=placement.EXCHANGED["bytes"],
+               resident_cache_bytes=resident,
                logits_finite=bool(torch.isfinite(whole).all()))
     del cache, placed
     torch.cuda.empty_cache()
@@ -4646,32 +4677,7 @@ def phase_sharded_serving(seed: int) -> int:
                                  f"finite {run['logits_finite']}")
         runs[name] = run
         total += run["flash"]
-    one = runs["1x1"]
-    scale = float(one["last"].abs().max())
-    rms = float(one["last"].double().pow(2).mean().sqrt())
-    legs = {}
-    for name, run in runs.items():
-        gap = max_abs_diff([run["last"]], [one["last"]])
-        gap_rms = float((run["last"].double() - one["last"].double())
-                        .pow(2).mean().sqrt())
-        if gap > SERVE_BF16_REL * scale or gap_rms > SERVE_BF16_REL * rms:
-            raise AssertionError(f"11j {name}: prefill logits {gap} (rms "
-                                 f"{gap_rms}) from 1 x 1's, above "
-                                 f"{SERVE_BF16_REL} of its largest |logit| "
-                                 f"{scale} (rms {rms})")
-        legs[name] = {
-            "prefill_s": run["prefill_s"],
-            "decode_ms_median": run["decode_ms_median"],
-            "decode_ms": run["decode_ms"], "flash_launches": run["flash"],
-            "resident_cache_bytes_per_position":
-                sorted(set(run["resident_cache_bytes"].values())),
-            "positions": len(run["resident_cache_bytes"]),
-            "tokens_equal_1x1": bool(torch.equal(run["tokens"],
-                                                 one["tokens"])),
-            "tokens_agree_share": float((run["tokens"] == one["tokens"])
-                                        .float().mean()),
-            "prefill_logits_max_abs_diff_1x1": gap,
-            "prefill_logits_rms_diff_1x1": gap_rms}
+    legs, scale, rms = serve_legs("11j", runs)
     emit({"phase": "sharded_serving", "leg": "11j granite-8b",
           "model": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
@@ -4783,6 +4789,400 @@ def phase_sharded_serving(seed: int) -> int:
     del params
     torch.cuda.empty_cache()
     emit({"phase": "sharded_serving", "leg": "11j total",
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
+#: 11k: whisper, xLSTM and hymba served at the dry-run partition
+#: (``serve.sharded``), bf16, seeded, at their published widths, on (1, 4)
+#: and (2, 2) with every position on cuda:0, then 1 x 1: whisper-base
+#: whole (6 + 6 layers), 8 requests of 1,500 frame embeddings and 32-token
+#: prompts into 448 positions (its decoder's context); xlstm-1.3b cut to 8
+#: of 48 layers (one group: 7 mLSTM + 1 sLSTM, as 11f) and hymba-1.5b to 4
+#: of 32 (globals 0, 2 and 3, window 1,024, as 11f), 8 x 2048 prompts into
+#: 32,768 positions (decode_32k's length); 16 greedy steps each. ``flash``
+#: is the prefill's launches (whisper: 6 encoder, 6 self- and 6
+#: cross-attention layers, on the split meshes one call a shard's 2 heads;
+#: hymba: its 3 global layers, on the split meshes each shard's heads in 2
+#: segments), ``decode_flash`` the steps' (whisper's 1 x 1 cross-attention,
+#: 6 a step; the split one combines its shards by the split softmax, which
+#: flash's output, without its log-sum-exp, cannot join)
+SERVE_FAMILIES = {
+    "whisper": dict(arch="whisper-base", n_layers=None, batch=8, prompt=32,
+                    max_len=448, steps=16,
+                    flash={"1x4": 72, "2x2": 72, "1x1": 18},
+                    decode_flash={"1x4": 0, "2x2": 0, "1x1": 96}),
+    "xlstm": dict(arch="xlstm-1.3b", n_layers=8, batch=8, prompt=2048,
+                  max_len=32768, steps=16,
+                  flash={"1x4": 0, "2x2": 0, "1x1": 0},
+                  decode_flash={"1x4": 0, "2x2": 0, "1x1": 0}),
+    "hymba": dict(arch="hymba-1.5b", n_layers=4, batch=8, prompt=2048,
+                  max_len=32768, steps=16,
+                  flash={"1x4": 24, "2x2": 24, "1x1": 3},
+                  decode_flash={"1x4": 0, "2x2": 0, "1x1": 0}),
+}
+#: 11k's f32 legs: phase 8's depths at full width (whisper 2 + 2 layers,
+#: xLSTM 2 layers with slstm_every 2, hymba 4 layers with window 128: at
+#: 64 its ring's T and Dh tie and ``_auto_spec`` splits it over Dh), 2
+#: requests, (1, 2) on the card against the CPU's one-device run: whisper
+#: a 160-token prompt over 1,500 frames, then 16 steps; xLSTM and hymba
+#: decoded from position 0 through a 160-token prompt and 16 new tokens,
+#: the reference's greedy_generate (only so do their states and hymba's
+#: ring, wrapped, hold real values); xLSTM a step at a time from the CPU's
+#: state (its bf16 mlstm_C turns one f32 ulp into one bf16 ulp, which
+#: later steps amplify). Tokens equal, logits within ``SERVE_TOL``
+SERVE_FAMILY_PARITY = dict(batch=2, prompt=160, steps=16, shape=(1, 2))
+
+
+def serve_legs(label: str, runs: dict, gate: bool = True) -> tuple:
+    """Each run's leg record against 1 x 1's (``runs["1x1"]``), its
+    bf16 prefill logits held to ``SERVE_BF16_REL`` (largest and rms
+    difference against 1 x 1's largest |logit| and rms; without
+    ``gate`` only recorded); returns (the legs, 1 x 1's largest |logit|,
+    its rms)."""
+    import torch
+    one = runs["1x1"]
+    scale = float(one["last"].abs().max())
+    rms = float(one["last"].double().pow(2).mean().sqrt())
+    legs = {}
+    for name, run in runs.items():
+        gap = max_abs_diff([run["last"]], [one["last"]])
+        gap_rms = float((run["last"].double() - one["last"].double())
+                        .pow(2).mean().sqrt())
+        within = gap <= SERVE_BF16_REL * scale and \
+            gap_rms <= SERVE_BF16_REL * rms
+        if gate and not within:
+            raise AssertionError(f"{label} {name}: prefill logits {gap} "
+                                 f"(rms {gap_rms}) from 1 x 1's, above "
+                                 f"{SERVE_BF16_REL} of its largest |logit| "
+                                 f"{scale} (rms {rms})")
+        legs[name] = {
+            "prefill_s": run["prefill_s"],
+            "decode_ms_median": run["decode_ms_median"],
+            "decode_ms": run["decode_ms"], "flash_launches": run["flash"],
+            "resident_cache_bytes_per_position":
+                sorted(set(run["resident_cache_bytes"].values())),
+            "positions": len(run["resident_cache_bytes"]),
+            "tokens_equal_1x1": bool(torch.equal(run["tokens"],
+                                                 one["tokens"])),
+            "tokens_agree_share": float((run["tokens"] == one["tokens"])
+                                        .float().mean()),
+            "prefill_logits_max_abs_diff_1x1": gap,
+            "prefill_logits_rms_diff_1x1": gap_rms,
+            "prefill_logits_within_gate": within}
+    return legs, scale, rms
+
+
+def bf16_noise(cfg, params, batch: dict, last) -> tuple:
+    """How far 1 x 1's bf16 prefill logits ``last`` (on the CPU) lie
+    from the same weights' f32 prefill on the card: (largest difference
+    over the f32 run's largest |logit|, rms difference over its rms)."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.serve import make_prefill
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.no_grad():
+        _, want = make_prefill(f32, batch["tokens"].shape[1])(
+            tree.tree_map(lambda t: t.float(), params), batch)
+    want = want.double().cpu()
+    d = last.double() - want
+    out = (float(d.abs().max() / want.abs().max()),
+           float(d.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()))
+    del want
+    torch.cuda.empty_cache()
+    return out
+
+
+def layer_hold(cfg, params, tokens, mshape) -> list:
+    """xLSTM's split prefill a block at a time from 1 x 1's hidden
+    states (as its decode is held a step at a time from the shared
+    state): each block on the (data, model) mesh ``mshape`` (every
+    position on cuda:0, the params placed by ``serve_param_shardings``,
+    each data row its own requests) against the whole block on the same
+    input, its largest and rms difference at most ``SERVE_BF16_REL`` of
+    the whole block's largest |value| and rms, else raises. Returns each
+    block's (largest, rms) difference over those."""
+    import torch
+    from repro_torch.distributed import placement
+    from repro_torch.launch.mesh import entered
+    from repro_torch.models import recurrent
+    from repro_torch.models.model import _embed_tokens, _layers
+    from repro_torch.serve import sharded as SS
+    mesh = lm_mesh([MESH_DEVICE] * 4, mshape)
+    views = SS._param_views(placement.place_tree(
+        params, SS.serve_param_shardings(cfg, mesh)), mesh)
+    rows = SS._batch_rows(mesh, tokens.shape[0])
+    out = []
+    with torch.no_grad(), entered(mesh):
+        x = _embed_tokens(cfg, params, tokens)
+        whole = [(fn, lp) for g, sp in zip(_layers(params["mlstm"]),
+                                           _layers(params["slstm"]))
+                 for fn, lp in [(recurrent.mlstm_block, m)
+                                for m in _layers(g)]
+                 + [(recurrent.slstm_block, sp)]]
+        split = [[lp for g, sp in zip(_layers(v["mlstm"]),
+                                      _layers(v["slstm"]))
+                  for lp in _layers(g) + [sp]] for v in views]
+        for i, (fn, lp) in enumerate(whole):
+            y = fn(cfg, lp, x)
+            got = torch.cat([fn(cfg, sv[i], x[lo:hi].to(home)).to(y.device)
+                             for sv, (lo, hi), home in
+                             zip(split, rows.ranges, rows.homes)])
+            d = (got.double() - y.double())
+            rel = (float(d.abs().max() / y.double().abs().max()),
+                   float(d.pow(2).mean().sqrt()
+                         / y.double().pow(2).mean().sqrt()))
+            if max(rel) > SERVE_BF16_REL:
+                raise AssertionError(f"11k xlstm {mshape}: block {i} "
+                                     f"{rel} from the whole block's, past "
+                                     f"{SERVE_BF16_REL}")
+            out.append(rel)
+            x = y
+    return out
+
+
+def state_split_bytes(cfg, batch: int, mshape, max_len: int) -> dict:
+    """The bytes a (data, model) row's positions receive from each other
+    a layer a decode step for the split of the serving state, reckoned
+    from the shapes under ``cache_shardings`` and counted as the ranks'
+    collectives move them (an all-gather over tp positions hands each
+    tp - 1 parts; an all-to-all each piece once): whisper's
+    cross-attention (frames split: the wk_x/wv_x columns each shard
+    lacks and the split softmax's max, sum and p V; d split: the rows of
+    wk_x/wv_x and the f32 partial k and v reduce-scattered to the
+    shards' heads), the sLSTM's gathered c, n and m, hymba's SSM x and y
+    dealt between the weights' columns and the state's Dh split. The
+    attention over a T-split KV cache (PR 30's three collectives) is
+    every family's and not counted here."""
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import sharded as SS
+    dp, tp = mshape
+    mesh = make_mesh(mshape, ("data", "model"),
+                     devices=["meta"] * (dp * tp))
+    sh = specs.cache_shardings(cfg, SS.serve_shape(batch, max_len), mesh)
+    B = batch // dp if batch % dp == 0 and batch >= dp else batch
+    e = 2 if cfg.dtype == "bfloat16" else 4
+    d, H, Hk, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {}
+    if cfg.enc_dec:
+        from repro_torch.distributed.placement import model_dim
+        dim = model_dim(sh["enc_out"].spec)
+        if dim == 1:
+            out["memory_layout"] = "frames"
+            out["wk_wv_columns_fetched"] = (tp - 1) * 2 * d * Hk * Dh * e
+            out["split_softmax"] = tp * (tp - 1) * B * H * (8 + 4 * Dh)
+        else:
+            out["memory_layout"] = "d"
+            out["wk_wv_rows_fetched"] = 2 * d * Hk * Dh * e * (tp - 1) // tp
+            out["kv_reduce_scatter_f32"] = (2 * (tp - 1) * B
+                                            * cfg.enc_positions * Hk * Dh
+                                            * 4)
+    elif cfg.family == "ssm":
+        out["slstm_state_gather_f32"] = 3 * (tp - 1) * B * d * 4
+        out["mlstm"] = 0
+    elif cfg.family == "hybrid":
+        out["ssm_x_y_regroup"] = 2 * B * H * Dh * e * (tp - 1) // tp
+    out["per_layer_step"] = sum(v for v in out.values()
+                                if isinstance(v, int))
+    return out
+
+
+def _state_on(cache, dev: str):
+    """A one-device serving state (a tree of tensors) moved to ``dev``."""
+    from repro_torch import tree
+    return tree.tree_map(lambda t: t.to(dev), cache)
+
+
+def family_parity_leg(name: str, cfg, seed: int) -> dict:
+    """One 11k f32 leg (``SERVE_FAMILY_PARITY``): the CPU's one-device
+    serving against ``serve.sharded`` on a (1, 2) card mesh; raises
+    unless the tokens are equal and every call's logits within
+    ``SERVE_TOL``. Returns the record's numbers."""
+    import torch
+    from repro_torch.distributed import placement
+    from repro_torch.launch import specs
+    from repro_torch.models import init_decode_cache
+    from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.serve import sharded as SS
+    k = SERVE_FAMILY_PARITY
+    B, Sp, steps = k["batch"], k["prompt"], k["steps"]
+    max_len = Sp + steps
+    cpu, gpu = _weights_both(cfg, seed)
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (B, Sp))
+                              .astype(np.int32))
+    batch = {"tokens": prompt}
+    if cfg.enc_dec:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.enc_positions, cfg.d_model)).astype(np.float32))
+    mesh = lm_mesh([MESH_DEVICE] * 2, k["shape"])
+    placed = placement.place_tree(gpu, SS.serve_param_shardings(cfg, mesh))
+    shardings = specs.cache_shardings(cfg, SS.serve_shape(B, max_len), mesh)
+    cstep = make_serve_step(cfg)
+    gstep = SS.make_sharded_serve_step(cfg, mesh, whole_logits=True)
+    want_t, want_l, got_t, got_l = [], [], [], []
+    reset_launches()
+    with torch.no_grad():
+        if cfg.enc_dec:
+            cache, lg = make_prefill(cfg, max_len)(cpu, batch)
+            gcache, glg = SS.make_sharded_prefill(cfg, mesh, max_len)(
+                placed, {n: v.to(MESH_DEVICE) for n, v in batch.items()})
+            want_l.append(lg)
+            got_l.append(placement.gather(glg).cpu())
+            tok = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+            gtok = SS.sharded_argmax(cfg, glg)
+            want_t.append(tok)
+            got_t.append(placement.gather(gtok).cpu())
+            for i in range(steps):
+                tok, lg, cache = cstep(cpu, cache, tok, Sp + i)
+                gtok, glg, gcache = gstep(placed, gcache, gtok, Sp + i)
+                want_t.append(tok)
+                want_l.append(lg)
+                got_t.append(placement.gather(gtok).cpu())
+                got_l.append(glg.cpu())
+        else:
+            cache = init_decode_cache(cfg, B, max_len, device="cpu")
+            gcache = SS.place_cache(cfg, mesh, B, max_len)
+            stepwise = cfg.family == "ssm"
+            for t in range(Sp + steps):
+                cur = prompt[:, t:t + 1] if t < Sp else want_t[-1]
+                if stepwise:
+                    gcache = placement.place_tree(
+                        _state_on(cache, MESH_DEVICE), shardings)
+                gcur = cur.to(MESH_DEVICE) if t < Sp or stepwise else \
+                    gtok
+                tok, lg, cache = cstep(cpu, cache, cur, t)
+                gtok, glg, gcache = gstep(placed, gcache, gcur, t)
+                want_t.append(tok)
+                want_l.append(lg)
+                got_t.append(placement.gather(gtok).cpu())
+                got_l.append(glg.cpu())
+    rtol, atol = SERVE_TOL
+    errs = [max_abs_diff([g], [c]) for g, c in zip(got_l, want_l)]
+    for i, (g, c) in enumerate(zip(got_l, want_l)):
+        if not torch.allclose(g, c, rtol=rtol, atol=atol):
+            raise AssertionError(f"11k {name} f32: logits of call {i} "
+                                 f"differ by {errs[i]} (rtol {rtol}, atol "
+                                 f"{atol})")
+    if not torch.equal(torch.cat(got_t, 1), torch.cat(want_t, 1)):
+        raise AssertionError(f"11k {name} f32: the card's (1, 2) tokens "
+                             "are not the CPU's one-device tokens")
+    return dict(calls=len(want_l), max_abs_err=max(errs),
+                stepwise=cfg.family == "ssm",
+                from_position_0=not cfg.enc_dec, tokens_equal=True,
+                flash_launches=read_launches()["flash"])
+
+
+def phase_serving_families(seed: int) -> int:
+    """11k: each ``SERVE_FAMILIES`` cell on (1, 4) and (2, 2) then 1 x 1
+    (``sharded_serve_run``): each position's resident bytes of the
+    serving state ``specs.shard_bytes`` under ``cache_shardings``, the
+    prefill's and the steps' flash launches as stated, the bf16 prefill
+    logits within ``SERVE_BF16_REL`` of 1 x 1's, the tokens' agreement
+    with 1 x 1 recorded; each split's state bytes a layer a step
+    (``state_split_bytes``, reckoned; the exchanges' measured bytes
+    beside it); then the f32 legs (``family_parity_leg``). A leg that
+    raises fails the script; nothing falls back to a whole state or the
+    CPU. Returns the flash launches."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.serve import sharded as SS
+    t0 = time.perf_counter()
+    total = 0
+    for name, k in SERVE_FAMILIES.items():
+        cfg = get_config(k["arch"])
+        if k["n_layers"]:
+            cfg = dataclasses.replace(cfg, n_layers=k["n_layers"])
+        params = init_params(cfg, torch.Generator(device=MESH_DEVICE)
+                             .manual_seed(seed), MESH_DEVICE)
+        prompt, extra = family_inputs(cfg, k["batch"], k["prompt"], seed)
+        batch = {"tokens": prompt, **extra}
+        shape = SS.serve_shape(k["batch"], k["max_len"])
+        runs, bytes_ = {}, {}
+        for lname, mshape in (("1x4", (1, 4)), ("2x2", (2, 2)),
+                              ("1x1", None)):
+            mesh = lm_mesh([MESH_DEVICE] * 4, mshape) if mshape else None
+            run = sharded_serve_run(cfg, mesh, params, batch, k["max_len"],
+                                    k["steps"])
+            want = specs.shard_bytes(specs.cache_structs(cfg, shape),
+                                     specs.cache_shardings(
+                                         cfg, shape, mesh or make_host_mesh(
+                                             MESH_DEVICE)))
+            got = run["resident_cache_bytes"]
+            if set(got.values()) != {want}:
+                raise AssertionError(f"11k {name} {lname}: state bytes a "
+                                     f"position {got}, {want} by "
+                                     "cache_shardings")
+            decode_flash = run["flash"] - run["flash_prefill"]
+            if run["flash_prefill"] != k["flash"][lname] or \
+                    decode_flash != k["decode_flash"][lname] or \
+                    not run["logits_finite"]:
+                raise AssertionError(
+                    f"11k {name} {lname}: flash {run['flash_prefill']} + "
+                    f"{decode_flash} ({k['flash'][lname]} + "
+                    f"{k['decode_flash'][lname]} stated), logits finite "
+                    f"{run['logits_finite']}")
+            if mshape:
+                bytes_[lname] = dict(
+                    state_split_bytes(cfg, k["batch"], mshape,
+                                      k["max_len"]),
+                    exchanged_measured_per_layer_step=run["exchanged_bytes"]
+                    / (k["steps"] * cfg.n_layers))
+            runs[lname] = run
+            total += run["flash"]
+        # xLSTM's bf16 stack at this depth amplifies one-ulp differences
+        # of its exponential gates (1 x 1's bf16 prefill logits lie far
+        # from its f32 ones, ``bf16_noise``; the split's blocks read 1e-4
+        # from the whole ones): its end-to-end gap is recorded and each
+        # block held from 1 x 1's hidden states
+        legs, scale, rms = serve_legs(f"11k {name}", runs,
+                                      gate=cfg.family != "ssm")
+        for lname, run in runs.items():
+            legs[lname].update(flash_prefill=run["flash_prefill"],
+                               state_split_bytes=bytes_.get(lname))
+        if cfg.family == "ssm":
+            for lname, mshape in (("1x4", (1, 4)), ("2x2", (2, 2))):
+                legs[lname]["block_hold_rel"] = layer_hold(
+                    cfg, params, prompt, mshape)
+            legs["1x1"]["prefill_logits_rel_diff_f32"] = bf16_noise(
+                cfg, params, batch, runs["1x1"]["last"])
+        emit({"phase": "sharded_serving", "leg": f"11k {cfg.name}",
+              "model": cfg.name, "n_layers": cfg.n_layers,
+              "dtype": cfg.dtype, "d_model": cfg.d_model,
+              "heads": [cfg.n_heads, cfg.n_kv_heads], "d_ff": cfg.d_ff,
+              "vocab": cfg.vocab, **{n: v for n, v in k.items()
+                                     if n not in ("flash", "decode_flash")},
+              "cache_specs_1x4": {
+                  path: repr(sh.spec) for path, sh in tree.flatten_with_path(
+                      specs.cache_shardings(cfg, shape, lm_mesh(
+                          [MESH_DEVICE] * 4, (1, 4))))
+                  if not path.startswith("layers/")
+                  or path.startswith(("layers/0/", "layers/1/"))},
+              "prefill_logits_max_abs_1x1": scale,
+              "prefill_logits_rms_1x1": rms,
+              "bf16_rel_tol": SERVE_BF16_REL, "legs": legs})
+        del params, runs
+        torch.cuda.empty_cache()
+    for name, arch, kw in (
+            ("whisper", "whisper-base", dict(n_layers=2, n_enc_layers=2)),
+            ("xlstm", "xlstm-1.3b", dict(n_layers=2, slstm_every=2)),
+            ("hymba", "hymba-1.5b", dict(n_layers=4, sliding_window=128))):
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **kw)
+        rec = family_parity_leg(name, cfg, seed + 1)
+        total += rec["flash_launches"]
+        emit({"phase": "sharded_serving",
+              "leg": f"11k {name} f32 card (1, 2) vs CPU",
+              "model": cfg.name, "dtype": cfg.dtype,
+              "n_layers": cfg.n_layers, **SERVE_FAMILY_PARITY,
+              "tol": SERVE_TOL, **rec})
+    emit({"phase": "sharded_serving", "leg": "11k total",
           "seconds": time.perf_counter() - t0})
     return total
 
@@ -5015,6 +5415,7 @@ def main(argv=None) -> int:
     launches["flash"] += phase_moe_rows(seed=16)
     launches["flash"] += phase_moe_ep_rows(seed=17)
     launches["flash"] += phase_sharded_serving(seed=18)
+    launches["flash"] += phase_serving_families(seed=19)
     emit({"phase": "sharded_launch_total",
           "seconds": time.perf_counter() - t0})
 

@@ -59,6 +59,12 @@ as a row's model shards keep it, ``put_model`` writes a tensor held in
 pieces over the shards (each shard's KV heads) into the shards that keep
 each piece (the cache's positions) by one all-to-all over ``model``, and
 ``argmax_model`` is the greedy argmax over vocabulary shards.
+``StateShards`` is one leaf of the rest of a serving state (whisper's
+encoder memory, the recurrent states) as a row's shards keep it;
+``regroup_model`` deals a vector's last-dim indices out anew over the
+shards (hymba's SSM input and output between its weights' flattened
+columns and its state's Dh split) and ``sum_scatter_model`` is a
+reduce-scatter in model order (whisper's memory k and v at a d split).
 """
 from __future__ import annotations
 
@@ -79,7 +85,8 @@ __all__ = ["Sharded", "ModelShards", "place", "place_tree", "gather",
            "exchange_model", "permute_model", "to_first", "scatter_first",
            "from_first", "mean_rows_model", "argmax_model", "put_model",
            "slice_box", "regather", "row_params", "put_local",
-           "CacheShards"]
+           "CacheShards", "StateShards", "regroup_model",
+           "sum_scatter_model"]
 
 
 class Sharded:
@@ -870,6 +877,153 @@ class CacheShards(NamedTuple):
         boxes = [((b0, b1), (t0, t0 + S), tuple(o), (0, Dh)) for o in owned]
         put_model(self.row, k, boxes, self.k, self.boxes)
         put_model(self.row, v, boxes, self.v, self.boxes)
+
+
+class StateShards(NamedTuple):
+    """One leaf of a serving state (whisper's encoder memory, a recurrent
+    state) as one data row's model shards hold it: ``parts[k]`` local
+    shard k's block (``row.positions`` order; a view into the placed
+    leaf, updated in place), ``boxes[j]`` every model coordinate's global
+    box, ``dim`` the dim split over ``model`` (None: every shard keeps
+    a whole copy)."""
+    row: ModelRow
+    dim: Optional[int]
+    parts: List[torch.Tensor]
+    boxes: List[Box]
+
+    def at(self, *idx: int) -> "StateShards":
+        """The view at ``idx`` into the leading dims (a layer of a
+        stack), which must not be the split one."""
+        n = len(idx)
+        if self.dim is not None and self.dim < n:
+            raise ValueError(f"StateShards.at: dim {self.dim} is split")
+        return StateShards(self.row, None if self.dim is None else
+                           self.dim - n, [p[idx] for p in self.parts],
+                           [b[n:] for b in self.boxes])
+
+    def mine(self) -> List[Box]:
+        """Each local shard's box."""
+        return [self.boxes[j] for j in self.row.indices]
+
+
+#: ``regroup_model``'s plans, by (have, want, the row's coordinates,
+#: device): each a fixed permutation, built once
+_REGROUP: Dict[Any, Any] = {}
+
+
+def _regroup_plan(have, want, tp: int):
+    """``regroup_model``'s plan: for each holder i and taker j, the
+    positions in ``have[i]`` of what j takes from i and their positions
+    in ``want[j]`` (each index from the lowest coordinate holding it)."""
+    src: Dict[int, Tuple[int, int]] = {}
+    for i in range(tp):
+        for at, c in enumerate(have[i]):
+            src.setdefault(c, (i, at))
+    plan = [[([], []) for _ in range(tp)] for _ in range(tp)]
+    for j in range(tp):
+        for at, c in enumerate(want[j]):
+            if c not in src:
+                raise ValueError(f"regroup_model: no shard holds {c}")
+            i, pos = src[c]
+            plan[i][j][0].append(pos)
+            plan[i][j][1].append(at)
+    return plan
+
+
+def regroup_model(row: ModelRow, parts: Sequence[torch.Tensor],
+                  have: Sequence[Sequence[int]],
+                  want: Sequence[Sequence[int]]) -> List[torch.Tensor]:
+    """Indices of the last dim dealt out anew over a row's model shards:
+    ``parts[k]`` local shard k's tensor holding the global indices
+    ``have[i]`` (i its model coordinate, in that order); returns each
+    local shard's indices ``want[j]``, in that order, each taken from
+    the lowest coordinate that has it. In one process each taker
+    gathers from the shards' tensors by one index; across processes
+    one ``all_to_all_single`` over ``model`` (each holder sends each
+    taker only what it takes from it). ``EXCHANGED`` counts what crosses
+    between two coordinates. No gradient."""
+    tp = row.tp
+    # mszlint: disable=transfer-discipline -- have/want are host index lists
+    have, want = (tuple(tuple(int(c) for c in h) for h in x) for x in (have,
+                                                                     want))
+    key = (have, want, tuple(row.indices), tuple(map(str, row.devices)))
+    if key not in _REGROUP:
+        plan = _regroup_plan(have, want, tp)
+        offs = [sum(len(h) for h in have[:i]) for i in range(tp)]
+
+        def idx(xs, dev):
+            return torch.tensor(xs, dtype=torch.long, device=dev)
+        if not row.mesh.multi_process:      # one index into every part
+            cat_idx = []
+            for j, dev in zip(row.indices, row.devices):
+                at_of = [0] * len(want[j])
+                for i in range(tp):
+                    for pos, at in zip(*plan[i][j]):
+                        at_of[at] = offs[i] + pos
+                cat_idx.append(idx(at_of, dev))
+            _REGROUP[key] = ("one", plan, cat_idx)
+        else:
+            (k_dev,), (me,) = row.devices, row.indices
+            _REGROUP[key] = ("ranks", plan, (
+                [idx(plan[me][j][0], k_dev) for j in range(tp)],
+                idx([at for i in range(tp) for at in plan[i][me][1]],
+                    k_dev)))
+    kind, plan, idxs = _REGROUP[key]
+    lead = tuple(parts[0].shape[:-1])
+    size = parts[0].element_size() * math.prod(lead)
+    for j in row.indices:
+        EXCHANGED["bytes"] += size * sum(len(plan[i][j][0])
+                                         for i in range(tp) if i != j)
+    if kind == "one":
+        wholes: Dict[torch.device, torch.Tensor] = {}
+        out = []
+        for dev, ix in zip(row.devices, idxs):
+            if dev not in wholes:
+                wholes[dev] = torch.cat([p.detach().to(dev) for p in parts],
+                                        -1)
+            out.append(wholes[dev].index_select(-1, ix))
+        return out
+    import torch.distributed as dist
+    sends, recv = idxs
+    (me,) = row.indices
+    raw = [_wire(parts[0].detach().index_select(-1, ix)) for ix in sends]
+    sizes = [len(plan[i][me][0]) * size for i in range(tp)]
+    got = torch.empty(sum(sizes), dtype=torch.uint8, device=row.devices[0])
+    dist.all_to_all_single(got, torch.cat(raw), sizes,
+                           [r.numel() for r in raw],
+                           group=row.mesh.group(("model",)))
+    pieces = torch.cat([g.view(parts[0].dtype).reshape(
+        lead + (len(plan[i][me][0]),)) for i, g in
+        enumerate(got.split(sizes))], -1)
+    o = torch.empty(lead + (len(want[me]),), dtype=parts[0].dtype,
+                    device=row.devices[0])
+    o[..., recv] = pieces
+    return [o]
+
+
+def sum_scatter_model(row: ModelRow, parts: Sequence[torch.Tensor],
+                      ranges: Sequence[Tuple[int, int]], dim: int
+                      ) -> List[torch.Tensor]:
+    """The sum over ``model`` of the local shards' partial tensors
+    ``parts`` (equal shapes), each local shard keeping only its range
+    ``ranges[j]`` of ``dim`` (j its model coordinate; ranges may overlap
+    or be empty): a reduce-scatter, each shard's received pieces summed
+    in model order in f32 (``axis_sum``'s arithmetic, so ranks give one
+    process's bits) and cast to the parts' dtype. One all-to-all over
+    ``model`` across processes. No gradient."""
+    tp = row.tp
+    shape = list(parts[0].shape)
+
+    def piece(j):
+        lo, hi = ranges[j]
+        return tuple(shape[:dim % len(shape)] + [hi - lo]
+                     + shape[dim % len(shape) + 1:])
+    sends = [[p.detach().narrow(dim, ranges[j][0],
+                                ranges[j][1] - ranges[j][0]).contiguous()
+              for j in range(tp)] for p in parts]
+    got = _exchange(row, sends, [[piece(j) for j in range(tp)]
+                                 for _ in range(tp)], parts[0].dtype)
+    return [_model_sum(g, parts[0].dtype) for g in got]
 
 
 def _swap(row: ModelRow, blocks: Sequence[torch.Tensor]

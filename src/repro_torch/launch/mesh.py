@@ -89,6 +89,8 @@ class DeviceMesh:
             ranks, dtype=np.int64).reshape(devices.shape)
         self._tokens: List[contextvars.Token] = []
         self._groups: Dict[Tuple[str, ...], object] = {}
+        self._coords: Dict[int, Dict[str, int]] = {}
+        self._members: Dict[Tuple[int, Tuple[str, ...]], List[int]] = {}
         if self.ranks is not None:
             if len(set(self.ranks.reshape(-1).tolist())) != self.ranks.size:
                 raise ValueError("a multi-process mesh holds one position "
@@ -129,20 +131,28 @@ class DeviceMesh:
         return torch.device(self.devices.reshape(-1)[pos])
 
     def coords(self, pos: int) -> Dict[str, int]:
-        """Axis name -> index of flat position ``pos``."""
-        return {a: int(i) for a, i in zip(
-            self.axis_names, np.unravel_index(pos, self.devices.shape))}
+        """Axis name -> index of flat position ``pos`` (a fresh dict; the
+        mesh keeps each position's, as the serving's per-layer views ask
+        for them at every step)."""
+        if pos not in self._coords:
+            self._coords[pos] = {a: int(i) for a, i in zip(
+                self.axis_names, np.unravel_index(pos, self.devices.shape))}
+        return dict(self._coords[pos])
 
     def members(self, pos: int, axes: Sequence[str]) -> List[int]:
         """The flat positions that differ from ``pos`` only along
         ``axes``, row-major (the first axis of the mesh's order
         outermost): the group ``pos`` meets in a collective over
-        ``axes``."""
-        c = self.coords(pos)
-        ranges = [range(n) if a in axes else (c[a],)
-                  for a, n in zip(self.axis_names, self.devices.shape)]
-        return [int(np.ravel_multi_index(ix, self.devices.shape))
+        ``axes`` (a fresh list of the mesh's memo)."""
+        key = (pos, tuple(axes))
+        if key not in self._members:
+            c = self.coords(pos)
+            ranges = [range(n) if a in axes else (c[a],)
+                      for a, n in zip(self.axis_names, self.devices.shape)]
+            self._members[key] = [
+                int(np.ravel_multi_index(ix, self.devices.shape))
                 for ix in itertools.product(*ranges)]
+        return list(self._members[key])
 
     def _axes_key(self, axes: Sequence[str]) -> Tuple[str, ...]:
         unknown = set(axes) - set(self.axis_names)

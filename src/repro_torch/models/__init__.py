@@ -13,9 +13,9 @@ identity (no SPMD partitioner), and the expert-parallel MoE runs a
 (data, model) position at a time over the ambient mesh
 (``layers.moe_ffn_ep`` on the whole batch, ``layers.moe_ep_rows`` on a
 position's own experts in the sharded step and the sharded serving).
-``forward_rows`` and ``decode_step_model`` run data rows over placed
-params and (the decode step) a KV cache split as
-``launch.specs.cache_shardings`` splits it."""
+``forward_rows`` and ``decode_step_model`` run data rows of every
+family over placed params and (the decode step) a serving state split
+as ``launch.specs.cache_shardings`` splits it."""
 from . import recurrent
 from .config import ArchConfig, MoEConfig, ShapeConfig, SHAPES, shape_by_name
 from .model import (init_params, forward, decode_step, init_decode_cache,

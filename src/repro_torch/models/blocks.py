@@ -30,7 +30,9 @@ weight columns, never activations. The MLPs split by
 ``shard_kv`` each shard's KV heads, which the sharded prefill writes
 into a cache placed by ``launch.specs.cache_shardings`` (``write_kv``).
 ``attention_decode_model`` decodes one token over such a cache, split
-over ``model`` along its positions (or Dh, Hk, the layers)."""
+over ``model`` along its positions (or Dh, Hk, the layers), and
+``cross_attention_decode_model`` whisper's cross-attention over its
+encoder memory split along its frames or d."""
 from __future__ import annotations
 
 from typing import Any, List, NamedTuple, Optional, Tuple
@@ -65,12 +67,15 @@ def _qkv(cfg: ArchConfig, p, x, positions):
     return q, k, v
 
 
-def _attn_split(cfg: ArchConfig, p, names):
+def _attn_split(cfg: ArchConfig, p, names, roles: str = "qkko"):
     """(row, each local shard's ``ShardHeads``, each local shard's
-    wq/wk/wv/wo of its heads) when the attention weights ``names`` of
-    ``p`` are model shards of more than one position, else None (model
-    shards of one position go into ``p`` whole). wq and wo must both be
-    model-sharded (``param_spec`` shards them together); wk/wv may be
+    weights ``names`` of its heads) when the attention weights ``names``
+    of ``p`` are model shards of more than one position, else None
+    (model shards of one position go into ``p`` whole). ``roles`` says
+    what each name's shard takes: "q" the columns of its query heads,
+    "k" those of the KV heads they read, "a" every column, "o" the rows
+    of its query heads. The "q" and "o" weights must be model-sharded
+    (``param_spec`` shards them together); the others may be
     replicated, and are then narrowed."""
     ws = [p[n] for n in names]
     sharded = [w for w in ws if not isinstance(w, torch.Tensor)]
@@ -80,15 +85,19 @@ def _attn_split(cfg: ArchConfig, p, names):
         for n in names:
             p[n] = layers.whole(p[n])
         return None
-    if isinstance(ws[0], torch.Tensor) or isinstance(ws[3], torch.Tensor):
+    if any(isinstance(w, torch.Tensor) for w, r in zip(ws, roles)
+           if r in "qo"):
         raise ValueError(f"{names}: the heads split, but not every weight "
                          "of the query heads is model-sharded")
-    row = ws[0].row
+    row = sharded[0].row
     Dh = cfg.head_dim
     heads = shard_heads(cfg.n_heads, cfg.n_kv_heads, row.tp)
     q = [(a * Dh, b * Dh) for a, b in (h.q for h in heads)]
     kv = [(a * Dh, b * Dh) for a, b in (h.kv for h in heads)]
-    taken = PL.take_model(ws, [q, kv, kv, q], [1, 1, 1, 0])
+    every = [(0, cfg.n_kv_heads * Dh)] * row.tp
+    rng = {"q": q, "k": kv, "a": every, "o": q}
+    taken = PL.take_model(ws, [rng[r] for r in roles],
+                          [0 if r == "o" else 1 for r in roles])
     mine = [heads[j] for j in row.indices]
     return row, mine, [dict(zip(names, t)) for t in zip(*taken)]
 
@@ -221,6 +230,67 @@ def write_kv(cfg: ArchConfig, cache: PL.CacheShards, k, v, t0: int) -> None:
     cache.write(ks, vs, t0, owned)
 
 
+def _decode_attend(cfg: ArchConfig, p, h, cache: PL.CacheShards, t: int,
+                   *, window=None, ring=None, names=("wq", "wk", "wv")):
+    """``attention_decode_model``'s attention of the normed ``h`` before
+    its output projection: (the heads' output (B, 1, H, Dh) on the row's
+    home, ``_attn_split``'s split of ``names`` or None). With ``ring``
+    (hymba's ring of that many slots) the token at position ``t`` goes
+    to slot t % ring and the attention reads the min(t + 1, ring) valid
+    slots, with no window."""
+    B = h.shape[0]
+    positions = torch.full((B, 1), t, dtype=torch.int32, device=h.device)
+    split = _attn_split(cfg, p, names, "qkko"[:len(names)])
+    kw = dict(window=window, logit_softcap=cfg.attn_softcap)
+    slot = last = t
+    if ring is not None:
+        slot, last, kw["window"] = t % ring, min(t + 1, ring) - 1, None
+    if split is None:
+        q, k, v = _qkv(cfg, p, h, positions)
+        write_kv(cfg, cache, k, v, slot)
+    else:
+        row, heads, ws = split
+        Dh = cfg.head_dim
+        qs, ks, vs = [], [], []
+        for hd, hj, wj in zip(heads, PL.to_model(h, row), ws):
+            if not hd.segments:
+                qj = kj = vj = hj.new_empty((B, 1, 0, Dh))
+            else:
+                qj, kj, vj = _qkv(cfg, wj, hj, positions.to(hj.device))
+            qs.append(qj)
+            ks.append(kj)
+            vs.append(vj)
+        write_kv(cfg, cache, ks, vs, slot)
+        q = _meet_heads(cfg, heads, qs, row).to(h.dtype)
+    out = layers.decode_attention_model(q, cache.parts(), last, cache.kind,
+                                        cache.row, **kw)
+    return out, split
+
+
+def _meet_heads(cfg: ArchConfig, heads, qs, row) -> torch.Tensor:
+    """The whole q (B, 1, H, Dh) f32 on the row's home from each local
+    shard's query heads ``qs`` (B, 1, its heads, Dh): each placed in
+    zeros and summed over ``model`` (one term an element; B H Dh a
+    layer)."""
+    fulls = []
+    for hd, qj in zip(heads, qs):
+        full = qj.new_zeros(qj.shape[:2] + (cfg.n_heads, cfg.head_dim),
+                            dtype=torch.float32)
+        full[:, :, hd.q[0]:hd.q[1]] = qj.float()
+        fulls.append(full)
+    return PL.sum_model(fulls, row)
+
+
+def _heads_out(heads, ws, out, name: str, row) -> torch.Tensor:
+    """Each local shard's query heads of the whole ``out`` (B, 1, H, Dh)
+    through its rows of the output projection ``name``, summed over
+    ``model``."""
+    B = out.shape[0]
+    return PL.sum_model([
+        out[:, :, hd.q[0]:hd.q[1]].to(wj[name].device).reshape(B, 1, -1)
+        @ wj[name] for hd, wj in zip(heads, ws)], row)
+
+
 def attention_decode_model(cfg: ArchConfig, p, x, cache: PL.CacheShards,
                            t: int, *, window=None) -> torch.Tensor:
     """``attention_decode`` of one data row whose weights may be model
@@ -235,38 +305,13 @@ def attention_decode_model(cfg: ArchConfig, p, x, cache: PL.CacheShards,
     p = dict(p)
     B = x.shape[0]
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    positions = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
-    split = _attn_split(cfg, p, ("wq", "wk", "wv", "wo"))
-    kw = dict(window=window, logit_softcap=cfg.attn_softcap)
-    row = cache.row
+    out, split = _decode_attend(cfg, p, h, cache, t, window=window,
+                                names=("wq", "wk", "wv", "wo"))
     if split is None:
-        q, k, v = _qkv(cfg, p, h, positions)
-        write_kv(cfg, cache, k, v, t)
-        out = layers.decode_attention_model(q, cache.parts(), t, cache.kind,
-                                            row, **kw)
         y = out.reshape(B, 1, -1) @ p["wo"]
     else:
         row, heads, ws = split
-        Dh, H = cfg.head_dim, cfg.n_heads
-        qs, ks, vs = [], [], []
-        for hd, hj, wj in zip(heads, PL.to_model(h, row), ws):
-            full = torch.zeros((B, 1, H, Dh), dtype=torch.float32,
-                               device=hj.device)
-            if not hd.segments:
-                kj = vj = hj.new_empty((B, 1, 0, Dh))
-            else:
-                qj, kj, vj = _qkv(cfg, wj, hj, positions.to(hj.device))
-                full[:, :, hd.q[0]:hd.q[1]] = qj.float()
-            qs.append(full)
-            ks.append(kj)
-            vs.append(vj)
-        write_kv(cfg, cache, ks, vs, t)
-        q = PL.sum_model(qs, row).to(x.dtype)
-        out = layers.decode_attention_model(q, cache.parts(), t, cache.kind,
-                                            row, **kw)
-        y = PL.sum_model([
-            out[:, :, hd.q[0]:hd.q[1]].to(wj["wo"].device).reshape(B, 1, -1)
-            @ wj["wo"] for hd, wj in zip(heads, ws)], row)
+        y = _heads_out(heads, ws, out, "wo", row)
     if "ln1_post" in p:
         y = layers.rms_norm(y, p["ln1_post"], cfg.norm_eps)
     return x + y
@@ -385,6 +430,25 @@ def whisper_encoder_block(cfg: ArchConfig, p, x):
     return gelu_mlp(p, a.y, cfg.norm_eps)
 
 
+def _memory_kv(cfg: ArchConfig, enc, w):
+    """k and v (B, Te, heads, Dh) of the encoder memory ``enc`` from the
+    columns of wk_x and wv_x that ``w`` holds."""
+    B, T, _ = enc.shape
+    Dh = cfg.head_dim
+    return ((enc @ w["wk_x"]).reshape(B, T, -1, Dh),
+            (enc @ w["wv_x"]).reshape(B, T, -1, Dh))
+
+
+def _cross_heads(cfg: ArchConfig, h, k, v, w, heads=None):
+    """The query heads of ``w``'s wq_x columns over their KV heads ``k``
+    and ``v``, non-causal (the flash kernel on CUDA), through ``w``'s
+    rows of wo_x."""
+    B, S, _ = h.shape
+    q = (h @ w["wq_x"]).reshape(B, S, -1, cfg.head_dim)
+    return _project_out(_by_segments(cfg, heads, q, k, v, causal=False),
+                        w["wo_x"])
+
+
 def cross_attention(cfg: ArchConfig, p, x, enc_out):
     """Attention of the decoder's positions over the encoder memory
     ``enc_out`` (B, Te, d), non-causal: the flash kernel on CUDA. Split
@@ -393,28 +457,122 @@ def cross_attention(cfg: ArchConfig, p, x, enc_out):
     p = dict(p)
     h = layers.rms_norm(x, p["ln_x"], cfg.norm_eps)
     names = ("wq_x", "wk_x", "wv_x", "wo_x")
-    Dh = cfg.head_dim
-
-    def attend(h, enc, w, heads=None):
-        B, S, _ = h.shape
-        q = (h @ w["wq_x"]).reshape(B, S, -1, Dh)
-        k = (enc @ w["wk_x"]).reshape(B, enc.shape[1], -1, Dh)
-        v = (enc @ w["wv_x"]).reshape(B, enc.shape[1], -1, Dh)
-        return _project_out(_by_segments(cfg, heads, q, k, v, causal=False),
-                            w["wo_x"])
-
     split = _attn_split(cfg, p, names)
     if split is None:
-        return x + attend(h, enc_out, p)
+        return x + _cross_heads(cfg, h, *_memory_kv(cfg, enc_out, p), p)
     row, heads, ws = split
-    ys = [attend(hj, ej, wj, hd) if hd.segments else
-          _no_heads(hj, wj["wq_x"], wj["wo_x"])
+    ys = [_cross_heads(cfg, hj, *_memory_kv(cfg, ej, wj), wj, hd)
+          if hd.segments else _no_heads(hj, wj["wq_x"], wj["wo_x"])
           for hd, hj, ej, wj in zip(heads, PL.to_model(h, row),
                                     PL.to_model(enc_out, row), ws)]
     return x + PL.sum_model(ys, row)
 
 
-def whisper_decoder_block(cfg: ArchConfig, p, x, enc_out, positions):
-    a = attention_block(cfg, p, x, positions, causal=True)
+def _weight_rows(w, row, ranges) -> List[torch.Tensor]:
+    """Each local shard's rows ``ranges[j]`` (j its model coordinate) of
+    every column of a weight: a replicated tensor narrowed, a
+    column-sharded one's pieces fetched from every shard
+    (``placement.put_model``: one all-to-all over ``model``)."""
+    if isinstance(w, torch.Tensor):
+        return [w[lo:hi].to(d) for (lo, hi), d in
+                zip((ranges[j] for j in row.indices), row.devices)]
+    if w.dim != 1:
+        raise ValueError(f"_weight_rows: a weight split along {w.dim}")
+    n, C = w.parts[0].shape[1], w.parts[0].shape[1] * row.tp
+    d = w.parts[0].shape[0]
+    out = [torch.empty((ranges[j][1] - ranges[j][0], C),
+                       dtype=w.parts[0].dtype, device=dev)
+           for j, dev in zip(row.indices, row.devices)]
+    PL.put_model(row, w.parts, [((0, d), (i * n, (i + 1) * n))
+                                for i in range(row.tp)], out,
+                 [(tuple(r), (0, C)) for r in ranges])
+    return out
+
+
+def cross_attention_decode_model(cfg: ArchConfig, p, x,
+                                 enc: PL.StateShards) -> torch.Tensor:
+    """``cross_attention`` of one data row's token over its encoder
+    memory as ``launch.specs.cache_shardings`` splits it over the row's
+    model shards (``enc``); no shard's memory leaves it:
+
+    * frames (tp 2 and 4 at whisper-base: 1,500 frames divide): each
+      shard projects k and v of every KV head from its frames, with the
+      whole wk_x and wv_x (the columns it lacks fetched,
+      ``placement.take_model``: 2 d Hk Dh of the weights' dtype a
+      layer), scores them for every query head (the query heads meet on
+      the row's home as in ``attention_decode_model``) and the split
+      softmax of ``layers.decode_attention_model``'s "T" case combines
+      the shards; each shard multiplies its heads' output by its rows of
+      wo_x. No flash call: flash returns no log-sum-exp, so its
+      per-shard outputs could not be combined;
+    * d (tp 8 and 16: the production layout): each shard multiplies its
+      d columns of the memory by its rows of wk_x and wv_x (fetched,
+      ``_weight_rows``), and the f32 partial k and v meet by a
+      reduce-scatter to each shard's KV heads in model order
+      (``placement.sum_scatter_model``: the transient k and v, B Te
+      Hk Dh each, of which a shard keeps its heads); each shard then
+      attends with its query heads as ``cross_attention`` does (flash on
+      CUDA, one call a segment of its heads);
+    * a memory every shard keeps whole, or a model axis of one:
+      ``cross_attention``.
+
+    Returns the residual on the row's home."""
+    row = enc.row
+    if row.tp == 1 or enc.dim is None:
+        return cross_attention(cfg, p, x, enc.parts[0])
+    p = dict(p)
+    h = layers.rms_norm(x, p["ln_x"], cfg.norm_eps)
+    B, Dh = x.shape[0], cfg.head_dim
+    if enc.dim == 2:
+        split = _attn_split(cfg, p, ("wq_x", "wo_x"), "qo")
+        if split is None:
+            raise ValueError("cross_attention_decode_model: a memory split "
+                             "over d with unsplit query heads")
+        _, heads, ws = split
+        rows_ = [b[2] for b in enc.boxes]
+        wk = _weight_rows(p["wk_x"], row, rows_)
+        wv = _weight_rows(p["wv_x"], row, rows_)
+        kv = [(a * Dh, b * Dh) for a, b in (hd.kv for hd in shard_heads(
+            cfg.n_heads, cfg.n_kv_heads, row.tp))]
+        ks, vs = ([t.to(h.dtype).reshape(t.shape[0], t.shape[1], -1, Dh)
+                   for t in PL.sum_scatter_model(
+                       row, [e.float() @ w.float() for e, w in
+                             zip(enc.parts, ws_)], kv, -1)]
+                  for ws_ in (wk, wv))
+        return x + PL.sum_model([
+            _cross_heads(cfg, hj, kj, vj, wj, hd) if hd.segments else
+            _no_heads(hj, wj["wq_x"], wj["wo_x"])
+            for hd, hj, kj, vj, wj in zip(heads, PL.to_model(h, row), ks,
+                                          vs, ws)], row)
+    if enc.dim != 1:
+        raise ValueError(f"cross_attention_decode_model: a memory split "
+                         f"over dim {enc.dim}")
+    split = _attn_split(cfg, p, ("wq_x", "wk_x", "wv_x", "wo_x"), "qaao")
+    H, Hk = cfg.n_heads, cfg.n_kv_heads
+    if split is None:
+        q = (h @ p["wq_x"]).reshape(B, 1, H, Dh)
+        ws = [{n: p[n].to(dev) for n in ("wk_x", "wv_x")}
+              for dev in row.devices]
+    else:
+        _, heads, ws = split
+        q = _meet_heads(cfg, heads, [
+            (hj @ wj["wq_x"]).reshape(B, 1, -1, Dh)
+            for hj, wj in zip(PL.to_model(h, row), ws)], row).to(h.dtype)
+    parts = [_memory_kv(cfg, e, w) + ((box[1], (0, Hk), (0, Dh)),)
+             for e, w, box in zip(enc.parts, ws, enc.mine())]
+    frames = max(b[1][1] for b in enc.boxes)
+    out = layers.decode_attention_model(q, parts, frames - 1, "T", row)
+    if split is None:
+        return x + out.reshape(B, 1, -1) @ p["wo_x"]
+    return x + _heads_out(heads, ws, out, "wo_x", row)
+
+
+def whisper_decoder_block(cfg: ArchConfig, p, x, enc_out, positions,
+                          shard_kv: bool = False):
+    """A decoder layer: causal self-attention (its k and v as
+    ``attention_block`` gives them, each shard's KV heads with
+    ``shard_kv``), cross-attention over ``enc_out``, the GELU MLP."""
+    a = attention_block(cfg, p, x, positions, causal=True,
+                        shard_kv=shard_kv)
     h = cross_attention(cfg, p, a.y, enc_out)
     return gelu_mlp(p, h, cfg.norm_eps), a.k, a.v

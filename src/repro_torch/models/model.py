@@ -421,11 +421,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     ks, vs = [], []
     extra = {}
     if cfg.enc_dec:
-        enc = batch["frames"].to(x.dtype)
-        enc = enc + params["enc_pos"][None, :enc.shape[1]].to(x.dtype)
-        for lp in _layers(params["enc_blocks"]):
-            enc = _run(remat, blocks.whisper_encoder_block, cfg, lp, enc)
-        enc = layers.rms_norm(enc, params["enc_norm"], cfg.norm_eps)
+        enc = _encode(cfg, params, batch["frames"], x.dtype, remat)
         for lp in _layers(params["blocks"]):
             x, k, v = _run(remat, blocks.whisper_decoder_block, cfg, lp, x,
                            enc, positions)
@@ -464,6 +460,16 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     return ForwardOut(_unembed(cfg, params, x), aux_total, cache)
 
 
+def _encode(cfg: ArchConfig, params: Params, frames: torch.Tensor,
+            dtype: torch.dtype, remat: bool = False) -> torch.Tensor:
+    """Whisper's encoder memory (B, Te, d) of the frame embeddings."""
+    enc = frames.to(dtype)
+    enc = enc + params["enc_pos"][None, :enc.shape[1]].to(dtype)
+    for lp in _layers(params["enc_blocks"]):
+        enc = _run(remat, blocks.whisper_encoder_block, cfg, lp, enc)
+    return layers.rms_norm(enc, params["enc_norm"], cfg.norm_eps)
+
+
 def _rows_layer(cfg: ArchConfig, rows, lps, xs, positions, window: int,
                 put=None):
     """One layer over the data rows ``rows`` in lockstep: each row's
@@ -485,40 +491,66 @@ def _rows_layer(cfg: ArchConfig, rows, lps, xs, positions, window: int,
     return tuple(x for x, _ in out) + tuple(a for _, a in out)
 
 
-#: the families ``forward_rows`` and ``decode_step_model`` run: the
-#: decoder-only attention families (dense and gemma2, MoE, llava)
-ROWS_FAMILIES = ("dense", "moe", "vlm")
-
-
-def check_rows_family(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family outside
-    ``ROWS_FAMILIES``."""
-    if cfg.family not in ROWS_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the rows' forward and the placed decode step run "
-            f"the decoder-only attention families ({', '.join(ROWS_FAMILIES)}"
-            "); whisper's enc_out cross-attention and xLSTM's and hymba's "
-            "caches at cache_shardings are ROADMAP Queue 1's next item")
+def _forward_row(cfg: ArchConfig, p: Params, batch, remat: bool,
+                 put=None) -> ForwardOut:
+    """``forward(logits_mode="hidden")`` of one data row of a family
+    whose rows never meet (whisper, xLSTM, hymba), its layers split over
+    the row's model shards where ``p`` holds model shards. Whisper's
+    decoder hands each layer's k and v to ``put(i, k, v)`` (each shard's
+    KV heads where the layer splits) and returns its encoder memory as
+    the cache's "enc_out"; the recurrent families' states stay inside
+    the forward, as in ``forward``."""
+    x = _embed_inputs(cfg, p, batch)
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device).expand(x.shape[:2])
+    cache = None
+    if cfg.enc_dec:
+        enc = _encode(cfg, p, batch["frames"], x.dtype, remat)
+        for i, lp in enumerate(_layers(p["blocks"])):
+            x, k, v = _run(remat, functools.partial(
+                blocks.whisper_decoder_block, shard_kv=put is not None),
+                cfg, lp, x, enc, positions)
+            if put is not None:
+                put(i, k, v)
+        cache = {"enc_out": enc}
+    elif cfg.family == "ssm":
+        x = _xlstm_stack(cfg, p, x, remat)
+    else:
+        for lp, w in zip(_layers(p["blocks"]), window_schedule(cfg)):
+            x, _, _ = _run(remat, functools.partial(
+                recurrent.hymba_block, window=int(w)), cfg, lp, x, positions)
+    return ForwardOut(layers.rms_norm(x, p["final_norm"], cfg.norm_eps),
+                      torch.zeros((), dtype=torch.float32, device=x.device),
+                      cache)
 
 
 def forward_rows(cfg: ArchConfig, params: List[Params],
                  batches: List[Dict[str, torch.Tensor]], rows, *,
                  remat: bool = False, put_kv=None) -> List[ForwardOut]:
-    """``forward(logits_mode="hidden")`` over data rows that advance a
-    layer at a time: ``params`` and ``batches`` each local row's of
-    ``rows`` (a ``placement.BatchRows``), its batch its own rows of the
-    domain batch (the whole of it where ``rows.shared``). Each row
-    embeds (llava's image embeddings first), attends and normalizes its
-    own rows; a MoE config's MoE layers route the domain batch where the
-    rows meet (``blocks.moe_block_rows``), so the rows compute the
-    one-device forward's function. Under ``remat`` the unit of recompute
-    is one layer over every row (``_run``), so the backward's recompute
-    gathers again, in the forward's order. ``put_kv(i, r, k, v)`` takes
-    layer i's k and v of local row r (``blocks.AttnOut``'s: whole, or
-    each model shard's KV heads), the sharded prefill's cache writer.
-    Returns each row's final hidden states and aux loss (over the domain
-    batch). The decoder-only attention families (``ROWS_FAMILIES``)."""
-    check_rows_family(cfg)
+    """``forward(logits_mode="hidden")`` over data rows, for every
+    family: ``params`` and ``batches`` each local row's of ``rows`` (a
+    ``placement.BatchRows``), its batch its own rows of the domain batch
+    (the whole of it where ``rows.shared``), its weights model shards
+    where ``param_spec`` splits them (each layer then splits over the
+    row's model shards, ``blocks``, ``recurrent``). The decoder-only
+    attention families (dense and gemma2, MoE, llava) advance a layer at
+    a time: each row embeds (llava's image embeddings first), attends
+    and normalizes its own rows; a MoE config's MoE layers route the
+    domain batch where the rows meet (``blocks.moe_block_rows``), so the
+    rows compute the one-device forward's function. Under ``remat`` the
+    unit of recompute is one layer over every row (``_run``), so the
+    backward's recompute gathers again, in the forward's order. The
+    rows of whisper, xLSTM and hymba never meet: each row runs its
+    forward alone (``_forward_row``); whisper's returns its encoder
+    memory in ``.cache["enc_out"]``. ``put_kv(i, r, k, v)`` takes layer
+    i's k and v of local row r (``blocks.AttnOut``'s: whole, or each
+    model shard's KV heads), the sharded prefill's cache writer (the
+    recurrent families write none). Returns each row's final hidden
+    states and aux loss (over the domain batch)."""
+    if cfg.family in ("audio", "ssm", "hybrid"):
+        return [_forward_row(cfg, p, b, remat, None if put_kv is None else
+                             (lambda i, k, v, r=r: put_kv(i, r, k, v)))
+                for r, (p, b) in enumerate(zip(params, batches))]
     xs = [_embed_inputs(cfg, p, b) for p, b in zip(params, batches)]
     positions = [torch.arange(x.shape[1], dtype=torch.int32,
                               device=x.device).expand(x.shape[:2])
@@ -636,19 +668,31 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
 def decode_step_model(cfg: ArchConfig, params: List[Params], caches,
                       tokens: List[torch.Tensor], t: int, rows
                       ) -> List[torch.Tensor]:
-    """``decode_step`` over placed params and a placed cache, for data
-    rows that advance a layer at a time (``forward_rows``' rule):
-    ``params`` each local row's view (``placement.row_params``), its
-    weights model shards where ``param_spec`` splits them;
-    ``caches[r][i]`` local row r's ``placement.CacheShards`` of layer i;
+    """``decode_step`` over placed params and a placed serving state, for
+    data rows that advance a layer at a time (``forward_rows``' rule),
+    every family: ``params`` each local row's view
+    (``placement.row_params``), its weights model shards where
+    ``param_spec`` splits them; ``caches[r]`` local row r's view of the
+    state (``serve.sharded._cache_views``): a ``placement.CacheShards``
+    a layer for the decoder-only attention families, whisper's {"kv":
+    those, "enc_out": ``placement.StateShards``}, xLSTM's {leaf:
+    ``StateShards``}, hymba's [{"kv", "ssm", "ring"}, ...] a layer;
     ``tokens`` each local row's (B_r, 1) at position ``t``. Each row
     attends over its cache's split (``blocks.attention_decode_model``:
-    the token's k and v go to the shards that keep position t), the MLPs
-    split by ff, a MoE config's rows meet at every MoE layer
-    (``blocks.moe_block_rows``). Returns each local row's final hidden
-    states (B_r, 1, d), normed; the caches are written in place."""
-    check_rows_family(cfg)
+    the token's k and v go to the shards that keep position t), the
+    MLPs split by ff, a MoE config's rows meet at every MoE layer
+    (``blocks.moe_block_rows``); whisper's cross-attention reads its
+    split memory (``blocks.cross_attention_decode_model``), xLSTM's and
+    hymba's blocks step their split states
+    (``recurrent.mlstm_block_step_model``, ``slstm_block_step_model``,
+    ``hymba_block_step_model``). Returns each local row's final hidden
+    states (B_r, 1, d), normed; the state is written in place."""
     xs = [_embed_tokens(cfg, p, tok) for p, tok in zip(params, tokens)]
+    if cfg.family in ("audio", "ssm", "hybrid"):
+        xs = [_decode_row(cfg, p, c, x, t)
+              for p, c, x in zip(params, caches, xs)]
+        return [layers.rms_norm(x, p["final_norm"], cfg.norm_eps)
+                for p, x in zip(params, xs)]
     stacks = [_layers(p["blocks"]) for p in params]
     for i, w in enumerate(window_schedule(cfg)):
         lps = [s[i] for s in stacks]
@@ -661,6 +705,35 @@ def decode_step_model(cfg: ArchConfig, params: List[Params], caches,
             xs = [blocks.ffn_block(cfg, lp, y)[0] for lp, y in zip(lps, ys)]
     return [layers.rms_norm(x, p["final_norm"], cfg.norm_eps)
             for p, x in zip(params, xs)]
+
+
+def _decode_row(cfg: ArchConfig, p: Params, cache, x: torch.Tensor,
+                t: int) -> torch.Tensor:
+    """One data row's decode step through the layers of whisper, xLSTM
+    or hymba over its view of the placed state (``decode_step_model``),
+    before the final norm."""
+    if cfg.family == "ssm":
+        ml = [_layers(g) for g in _layers(p["mlstm"])]
+        for g, sp in enumerate(_layers(p["slstm"])):
+            for j, mp in enumerate(ml[g]):
+                x = recurrent.mlstm_block_step_model(
+                    cfg, mp, x, cache["mlstm_C"].at(g, j),
+                    cache["mlstm_n"].at(g, j))
+            x = recurrent.slstm_block_step_model(
+                cfg, sp, x, tuple(cache[k].at(g) for k in
+                                  ("slstm_c", "slstm_n", "slstm_m")))
+        return x
+    if cfg.family == "hybrid":
+        for lp, lc in zip(_layers(p["blocks"]), cache):
+            x = recurrent.hymba_block_step_model(cfg, lp, x, lc["kv"],
+                                                 lc["ssm"], t, lc["ring"])
+        return x
+    for lp, kv in zip(_layers(p["blocks"]), cache["kv"]):
+        x = blocks.attention_decode_model(cfg, lp, x, kv, t)
+        x = blocks.cross_attention_decode_model(cfg, lp, x,
+                                                cache["enc_out"])
+        x = blocks.gelu_mlp(lp, x, cfg.norm_eps)
+    return x
 
 
 def greedy_tokens(cfg: ArchConfig, params: Params, h: torch.Tensor):

@@ -21,7 +21,15 @@ attention by whole query heads as ``blocks.attention_block``'s (each
 shard's heads from the weight columns ``placement.take_model`` fetches).
 Each layer's one collective a split part is ``sum_model`` of its row
 products; the replicated inputs reach the shards through ``to_model``,
-whose backward sums their gradients."""
+whose backward sums their gradients.
+
+The sharded serving's decode steps (``*_step_model``) take the same
+weight split over a state placed by ``launch.specs.cache_shardings``:
+the mLSTM memory by D_out (the same split as its v columns), the sLSTM
+states whole on every shard (each shard steps its columns and the new
+columns are gathered into every copy), hymba's SSM state by Dh against
+its weights' flattened columns (x and y dealt between the two layouts,
+``placement.regroup_model``) and its k/v ring by slots or Dh."""
 from __future__ import annotations
 
 import torch
@@ -42,11 +50,13 @@ def _heads(h: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
                                                                         -2)
 
 
-def _down3(y: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
-    """``einsum("bshv,vhd->bsd", y, w3)``: (B, S, H, Dh) @ (Dh, H, d)."""
+def _down3(y: torch.Tensor, w3: torch.Tensor, mm=torch.matmul
+           ) -> torch.Tensor:
+    """``einsum("bshv,vhd->bsd", y, w3)``: (B, S, H, Dh) @ (Dh, H, d),
+    the product taken by ``mm``."""
     Dh, H, d = w3.shape
-    return y.transpose(-1, -2).reshape(*y.shape[:2], Dh * H) @ \
-        w3.reshape(Dh * H, d)
+    return mm(y.transpose(-1, -2).reshape(*y.shape[:2], Dh * H),
+              w3.reshape(Dh * H, d))
 
 
 def _shard_row(p, names):
@@ -86,11 +96,24 @@ def _mlstm_qkvzg(cfg: ArchConfig, p, h):
     return (q, k, v, z) + _mlstm_gates(cfg, p, h)
 
 
-def _mlstm_down(y, z, w_down3):
+def _row(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A model shard's row-parallel partial product ``x @ w``: in f32
+    where no gradient is recorded (the sharded serving), so the split
+    rounds once, after ``sum_model``'s f32 sum, as the unsplit product
+    rounds its f32 accumulator once (bf16 partials rounded apart move a
+    recurrent stack's bf16 logits several times further from the
+    unsplit ones); in x's dtype under autograd, where the training step
+    saves it. An f32 product is the same either way."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return x @ w
+    return x.float() @ w.float()
+
+
+def _mlstm_down(y, z, w_down3, mm=torch.matmul):
     """The gated readout through the down-projection (all of Dh, or a
-    model shard's rows)."""
+    model shard's rows, ``mm`` then ``_row``)."""
     y = y * torch.nn.functional.silu(z.float()).to(y.dtype)
-    return _down3(y, w_down3)
+    return _down3(y, w_down3, mm)
 
 
 def mlstm_block(cfg: ArchConfig, p, x):
@@ -113,8 +136,8 @@ def mlstm_block(cfg: ArchConfig, p, x):
             PL.to_model(t, row) for t in (h, q, k, log_i, log_f)))):
         wv, wz, wd = (p[n].parts[j] for n in _MLSTM_SPLIT)
         y = layers.mlstm_scan(qj, kj, _heads(hj, wv), fj, ij)
-        outs.append(_mlstm_down(y, _heads(hj, wz), wd))
-    return x + PL.sum_model(outs, row)
+        outs.append(_mlstm_down(y, _heads(hj, wz), wd, _row))
+    return x + PL.sum_model(outs, row).to(x.dtype)
 
 
 def mlstm_block_step(cfg: ArchConfig, p, x, state):
@@ -123,6 +146,61 @@ def mlstm_block_step(cfg: ArchConfig, p, x, state):
     q, k, v, z, log_i, log_f = _mlstm_qkvzg(cfg, p, h)
     state, y = layers.mlstm_step(state, q, k, v, log_f, log_i)
     return x + _mlstm_down(y, z, p["w_down3"]), state
+
+
+def _whole_params(p) -> dict:
+    """``p`` with every model-sharded weight whole (``layers.whole``):
+    on a model axis of one, the shard itself."""
+    return {k: layers.whole(v) for k, v in p.items()}
+
+
+def _copy_into(parts, new) -> None:
+    """``new`` (one tensor) into every local shard's copy of a state
+    leaf every shard keeps whole."""
+    for part in parts:
+        part.copy_(new)
+
+
+def mlstm_block_step_model(cfg: ArchConfig, p, x, C: PL.StateShards,
+                           n: PL.StateShards) -> torch.Tensor:
+    """``mlstm_block_step`` of one data row over its layer of the placed
+    state, updated in place: ``C`` the matrix memory (B, H, D_out, D_in)
+    split over D_out as ``cache_shardings`` splits it, ``n`` (B, H, D)
+    a whole copy on every shard. On model shards of wv3, w_z3 and
+    w_down3 (split along Dh, the same split) each shard updates its
+    D_out rows of C with its v columns from the replicated q, k and
+    gates (``layers.mlstm_step``, whose n update and normalizer are
+    every shard's alike), reads out C q locally, and ``sum_model`` adds
+    its rows of the down-projection; the first shard's new n is copied
+    into every shard's. On a model axis of one, the one-device step."""
+    p = dict(p)
+    row = _shard_row(p, _MLSTM_SPLIT)
+    if row is None:
+        if C.row.tp > 1 and C.dim is not None:
+            raise ValueError("mlstm_block_step_model: the memory splits "
+                             "but the weights do not")
+        x, (C2, n2) = mlstm_block_step(cfg, _whole_params(p), x,
+                                       (C.parts[0], n.parts[0]))
+        _copy_into(C.parts, C2)
+        _copy_into(n.parts, n2)
+        return x
+    if C.dim != 2 or n.dim is not None:
+        raise ValueError(f"mlstm_block_step_model: C split over {C.dim}, "
+                         f"n over {n.dim}")
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k = _heads(h, p["wq3"]), _heads(h, p["wk3"])
+    log_i, log_f = _mlstm_gates(cfg, p, h)
+    outs, n_new = [], None
+    for j, (hj, qj, kj, ij, fj) in enumerate(zip(*(
+            PL.to_model(t, row) for t in (h, q, k, log_i, log_f)))):
+        wv, wz, wd = (p[name].parts[j] for name in _MLSTM_SPLIT)
+        (C2, n2), y = layers.mlstm_step((C.parts[j], n.parts[j]), qj, kj,
+                                        _heads(hj, wv), fj, ij)
+        C.parts[j].copy_(C2)
+        n_new = n2 if n_new is None else n_new
+        outs.append(_mlstm_down(y, _heads(hj, wz), wd, _row))
+    _copy_into(n.parts, n_new)
+    return x + PL.sum_model(outs, row).to(x.dtype)
 
 
 # --- xLSTM: sLSTM block -----------------------------------------------------
@@ -169,8 +247,9 @@ def slstm_block(cfg: ArchConfig, p, x):
     if row is None:
         y = layers.slstm_scan(*_slstm_preact(cfg, p, h))
         return x + y.reshape(*x.shape[:2], -1) @ p["w_down"]
-    return x + PL.sum_model([y @ p["w_down"].parts[j] for j, y in
-                             enumerate(_slstm_split(p, h, row))], row)
+    return x + PL.sum_model([_row(y, p["w_down"].parts[j]) for j, y in
+                             enumerate(_slstm_split(p, h, row))],
+                            row).to(x.dtype)
 
 
 def slstm_block_step(cfg: ArchConfig, p, x, state):
@@ -178,6 +257,48 @@ def slstm_block_step(cfg: ArchConfig, p, x, state):
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     state, y = layers.slstm_step(state, *_slstm_preact(cfg, p, h))
     return x + y.reshape(x.shape[0], 1, -1) @ p["w_down"], state
+
+
+def slstm_block_step_model(cfg: ArchConfig, p, x, states) -> torch.Tensor:
+    """``slstm_block_step`` of one data row over its layer of the placed
+    state (``states``: c, n, m as ``placement.StateShards``, each a whole
+    copy on every shard, as ``cache_shardings`` keeps them), updated in
+    place. On model shards of its weights (split by columns, which may
+    cut a head) each shard steps its columns of the state
+    (``layers.slstm_step``: elementwise) and multiplies its output by
+    its rows of w_down, ``sum_model`` adds the products, and the new c,
+    n and m columns are gathered over ``model`` (``cat_model``: B d f32
+    each) into every shard's copy, so every position holds the whole
+    state, bit for bit alike. On a model axis of one, the one-device
+    step."""
+    p = dict(p)
+    row = _shard_row(p, _SLSTM)
+    if any(s.dim is not None and s.row.tp > 1 for s in states):
+        raise ValueError("slstm_block_step_model: the sLSTM state splits "
+                         "over model")
+    if row is None:
+        x, new = slstm_block_step(cfg, _whole_params(p), x,
+                                  tuple(s.parts[0] for s in states))
+        for s, t in zip(states, new):
+            _copy_into(s.parts, t)
+        return x
+    B = x.shape[0]
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    n = cfg.d_model // row.tp
+    outs, news = [], []
+    for k, (i, hj) in enumerate(zip(row.indices, PL.to_model(h, row))):
+        pre = [(hj @ p[name].parts[k]).reshape(B, 1, 1, n)
+               for name in _SLSTM[:4]]
+        state = tuple(s.parts[k].reshape(B, 1, -1)[..., i * n:(i + 1) * n]
+                      for s in states)
+        new, y = layers.slstm_step(state, *pre)
+        outs.append(_row(y.reshape(B, 1, n), p["w_down"].parts[k]))
+        news.append(new)
+    for s, cols in zip(states, zip(*news)):
+        whole = PL.cat_model([c.reshape(B, n) for c in cols], row, 1)
+        for part in s.parts:
+            part.copy_(whole.reshape(part.shape))
+    return x + PL.sum_model(outs, row).to(x.dtype)
 
 
 # --- Hymba: parallel attention + SSM heads ----------------------------------
@@ -274,9 +395,10 @@ def hymba_block(cfg: ArchConfig, p, x, positions, *, window: int,
     ys = layers.rms_norm_model(_hymba_ssm_split(cfg, p, h, row),
                                PL.split_model(p["ssm_norm"], row, 0), row,
                                width, eps)
-    y = PL.sum_model([(0.5 * a) @ wj["wo"] + (0.5 * s) @ w for a, s, wj, w in
+    y = PL.sum_model([_row(0.5 * a, wj["wo"]) + _row(0.5 * s, w)
+                      for a, s, wj, w in
                       zip(ya, ys, ws, p["wo"].parts)], row)
-    return _hymba_ffn(cfg, p, x + y), None, None
+    return _hymba_ffn(cfg, p, x + y.to(x.dtype)), None, None
 
 
 def hymba_block_step(cfg: ArchConfig, p, x, k_cache, v_cache, ssm_state,
@@ -300,3 +422,82 @@ def hymba_block_step(cfg: ArchConfig, p, x, k_cache, v_cache, ssm_state,
     x = _hymba_fuse_ffn(cfg, p, x, ya.reshape(B, 1, -1),
                         ys.reshape(B, 1, -1))
     return x, k_cache, v_cache, ssm_state
+
+
+def _ssm_columns(cfg: ArchConfig, box) -> list:
+    """The flattened (H Dh) columns of the SSM's x and y that a state
+    box (B, H, N, Dh) covers: every head of its range, its Dh columns;
+    the box must hold every N."""
+    (_, (h0, h1), (n0, n1), (d0, d1)) = box
+    if (n0, n1) != (0, cfg.ssm_state):
+        raise ValueError("hymba: an SSM state split over its N")
+    Dh = cfg.head_dim
+    return [hh * Dh + dd for hh in range(h0, h1) for dd in range(d0, d1)]
+
+
+def hymba_block_step_model(cfg: ArchConfig, p, x, kv: PL.CacheShards,
+                           ssm: PL.StateShards, t: int, ring: int
+                           ) -> torch.Tensor:
+    """``hymba_block_step`` of one data row at position ``t`` over its
+    layer of the placed cache, updated in place: ``kv`` the layer's k/v
+    ring of ``ring`` slots split as ``cache_shardings`` splits it (its
+    slots, or Dh), ``ssm`` the SSM state (B, H, N, Dh) split over Dh.
+
+    * attention by whole query heads over the ring
+      (``blocks._decode_attend``: the token to slot t % ring on the
+      shards that keep it, min(t + 1, ring) valid slots, no window); the
+      output meets whole on the row's home;
+    * the SSM: each shard projects x on its flattened columns of
+      ``ssm_in`` (which cut heads), and x is dealt to the state's split
+      (``placement.regroup_model``: every head's Dh columns of the
+      shard; B H Dh elements a step over the row). dt, B, C and
+      ``A_log`` are replicated; the state update and C h are
+      elementwise in Dh, so each shard steps its columns exactly
+      (``layers.ssm_step``), and y goes back to the flattened columns
+      the same way;
+    * the fusion: the attention's RMS norm on the home, the SSM's over
+      its shards' columns (``layers.rms_norm_model``), their mean
+      through each shard's rows of wo, summed over ``model``; then the
+      FFN by ff.
+
+    On a model axis of one, the one-device step."""
+    p = dict(p)
+    row = _shard_row(p, ("ssm_in", "wo"))
+    if row is None:
+        if kv.row.tp > 1 and (kv.kind is not None or ssm.dim is not None):
+            raise ValueError("hymba_block_step_model: the cache splits but "
+                             "the weights do not")
+        s = ssm.parts[0]
+        x, _, _, s2 = hymba_block_step(cfg, _whole_params(p), x, kv.k[0],
+                                       kv.v[0], s, t)
+        _copy_into(ssm.parts, s2)
+        return x
+    B = x.shape[0]
+    H, Dh, N = cfg.n_heads, cfg.head_dim, cfg.ssm_state
+    eps, width = cfg.norm_eps, H * Dh
+    h = layers.rms_norm(x, p["ln1"], eps)
+    ya, _ = blocks._decode_attend(cfg, p, h, kv, t, ring=ring)
+    na = layers.rms_norm(ya.reshape(B, 1, width), p["attn_norm"], eps)
+    n = width // row.tp
+    have = [range(i * n, (i + 1) * n) for i in range(row.tp)]
+    want = [_ssm_columns(cfg, b) for b in ssm.boxes]
+    xs = PL.regroup_model(row, [hj @ w for hj, w in zip(
+        PL.to_model(h, row), p["ssm_in"].parts)], have, want)
+    dt = h @ p["ssm_dt"]
+    Bm = (h @ p["ssm_B"]).reshape(B, 1, H, N)
+    Cm = (h @ p["ssm_C"]).reshape(B, 1, H, N)
+    ys = []
+    for s, box, xj in zip(ssm.parts, ssm.mine(), xs):
+        (h0, h1), dev = box[1], xj.device
+        s2, y = layers.ssm_step(
+            s, xj.reshape(B, 1, h1 - h0, -1), dt[..., h0:h1].to(dev),
+            Bm[:, :, h0:h1].to(dev), Cm[:, :, h0:h1].to(dev),
+            p["A_log"][h0:h1].to(dev))
+        s.copy_(s2)
+        ys.append(y.reshape(B, 1, -1))
+    ns = layers.rms_norm_model(PL.regroup_model(row, ys, want, have),
+                               PL.split_model(p["ssm_norm"], row, 0), row,
+                               width, eps)
+    y = PL.sum_model([_row(0.5 * (a + s), w) for a, s, w in zip(
+        PL.split_model(na, row, 2), ns, p["wo"].parts)], row)
+    return _hymba_ffn(cfg, p, x + y.to(x.dtype))

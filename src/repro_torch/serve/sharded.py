@@ -2,19 +2,24 @@
 and ``make_sharded_serve_step``, the port of ``build_prefill_lowered``
 and ``build_serve_lowered`` (``repro/launch/dryrun.py``), which jit the
 prefill (``model_forward(..., logits_mode="last", return_cache=True)``)
-and ``make_serve_step`` with ``in_shardings`` on the production meshes.
+and ``make_serve_step`` with ``in_shardings`` on the production meshes,
+for every family: dense and gemma2, MoE, llava, whisper, xLSTM, hymba.
 
 * Params are placed by ``launch.specs.param_shardings``
   (``prefill_param_shardings``: ZeRO-1's split over the batch axes too
   where ``specs.needs_fsdp`` says, as the dry-run's prefill;
   ``serve_param_shardings``: the model split alone, as its decode step)
-  and the cache by ``specs.cache_shardings`` (``place_cache``): B over
-  the batch axes, then the largest other dim that divides by tp over
-  ``model``: at the serving shapes (``decode_32k``, ``long_500k``) the
-  cache positions T, whose (B, H, T) scores the reference's
-  ``decode_attention`` notes "shard cleanly"; at small sizes it may be
-  Dh, Hk or L, and ``layers.decode_attention_model`` computes the same
-  function on each without gathering the cache.
+  and the serving state by ``specs.cache_shardings`` (``place_cache``):
+  B over the batch axes, then the largest other dim that divides by tp
+  over ``model``. A KV cache splits over its positions T at the serving
+  shapes (``decode_32k``, ``long_500k``), whose (B, H, T) scores the
+  reference's ``decode_attention`` notes "shard cleanly"; at small sizes
+  over Dh, Hk or L, and ``layers.decode_attention_model`` computes the
+  same function on each without gathering the cache. Whisper's encoder
+  memory splits over its frames (1,500 divide by 2 and 4) or over d
+  (at 8 and 16); xLSTM's mLSTM memory over D_out, its other states
+  whole on every model shard; hymba's k/v rings over their slots (or
+  Dh) and its SSM states over Dh.
 * Requests split over the data rows as ``specs.batch_shardings`` splits
   the tokens (every row takes them all where B does not divide), and
   every (data, model) position computes its share, as the sharded train
@@ -22,14 +27,21 @@ and ``make_serve_step`` with ``in_shardings`` on the production meshes.
   the MLPs by ff, the embedding and logits by vocabulary, a MoE
   config's rows meeting at every MoE layer (``blocks.moe_block_rows``:
   the dense dispatch, or under ``layers.MOE_EP_MODE`` above 4,096 tokens
-  a call each position's own experts, ``layers.moe_ep_rows``); the
-  entry points run with the mesh ambient, as the reference lowers under
+  a call each position's own experts, ``layers.moe_ep_rows``), the
+  recurrent blocks as their split train step splits them; the entry
+  points run with the mesh ambient, as the reference lowers under
   ``use_mesh``.
 * The prefill's K/V leave each shard's KV heads and go to the cache's
   split by one all-to-all over ``model`` a layer each
-  (``blocks.write_kv``, ``placement.put_model``); a decode token's k
-  and v go to the shard that keeps position t. No position ever holds
-  the whole cache.
+  (``blocks.write_kv``, ``placement.put_model``); whisper's memory is
+  written into each position's frames or d columns; xLSTM's and hymba's
+  states stay at ``init_decode_cache``'s values, as the reference's
+  prefill leaves them. A decode token's k and v go to the shard that
+  keeps position t (hymba's: slot t % ring). Whisper's cross-attention
+  scores each shard's frames (or sums each shard's d columns' partial
+  k and v), xLSTM's and hymba's steps update each shard's part of their
+  states (``recurrent``). No position ever holds a leaf of the state
+  that ``cache_shardings`` splits whole.
 * The greedy argmax runs over the vocabulary shards
   (``placement.argmax_model``: the lowest index on ties).
 
@@ -37,9 +49,7 @@ The mesh is any ``launch.mesh`` mesh: one process with every position on
 one device or spread over cards, or one rank a position (NCCL on cards,
 gloo on the CPU), where every process passes the whole batch and gets
 its own positions' shards back. Every sum runs in model order, so ranks
-give the one-process mesh's bits. The decoder-only attention families
-(``models.model.ROWS_FAMILIES``: dense, gemma2, MoE, llava); whisper,
-xLSTM and hymba raise ``NotImplementedError`` (ROADMAP Queue 1)."""
+give the one-process mesh's bits."""
 from __future__ import annotations
 
 import math
@@ -54,8 +64,7 @@ from ..launch import specs
 from ..launch.mesh import entered
 from ..models.config import ArchConfig, ShapeConfig
 from ..models.layers import CACHE_SPLITS
-from ..models.model import (check_rows_family, decode_step_model,
-                            forward_rows, greedy_tokens)
+from ..models.model import decode_step_model, forward_rows, greedy_tokens
 from ..models.blocks import write_kv
 from ..models.sharding import P, axes_for_mesh
 
@@ -78,19 +87,25 @@ def serve_shape(batch: int, max_len: int) -> ShapeConfig:
 
 
 def place_cache(cfg: ArchConfig, mesh, batch: int, max_len: int):
-    """A zeroed KV cache placed by ``specs.cache_shardings``: each local
+    """A fresh serving state placed by ``specs.cache_shardings``, the
+    whole tree ``init_decode_cache`` returns: the KV cache (whisper's
+    with its encoder memory ``enc_out``), xLSTM's five recurrent states
+    (``slstm_m`` at -1e30, as ``init_decode_cache`` fills it, the rest
+    zero), hymba's ``{"layers": [{k, v, ssm}, ...]}``. Each local
     position allocates its own shard and nothing else."""
-    check_rows_family(cfg)
     shape = serve_shape(batch, max_len)
     structs = specs.cache_structs(cfg, shape)
     shardings = specs.cache_shardings(cfg, shape, mesh)
 
-    def alloc(t, sh):
+    def alloc(path, t, sh):
+        fill = -1e30 if path.endswith("slstm_m") else 0.0
         return PL.Sharded(sh, t.shape, t.dtype, {
-            q: torch.zeros(sh.shard_shape(tuple(t.shape)), dtype=t.dtype,
-                           device=mesh.device_at(q))
+            q: torch.full(sh.shard_shape(tuple(t.shape)), fill,
+                          dtype=t.dtype, device=mesh.device_at(q))
             for q in mesh.local_positions()})
-    return tree.tree_map(alloc, structs, shardings)
+    leaves = [alloc(path, t, sh) for (path, t), sh in zip(
+        tree.flatten_with_path(structs), tree.leaves(shardings))]
+    return tree.unflatten(structs, leaves)
 
 
 def _rows(mesh) -> Dict[int, List[int]]:
@@ -132,29 +147,70 @@ def _param_views(placed, mesh) -> list:
     return [PL.row_params(placed, qs) for qs in _rows(mesh).values()]
 
 
-def _cache_views(cache, mesh) -> list:
-    """Each local row's ``placement.CacheShards`` a layer."""
-    k, v = cache["k"], cache["v"]
+def _kv_layers(k: PL.Sharded, v: PL.Sharded, mesh, qs) -> list:
+    """Local row ``qs``'s ``placement.CacheShards`` a layer of a stacked
+    (L, B, T, Hk, Dh) k/v pair."""
     sh = k.sharding
     dim = PL.model_dim(sh.spec)
+    row = PL.ModelRow(mesh, qs[0], mesh.device_at(qs[0]))
+    kind = CACHE_SPLITS.get(dim) if row.tp > 1 else None
+    full = [PL.slice_box(PL.shard_slices(sh, k.shape, q))
+            for q in mesh.members(qs[0], ("model",))]
+    layers_ = []
+    for i in range(k.shape[0]):
+        boxes = [b[1:] if b[0][0] <= i < b[0][1] else
+                 (b[1], (b[2][0], b[2][0]), b[3], b[4]) for b in full]
+        held = [full[j][0] for j in row.indices]
+        layers_.append(PL.CacheShards(
+            row, kind,
+            [k.local[q][i - lo] if lo <= i < hi else None
+             for q, (lo, hi) in zip(qs, held)],
+            [v.local[q][i - lo] if lo <= i < hi else None
+             for q, (lo, hi) in zip(qs, held)], boxes))
+    return layers_
+
+
+def _state_view(s: PL.Sharded, mesh, qs) -> PL.StateShards:
+    """Local row ``qs``'s ``placement.StateShards`` of a placed leaf."""
+    row = PL.ModelRow(mesh, qs[0], mesh.device_at(qs[0]))
+    return PL.StateShards(
+        row, PL.model_dim(s.sharding.spec) if row.tp > 1 else None,
+        [s.local[q] for q in qs],
+        [PL.slice_box(PL.shard_slices(s.sharding, s.shape, q))
+         for q in mesh.members(qs[0], ("model",))])
+
+
+def _ring_view(k: PL.Sharded, v: PL.Sharded, mesh, qs) -> PL.CacheShards:
+    """Local row ``qs``'s ``placement.CacheShards`` of one hymba layer's
+    (B, T, Hk, Dh) k/v ring."""
+    kv, vv = _state_view(k, mesh, qs), _state_view(v, mesh, qs)
+    return PL.CacheShards(kv.row, None if kv.dim is None else
+                          CACHE_SPLITS[kv.dim + 1], kv.parts, vv.parts,
+                          kv.boxes)
+
+
+def _cache_views(cache, mesh) -> list:
+    """Each local row's view of the placed serving state, as
+    ``decode_step_model`` takes it: the attention families'
+    ``placement.CacheShards`` a layer; whisper's {"kv": those,
+    "enc_out": ``placement.StateShards``}; xLSTM's {leaf name:
+    ``StateShards``}; hymba's [{"kv": the layer's ring as
+    ``CacheShards``, "ssm": ``StateShards``, "ring": its slots}, ...]."""
     out = []
     for qs in _rows(mesh).values():
-        row = PL.ModelRow(mesh, qs[0], mesh.device_at(qs[0]))
-        kind = CACHE_SPLITS.get(dim) if row.tp > 1 else None
-        full = [PL.slice_box(PL.shard_slices(sh, k.shape, q))
-                for q in mesh.members(qs[0], ("model",))]
-        layers_ = []
-        for i in range(k.shape[0]):
-            boxes = [b[1:] if b[0][0] <= i < b[0][1] else
-                     (b[1], (b[2][0], b[2][0]), b[3], b[4]) for b in full]
-            held = [full[j][0] for j in row.indices]
-            layers_.append(PL.CacheShards(
-                row, kind,
-                [k.local[q][i - lo] if lo <= i < hi else None
-                 for q, (lo, hi) in zip(qs, held)],
-                [v.local[q][i - lo] if lo <= i < hi else None
-                 for q, (lo, hi) in zip(qs, held)], boxes))
-        out.append(layers_)
+        if "layers" in cache:
+            out.append([{"kv": _ring_view(lc["k"], lc["v"], mesh, qs),
+                         "ssm": _state_view(lc["ssm"], mesh, qs),
+                         "ring": lc["k"].shape[1]}
+                        for lc in cache["layers"]])
+        elif "k" not in cache:
+            out.append({n: _state_view(s, mesh, qs)
+                        for n, s in cache.items()})
+        elif "enc_out" in cache:
+            out.append({"kv": _kv_layers(cache["k"], cache["v"], mesh, qs),
+                        "enc_out": _state_view(cache["enc_out"], mesh, qs)})
+        else:
+            out.append(_kv_layers(cache["k"], cache["v"], mesh, qs))
     return out
 
 
@@ -214,15 +270,19 @@ def sharded_argmax(cfg: ArchConfig, logits: PL.Sharded) -> PL.Sharded:
 
 def make_sharded_prefill(cfg: ArchConfig, mesh, max_len: int) -> Callable:
     """prefill(placed_params, batch) -> (placed_cache, last_logits): the
-    forward of ``batch`` (tokens (B, S); llava's image_embeds (B, Ni, d)
-    too), whole in every process, over ``mesh`` (see the module's
-    docstring), each layer's K/V written into a cache of ``max_len``
-    positions placed by ``specs.cache_shardings`` (``place_cache``). The
+    forward of ``batch`` (tokens (B, S); llava's image_embeds (B, Ni, d),
+    whisper's frames (B, Te, d) too), whole in every process, over
+    ``mesh`` (see the module's docstring), into a serving state of
+    ``max_len`` positions placed by ``specs.cache_shardings``
+    (``place_cache``): each attention layer's K/V written into its
+    split, whisper's encoder memory ``enc_out`` too (each position keeps
+    its frames, or its d columns, of its row's memory); xLSTM's and
+    hymba's states stay at ``init_decode_cache``'s values, as the
+    one-device ``make_prefill`` and the reference's leave them. The
     params are placed by ``prefill_param_shardings`` (or
     ``serve_param_shardings``). last_logits is ``Sharded`` (B, 1, V)
     f32, vocab shards where the unembedding splits. Sets the
     full-precision matmul flags."""
-    check_rows_family(cfg)
     full_precision_matmuls()
 
     def prefill(placed_params, batch):
@@ -236,8 +296,16 @@ def make_sharded_prefill(cfg: ArchConfig, mesh, max_len: int) -> Callable:
                        for (lo, hi), home in zip(rows.ranges, rows.homes)]
 
             def put(i, r, k, v):
-                write_kv(cfg, caches[r][i], k, v, 0)
-            outs = forward_rows(cfg, params, batches, rows, put_kv=put)
+                c = caches[r]
+                write_kv(cfg, (c["kv"] if cfg.enc_dec else c)[i], k, v, 0)
+            outs = forward_rows(cfg, params, batches, rows,
+                                put_kv=put if "k" in cache else None)
+            if cfg.enc_dec:
+                for c, o, (lo, hi) in zip(caches, outs, rows.ranges):
+                    enc, mem = c["enc_out"], o.cache["enc_out"]
+                    PL.put_local(mem, ((lo, hi), (0, mem.shape[1]),
+                                       (0, mem.shape[2])),
+                                 enc.parts, enc.boxes, enc.row)
             _, logits = _outputs(cfg, mesh, params,
                                  [o.logits[:, -1:] for o in outs], B)
         return cache, logits
@@ -255,7 +323,6 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh,
     ``Sharded`` vocab shards, or with ``whole_logits`` the (B, 1, V)
     tensor gathered on the first local position's device. Sets the
     full-precision matmul flags."""
-    check_rows_family(cfg)
     full_precision_matmuls()
 
     def serve_step(placed_params, placed_cache, tokens, t: int):

@@ -26,7 +26,10 @@ position computing its share.
   prefill and decode, the EP prefill of the MoE smoke config, and the
   train step's shared batch under EP (a batch of 33 over 2 rows: every
   row holds it and routes its share of the tokens);
-* the vocab-sharded argmax takes the lowest index where shards tie.
+* the vocab-sharded argmax takes the lowest index where shards tie;
+* every config of ``configs`` builds the sharded prefill and serve step
+  on (1, 2) and serves two steps (whisper, xLSTM and hymba at length in
+  ``test_torch_sharded_serve_families.py``).
 
 Torch runs on one thread here and in the ranks (restored after)."""
 import contextlib
@@ -43,7 +46,7 @@ import torch
 
 from _torch_threads import one_thread  # noqa: F401
 from repro_torch import tree
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.distributed import placement as PL
 from repro_torch.launch import specs as S
@@ -284,14 +287,37 @@ def test_vocab_argmax_takes_the_lowest_index_on_ties():
     assert got.tolist() == [3, 7, 5] == torch.argmax(whole, -1).tolist()
 
 
-def test_families_outside_the_slice_raise():
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_family_builds_the_sharded_serving(arch):
+    """Every config of ``configs`` (its smoke size, f32) builds
+    ``make_sharded_prefill`` and ``make_sharded_serve_step`` on (1, 2)
+    and serves a prefill and two steps: finite logits of the whole
+    vocabulary, the cache placed by ``cache_shardings``."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     mesh = cpu_mesh((1, 2))
-    for arch in ("whisper-base", "xlstm-1.3b", "hymba-1.5b"):
-        cfg = get_smoke_config(arch)
-        for make in (lambda: SS.make_sharded_prefill(cfg, mesh, 16),
-                     lambda: SS.make_sharded_serve_step(cfg, mesh)):
-            with pytest.raises(NotImplementedError, match="Queue 1"):
-                make()
+    params = init_params(cfg, torch.Generator().manual_seed(6), "cpu")
+    placed = PL.place_tree(params, SS.serve_param_shardings(cfg, mesh))
+    rng = np.random.default_rng(6)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (2, 5)).astype(np.int32))}
+    if cfg.enc_dec:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.enc_positions, cfg.d_model)).astype(np.float32))
+    if cfg.n_img_tokens:
+        batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_img_tokens, cfg.d_model)).astype(np.float32))
+    max_len = positions(cfg, batch) + 2
+    cache, lg = SS.make_sharded_prefill(cfg, mesh, max_len)(placed, batch)
+    step = SS.make_sharded_serve_step(cfg, mesh, whole_logits=True)
+    tok = SS.sharded_argmax(cfg, lg)
+    for i in range(2):
+        tok, lgi, cache = step(placed, cache, tok,
+                               positions(cfg, batch) + i)
+        assert lgi.shape == (2, 1, cfg.vocab)
+        assert bool(torch.isfinite(lgi).all())
+    shape = SS.serve_shape(2, max_len)
+    assert set(PL.resident_bytes(cache).values()) == {S.shard_bytes(
+        S.cache_structs(cfg, shape), S.cache_shardings(cfg, shape, mesh))}
 
 
 # --- against the reference's own programs -------------------------------------

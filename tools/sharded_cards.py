@@ -102,11 +102,14 @@ each rank's FLOPs its position's reckoning
 prompts into a 32,768-position cache, 16 decode steps) and qwen3-moe at
 its published widths (2 layers, bf16, under ``MOE_EP_MODE``, a 4 x 2048
 prefill, 4 decode steps), each in this process with position i on
-cuda:i and over N NCCL ranks; the ranks' tokens, last logits and cache
-shards must be the one-process run's, bit for bit, and each position's
-resident cache bytes ``specs.shard_bytes`` of the cache under
-``cache_shardings``; prefill seconds, decode ms a step and each card's
-peak bytes are recorded.
+cuda:i and over N NCCL ranks; then chip_smoke's 11k whisper-base and
+hymba-1.5b cells (``SERVE_FAMILIES``: whisper's encoder memory split over
+its frames, hymba's rings over their slots and SSM states over Dh). The
+ranks' tokens, last logits and every shard of the serving state must be
+the one-process run's, bit for bit, and each position's resident bytes
+``specs.shard_bytes`` of the state under ``cache_shardings``; prefill
+seconds, decode ms a step and each card's peak bytes are recorded.
+``--cell whisper,hymba`` runs those cells alone.
 """
 from __future__ import annotations
 
@@ -671,7 +674,9 @@ def tp_ranks_leg(world: int, work: Path, cell: str, shape=None,
 
 
 #: the seed of each serving cell's weights and prompts (``--serve``)
-SERVE_SEED = {"granite": 18, "qwen3-moe": 20}
+SERVE_SEED = {"granite": 18, "qwen3-moe": 20, "whisper": 19, "hymba": 19}
+#: ``--serve``'s cells, in the order a run takes them
+SERVE_CELLS = ("granite", "qwen3-moe", "whisper", "hymba")
 #: ``--serve``'s MoE cell: qwen3-moe at its published widths (``MOE_FULL``'s
 #: 2 of 94 layers), bf16, under ``MOE_EP_MODE``: a prefill of 4 x 2048
 #: (EP engages at 8,192 tokens) into a cache of 2,064 positions, then 4
@@ -682,9 +687,23 @@ SERVE_MOE_FULL = dict(arch="qwen3-moe-235b-a22b", n_layers=2, batch=4,
 
 def serve_cell_of(cell: str) -> dict:
     """``--serve``'s cells: "granite" (chip_smoke's 11j,
-    ``SERVE_SHARDED``) and "qwen3-moe" (``SERVE_MOE_FULL``)."""
-    from chip_smoke import SERVE_SHARDED
-    return SERVE_SHARDED if cell == "granite" else SERVE_MOE_FULL
+    ``SERVE_SHARDED``), "qwen3-moe" (``SERVE_MOE_FULL``), "whisper" and
+    "hymba" (11k's, ``chip_smoke.SERVE_FAMILIES``: whisper-base whole,
+    8 x (1,500 frames, 32 tokens) into 448 positions; hymba-1.5b at 4
+    layers, 8 x 2048 into 32,768; 16 steps each)."""
+    from chip_smoke import SERVE_FAMILIES, SERVE_SHARDED
+    return {"granite": SERVE_SHARDED, "qwen3-moe": SERVE_MOE_FULL,
+            **SERVE_FAMILIES}[cell]
+
+
+def serve_cfg(k: dict):
+    """A serving cell's config: its arch cut to ``k["n_layers"]`` (None:
+    whole)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(k["arch"])
+    return dataclasses.replace(cfg, n_layers=k["n_layers"]) \
+        if k["n_layers"] else cfg
 
 
 def serve_on_mesh(mesh, dev, cell: str) -> dict:
@@ -694,25 +713,32 @@ def serve_on_mesh(mesh, dev, cell: str) -> dict:
     tokens (whole), the sha1 of the prefill's last logits (whole) and of
     each cache shard this process holds, by position; the prefill
     seconds, each step's ms, each card's peak bytes and each position's
-    resident cache bytes."""
-    import dataclasses
+    resident cache bytes. Whisper's batch holds seeded frame embeddings
+    (``chip_smoke.family_inputs``'s)."""
     import hashlib
     import torch
-    from chip_smoke import expert_parallel
-    from repro_torch.configs import get_config
+    from chip_smoke import expert_parallel, family_inputs
+    from repro_torch import tree
     from repro_torch.distributed import placement
     from repro_torch.models import init_params
     from repro_torch.serve import sharded as SS
     k, seed = serve_cell_of(cell), SERVE_SEED[cell]
-    cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
+    cfg = serve_cfg(k)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                          dev)
     placed = placement.place_tree(params, SS.serve_param_shardings(cfg,
                                                                    mesh))
     del params
-    rng = np.random.default_rng(seed)
-    batch = {"tokens": torch.from_numpy(rng.integers(
-        0, cfg.vocab, (k["batch"], k["prompt"])).astype(np.int32)).to(dev)}
+    if cfg.family in ("dense", "moe"):
+        rng = np.random.default_rng(seed)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (k["batch"], k["prompt"])).astype(np.int32))
+            .to(dev)}
+    else:
+        with torch.cuda.device(dev):
+            prompt, extra = family_inputs(cfg, k["batch"], k["prompt"], seed)
+        batch = {"tokens": prompt.to(dev),
+                 **{n: v.to(dev) for n, v in extra.items()}}
     sync = (lambda: torch.cuda.synchronize(dev)) if mesh.multi_process \
         else _sync_all
     cards = [dev] if mesh.multi_process else [
@@ -746,8 +772,9 @@ def serve_on_mesh(mesh, dev, cell: str) -> dict:
             toks.append(placement.gather(tok))
     out = {"tokens": torch.cat(toks, 1).cpu(),
            "last_sha1": sha(placement.gather(last)),
-           "cache_sha1": {q: [sha(cache[n].local[q]) for n in ("k", "v")]
-                          for q in cache["k"].local},
+           "cache_sha1": {q: [sha(leaf.local[q])
+                              for leaf in tree.leaves(cache)]
+                          for q in tree.leaves(cache)[0].local},
            "prefill_s": prefill_s, "decode_ms": ms,
            "decode_ms_median": float(np.median(ms)),
            "resident_cache_bytes": placement.resident_bytes(cache),
@@ -778,8 +805,7 @@ def serve_rank_worker(rank: int, world: int, addr: str, out: str,
     return 0
 
 
-def serve_ranks_leg(world: int, work: Path, cells=("granite", "qwen3-moe")
-                    ) -> None:
+def serve_ranks_leg(world: int, work: Path, cells=SERVE_CELLS) -> None:
     """``--serve --ranks``: each serving cell on (1, N) and (2, N / 2),
     once in this process with position i on cuda:i and once over
     ``world`` NCCL ranks, a card and a position each: every rank's
@@ -787,17 +813,14 @@ def serve_ranks_leg(world: int, work: Path, cells=("granite", "qwen3-moe")
     (sha1), each position's resident cache bytes ``specs.shard_bytes``
     of the cache under ``cache_shardings``; the prefill seconds, the
     decode ms a step and each card's peak bytes beside them."""
-    import dataclasses
     import torch
     from chip_smoke import emit
-    from repro_torch.configs import get_config
     from repro_torch.launch import specs
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.serve import sharded as SS
     for cell in cells:
         k = serve_cell_of(cell)
-        cfg = dataclasses.replace(get_config(k["arch"]),
-                                  n_layers=k["n_layers"])
+        cfg = serve_cfg(k)
         for shape in ((1, world), (2, world // 2)):
             mesh = make_mesh(shape, ("data", "model"),
                              devices=[f"cuda:{i}" for i in range(world)])
@@ -875,10 +898,13 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--cell", default=None,
                     help="with --train --ranks: run this cell alone "
-                         "(qwen3-moe: the MoE rows at full width)")
+                         "(qwen3-moe: the MoE rows at full width); with "
+                         "--serve --ranks: these cells (comma-separated) of "
+                         "granite, qwen3-moe, whisper, hymba")
     ap.add_argument("--serve", action="store_true",
                     help="with --ranks: serving at the dry-run partition "
-                         "(11j's granite cell and qwen3-moe under EP)")
+                         "(11j's granite cell, qwen3-moe under EP, 11k's "
+                         "whisper and hymba cells)")
     ap.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tree", default=None,
                     help="run the package of another checkout (its src/), "
@@ -931,7 +957,7 @@ def main(argv=None) -> int:
             work = ROOT / "build" / "serve_ranks"
             work.mkdir(parents=True, exist_ok=True)
             serve_ranks_leg(args.ranks, work, *(
-                [(args.cell,)] if args.cell else []))
+                [tuple(args.cell.split(","))] if args.cell else []))
         elif args.ranks and args.train and args.cell:
             work = ROOT / "build" / "train_ranks"
             work.mkdir(parents=True, exist_ok=True)
