@@ -299,6 +299,24 @@ Phases, each asserting (any failure exits non-zero):
    routing of both recorded, flips only at router near-ties, the
    logits of the requests that never flipped within ``SERVE_MOE_TOL``).
    Records ``"phase": "sharded_serving"``.
+12. the examples on the port's API (``examples/torch_*.py``), each
+   ``main(argv)`` run in this process on the card at the example's
+   defaults (``EXAMPLE_RUNS``), the launch counts set to 0 just before
+   each run and read just after: the quickstart under both codecs, the
+   topo pipeline plain, with ``--stream`` and with ``--devices 4`` (round
+   robin on one card), the LM serving example, the train example (200
+   smoke steps, checkpoints under ``build/``) and its ``--resume``. Every
+   run returns, every topo row is ``ok``; the quickstart (over its two
+   runs) and each topo run launch ``lorenzo``, ``extrema`` and
+   ``fixpass``; the train run launches flash exactly twice a layer a
+   step, the serve run nothing; the resume starts at the last
+   checkpoint's step with the first run's final state bitwise. Then the
+   stencil kernels against their plain versions on the inputs the runs
+   gave them, recorded at the first call of each shape and placement
+   (whole fields and the 4-block chain's blocks, bitwise), and flash at
+   every shape the train run gave it. Records ``"phase":
+   "examples"``, a run's seconds, launches and last printed line; the
+   launches go into the kernel line's totals.
 
 Phases 3e-3i run after phase 4. Stdout carries JSON records, then the
 script's total seconds; the line before the last is the per-kernel
@@ -5227,6 +5245,206 @@ def _card_serve(cfg, mesh, params, prompt, max_len: int, steps: int) -> dict:
                 flash=read_launches()["flash"])
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the examples on the port's API
+# ---------------------------------------------------------------------------
+
+#: where the train example's checkpoints go (its default is in the
+#: temporary directory, outside the checkout)
+EXAMPLE_CKPT = ROOT / "build" / "examples_ckpt"
+
+#: phase 12's runs: (example, argv, kernels the run must launch); the
+#: quickstart's zfplike run takes the host path (no Lorenzo), so its
+#: Lorenzo launch is the szlike run's
+EXAMPLE_RUNS = (
+    ("quickstart", [], ("lorenzo", "extrema", "fixpass")),
+    ("quickstart", ["--codec", "zfplike"], ("extrema", "fixpass")),
+    ("topo_pipeline", [], ("lorenzo", "extrema", "fixpass")),
+    ("topo_pipeline", ["--stream"], ("lorenzo", "extrema", "fixpass")),
+    ("topo_pipeline", ["--devices", "4"], ("lorenzo", "extrema", "fixpass")),
+    ("serve_lm", [], ()),
+    ("train_lm", ["--ckpt-dir", str(EXAMPLE_CKPT)], ("flash",)),
+    ("train_lm", ["--ckpt-dir", str(EXAMPLE_CKPT), "--resume"], ()),
+)
+
+
+def load_example(name: str):
+    """``examples/torch_<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_example(name: str, argv: list, out, launches: dict,
+                  first_train) -> dict:
+    """What ``EXAMPLE_RUNS``' run of ``name`` must show beyond its own
+    asserts; returns the record's extra fields."""
+    import torch
+    if name == "quickstart":
+        if not out["report"]["mss_preserved"]:
+            raise AssertionError(f"quickstart {argv}: MSS not preserved")
+        return {"ratio": out["ratio"], "edit_ratio": out["artifact"].edit_ratio,
+                "path": out["artifact"].path}
+    if name == "topo_pipeline":
+        if not out or not all(r["ok"] for r in out):
+            raise AssertionError(f"topo_pipeline {argv}: a row not ok")
+        return {"rows": len(out), "paths": sorted({r["path"] for r in out})}
+    if name == "serve_lm":
+        if any(launches.values()):
+            raise AssertionError(f"serve_lm launched {launches}")
+        return {"models": sorted(out)}
+    from repro_torch.configs import get_smoke_config
+    if "--resume" not in argv:
+        # the forward and its remat recompute call flash once a layer
+        want = 2 * get_smoke_config("smollm-135m").n_layers * len(out.losses)
+        if launches["flash"] != want or len(out.losses) < 2:
+            raise AssertionError(f"train_lm: flash {launches['flash']} "
+                                 f"(want {want}), {len(out.losses)} steps")
+        return {"steps": len(out.losses), "first_loss": out.losses[0],
+                "last_loss": out.losses[-1],
+                "saves": [s[0] for s in out.saves]}
+    steps = first_train.start_step + len(first_train.losses)
+    if out.start_step != steps or out.restore_seconds is None or any(
+            launches.values()):
+        raise AssertionError(f"train_lm --resume: started at "
+                             f"{out.start_step}, launches {launches}")
+    from repro_torch.tree import leaves
+    a, b = leaves(first_train.state), leaves(out.state)
+    if not a or len(a) != len(b) or not all(
+            torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("train_lm --resume: the restored state is not "
+                             "the first run's final state")
+    return {"start_step": out.start_step, "restored_bitwise": True,
+            "restore_seconds": out.restore_seconds}
+
+
+#: the stencil wrappers whose calls phase 12 records: (module of
+#: ``repro_torch.kernels``, wrapper, its plain version)
+STENCIL_WRAPPERS = (("extrema", "extrema_masks", "extrema_masks_plain"),
+                    ("fixpass", "fix_pass", "fix_pass_plain"),
+                    ("lorenzo", "lorenzo_quant", "lorenzo_quant_plain"))
+
+
+@contextlib.contextmanager
+def recording_stencil_calls():
+    """Copies of the inputs of the first call on the card of each
+    ``STENCIL_WRAPPERS`` wrapper at each (shape, dtype, placement) made
+    inside the block, keyed by (module, shape, dtype, the call's tile
+    arguments); the wrappers themselves run unchanged."""
+    import importlib
+    calls = {}
+    saved = []
+
+    def recorder(kernel, wrapper):
+        def record(*args, **kw):
+            x = args[0]
+            key = (kernel, tuple(x.shape), str(x.dtype).split(".")[-1],
+                   tuple(sorted(kw.items())))
+            if x.device.type == "cuda" and key not in calls:
+                calls[key] = [a.clone() for a in args]
+            return wrapper(*args, **kw)
+        return record
+    for kernel, name, _ in STENCIL_WRAPPERS:
+        mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, recorder(kernel, getattr(mod, name)))
+    try:
+        yield calls
+    finally:
+        for mod, name, wrapper in saved:
+            setattr(mod, name, wrapper)
+
+
+def check_example_kernels(stencil_calls: dict, flash_calls,
+                          seed: int) -> float:
+    """The kernels against their plain versions as the examples' runs
+    called them: each stencil wrapper on the inputs ``stencil_calls``
+    recorded, at the shape and placement of the call, bitwise; flash at
+    each (B, S, T, H, Hk, Dh, causal) the train example gave it, in the
+    smoke config's dtype, within ``FLASH_TOL``. Returns flash's largest
+    difference."""
+    import importlib
+    import torch
+    from repro_torch.configs import get_smoke_config
+    plain_of = {k: (w, p) for k, w, p in STENCIL_WRAPPERS}
+    for (kernel, shape, dtype, kw), args in stencil_calls.items():
+        mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
+        wrapper, plain = plain_of[kernel]
+        geo = tile_geometry(shape, dict(kw))
+        got = getattr(mod, wrapper)(*args, **dict(kw))
+        want = getattr(mod, plain)(*args, geo)
+        if kernel == "lorenzo":
+            got, want = [got], [want]
+        label = f"{kernel} examples {'x'.join(map(str, shape))} {dict(kw)}"
+        assert_equal(label, got, want)
+        emit({"phase": "kernels_vs_plain", "case": label, "dtype": dtype,
+              "bitwise": True})
+    torch.cuda.synchronize()
+    dtype = getattr(torch, get_smoke_config("smollm-135m").dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    worst = 0.0
+    for (B, S, T, H, Hk, Dh, causal) in sorted(flash_calls):
+        q, k, v = flash_inputs(B, S, T, H, Hk, Dh, dtype, gen)
+        err, _ = check_flash("examples", q, k, v, causal)
+        worst = max(worst, err)
+        emit({"phase": "kernels_vs_plain",
+              "case": f"flash examples {(B, S, T, H, Hk, Dh, causal)}",
+              "dtype": _dtype_name(dtype), "max_abs_err": err})
+    return worst
+
+
+def phase_examples() -> dict:
+    """Phase 12: every ``EXAMPLE_RUNS`` run on the card, each example's
+    printout captured (its last line in the record), then the kernels
+    against their plain versions at the shapes the runs gave them."""
+    import contextlib
+    import io
+    import shutil
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    totals = dict.fromkeys(COUNTERS, 0)
+    first_train = None
+    flash_calls = collections.Counter()
+    stencil_calls = {}
+    t_phase = time.perf_counter()
+    for name, argv, must in EXAMPLE_RUNS:
+        mod = load_example(name)
+        reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                recording_flash_calls() as calls, \
+                recording_stencil_calls() as stencils:
+            out, secs = timed(lambda: mod.main(list(argv)))
+        launches = read_launches()
+        flash_calls.update(calls)
+        for key, args in stencils.items():
+            stencil_calls.setdefault(key, args)
+        missing = [k for k in must if launches[k] < 1]
+        if missing:
+            raise AssertionError(f"example {name} {argv} launched no "
+                                 f"{missing}: {launches}")
+        extra = check_example(name, argv, out, launches, first_train)
+        if name == "train_lm" and "--resume" not in argv:
+            first_train = out
+        for k, v in launches.items():
+            totals[k] += v
+        lines = buf.getvalue().strip().splitlines()
+        emit({"phase": "examples", "example": name, "argv": argv,
+              "seconds": secs, "launches": launches,
+              "last_line": lines[-1] if lines else "", **extra})
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    t_runs = time.perf_counter() - t_phase
+    flash_err = check_example_kernels(stencil_calls, flash_calls, seed=20)
+    emit({"phase": "examples_total", "seconds": time.perf_counter() - t_phase,
+          "runs_seconds": t_runs, "launches": totals,
+          "stencil_cases": len(stencil_calls),
+          "flash_shapes": [list(c) for c in sorted(flash_calls)],
+          "flash_max_abs_err": flash_err})
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nyx", type=int, default=512,
@@ -5418,6 +5636,9 @@ def main(argv=None) -> int:
     launches["flash"] += phase_serving_families(seed=19)
     emit({"phase": "sharded_launch_total",
           "seconds": time.perf_counter() - t0})
+
+    for k, v in phase_examples().items():
+        launches[k] += v
 
     # each kernel's row: its times at its main-path shape (nyx for the
     # MSS kernels, the 8 x 2048 prefill for flash), its largest error

@@ -154,6 +154,8 @@ def place_tree(tree_: Any, shardings: Any) -> Any:
 
 
 def is_placed(tree_: Any) -> bool:
+    """Whether ``tree_``'s leaves are ``Sharded`` (placed by
+    ``place_tree``) rather than plain tensors; an empty tree is not."""
     leaves = tree.leaves(tree_)
     return isinstance(leaves[0], Sharded) if leaves else False
 
@@ -634,6 +636,10 @@ class ModelShards:
         self.row = ModelRow(mesh, pos, home)
 
     def unbind(self, dim: int = 0) -> List["ModelShards"]:
+        """``torch.unbind`` over a leading stack axis (a layer stack):
+        one ``ModelShards`` an index, each part's slice on its own
+        device and the split axis one lower. Only ``dim`` 0 of a leaf
+        not split along it."""
         if dim != 0 or self.dim == 0:
             raise ValueError("ModelShards unbinds a leading stack axis")
         cols = [p.unbind(0) for p in self.parts]

@@ -128,6 +128,7 @@ class DeviceMesh:
         return [int(i) for i in np.flatnonzero(self.ranks.reshape(-1) == me)]
 
     def device_at(self, pos: int) -> torch.device:
+        """The ``torch.device`` of flat (row-major) position ``pos``."""
         return torch.device(self.devices.reshape(-1)[pos])
 
     def coords(self, pos: int) -> Dict[str, int]:

@@ -103,6 +103,9 @@ def _auto_spec(shape: Tuple[int, ...], ax: MeshAxes, ms: dict,
 
 
 def batch_shardings(batch_sds, cfg: ArchConfig, mesh) -> Any:
+    """A ``NamedSharding`` a leaf of ``batch_sds`` (the batch's meta
+    tensors): the leading batch axis over the mesh's data axes where
+    it divides, every other axis replicated."""
     ax = axes_for_mesh(mesh)
     dp = _dp_degree(mesh)
 
@@ -149,11 +152,19 @@ def needs_fsdp(cfg: ArchConfig, mesh) -> bool:
 
 
 def cache_structs(cfg: ArchConfig, shape: ShapeConfig) -> Any:
+    """The decode cache of ``shape`` (its global batch and sequence
+    length) on ``meta``: ``init_decode_cache``'s layout and dtypes."""
     return init_decode_cache(cfg, shape.global_batch, shape.seq_len,
                              device="meta")
 
 
 def cache_shardings(cfg: ArchConfig, shape: ShapeConfig, mesh) -> Any:
+    """A ``NamedSharding`` a leaf of ``cache_structs(cfg, shape)``, the
+    reference's serving partition: the batch axis over the data axes
+    where it divides; the mLSTM memory's D_out over ``model``, its
+    normalizer and the sLSTM states replicated over ``model``; every
+    other leaf (KV caches, whisper's ``enc_out``, hymba's rings and SSM
+    states) its largest other axis that ``model`` divides over it."""
     ax = axes_for_mesh(mesh)
     ms = mesh_shape_dict(mesh)
     structs = cache_structs(cfg, shape)

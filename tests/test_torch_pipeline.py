@@ -166,7 +166,7 @@ def test_retired_and_unported_payloads():
     dict(codec="zfplike"), dict(base="zfplike"), dict(mode="paper"),
     dict(mesh=(2, 2)),
 ])
-def test_unserved_arguments_raise_not_implemented(kwargs):
+def test_once_refused_arguments_are_served_byte_for_byte(kwargs):
     """Arguments the port once refused are served, byte for byte the
     reference's: zfplike, paper mode, and ``mesh=`` (a (2, 2) block
     mesh of CPU blocks, its g the reference's decode); a mesh that is
@@ -196,7 +196,7 @@ def test_unserved_arguments_raise_not_implemented(kwargs):
         assert getattr(art, k) == getattr(ref, k), k
 
 
-def test_unserved_entry_points_raise_not_implemented():
+def test_batch_and_decode_entry_points_serve_mesh_byte_for_byte():
     """The batch and decode entry points serve ``mesh=`` (a CPU slab
     chain here) with the reference's bytes and g, and raise what the
     reference raises for a mesh that is no mesh."""
