@@ -206,9 +206,12 @@ Phases, each asserting (any failure exits non-zero):
    each EP prefill: flash exactly 8, logits finite, the two EP prefills
    bitwise equal; seconds and peak bytes beside the dense prefills',
    layer 0's dropped share beside dense's. (10c) ``launch.dryrun.run_cell`` on smollm-135m train_4k
-   (one pod) and qwen3-moe decode_32k (two pods) on meta tensors, each
-   "ok", with their seconds; ``make_production_mesh()`` raises on one
-   card.
+   (one pod), qwen3-moe decode_32k (two pods) and whisper-base
+   prefill_32k (one pod), each run as one rank of the production mesh
+   on meta tensors (``launch.mesh.dry_rank``): each "ok" with no kernel
+   launch, collectives counted (total bytes > 0) and a peak of at least
+   its arguments' bytes, with its seconds on the host's CPU;
+   ``make_production_mesh()`` raises on one card.
 11. the launchers' sharded execution, the launch counts set to 0 just
    before each leg and read just after. (11a) ``launch.train.main`` on
    smollm-135m at full width and depth (bf16, seeded weights, ``--steps
@@ -3231,9 +3234,12 @@ EP_LAYER = (512, 128, 8, 256, (4, 2048), 1.25)
 EP_MESHES = ((1, 4), (2, 4))
 #: 10b: qwen3-moe at phase 7's cut, under MOE_EP_MODE on a (1, 4) mesh
 EP_MODEL = ("qwen3-moe-235b-a22b", 8, 4, 2048)
-#: 10c's dry-run cells: (arch, shape, multi_pod)
+#: 10c's dry-run cells: (arch, shape, multi_pod); the prefill cell is
+#: whisper's: hymba's prefill_32k took 57 s of the CPU beside one H100
+#: (10c 134 s), past the 90 s the phase is given
 DRYRUN_CELLS = (("smollm_135m", "train_4k", False),
-                ("qwen3_moe_235b_a22b", "decode_32k", True))
+                ("qwen3_moe_235b_a22b", "decode_32k", True),
+                ("whisper_base", "prefill_32k", False))
 
 
 def ep_mesh(shape, devices):
@@ -3457,10 +3463,12 @@ def phase_moe_ep_model(seed: int) -> int:
 
 
 def phase_dryrun() -> None:
-    """10c: ``launch.dryrun.run_cell`` on ``DRYRUN_CELLS`` (meta tensors
-    on the production meshes: no launch), each status "ok"; and
-    ``make_production_mesh()`` without ``devices=`` raises on fewer than
-    256 cards."""
+    """10c: ``launch.dryrun.run_cell`` on ``DRYRUN_CELLS`` (each cell one
+    rank of the production mesh on meta tensors: no launch), each status
+    "ok", with collectives counted (``collectives.total_bytes`` > 0) and
+    a peak of at least the arguments' bytes; its seconds (the host's
+    CPU) recorded. ``make_production_mesh()`` without ``devices=``
+    raises on fewer than 256 cards."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
     import torch
@@ -3473,9 +3481,16 @@ def phase_dryrun() -> None:
         if rec["status"] != "ok" or any(launches.values()):
             raise AssertionError(f"dryrun 10c {arch} {shape}: "
                                  f"{rec.get('error')} launches {launches}")
+        mem = rec["memory"]
+        if not (rec["collectives"]["total_bytes"] > 0
+                and mem["peak_bytes"] >= mem["argument_size_bytes"]):
+            raise AssertionError(f"dryrun 10c {arch} {shape}: collectives "
+                                 f"{rec['collectives']}, memory {mem}")
         emit({"phase": "dryrun", "leg": "10c", "seconds": secs,
-              **{k: v for k, v in rec.items()
-                 if k not in ("collectives_reason",)}})
+              "launches": sum(launches.values()),
+              **{k: v for k, v in rec.items() if k != "memory"},
+              "memory": {k: v for k, v in mem.items()
+                         if k != "peak_counts"}})
     try:
         make_production_mesh()
     except ValueError as e:

@@ -50,7 +50,7 @@ from repro_torch.core import (available_backends, segmentation_accuracy,
                               verify_preservation)
 from repro_torch.data import synthetic_field
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_data_mesh
+from repro_torch.launch.mesh import round_robin_data_mesh
 
 
 def _parse_args(argv=None):
@@ -81,29 +81,13 @@ def _parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _mesh(n: int, dev: torch.device):
-    """The ``--devices N`` chain: N blocks of a ``('data',)`` mesh, one
-    a card, or round robin on the cards there are (every block on the
-    CPU when the run is on the CPU); None for N <= 1."""
-    if n <= 1:
-        return None
-    if dev.type == "cpu":
-        places = ["cpu"] * n
-    else:
-        count = torch.cuda.device_count()
-        places = [f"cuda:{i % count}" for i in range(n)]
-        if count < n:
-            print(f"# {n} blocks on {count} visible card(s): placed round "
-                  f"robin ({', '.join(places)})")
-    mesh = make_data_mesh(n, devices=places)
-    print(f"# sharding fix loops over {n} devices (mesh axes {mesh.shape})")
-    return mesh
-
-
 def main(argv=None) -> list:
     args = _parse_args(argv)
     dev = resolve_device(args.device)
-    mesh = _mesh(args.devices, dev)
+    mesh = round_robin_data_mesh(args.devices, dev)
+    if mesh is not None:
+        print(f"# sharding fix loops over {args.devices} devices (mesh axes "
+              f"{mesh.shape})")
     datasets = {
         "molecular": (24, 24, 12),
         "nyx": (24, 24, 24),

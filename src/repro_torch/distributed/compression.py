@@ -32,6 +32,7 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 
 from .. import tree
+from . import collectives as C
 
 
 def _bits_dtype(bits: int) -> torch.dtype:
@@ -114,14 +115,12 @@ def _sum_codes(codes: torch.Tensor, group) -> torch.Tensor:
     int8 or int16), in that dtype: an all-reduce for int8; for int16,
     which neither NCCL nor gloo reduces, an all-gather of the codes'
     bytes and a sum in rank order."""
-    import torch.distributed as dist
     if codes.dtype == torch.int8:
-        dist.all_reduce(codes, op=dist.ReduceOp.SUM, group=group)
+        C.all_reduce(codes, "sum", group)
         return codes
     raw = codes.view(torch.uint8)
-    parts = [torch.empty_like(raw)
-             for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, raw, group=group)
+    parts = [torch.empty_like(raw) for _ in range(C.world_size(group))]
+    C.all_gather(parts, raw, group)
     summed = parts[0].view(codes.dtype)
     for part in parts[1:]:
         summed = summed + part.view(codes.dtype)
@@ -137,14 +136,13 @@ def compressed_all_reduce_tree(grads: Any, rel_bound: float = 1e-3,
     bits on every rank. One MAX all-reduce carries every tensor's
     ``amax``; one collective carries every tensor's codes (``_sum_codes``).
     ``n_shards`` defaults to the group's size."""
-    import torch.distributed as dist
-    n = dist.get_world_size(group) if n_shards is None else n_shards
+    n = C.world_size(group) if n_shards is None else n_shards
     # mszlint: disable=transfer-discipline -- bits is a python int
     qmax = float(2 ** (bits - 1) - 1) / n       # headroom for the sum
     leaves = tree.leaves(grads)
     gfs = [g.float() for g in leaves]
     amax = torch.stack([torch.max(torch.abs(gf)) for gf in gfs])
-    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    C.all_reduce(amax, "max", group)
     steps = _step(amax, rel_bound, qmax)
     codes = torch.cat([_codes(gf, steps[i], qmax, bits).reshape(-1)
                        for i, gf in enumerate(gfs)])

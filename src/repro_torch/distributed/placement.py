@@ -75,6 +75,7 @@ from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
 import torch
 
 from .. import tree
+from . import collectives as C
 
 __all__ = ["Sharded", "ModelShards", "place", "place_tree", "gather",
            "gather_tree", "is_placed", "resident_bytes", "shard_slices",
@@ -84,7 +85,8 @@ __all__ = ["Sharded", "ModelShards", "place", "place_tree", "gather",
            "take_plan", "BatchRows", "gather_rows", "EXCHANGED",
            "exchange_model", "permute_model", "to_first", "scatter_first",
            "from_first", "mean_rows_model", "argmax_model", "put_model",
-           "slice_box", "regather", "row_params", "put_local",
+           "slice_box", "regather", "at_model_split", "row_params",
+           "put_local",
            "CacheShards", "StateShards", "regroup_model",
            "sum_scatter_model"]
 
@@ -218,6 +220,19 @@ def regather(s: Sharded, sharding) -> Sharded:
     return Sharded(sharding, s.shape, s.dtype, local)
 
 
+def at_model_split(s: Sharded) -> Sharded:
+    """``s`` at its model split: a leaf split over other axes too
+    (ZeRO-1 / FSDP's batch axes) ``regather``ed to the entries of its
+    spec that name ``model`` (an all-gather over the rest); ``s`` itself
+    where it has no other."""
+    spec = tuple(e if e is not None and "model" in _entry_axes(e) else None
+                 for e in s.sharding.spec)
+    if spec == tuple(s.sharding.spec):
+        return s
+    return regather(s, type(s.sharding)(s.mesh, type(s.sharding.spec)(
+        *spec)))
+
+
 def row_params(placed: Any, qs: Sequence[int]) -> Any:
     """One data row's view of a placed tree: ``qs`` the row's local
     positions in model order (every position of the row in one process,
@@ -259,7 +274,6 @@ def all_gather(mesh, vals: Dict[int, torch.Tensor], axes: Sequence[str],
     if not mesh.multi_process:
         return {p: [vals[q].to(mesh.device_at(p))
                     for q in mesh.members(p, axes)] for p in at}
-    import torch.distributed as dist
     (p,) = at
     x = vals[p]
     n = len(mesh.members(p, axes))
@@ -267,7 +281,7 @@ def all_gather(mesh, vals: Dict[int, torch.Tensor], axes: Sequence[str],
         return {p: [x]}
     raw = _wire(x)
     parts = [torch.empty_like(raw) for _ in range(n)]
-    dist.all_gather(parts, raw, group=mesh.group(axes))
+    C.all_gather(parts, raw, mesh.group(axes))
     return {p: [t.view(x.dtype).reshape(x.shape) for t in parts]}
 
 
@@ -288,7 +302,7 @@ def axis_sum(mesh, vals: Dict[int, torch.Tensor], axes: Sequence[str],
 def barrier(mesh) -> None:
     """Wait for every rank of a multi-process mesh; nothing in one
     process."""
-    if mesh.multi_process:
+    if mesh.multi_process and not mesh.dry:
         import torch.distributed as dist
         dist.barrier()
 
@@ -769,15 +783,13 @@ def _exchange(row: ModelRow, sends: Sequence[Sequence[torch.Tensor]],
     if not row.mesh.multi_process:
         return [[sends[i][j].to(dev) for i in range(tp)]
                 for j, dev in zip(row.indices, row.devices)]
-    import torch.distributed as dist
     (send,), (me,) = sends, row.indices
     raw = [_wire(t) for t in send]
     out_sizes = [math.prod(shapes[i][me]) * size for i in range(tp)]
     out = torch.empty(sum(out_sizes), dtype=torch.uint8,
                       device=row.devices[0])
-    dist.all_to_all_single(out, torch.cat(raw), out_sizes,
-                           [r.numel() for r in raw],
-                           group=row.mesh.group(("model",)))
+    C.all_to_all_single(out, torch.cat(raw), out_sizes,
+                        [r.numel() for r in raw], row.mesh.group(("model",)))
     return [[p.view(dtype).reshape(shapes[i][me])
              for i, p in enumerate(out.split(out_sizes))]]
 
@@ -989,15 +1001,13 @@ def regroup_model(row: ModelRow, parts: Sequence[torch.Tensor],
                                         -1)
             out.append(wholes[dev].index_select(-1, ix))
         return out
-    import torch.distributed as dist
     sends, recv = idxs
     (me,) = row.indices
     raw = [_wire(parts[0].detach().index_select(-1, ix)) for ix in sends]
     sizes = [len(plan[i][me][0]) * size for i in range(tp)]
     got = torch.empty(sum(sizes), dtype=torch.uint8, device=row.devices[0])
-    dist.all_to_all_single(got, torch.cat(raw), sizes,
-                           [r.numel() for r in raw],
-                           group=row.mesh.group(("model",)))
+    C.all_to_all_single(got, torch.cat(raw), sizes,
+                        [r.numel() for r in raw], row.mesh.group(("model",)))
     pieces = torch.cat([g.view(parts[0].dtype).reshape(
         lead + (len(plan[i][me][0]),)) for i, g in
         enumerate(got.split(sizes))], -1)

@@ -1,47 +1,75 @@
 """Multi-pod dry-run, the port of ``repro.launch.dryrun``: every
-(architecture x input shape) on the production meshes, on ``meta``
-tensors: the per-device bytes of the cell's arguments under the port's
-sharding specs, and the cell's own step run at its global shape as a
-shape check of the whole step, with its FLOPs counted.
+(architecture x input shape) on the production meshes, each cell run as
+one rank of the mesh on ``meta`` tensors: the per-device bytes of its
+arguments, of its outputs and at its peak, its FLOPs and every
+collective it issues, with their bytes.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m \\
       --shape train_4k --multi-pod
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
       --out experiments/dryrun_torch
 
-The mesh is ``make_production_mesh(multi_pod, devices=["meta"] * n)``:
-256 or 512 placements and no device. The step is ``models.forward``
-(prefill), ``serve.make_serve_step`` (decode) or ``train.make_train_step``
-(train), the counterpart of the reference's ``.lower()``; nothing is
-compiled. ``cost.flops`` is ``torch.utils.flop_counter.FlopCounterMode``
-over that step: global (the whole mesh's work), counting the matmuls
-(the plain attention's tiles among them) and nothing elementwise. XLA's
-collective statistics and its temp/peak memory come from the compiled
-HLO and have no counterpart here: ``collectives`` is null with that
-reason. ``REPRO_MOE_EP=1`` runs the MoE expert-parallel
-(``layers.MOE_EP_MODE``), ``REPRO_GRAD_COMPRESS=1`` the compressed
-cross-pod gradient sync (``REPRO_GC_BITS``), as in the reference.
+The mesh is ``launch.mesh.dry_rank``: rank p of the (16, 16) or
+(2, 16, 16) production mesh with no process group, where p is the first
+model index with the most query heads (``sharding.shard_heads``), every
+other axis at index 0; the record names it (``position``). The rank
+places its arguments (``distributed.placement.place_tree``) by the
+reference's shardings and runs the partitioned step that ranks run
+across processes, the
+counterpart of the reference's ``.lower()`` of its jitted step: train
+``make_train_step(mesh=)`` (``train.sharded``, FSDP where
+``specs.needs_fsdp`` says, the pods' compressed sync under
+``REPRO_GRAD_COMPRESS=1``, ``REPRO_GC_BITS``), prefill
+``serve.sharded.make_sharded_prefill``, decode
+``make_sharded_serve_step`` at the last position over ``place_cache``.
+``REPRO_MOE_EP=1`` runs the MoE expert-parallel
+(``layers.MOE_EP_MODE``). Nothing is compiled, and nothing launches.
+
+The record holds ``collectives``, in the keys of the reference's
+``collective_stats``: each kind's count and bytes as the rank issued
+them (``distributed.collectives``; the reference's byte rule, each
+op's larger of operand and result), with ``entry_bytes`` the total and
+``body_bytes`` 0 (every collective counted where it runs). ``memory``:
+the arguments' bytes (the reference's shard bytes), the outputs' at the
+position, and the peak of the live bytes during the step
+(``LiveBytes``, the arguments live from the start; temp = peak -
+arguments), in bytes and in the reference's ``*_gb``. ``cost.flops``:
+``torch.utils.flop_counter.FlopCounterMode`` over the rank's step, the
+position's own FLOPs, as the reference's ``cost_analysis`` of its
+partitioned program is a device's. The port's partitioned schedule is
+its own (an all-gather and an ordered sum where XLA reduce-scatters),
+so the numbers are not the reference's HLO's. ``--save-hlo`` has no
+counterpart: the port has no HLO.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import time
 import traceback
+import weakref
 from pathlib import Path
-from typing import Optional
+from typing import Any, Callable, Dict, Optional
 
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from .. import tree
 from ..configs import ARCH_IDS, get_config
-from ..models import forward as model_forward
+from ..distributed import collectives as C
+from ..distributed import placement as PL
 from ..models import layers as _layers
 from ..models.config import SHAPES, ArchConfig, ShapeConfig, shape_by_name
-from ..models.sharding import use_mesh
-from ..serve import make_serve_step
+from ..models.sharding import shard_heads, use_mesh
+from ..serve.sharded import (make_sharded_prefill, make_sharded_serve_step,
+                             place_cache, prefill_param_shardings,
+                             serve_param_shardings)
 from ..train import (AdamWConfig, TrainState, TrainStepConfig,
                      make_train_step)
 from . import specs as S
-from .mesh import make_production_mesh
+from .mesh import dry_rank, production_shape
 
 #: archs that cannot serve a 524288-token dense-attention context; the
 #: shape is defined for sub-quadratic families
@@ -52,13 +80,19 @@ FULL_ATTENTION_ARCHS = {
 }
 
 #: what the FLOP count covers
-FLOPS_COUNT = ("global FLOPs of the step's matmuls (attention tiles "
-               "included; elementwise work not counted), "
-               "torch.utils.flop_counter on meta tensors")
+FLOPS_COUNT = ("one position's FLOPs of the step's matmuls (attention "
+               "tiles included; elementwise work not counted), "
+               "torch.utils.flop_counter over the rank's step on meta "
+               "tensors")
 
-#: why the record has no collective statistics
-NO_COLLECTIVES = ("XLA's collective statistics and temp/peak memory come "
-                  "from the compiled HLO; the port compiles nothing")
+#: what the peak counts, and the rule that overstates it
+PEAK_COUNTS = ("the most bytes live on the rank during the step: the "
+               "arguments' shard bytes from the start, then every storage "
+               "the step makes until it is freed; on meta attention runs "
+               "the plain version in tiles of at least S / 8 rows (the "
+               "chunked oracle in chunks of at least S / 8), whose score "
+               "tiles the card's flash kernel never allocates, so the "
+               "peak overstates attention's temporaries")
 
 
 def cell_is_applicable(arch: str, shape: ShapeConfig) -> tuple[bool, str]:
@@ -68,8 +102,91 @@ def cell_is_applicable(arch: str, shape: ShapeConfig) -> tuple[bool, str]:
     return True, ""
 
 
+class LiveBytes(TorchDispatchMode):
+    """The bytes of the storages made while it is on that are still
+    alive (``live``), and their most (``peak``): each op's new outputs
+    (a return without an alias annotation: no view, no in-place) add
+    their storage's ``nbytes`` once, and ``weakref.finalize`` takes them
+    off when the storage is freed. The stand-ins ``launch.specs`` makes
+    (``stand_ins``: shapes only on every device) are not counted."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._held: Dict[int, int] = {}
+
+    def _free(self, key: int) -> None:
+        self.live -= self._held.pop(key)
+
+    def _track(self, t: torch.Tensor) -> None:
+        if t.layout != torch.strided:
+            return
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._held:
+            return
+        n = st.nbytes()
+        self._held[key] = n
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if S.MAKING_STAND_INS.get():
+            return out
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        for ret, o in zip(func._schema.returns, outs):
+            if ret.alias_info is not None:
+                continue
+            for t in (o if isinstance(o, (tuple, list)) else (o,)):
+                if isinstance(t, torch.Tensor):
+                    self._track(t)
+        return out
+
+
+def local_bytes(obj: Any) -> int:
+    """The bytes of the distinct storages this process holds of a tree
+    of tensors and ``placement.Sharded`` leaves (their local shards)."""
+    seen: Dict[int, int] = {}
+    for leaf in tree.leaves(obj):
+        ts = (list(leaf.local.values()) if isinstance(leaf, PL.Sharded)
+              else [leaf])
+        for t in ts:
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                seen[id(st)] = st.nbytes()
+    return sum(seen.values())
+
+
+def measure(step: Callable[[], Any], argument_bytes: int) -> dict:
+    """Run ``step`` once under ``FlopCounterMode`` and ``LiveBytes``,
+    the collectives' tally zeroed first: its ``collectives``
+    (``collectives.stats()``), ``flops``, ``peak_bytes`` (the arguments'
+    ``argument_bytes`` plus the step's live peak), ``output_bytes``
+    (``local_bytes`` of what it returns) and ``seconds``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    C.reset()
+    # no cyclic collection while it runs: what a cycle holds is freed at
+    # the same op on every run
+    gc.collect()
+    gc.disable()
+    t0 = time.perf_counter()
+    try:
+        with FlopCounterMode(display=False) as fc, LiveBytes() as live:
+            out = step()
+    finally:
+        gc.enable()
+    secs = time.perf_counter() - t0
+    return {"collectives": C.stats(), "flops": fc.get_total_flops(),
+            "peak_bytes": argument_bytes + live.peak,
+            "output_bytes": local_bytes(out), "seconds": secs}
+
+
 def _train_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
-    """(step thunk, per-device bytes of each argument, extra record)."""
+    """(place: () -> the step thunk, placing the arguments; per-device
+    bytes of each argument; extra record)."""
     n_pods = S.mesh_shape_dict(mesh).get("pod", 1)
     grad_compress = (os.environ.get("REPRO_GRAD_COMPRESS", "0") == "1"
                      and n_pods > 1)
@@ -77,59 +194,88 @@ def _train_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
         remat=True, n_microbatches=1, grad_compress=grad_compress,
         grad_compress_bits=int(os.environ.get("REPRO_GC_BITS", "16")),
         n_pods=n_pods)
-    step_fn = make_train_step(cfg, tcfg, AdamWConfig(), mesh=mesh)
     fsdp = S.needs_fsdp(cfg, mesh)
     params = S.param_structs(cfg)
     opt = S.opt_state_structs(cfg)
     batch = S.batch_spec(cfg, shape, mesh)
+    shardings = TrainState(
+        S.param_shardings(cfg, mesh, zero1=fsdp, data_only=grad_compress,
+                          replicate_embed=grad_compress),
+        S.opt_state_shardings(cfg, mesh))
     mem = {
-        "params": S.shard_bytes(params, S.param_shardings(
-            cfg, mesh, zero1=fsdp, data_only=grad_compress,
-            replicate_embed=grad_compress)),
-        "opt_state": S.shard_bytes(opt, S.opt_state_shardings(cfg, mesh)),
+        "params": S.shard_bytes(params, shardings.params),
+        "opt_state": S.shard_bytes(opt, shardings.opt),
         "batch": S.shard_bytes(batch, S.batch_shardings(batch, cfg, mesh))}
-    return (lambda: step_fn(TrainState(params, opt), batch), mem,
-            {"fsdp": fsdp})
+
+    def place():
+        step_fn = make_train_step(cfg, tcfg, AdamWConfig(), mesh=mesh)
+        state = PL.place_tree(TrainState(params, opt), shardings)
+        return lambda: step_fn(state, batch)
+    return place, mem, {"fsdp": fsdp}
 
 
 def _prefill_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
-    fsdp = S.needs_fsdp(cfg, mesh)
     params = S.param_structs(cfg)
     batch = S.batch_spec(cfg, shape, mesh)
-    mem = {"params": S.shard_bytes(params, S.param_shardings(
-               cfg, mesh, zero1=fsdp)),
+    p_shard = prefill_param_shardings(cfg, mesh)
+    mem = {"params": S.shard_bytes(params, p_shard),
            "batch": S.shard_bytes(batch, S.batch_shardings(batch, cfg,
                                                            mesh))}
-    return (lambda: model_forward(cfg, params, batch, logits_mode="last",
-                                  return_cache=True), mem, {})
+
+    def place():
+        prefill = make_sharded_prefill(cfg, mesh, max_len=shape.seq_len)
+        placed = PL.place_tree(params, p_shard)
+        return lambda: prefill(placed, batch)
+    return place, mem, {"fsdp": S.needs_fsdp(cfg, mesh)}
 
 
 def _serve_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
-    serve = make_serve_step(cfg)
     params = S.param_structs(cfg)
     cache = S.cache_structs(cfg, shape)
     batch = S.batch_spec(cfg, shape, mesh)
-    mem = {"params": S.shard_bytes(params, S.param_shardings(
-               cfg, mesh, zero1=False)),
+    p_shard = serve_param_shardings(cfg, mesh)
+    mem = {"params": S.shard_bytes(params, p_shard),
            "cache": S.shard_bytes(cache, S.cache_shardings(cfg, shape,
                                                            mesh)),
            "batch": S.shard_bytes(batch, S.batch_shardings(batch, cfg,
                                                            mesh))}
-    # the last position: the step reads the whole cache
-    return (lambda: serve(params, cache, batch["tokens"], shape.seq_len - 1),
-            mem, {})
+
+    def place():
+        serve = make_sharded_serve_step(cfg, mesh)
+        placed = PL.place_tree(params, p_shard)
+        placed_cache = place_cache(cfg, mesh, shape.global_batch,
+                                   shape.seq_len)
+        # the last position: the step reads the whole cache
+        return lambda: serve(placed, placed_cache, batch["tokens"],
+                             shape.seq_len - 1)
+    return place, mem, {}
 
 
 _CELLS = {"train": _train_cell, "prefill": _prefill_cell,
           "decode": _serve_cell}
 
 
+def cell_position(cfg: ArchConfig, multi_pod: bool) -> int:
+    """The flat position a cell runs: the first model index with the
+    most query heads (``sharding.shard_heads``), every other axis at 0."""
+    tp = production_shape(multi_pod)[0][-1]
+    heads = [s.q[1] - s.q[0] for s in shard_heads(cfg.n_heads,
+                                                  cfg.n_kv_heads, tp)]
+    return heads.index(max(heads))
+
+
+def _gb(n: int) -> float:
+    return round(n / 2**30, 3)
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
-    """One cell's record: status "ok" with ``memory`` (per-device bytes
-    of params, opt_state (train), cache (decode) and batch, and their
-    sum ``argument_size_bytes`` / ``_gb``), ``cost.flops`` and the step's
-    seconds; "skipped" with the reason; or "error" with the exception."""
-    from torch.utils.flop_counter import FlopCounterMode
+    """One cell's record: status "ok" with ``position`` (its mesh
+    coordinates), ``memory`` (per-device bytes of params, opt_state
+    (train), cache (decode) and batch, their sum
+    ``argument_size_bytes``, ``output_size_bytes``, ``peak_bytes``,
+    ``temp_size_bytes`` and the reference's four ``*_gb``),
+    ``cost.flops``, ``collectives`` and the seconds; "skipped" with the
+    reason; or "error" with the exception."""
     _layers.MOE_EP_MODE = os.environ.get("REPRO_MOE_EP", "0") == "1"
     cfg = get_config(arch)
     shape = shape_by_name(shape_name)
@@ -137,26 +283,34 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
     if not ok:
         return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
                 "status": "skipped", "reason": why}
-    n = 512 if multi_pod else 256
-    mesh = make_production_mesh(multi_pod=multi_pod, devices=["meta"] * n)
+    pos = cell_position(cfg, multi_pod)
+    mesh = dry_rank(*production_shape(multi_pod), pos)
     t0 = time.perf_counter()
     try:
-        step, mem, extra = _CELLS[shape.kind](cfg, shape, mesh)
-        t_specs = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        with use_mesh(mesh), FlopCounterMode(display=False) as fc:
-            step()
-        t_step = time.perf_counter() - t0
-        total = sum(mem.values())
+        place, mem, extra = _CELLS[shape.kind](cfg, shape, mesh)
+        args = sum(mem.values())
+        with use_mesh(mesh):
+            step = place()
+            t_specs = time.perf_counter() - t0
+            got = measure(step, args)
+        out, peak = got["output_bytes"], got["peak_bytes"]
         return {
             "arch": arch, "shape": shape_name, "multi_pod": multi_pod,
             "status": "ok", "moe_ep": _layers.MOE_EP_MODE,
-            "t_specs_s": t_specs, "t_step_s": t_step,
+            "position": mesh.coords(pos),
+            "t_specs_s": t_specs, "t_step_s": got["seconds"],
             "memory": {**{f"{k}_bytes": v for k, v in mem.items()},
-                       "argument_size_bytes": total,
-                       "argument_size_gb": round(total / 2**30, 3)},
-            "cost": {"flops": fc.get_total_flops(), "counts": FLOPS_COUNT},
-            "collectives": None, "collectives_reason": NO_COLLECTIVES,
+                       "argument_size_bytes": args,
+                       "output_size_bytes": out,
+                       "temp_size_bytes": peak - args,
+                       "peak_bytes": peak,
+                       "argument_size_gb": _gb(args),
+                       "output_size_gb": _gb(out),
+                       "temp_size_gb": _gb(peak - args),
+                       "peak_gb": _gb(peak),
+                       "peak_counts": PEAK_COUNTS},
+            "cost": {"flops": got["flops"], "counts": FLOPS_COUNT},
+            "collectives": got["collectives"],
             **extra,
         }
     except Exception as e:
@@ -200,7 +354,9 @@ def main(argv: Optional[list] = None) -> int:
                 if status == "ok":
                     extra = (f" step={res['t_step_s']:.1f}s "
                              f"flops={res['cost']['flops']:.3g} "
-                             f"args={res['memory']['argument_size_gb']}GB")
+                             f"args={res['memory']['argument_size_gb']}GB "
+                             f"peak={res['memory']['peak_gb']}GB "
+                             f"coll={res['collectives']['total_bytes']:.3g}B")
                 elif status == "error":
                     extra = " " + res["error"][:200]
                 print(f"[{status}] {tag}{extra}", flush=True)

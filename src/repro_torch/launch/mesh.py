@@ -34,7 +34,13 @@ positions are this process's (``local_positions``: one), and the
 process group of every set of its axes (``group``), built with
 ``dist.new_group`` on every rank in the same order when the mesh is
 made. A mesh made without a group (or with ``devices=``) holds every
-position in this process.
+position in this process. ``dry_rank`` makes this process one rank of a
+multi-process mesh with no group at all: every position on ``meta``,
+its groups ``DryGroup``s on which the collectives issue nothing, so the
+rank paths run shapes only at any position of a mesh of any size (the
+dry-run's).
+
+``round_robin_data_mesh`` is the examples' ``--devices N`` chain.
 """
 from __future__ import annotations
 
@@ -51,7 +57,8 @@ import torch
 __all__ = ["BLOCK_AXIS_ORDER", "DeviceMesh", "active_mesh", "entered",
            "factor_block_shape", "init_distributed", "make_block_mesh",
            "launcher_mesh", "make_data_mesh", "make_host_mesh", "make_mesh",
-           "make_production_mesh"]
+           "make_production_mesh", "dry_rank", "production_shape",
+           "round_robin_data_mesh"]
 
 #: mesh axis names for block meshes, outermost first; the LAST k of these
 #: name a k-axis mesh, so the slab axis (data_z, field axis 0) is always
@@ -72,12 +79,18 @@ class DeviceMesh:
 
     ``ranks`` (an int array of the devices' shape) names the process
     that owns each position; None: every position is this process's.
-    A multi-process mesh holds one position a rank, and builds the
-    process group of every non-empty set of its axes at once, on every
-    rank in the same order (``dist.new_group`` needs that)."""
+    A multi-process mesh holds one position a rank (``rank``: this
+    process's ``torch.distributed`` rank), and builds the process group
+    of every non-empty set of its axes at once, on every rank in the
+    same order (``dist.new_group`` needs that). A ``dry`` one
+    (``dry_rank``) is rank ``rank`` of such a mesh with no process
+    group: it builds no group, and its ``group`` is a
+    ``distributed.collectives.DryGroup``, on which the collectives
+    issue nothing."""
 
     def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
-                 ranks: Optional[np.ndarray] = None):
+                 ranks: Optional[np.ndarray] = None, *,
+                 rank: Optional[int] = None, dry: bool = False):
         devices = np.asarray(devices, dtype=object)
         axis_names = tuple(axis_names)
         if devices.ndim != len(axis_names):
@@ -91,11 +104,23 @@ class DeviceMesh:
         self._groups: Dict[Tuple[str, ...], object] = {}
         self._coords: Dict[int, Dict[str, int]] = {}
         self._members: Dict[Tuple[int, Tuple[str, ...]], List[int]] = {}
+        self.dry = dry
+        self._rank = rank
         if self.ranks is not None:
             if len(set(self.ranks.reshape(-1).tolist())) != self.ranks.size:
                 raise ValueError("a multi-process mesh holds one position "
                                  "a rank")
-            self._build_groups()
+            if dry:
+                if rank is None or rank not in self.ranks:
+                    raise ValueError(f"a dry rank of {self.size} positions "
+                                     f"needs its rank, got {rank}")
+            else:
+                import torch.distributed as dist
+                self._build_groups()
+                self._rank = dist.get_rank()
+        elif dry:
+            raise ValueError("a dry rank is one rank of a multi-process "
+                             "mesh: give ranks=")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -110,21 +135,24 @@ class DeviceMesh:
     def multi_process(self) -> bool:
         return self.ranks is not None
 
+    @property
+    def rank(self) -> int:
+        """This process's rank on a multi-process mesh."""
+        if self.ranks is None:
+            raise ValueError("a single-process mesh has no rank")
+        return self._rank
+
     def is_rank0(self) -> bool:
         """Whether this process speaks for the mesh: rank 0 across
         processes, always in one."""
-        if self.ranks is None:
-            return True
-        import torch.distributed as dist
-        return dist.get_rank() == 0
+        return self.ranks is None or self.rank == 0
 
     def local_positions(self) -> List[int]:
         """The flat (row-major) positions this process holds: every one,
         or on a multi-process mesh this rank's one."""
         if self.ranks is None:
             return list(range(self.size))
-        import torch.distributed as dist
-        me = dist.get_rank()
+        me = self.rank
         return [int(i) for i in np.flatnonzero(self.ranks.reshape(-1) == me)]
 
     def device_at(self, pos: int) -> torch.device:
@@ -190,7 +218,13 @@ class DeviceMesh:
         own; its members in position order, which is rank order)."""
         if self.ranks is None:
             raise ValueError("a single-process mesh has no process groups")
-        return self._groups[self._axes_key(axes)]
+        key = self._axes_key(axes)
+        if self.dry and key not in self._groups:
+            from ..distributed.collectives import DryGroup
+            (me,) = self.local_positions()
+            ms = self.members(me, key)
+            self._groups[key] = DryGroup(len(ms), ms.index(me))
+        return self._groups[key]
 
     def __enter__(self) -> "DeviceMesh":
         self._tokens.append(_ACTIVE.set(_ACTIVE.get() + (self,)))
@@ -201,7 +235,8 @@ class DeviceMesh:
 
     def __repr__(self) -> str:
         places = ", ".join(str(d) for d in self.devices.reshape(-1))
-        where = "" if self.ranks is None else ", multi-process"
+        where = ("" if self.ranks is None else
+                 f", dry rank {self.rank}" if self.dry else ", multi-process")
         return f"DeviceMesh({self.shape}, devices=[{places}]{where})"
 
 
@@ -337,6 +372,33 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
     return DeviceMesh(_object_array(devs).reshape(shape_t), axis_names)
 
 
+def dry_rank(shape: Sequence[int], axis_names: Sequence[str],
+             position: int) -> DeviceMesh:
+    """Rank ``position`` of a multi-process mesh of ``shape`` (rank r at
+    position r, as ``make_mesh`` lays a process group out) with no
+    process group: every position on ``meta``, this process holding
+    ``position``'s alone. The rank paths run on it as on a real rank,
+    shapes only, and its collectives issue nothing
+    (``distributed.collectives``), so one process runs any position of
+    a mesh of any size, the dry-run's production meshes among them."""
+    shape_t = tuple(int(s) for s in shape)
+    n = math.prod(shape_t)
+    if not 0 <= position < n:
+        raise ValueError(f"position {position} of a {shape_t} mesh")
+    devs = _object_array([torch.device("meta")] * n).reshape(shape_t)
+    return DeviceMesh(devs, axis_names, ranks=np.arange(n).reshape(shape_t),
+                      rank=int(position), dry=True)
+
+
+def production_shape(multi_pod: bool = False
+                     ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """The production mesh's (shape, axis names): (16, 16) ``("data",
+    "model")``, or (2, 16, 16) ``("pod", "data", "model")``."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          devices: Optional[Sequence[DeviceSpec]] = None
                          ) -> DeviceMesh:
@@ -346,9 +408,10 @@ def make_production_mesh(*, multi_pod: bool = False,
     raising unless the group has 256 (512) ranks; otherwise a visible
     card a device, raising with fewer than 256 (512) cards, as
     ``jax.make_mesh`` raises with too few devices;
-    ``devices=["meta"] * 256`` places the dry-run's mesh."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    ``devices=["meta"] * 256`` places every position on ``meta`` in this
+    process; ``dry_rank(*production_shape(multi_pod), p)`` is its rank p
+    with no process group (the dry-run's)."""
+    shape, axes = production_shape(multi_pod)
     if devices is None and _group_up():
         return make_mesh(shape, axes)
     devs = _place(math.prod(shape), devices, f"{shape} production mesh")
@@ -395,6 +458,25 @@ def init_distributed(*, coordinator_address: Optional[str] = None,
     dist.init_process_group(backend, init_method=url, world_size=nproc,
                             rank=pid)
     return True
+
+
+def round_robin_data_mesh(n: int, dev: torch.device
+                          ) -> Optional[DeviceMesh]:
+    """The examples' ``--devices N`` chain: N blocks of a ``('data',)``
+    mesh, one a card, or round robin on the cards there are (saying so
+    when there are fewer than N), every block on the CPU when ``dev``
+    is the CPU; None for N <= 1."""
+    if n <= 1:
+        return None
+    if dev.type == "cpu":
+        places = ["cpu"] * n
+    else:
+        count = torch.cuda.device_count()
+        places = [f"cuda:{i % count}" for i in range(n)]
+        if count < n:
+            print(f"# {n} blocks on {count} visible card(s): placed round "
+                  f"robin ({', '.join(places)})")
+    return make_data_mesh(n, devices=places)
 
 
 def make_host_mesh(device: Optional[DeviceSpec] = None) -> DeviceMesh:

@@ -64,28 +64,6 @@ def _parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _mesh(n: int, dev):
-    """The ``--devices N`` mesh: N blocks of a ``('data',)`` chain, one
-    a card, or round robin on the cards there are (on the CPU when the
-    run is on the CPU); None for N <= 1."""
-    if n <= 1:
-        return None
-    import torch
-
-    from .mesh import make_data_mesh
-    if dev.type == "cpu":
-        places = ["cpu"] * n
-    else:
-        count = torch.cuda.device_count()
-        places = [f"cuda:{i % count}" for i in range(n)]
-        if count < n:
-            print(f"# {n} blocks on {count} visible card(s): placed round "
-                  f"robin ({', '.join(places)})")
-    mesh = make_data_mesh(n, devices=places)
-    print(f"# serving over {n} blocks (mesh axes {mesh.shape})")
-    return mesh
-
-
 def main(argv=None, *, device: DeviceLike = None):
     args = _parse_args(argv)
     if args.smoke:
@@ -101,10 +79,14 @@ def main(argv=None, *, device: DeviceLike = None):
     from ..device import resolve_device
     from ..serve import CompressionService, ServiceConfig
     from ..serve.compression import start_stats_server
+    from .mesh import round_robin_data_mesh
 
     dev = resolve_device(device)
     shape = tuple(int(s) for s in args.shape.split(","))
-    mesh = _mesh(args.devices, dev)
+    mesh = round_robin_data_mesh(args.devices, dev)
+    if mesh is not None:
+        print(f"# serving over {args.devices} blocks (mesh axes "
+              f"{mesh.shape})")
     shapes = [shape] * args.fields
     if args.mixed:
         alt = tuple(max(s // 2, 8) for s in shape)

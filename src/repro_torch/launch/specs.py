@@ -10,6 +10,8 @@ device.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -54,8 +56,25 @@ class NamedSharding:
                 f"spec={self.spec!r})")
 
 
+#: set while a stand-in is made (``stand_ins``): a meta tensor that holds
+#: no bytes on any device, which ``launch.dryrun.LiveBytes`` skips
+MAKING_STAND_INS: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_making_stand_ins", default=False)
+
+
+@contextlib.contextmanager
+def stand_ins():
+    """Mark the tensors made in the block as stand-ins (shapes only)."""
+    token = MAKING_STAND_INS.set(True)
+    try:
+        yield
+    finally:
+        MAKING_STAND_INS.reset(token)
+
+
 def _struct(shape, dtype) -> torch.Tensor:
-    return torch.empty(shape, dtype=dtype, device="meta")
+    with stand_ins():
+        return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def _dp_degree(mesh) -> int:
@@ -120,7 +139,8 @@ def batch_shardings(batch_sds, cfg: ArchConfig, mesh) -> Any:
 def param_structs(cfg: ArchConfig) -> Any:
     """The parameter tree on ``meta`` (``init_params(device="meta")``:
     the shapes and dtypes, nothing drawn or allocated)."""
-    return init_params(cfg, None, "meta")
+    with stand_ins():
+        return init_params(cfg, None, "meta")
 
 
 def param_shardings(cfg: ArchConfig, mesh, zero1: bool = False,
@@ -154,8 +174,9 @@ def needs_fsdp(cfg: ArchConfig, mesh) -> bool:
 def cache_structs(cfg: ArchConfig, shape: ShapeConfig) -> Any:
     """The decode cache of ``shape`` (its global batch and sequence
     length) on ``meta``: ``init_decode_cache``'s layout and dtypes."""
-    return init_decode_cache(cfg, shape.global_batch, shape.seq_len,
-                             device="meta")
+    with stand_ins():
+        return init_decode_cache(cfg, shape.global_batch, shape.seq_len,
+                                 device="meta")
 
 
 def cache_shardings(cfg: ArchConfig, shape: ShapeConfig, mesh) -> Any:
@@ -208,7 +229,8 @@ def cache_shardings(cfg: ArchConfig, shape: ShapeConfig, mesh) -> Any:
 def opt_state_structs(cfg: ArchConfig) -> AdamWState:
     """AdamW's state on ``meta``: f32 moments like the parameters, an
     int32 step."""
-    return adamw_init(param_structs(cfg))
+    with stand_ins():
+        return adamw_init(param_structs(cfg))
 
 
 def opt_state_shardings(cfg: ArchConfig, mesh, zero1: bool = True
@@ -234,4 +256,5 @@ __all__ = ["NamedSharding", "batch_spec", "batch_shardings", "param_structs",
            "param_shardings", "needs_fsdp", "cache_structs",
            "cache_shardings",
            "opt_state_structs", "opt_state_shardings", "shard_bytes",
+           "stand_ins", "MAKING_STAND_INS",
            "MeshAxes", "axes_for_mesh", "mesh_shape_dict"]

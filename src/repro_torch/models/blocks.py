@@ -463,6 +463,9 @@ def cross_attention(cfg: ArchConfig, p, x, enc_out):
     row, heads, ws = split
     ys = [_cross_heads(cfg, hj, *_memory_kv(cfg, ej, wj), wj, hd)
           if hd.segments else _no_heads(hj, wj["wq_x"], wj["wo_x"])
+          # its memory's (empty) k too: the memory's gradient exchange
+          # (``to_model``'s backward) then runs on every rank
+          + (ej @ wj["wk_x"]).sum()
           for hd, hj, ej, wj in zip(heads, PL.to_model(h, row),
                                     PL.to_model(enc_out, row), ws)]
     return x + PL.sum_model(ys, row)

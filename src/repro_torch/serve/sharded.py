@@ -136,14 +136,7 @@ def _param_views(placed, mesh) -> list:
     """Each local row's params (``placement.row_params``); a leaf split
     over the batch axes too (ZeRO-1) is first rebuilt at its model split
     (``placement.regather``: an all-gather over those axes, each call)."""
-    def unzero(s):
-        spec = tuple(None if e is not None and "model" not in
-                     (e if isinstance(e, tuple) else (e,)) else e
-                     for e in s.sharding.spec)
-        if spec == tuple(s.sharding.spec):
-            return s
-        return PL.regather(s, specs.NamedSharding(mesh, P(*spec)))
-    placed = tree.tree_map(unzero, placed)
+    placed = tree.tree_map(PL.at_model_split, placed)
     return [PL.row_params(placed, qs) for qs in _rows(mesh).values()]
 
 
@@ -215,7 +208,9 @@ def _cache_views(cache, mesh) -> list:
 
 
 def _token_sharding(cfg: ArchConfig, mesh, B: int):
-    sds = {"tokens": torch.empty((B, 1), dtype=torch.int32, device="meta")}
+    with specs.stand_ins():
+        sds = {"tokens": torch.empty((B, 1), dtype=torch.int32,
+                                     device="meta")}
     return specs.batch_shardings(sds, cfg, mesh)["tokens"]
 
 

@@ -393,12 +393,16 @@ def make_sharded_train_step(cfg, tcfg: TrainStepConfig,
         return out
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        leaves = tree.leaves(state.params)
-        if any(s.mesh is not mesh for s in leaves):
+        placed = tree.leaves(state.params)
+        if any(s.mesh is not mesh for s in placed):
             raise ValueError("the state is placed on another mesh than the "
                              "step's")
+        # the leaves at their model split (FSDP's gathered over the batch
+        # axes: a copy each; the others themselves)
+        leaves = [PL.at_model_split(s) for s in placed]
         Bd, m, shared = split(batch["tokens"].shape[0])
-        grads, stats = compute(state.params, batch, Bd, m, shared)
+        grads, stats = compute(tree.unflatten(state.params, leaves), batch,
+                               Bd, m, shared)
         if nd > 1:
             summed = [PL.axis_sum(mesh, {q: gs[i] for q, gs in grads.items()},
                                   sum_axes, torch.float32)
@@ -423,20 +427,30 @@ def make_sharded_train_step(cfg, tcfg: TrainStepConfig,
                 [g[r] for g, r in zip(grads[q], rels[q])],
                 inplace=True, gnorm=gnorm[q])
             opt.step.local[q] = new.step
-        # each param shard rebuilt from its positions' ZeRO-1 slices
-        for i, (s, mo) in enumerate(zip(leaves, m_leaves)):
+        # each param shard rebuilt from its positions' ZeRO-1 slices: a
+        # shard that is its moments' slice (FSDP's) copied from it, any
+        # other from the model split rebuilt over the moments' axes
+        for i, (p, s, mo) in enumerate(zip(placed, leaves, m_leaves)):
+            if tuple(p.sharding.spec) == tuple(mo.sharding.spec):
+                if p is not s:
+                    for q in grads:
+                        p.local[q].copy_(s.local[q][rels[q][i]])
+                continue
             zaxes = tuple(a for a in PL.spec_axes(mo.sharding.spec)
                           if a not in PL.spec_axes(s.sharding.spec))
-            if not zaxes:
-                continue
             got = PL.all_gather(mesh, {q: s.local[q][rels[q][i]]
-                                       for q in grads}, zaxes)
+                                       for q in grads}, zaxes) if zaxes else {}
             for q, parts in got.items():
                 outer = PL.shard_slices(s.sharding, s.shape, q)
                 for q2, part in zip(mesh.members(q, zaxes), parts):
                     if q2 != q:
                         s.local[q][_rel(outer, PL.shard_slices(
                             mo.sharding, mo.shape, q2))] = part
+            if p is not s:
+                for q in grads:
+                    p.local[q].copy_(s.local[q][_rel(
+                        PL.shard_slices(s.sharding, s.shape, q),
+                        PL.shard_slices(p.sharding, p.shape, q))])
         q0 = next(iter(grads))
         return state, {"loss": metrics[q0][0], "aux_loss": metrics[q0][1],
                        "tokens": metrics[q0][2], **om[q0]}
@@ -470,39 +484,48 @@ def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
     whole row, as one process does, the sum over its shards), reckoned
     from the shapes: the count ``torch.utils.flop_counter`` gives for a
     row computing ``rows`` sequences of ``seq`` tokens (over all its
-    microbatches) on a model axis of ``tp``, where a split layer
+    microbatches; llava's layers run its ``n_img_tokens`` image
+    embeddings before them, whisper's encoder its ``enc_positions``
+    frames) on a model axis of ``tp``, where a split layer
     (``models.sharding.tp_layout``) does its shard's part of the work on
     each shard and the rest all of it once. Attention splits by whole
     query heads (``sharding.shard_heads``), unevenly where the heads do
     not divide: one position's count is then that of the model
-    coordinate ``position``, which must be given (never an average). A
-    dense config without softcap or window, xLSTM or hymba. Each
-    projection is 2 N a b FLOPs forward, again under ``remat``, and
-    twice in the backward (input and weight), but the recompute skips
-    a dense layer's last product (the checkpoint stops once it has every
-    tensor the backward saved: the last local shard's w_down; a row
-    spread over several cards of one process recomputes it, through
-    ``models.model._FrameGate``, and is not reckoned here). Attention's
-    core runs ``kernels.flash``'s plain version forward (on the CPU: its
-    256-row tiles, those above the diagonal skipped; on CUDA the kernel,
-    which no counter sees) and the chunked oracle's recompute and
-    gradient (6 products of 2 B H S T Dh) backward, H a shard's query
-    heads; a window shorter than ``seq`` runs the chunked oracle
-    throughout (2 such products a forward, 4 backward). The recurrent
-    scans count their chunks' products (``_scan_flops``): the mLSTM's
-    per shard over its Dh / tp columns of v beside the whole q k^T,
-    hymba's SSM per shard over the heads its columns span. Replicated
-    projections (q, k and the gates of the mLSTM, hymba's dt/B/C) run
-    once a row; a split hymba projects its fused output twice a shard
-    (its heads' rows of wo, its own rows). The unembedding is outside
-    remat. A MoE config (without softcaps) attends and unembeds its
-    ``rows`` and routes ``moe_rows`` sequences at every MoE layer, once
-    for each of ``microbatches`` (default: the row's own, ``rows`` over
-    the microbatches; in lockstep the domain's microbatch): the f32
-    router (d x E) replicated on the row, the three expert products at
-    the static capacity (``E x cap`` slots of 2 d ff each) split over
-    ``model`` as ``tp_layout``'s "experts" says; the recompute runs
-    all of them (the layer's last saved tensor is the combine's). With
+    coordinate ``position``, which must be given (never an average).
+    Every family: dense (gemma2's softcaps and windows too), MoE, llava,
+    whisper, xLSTM and hymba. Each projection is 2 N a b FLOPs forward,
+    again under ``remat``, and twice in the backward (input and
+    weight), but the recompute skips a layer's last product where
+    nothing after it is saved (the checkpoint stops once it has every
+    tensor the backward saved: the last local shard's w_down, or
+    whisper's w2; gemma2's post-norm saves the sum of every shard's, so
+    it skips none; a row spread over several cards of one process
+    recomputes it, through ``models.model._FrameGate``, and is not
+    reckoned here). Attention's core runs ``kernels.flash``'s plain
+    version forward (on the CPU: its 256-row tiles, those above the
+    diagonal skipped where it is causal; on ``meta`` its tiles of at
+    least S / 8; on CUDA the kernel, which no counter sees) and the
+    chunked oracle's recompute and gradient (6 products of 2 B H S T Dh)
+    backward, H a shard's query heads; a softcap, or a window shorter
+    than the sequence, runs the chunked oracle throughout, every chunk
+    pair (2 such products a forward, 4 backward). Whisper's
+    cross-attention projects its memory's k and v from the encoder's
+    frames and attends to them unmasked. The recurrent scans count
+    their chunks' products (``_scan_flops``): the mLSTM's per shard
+    over its Dh / tp columns of v beside the whole q k^T, hymba's SSM
+    per shard over the heads its columns span. Replicated projections
+    (q, k and the gates of the mLSTM, hymba's dt/B/C) run once a row; a
+    split hymba projects its fused output twice a shard (its heads' rows
+    of wo, its own rows). The unembedding is outside remat (llava's
+    over its image positions too, whose logits it drops). A MoE config
+    (without softcaps) attends and unembeds its ``rows`` and routes
+    ``moe_rows`` sequences at every MoE layer, once for each of
+    ``microbatches`` (default: the row's own, ``rows`` over the
+    microbatches; in lockstep the domain's microbatch): the f32 router
+    (d x E) replicated on the row, the three expert products at the
+    static capacity (``E x cap`` slots of 2 d ff each) split over
+    ``model`` as ``tp_layout``'s "experts" says; the recompute runs all
+    of them (the layer's last saved tensor is the combine's). With
     ``ep_rows`` the MoE layers run expert-parallel
     (``layers.moe_ep_rows``) over a domain of that many data rows, each
     routing its own ``rows`` over the microbatches: on each position the
@@ -510,15 +533,15 @@ def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
     of its virtual experts, three products of 2 d ff / m each
     (``layers.ep_shape``), under the same remat rule."""
     fam = cfg.family
-    if (fam not in ("dense", "ssm", "hybrid", "moe") or cfg.attn_softcap
-            or cfg.final_softcap or cfg.local_global_period):
-        raise NotImplementedError(f"{cfg.name}: the reckoning covers the "
-                                  "plain dense family, MoE, xLSTM and "
-                                  "hymba")
+    if fam not in ("dense", "ssm", "hybrid", "moe", "vlm", "audio") or (
+            fam == "moe" and (cfg.attn_softcap or cfg.final_softcap)):
+        raise NotImplementedError(f"{cfg.name}: no reckoning for family "
+                                  f"{fam!r} with these options")
     layout = tp_layout(cfg, tp)
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab
     H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    N = rows * seq
+    S = seq + (cfg.n_img_tokens if fam == "vlm" else 0)
+    N = rows * S
     passes = 4 if remat else 3
 
     def share(kind):
@@ -544,23 +567,51 @@ def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
         return _xlstm_flops(cfg, rows, seq, passes, *share("recurrent")) \
             + unembed
 
-    def attention(heads: int, window: int) -> int:
-        if window < seq:                  # the chunked oracle
-            return passes * 2 * 2 * rows * heads * seq * seq * Dh
+    def attention(heads: int, q_len: int, k_len: int, causal: bool = True,
+                  window: int = 1 << 30) -> int:
+        """The core of ``heads`` query heads over ``rows`` sequences."""
+        core = 2 * rows * heads * q_len * k_len * Dh
+        if cfg.attn_softcap or window < k_len:    # the chunked oracle
+            return passes * 2 * core
         fwd = 0
-        if device == "cpu":
-            for i0 in range(0, seq, 256):
-                i1 = min(i0 + 256, seq)
-                fwd += 2 * 2 * rows * heads * (i1 - i0) * i1 * Dh
-        return (passes - 2) * fwd + 6 * 2 * rows * heads * seq * seq * Dh
-    split = layout["attention"] == "split"
+        if device in ("cpu", "meta"):
+            tile = 256 if device == "cpu" else max(256, -(-q_len // 8))
+            for i0 in range(0, q_len, tile):
+                i1 = min(i0 + tile, q_len)
+                keys = min(k_len, i1) if causal else k_len
+                fwd += 2 * 2 * rows * heads * (i1 - i0) * keys * Dh
+        return (passes - 2) * fwd + 6 * core
     heads = mine("attention", [(s.q[1] - s.q[0], s.kv[1] - s.kv[0])
                                for s in shard_heads(H, Hk, tp)], (H, Hk))
-    # wq, wk, wv, and wo where it projects the attention alone (dense,
-    # MoE, a split hymba's heads' rows; a whole hymba's fused wo is
-    # ``own``)
-    q_and_o = 1 if fam == "hybrid" and not split else 2
-    proj = [2 * N * d * Dh * (q_and_o * hq + 2 * hk) for hq, hk in heads]
+    split = layout["attention"] == "split"
+
+    def proj(n: int) -> List[int]:
+        """Each counted shard's q, k, v and o projections over ``n``
+        tokens (a whole hymba's fused wo is its own)."""
+        q_and_o = 1 if fam == "hybrid" and not split else 2
+        return [2 * n * d * Dh * (q_and_o * hq + 2 * hk) for hq, hk in heads]
+
+    def mlp_of(n: int, products: int) -> int:
+        """A split (or whole) MLP of ``products`` products over ``n``
+        tokens; the recompute skips the last shard's last product unless
+        a post-norm follows it."""
+        m_div, m_n = share("mlp")
+        one = 2 * n * d * ff // m_div
+        skip = 0 if cfg.local_global_period else (passes - 3) * one
+        return m_n * passes * products * one - skip
+    if fam == "audio":
+        Te = cfg.enc_positions
+        enc = sum(passes * pr + attention(hq, Te, Te, causal=False)
+                  for pr, (hq, _) in zip(proj(rows * Te), heads))
+        # the cross-attention: q and o over the decoder's tokens, k and v
+        # over the memory's frames
+        cross = [2 * 2 * d * Dh * (N * hq + rows * Te * hk)
+                 for hq, hk in heads]
+        dec = sum(passes * (pr + cr) + attention(hq, S, S)
+                  + attention(hq, S, Te, causal=False)
+                  for pr, cr, (hq, _) in zip(proj(N), cross, heads))
+        return (cfg.n_enc_layers * (enc + mlp_of(rows * Te, 2))
+                + cfg.n_layers * (dec + mlp_of(N, 2)) + unembed)
     if fam == "moe" and ep_rows:
         E, K = cfg.moe.n_experts, cfg.moe.top_k
         Nm = rows // microbatches * seq
@@ -578,15 +629,13 @@ def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
         e_div, e_n = (1, 1) if layout["experts"] == "whole" else (tp, local)
         mlp = microbatches * passes * (2 * Nm * d * E + e_n * 3 * 2 * E
                                        * cap * d * ff // e_div)
-    else:
-        m_div, m_n = share("mlp")
-        ffn = 2 * N * d * ff // m_div      # each of w_gate, w_up, w_down
-        mlp = m_n * passes * 3 * ffn - (passes - 3) * ffn
-    if fam in ("dense", "moe"):
-        return cfg.n_layers * (sum(passes * pr + attention(hq, seq) for pr,
-                                   (hq, _) in zip(proj, heads)) + mlp) \
-            + unembed
+    elif fam != "hybrid":
+        mlp = mlp_of(N, 3)
     from ..models.model import window_schedule
+    if fam != "hybrid":
+        return sum(sum(passes * pr + attention(hq, S, S, window=int(w))
+                       for pr, (hq, _) in zip(proj(N), heads)) + mlp
+                   for w in window_schedule(cfg)) + unembed
     r_div, r_n = share("recurrent")
     dtbc = 2 * N * d * (H + 2 * H * cfg.ssm_state)
     own = 2 * 2 * N * d * (H * Dh // r_div)          # ssm_in and wo
@@ -598,8 +647,9 @@ def step_matmul_flops(cfg, rows: int, seq: int, tp: int = 1, *,
     scan = _scan_flops(passes, c, 2 * rows * L * sum(spans) * NS * Dh,
                        2 * rows * L * L * sum(spans) * Dh,
                        2 * rows * L * sum(spans) * NS * Dh)
-    return sum(passes * (dtbc + sum(proj) + r_n * own) + sum(
-        attention(hq, int(w)) for hq, _ in heads) + scan + mlp
+    mlp = mlp_of(N, 3)
+    return sum(passes * (dtbc + sum(proj(N)) + r_n * own) + sum(
+        attention(hq, S, S, window=int(w)) for hq, _ in heads) + scan + mlp
         for w in window_schedule(cfg)) + unembed
 
 

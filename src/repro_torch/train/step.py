@@ -34,6 +34,7 @@ import torch
 
 from .. import tree
 from ..device import DeviceLike
+from ..distributed import collectives as C
 from ..distributed.compression import make_grad_sync
 from ..distributed.placement import is_placed
 from ..models import forward as model_forward
@@ -238,7 +239,7 @@ def _pod_group_spans(n_pods: int, mesh=None) -> bool:
     import torch.distributed as dist
     if not (dist.is_available() and dist.is_initialized()):
         return False
-    world = dist.get_world_size()
+    world = C.world_size()
     if (mesh is not None and getattr(mesh, "multi_process", False)) \
             or world != n_pods:
         raise ValueError(
@@ -261,14 +262,14 @@ def _rank_pod_grads(compute_grads: Callable, tcfg: TrainStepConfig
                           n_pods=n, group=dist.group.WORLD)
 
     def pod_grads(params, batch):
-        i = dist.get_rank()
+        i = C.rank()
         shard = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
                  for k, v in batch.items()}
         g, a = compute_grads(params, shard)
         keys = list(a)
         mine = torch.stack([a[k].float() for k in keys])
         every = [torch.empty_like(mine) for _ in range(n)]
-        dist.all_gather(every, mine)
+        C.all_gather(every, mine)
         aux = {k: sum(e[j].to(a[k].dtype) for e in every) / n
                for j, k in enumerate(keys)}
         return sync(g), aux

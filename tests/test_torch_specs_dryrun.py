@@ -48,7 +48,7 @@ _DUMP = textwrap.dedent('''
     import jax, numpy as np
     from repro.configs import ARCH_IDS, get_config
     from repro.launch import specs as S
-    from repro.launch.dryrun import cell_is_applicable
+    from repro.launch.dryrun import cell_is_applicable, collective_stats
     from repro.launch.mesh import make_production_mesh
     from repro.models.config import SHAPES, ShapeConfig
 
@@ -62,7 +62,8 @@ _DUMP = textwrap.dedent('''
                         list(s.shard_shape(t.shape))])
         return out
 
-    dump = {"applicable": {}, "cells": {}}
+    dump = {"applicable": {}, "cells": {},
+            "collective_keys": sorted(collective_stats(""))}
     meshes = {"pod1": make_production_mesh(multi_pod=False),
               "pod2": make_production_mesh(multi_pod=True)}
     for arch in ARCH_IDS:
@@ -173,7 +174,10 @@ def test_run_cell_reports_the_references_shard_bytes(ref):
     assert mem["batch_bytes"] == _ref_bytes([cell["batch"][shape]])
     assert mem["argument_size_bytes"] == sum(
         mem[f"{k}_bytes"] for k in ("params", "cache", "batch"))
-    assert res["cost"]["flops"] > 0 and res["collectives"] is None
+    assert res["cost"]["flops"] > 0
+    assert sorted(res["collectives"]) == ref["collective_keys"]
+    assert {"argument_size_gb", "output_size_gb", "temp_size_gb",
+            "peak_gb"} <= set(mem)
 
 
 @pytest.mark.parametrize("arch", ["smollm_135m", "qwen3_moe_235b_a22b"])

@@ -60,7 +60,11 @@ the 1 x 1 mesh of one card. Each rank's losses and the sha1 of each of
 its param shards must equal the one-process run's position's; each
 rank's matmul FLOPs of its first step (``FlopCounterMode``) must equal
 ``train.sharded.step_matmul_flops`` for one position; the step seconds
-of all three runs go in the record. Then the same three runs of
+of all three runs go in the record. Each rank's collectives of its
+first step (``distributed.collectives``: count and bytes by kind, the
+bytes ``take_model``, ``gather_rows`` and the gradient sums move across
+the NCCL ranks) must equal those a dry rank (``launch.mesh.dry_rank``,
+on ``meta``) counts at its position of the same cell and mesh. Then the same three runs of
 chip_smoke's 11f xLSTM cell (xlstm-1.3b at full width, 8 layers, bf16,
 2 x 1024 tokens a step, 3 steps; ``chip_smoke.RECURRENT_TP["xlstm"]``),
 whose mLSTM and sLSTM blocks split over the ranks.
@@ -107,8 +111,11 @@ hymba-1.5b cells (``SERVE_FAMILIES``: whisper's encoder memory split over
 its frames, hymba's rings over their slots and SSM states over Dh). The
 ranks' tokens, last logits and every shard of the serving state must be
 the one-process run's, bit for bit, and each position's resident bytes
-``specs.shard_bytes`` of the state under ``cache_shardings``; prefill
-seconds, decode ms a step and each card's peak bytes are recorded.
+``specs.shard_bytes`` of the state under ``cache_shardings``, and each
+rank's collectives in the prefill and the first decode step (the cache
+writes' all-to-alls among them) those of the dry rank at its position;
+prefill seconds, decode ms a step and each card's peak bytes are
+recorded.
 ``--cell whisper,hymba`` runs those cells alone.
 """
 from __future__ import annotations
@@ -341,20 +348,101 @@ def train_on_mesh(mesh, dev, seed: int) -> dict:
     del params
     step = make_train_step(cfg, TrainStepConfig(), AdamWConfig(**TRAIN_OPT),
                            mesh=mesh)
+    count = _counter()
     sync = (lambda: torch.cuda.synchronize(dev)) if mesh.multi_process \
         else _sync_all
-    losses, secs = [], []
+    losses, secs, counted = [], [], None
     for b in batches:
         b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
         sync()
         t0 = time.perf_counter()
+        count.reset()
         state, m = step(state, b)
+        counted = counted or count.stats()
         losses.append(float(m["loss"]))
         sync()
         secs.append(time.perf_counter() - t0)
     whole = placement.gather_tree(state.params)
-    return {"losses": losses, "step_seconds": secs,
+    return {"losses": losses, "step_seconds": secs, "collectives": counted,
             "params": {k: v.cpu() for k, v in tree.flatten_with_path(whole)}}
+
+
+class _NoCounter:
+    """The tally of a checkout without ``distributed.collectives`` (a
+    parent's): nothing counted."""
+
+    @staticmethod
+    def reset():
+        pass
+
+    @staticmethod
+    def stats():
+        return None
+
+
+def _counter():
+    """The running package's collectives tally
+    (``distributed.collectives``), or ``_NoCounter``."""
+    try:
+        from repro_torch.distributed import collectives
+    except ImportError:
+        return _NoCounter
+    return collectives
+
+
+def dry_counts(shape, run) -> list:
+    """Each position's collectives as a dry rank counts them
+    (``launch.mesh.dry_rank``: the position on ``meta``, nothing
+    issued): ``run(mesh)``'s {what: ``collectives.stats()``} at every
+    position of a ``("data", "model")`` mesh of ``shape``, in rank
+    order."""
+    from repro_torch.launch.mesh import dry_rank
+    return [run(dry_rank(shape, ("data", "model"), r))
+            for r in range(int(np.prod(shape)))]
+
+
+def dry_train(cfg, batch: dict, ep: bool = False):
+    """``dry_counts``' ``run`` of one train step of ``cfg`` on the
+    batch's shapes (numpy arrays), the state placed as the cells place
+    it, under ``chip_smoke.expert_parallel`` with ``ep``."""
+    import torch
+    from chip_smoke import TRAIN_OPT, expert_parallel
+    from repro_torch.distributed import collectives, placement
+    from repro_torch.launch import specs
+    from repro_torch.train import (AdamWConfig, TrainState, TrainStepConfig,
+                                   make_train_step)
+
+    def run(mesh):
+        state = placement.place_tree(
+            TrainState(specs.param_structs(cfg), specs.opt_state_structs(cfg)),
+            TrainState(specs.param_shardings(cfg, mesh),
+                       specs.opt_state_shardings(cfg, mesh,
+                                                 zero1=mesh.size > 1)))
+        b = {k: torch.from_numpy(v).to("meta") for k, v in batch.items()}
+        step = make_train_step(cfg, TrainStepConfig(),
+                               AdamWConfig(**TRAIN_OPT), mesh=mesh)
+        with (expert_parallel(mesh) if ep else contextlib.nullcontext()):
+            collectives.reset()
+            step(state, b)
+        return {"step": collectives.stats()}
+    return run
+
+
+def check_counts(tag: str, ranks: list, dry: list) -> None:
+    """Raise unless each rank's counted collectives (``ranks[r]``'s
+    "collectives", {what: stats}) are its position's dry rank's."""
+    for r, (got, want) in enumerate(zip(ranks, dry)):
+        if got != want:
+            raise AssertionError(f"{tag}: rank {r} counted {got}, its dry "
+                                 f"rank {want}")
+
+
+def count_summary(stats: dict) -> dict:
+    """A collectives record cut to the kinds that ran: {kind: [count,
+    bytes]} and the total bytes."""
+    return {**{k: [v["count"], v["bytes"]] for k, v in stats.items()
+               if isinstance(v, dict) and v["count"]},
+            "total_bytes": stats["total_bytes"]}
 
 
 #: the seed of each tensor-parallel cell's weights and batches (11e's,
@@ -407,6 +495,7 @@ def tp_on_mesh(mesh, dev, cell: str, ep: bool = False) -> dict:
     from repro_torch.train import (AdamWConfig, TrainState, TrainStepConfig,
                                    make_train_step)
     from repro_torch.train.optimizer import AdamWState
+    count = _counter()
     k, seed = tp_cell_of(cell), TP_SEED[cell]
     cfg = dataclasses.replace(get_config(k["arch"]), n_layers=k["n_layers"])
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
@@ -433,7 +522,7 @@ def tp_on_mesh(mesh, dev, cell: str, ep: bool = False) -> dict:
         torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     for c in cards:
         torch.cuda.reset_peak_memory_stats(c)
-    losses, secs, flops = [], [], None
+    losses, secs, flops, counted = [], [], None, None
     exchanged = getattr(placement, "EXCHANGED", {})
     exchanged["bytes"] = 0
     with (expert_parallel(mesh) if ep else contextlib.nullcontext()) as seen:
@@ -443,9 +532,11 @@ def tp_on_mesh(mesh, dev, cell: str, ep: bool = False) -> dict:
             sync()
             t0 = time.perf_counter()
             if i == 0:
+                count.reset()
                 with FlopCounterMode(display=False) as fc:
                     state, m = step(state, b)
                 flops = fc.get_total_flops()
+                counted = count.stats()
             else:
                 state, m = step(state, b)
             losses.append(float(m["loss"]))
@@ -462,7 +553,7 @@ def tp_on_mesh(mesh, dev, cell: str, ep: bool = False) -> dict:
     del state
     torch.cuda.empty_cache()
     out = {"losses": losses, "step_seconds": secs, "matmul_flops": flops,
-           "shard_sha1": sha,
+           "collectives": counted, "shard_sha1": sha,
            "peak_bytes": {str(c): torch.cuda.max_memory_allocated(c)
                           for c in cards}}
     if ep:
@@ -557,9 +648,13 @@ def ranks_train_leg(world: int) -> None:
     work.mkdir(parents=True, exist_ok=True)
     _spawn(world, lambda r: ["--train", "--cell", "smollm", "--out",
                              str(work / f"r{r}.pt")])
-    ranks = []
+    cfg, _, batches = _train_setup(TRAIN_SEED)
+    dry = (dry_counts(mesh.devices.shape, dry_train(cfg, batches[0]))
+           if _checkout() == ROOT else None)
+    ranks, counted = [], []
     for r in range(world):
         got = torch.load(work / f"r{r}.pt", weights_only=False)
+        counted.append({"step": got["collectives"]})
         err = max(float((got["params"][k] - v).abs().max())
                   for k, v in want["params"].items())
         same = all(torch.equal(got["params"][k], v)
@@ -570,8 +665,12 @@ def ranks_train_leg(world: int) -> None:
                           abs(a - b) / abs(b) for a, b in
                           zip(got["losses"], want["losses"])),
                       "param_max_abs_diff": err, "params_bitwise": same,
-                      "step_seconds": got["step_seconds"]})
+                      "step_seconds": got["step_seconds"],
+                      "collectives": count_summary(got["collectives"])})
+    if dry is not None:
+        check_counts("smollm train ranks", counted, dry)
     emit({"phase": "sharded_train_ranks", "world": world,
+          "collectives_equal_dry_ranks": dry is not None,
           "mesh": mesh.shape, "backend": "nccl",
           "one_process": {"losses": want["losses"],
                           "step_seconds": want["step_seconds"]},
@@ -623,7 +722,7 @@ def tp_ranks_leg(world: int, work: Path, cell: str, shape=None,
         torch.cuda.empty_cache()
     if one is not None:
         rec["one_process"] = {n: v for n, v in one.items()
-                              if n != "shard_sha1"}
+                              if n not in ("shard_sha1", "collectives")}
     try:
         _spawn(world, lambda r: ["--train", "--cell", cell, "--out",
                                  str(work / f"{tag}{r}.pt")] + extra)
@@ -651,6 +750,15 @@ def tp_ranks_leg(world: int, work: Path, cell: str, shape=None,
         ranks.append({"rank": r, "bitwise": same,
                       **{n: v for n, v in got.items()
                          if n not in ("shard_sha1", "rank")}})
+    # the dry ranks of this checkout (a parent's package may lack them)
+    dry = None
+    if _checkout() == ROOT:
+        from chip_smoke import _train_inputs
+        dry = dry_counts(shape, dry_train(cfg, _train_inputs(
+            cfg, k["batch"], k["seq"], 0, TP_SEED[cell]), ep=ep))
+        check_counts(tag, [{"step": r["collectives"]} for r in ranks], dry)
+        for r in ranks:
+            r["collectives"] = count_summary(r["collectives"])
     host = None
     if cell != "qwen3-moe":
         run = tp_on_mesh(make_host_mesh("cuda:0"), torch.device("cuda", 0),
@@ -658,6 +766,7 @@ def tp_ranks_leg(world: int, work: Path, cell: str, shape=None,
         host = {n: run[n] for n in ("losses", "step_seconds",
                                     "matmul_flops", "peak_bytes")}
     emit({**rec, "ranks": ranks, "one_card_1x1": host,
+          "collectives_equal_dry_ranks": dry is not None,
           "matmul_flops_reckoned_per_position": per_position,
           "all_bitwise": all(r["bitwise"] for r in ranks)})
     if ep and _checkout() == ROOT and (not one["ep_bodies"]
@@ -712,12 +821,14 @@ def serve_on_mesh(mesh, dev, cell: str) -> dict:
     ``dev`` (the MoE cell under ``chip_smoke.expert_parallel``): the
     tokens (whole), the sha1 of the prefill's last logits (whole) and of
     each cache shard this process holds, by position; the prefill
-    seconds, each step's ms, each card's peak bytes and each position's
-    resident cache bytes. Whisper's batch holds seeded frame embeddings
-    (``chip_smoke.family_inputs``'s)."""
+    seconds, each step's ms, each card's peak bytes, each position's
+    resident cache bytes, and the collectives this process counted
+    (``distributed.collectives``) in the prefill and the first decode
+    step. Whisper's batch holds seeded frame embeddings
+    (``serve_batch``)."""
     import hashlib
     import torch
-    from chip_smoke import expert_parallel, family_inputs
+    from chip_smoke import expert_parallel
     from repro_torch import tree
     from repro_torch.distributed import placement
     from repro_torch.models import init_params
@@ -729,16 +840,8 @@ def serve_on_mesh(mesh, dev, cell: str) -> dict:
     placed = placement.place_tree(params, SS.serve_param_shardings(cfg,
                                                                    mesh))
     del params
-    if cfg.family in ("dense", "moe"):
-        rng = np.random.default_rng(seed)
-        batch = {"tokens": torch.from_numpy(rng.integers(
-            0, cfg.vocab, (k["batch"], k["prompt"])).astype(np.int32))
-            .to(dev)}
-    else:
-        with torch.cuda.device(dev):
-            prompt, extra = family_inputs(cfg, k["batch"], k["prompt"], seed)
-        batch = {"tokens": prompt.to(dev),
-                 **{n: v.to(dev) for n, v in extra.items()}}
+    batch = serve_batch(cell, dev)
+    count = _counter()
     sync = (lambda: torch.cuda.synchronize(dev)) if mesh.multi_process \
         else _sync_all
     cards = [dev] if mesh.multi_process else [
@@ -756,8 +859,10 @@ def serve_on_mesh(mesh, dev, cell: str) -> dict:
           else contextlib.nullcontext()) as seen:
         sync()
         t0 = time.perf_counter()
+        count.reset()
         cache, last = SS.make_sharded_prefill(cfg, mesh, k["max_len"])(
             placed, batch)
+        counted = {"prefill": count.stats()}
         sync()
         prefill_s = time.perf_counter() - t0
         tok = SS.sharded_argmax(cfg, last)
@@ -766,7 +871,9 @@ def serve_on_mesh(mesh, dev, cell: str) -> dict:
         for i in range(k["steps"]):
             sync()
             t0 = time.perf_counter()
+            count.reset()
             tok, _, cache = step(placed, cache, tok, k["prompt"] + i)
+            counted.setdefault("decode", count.stats())
             sync()
             ms.append((time.perf_counter() - t0) * 1e3)
             toks.append(placement.gather(tok))
@@ -777,6 +884,7 @@ def serve_on_mesh(mesh, dev, cell: str) -> dict:
                           for q in tree.leaves(cache)[0].local},
            "prefill_s": prefill_s, "decode_ms": ms,
            "decode_ms_median": float(np.median(ms)),
+           "collectives": counted,
            "resident_cache_bytes": placement.resident_bytes(cache),
            "peak_bytes": {str(c): torch.cuda.max_memory_allocated(c)
                           for c in cards}}
@@ -786,6 +894,57 @@ def serve_on_mesh(mesh, dev, cell: str) -> dict:
     del cache, placed, last
     torch.cuda.empty_cache()
     return out
+
+
+def serve_batch(cell: str, dev) -> dict:
+    """A serving cell's seeded batch on ``dev``: its prompts, with
+    whisper's frame embeddings (``chip_smoke.family_inputs``'s)."""
+    import torch
+    from chip_smoke import family_inputs
+    k, seed = serve_cell_of(cell), SERVE_SEED[cell]
+    cfg = serve_cfg(k)
+    if cfg.family in ("dense", "moe"):
+        rng = np.random.default_rng(seed)
+        return {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (k["batch"], k["prompt"])).astype(np.int32))
+            .to(dev)}
+    with torch.cuda.device(dev):
+        prompt, extra = family_inputs(cfg, k["batch"], k["prompt"], seed)
+    return {"tokens": prompt.to(dev),
+            **{n: v.to(dev) for n, v in extra.items()}}
+
+
+def dry_serve(cell: str):
+    """``dry_counts``' ``run`` of a serving cell: its prefill, and the
+    first decode step from the prefill's argmax, on its batch's shapes
+    (under ``chip_smoke.expert_parallel`` for the MoE cell)."""
+    import torch
+    from chip_smoke import expert_parallel
+    from repro_torch import tree
+    from repro_torch.distributed import collectives, placement
+    from repro_torch.launch import specs
+    from repro_torch.serve import sharded as SS
+    k = serve_cell_of(cell)
+    cfg = serve_cfg(k)
+    batch = tree.tree_map(lambda t: t.to("meta"),
+                          serve_batch(cell, torch.device("cuda", 0)))
+
+    def run(mesh):
+        placed = placement.place_tree(specs.param_structs(cfg),
+                                      SS.serve_param_shardings(cfg, mesh))
+        with (expert_parallel(mesh) if cell == "qwen3-moe"
+              else contextlib.nullcontext()):
+            collectives.reset()
+            cache, last = SS.make_sharded_prefill(cfg, mesh, k["max_len"])(
+                placed, batch)
+            out = {"prefill": collectives.stats()}
+            tok = SS.sharded_argmax(cfg, last)
+            collectives.reset()
+            SS.make_sharded_serve_step(cfg, mesh)(placed, cache, tok,
+                                                  k["prompt"])
+            out["decode"] = collectives.stats()
+        return out
+    return run
 
 
 def serve_rank_worker(rank: int, world: int, addr: str, out: str,
@@ -833,9 +992,14 @@ def serve_ranks_leg(world: int, work: Path, cells=SERVE_CELLS) -> None:
             sshape = SS.serve_shape(k["batch"], k["max_len"])
             want = specs.shard_bytes(specs.cache_structs(cfg, sshape),
                                      specs.cache_shardings(cfg, sshape, mesh))
+            got_all = [torch.load(work / f"{tag}{r}.pt", weights_only=False)
+                       for r in range(world)]
+            dry = None
+            if _checkout() == ROOT:
+                dry = dry_counts(shape, dry_serve(cell))
+                check_counts(tag, [g["collectives"] for g in got_all], dry)
             ranks = []
-            for r in range(world):
-                got = torch.load(work / f"{tag}{r}.pt", weights_only=False)
+            for r, got in enumerate(got_all):
                 same = (torch.equal(got["tokens"], one["tokens"])
                         and got["last_sha1"] == one["last_sha1"]
                         and got["cache_sha1"][r] == one["cache_sha1"][r])
@@ -845,6 +1009,9 @@ def serve_ranks_leg(world: int, work: Path, cells=SERVE_CELLS) -> None:
                               "decode_ms_median": got["decode_ms_median"],
                               "resident_cache_bytes":
                                   got["resident_cache_bytes"],
+                              "collectives": {
+                                  n: count_summary(v) for n, v in
+                                  (got["collectives"] or {}).items()},
                               "peak_bytes": got["peak_bytes"]})
             rec = {"phase": "sharded_serving_ranks", "cell": cell,
                    "world": world, "model": cfg.name,
@@ -852,7 +1019,9 @@ def serve_ranks_leg(world: int, work: Path, cells=SERVE_CELLS) -> None:
                    "mesh": mesh.shape, "backend": "nccl",
                    "cache_bytes_per_position": want,
                    "one_process": {n: v for n, v in one.items() if n not in
-                                   ("tokens", "cache_sha1", "last_sha1")},
+                                   ("tokens", "cache_sha1", "last_sha1",
+                                    "collectives")},
+                   "collectives_equal_dry_ranks": dry is not None,
                    "ranks": ranks,
                    "all_bitwise": all(r["bitwise"] for r in ranks)}
             emit(rec)
